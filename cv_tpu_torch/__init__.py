@@ -7,10 +7,12 @@ imports ``torch`` and never ``jax`` or ``cv_tpu``.
 
 Ported so far: the two-frame KITTI path — batched AKAZE extraction
 (:mod:`cv_tpu_torch.akaze.fast`), Lowes-ratio Hamming matching
-(:mod:`cv_tpu_torch.matching`), and eight-point batched consensus
-(:mod:`cv_tpu_torch.consensus`, :mod:`cv_tpu_torch.solvers`).  The one
-hand-written kernel on that path is the describe stage's sample select
-(``csrc/select_samples.cu``, wrapped by :mod:`cv_tpu_torch.akaze.select`).
+(:mod:`cv_tpu_torch.matching`), eight-point batched consensus
+(:mod:`cv_tpu_torch.consensus`, :mod:`cv_tpu_torch.solvers`) — and the SfM
+engine's frame-by-frame path (:mod:`cv_tpu_torch.sfm`).  The hand-written
+kernels (``csrc/``) are the describe stage's sample select
+(:mod:`cv_tpu_torch.akaze.select`) and the three pose-optimizer loops
+(:mod:`cv_tpu_torch.optimize.resident`).
 """
 
 __version__ = "0.1.0"
@@ -22,12 +24,17 @@ def __getattr__(name):
 
     if name in (
         "akaze",
+        "apps",
         "camera",
         "consensus",
         "core",
+        "geom",
         "matching",
         "ops",
+        "optimize",
+        "sfm",
         "solvers",
+        "triangulate",
         "utils",
     ):
         return importlib.import_module(f".{name}", __name__)

@@ -2,11 +2,12 @@
 
 from .config import Akaze, allocate_evolutions, from_numpy_config
 from .extract import load_gray, to_gray_f32
-from .fast import DeviceExtractor, FeatureSet
+from .fast import DeviceExtractor, FastAkazeExtractor, FeatureSet
 
 __all__ = [
     "Akaze",
     "DeviceExtractor",
+    "FastAkazeExtractor",
     "FeatureSet",
     "allocate_evolutions",
     "from_numpy_config",

@@ -141,6 +141,30 @@ def mldb_unique_tables(pattern_size: int = 10):
     return uk, ul, member, cell_counts
 
 
+def cell_member_table(member: np.ndarray) -> np.ndarray:
+    """(n_cells, max_members) int64: each cell's unique-sample indices in
+    ascending order, padded with ``U`` (the index of an appended zero)."""
+    n_cells, u = member.shape
+    rows = [np.nonzero(member[c])[0] for c in range(n_cells)]
+    table = np.full((n_cells, max(len(r) for r in rows)), u, np.int64)
+    for c, r in enumerate(rows):
+        table[c, : len(r)] = r
+    return table
+
+
+def cell_means(values: torch.Tensor, cell_members: torch.Tensor, inv_counts: torch.Tensor) -> torch.Tensor:
+    """M-LDB cell means of ``values`` (..., U): each cell's members added in
+    a fixed order (ascending sample index, padded slots adding 0.0), then
+    scaled by ``inv_counts``.  A chain of plain adds, so the CPU and the card
+    round identically (a matmul would sum in a library's order)."""
+    padded = torch.cat([values, torch.zeros_like(values[..., :1])], dim=-1)
+    g = padded[..., cell_members]  # (..., n_cells, max_members)
+    acc = g[..., 0]
+    for j in range(1, g.shape[-1]):
+        acc = acc + g[..., j]
+    return acc * inv_counts
+
+
 @lru_cache(maxsize=None)
 def _orientation_device_tables(device: torch.device) -> dict:
     """The orientation disc and window tables as tensors on ``device``."""
@@ -158,7 +182,7 @@ def _mldb_device_tables(pattern_size: int, device: torch.device) -> dict:
     host = dict(
         ks=uk.astype(np.float32),
         ls=ul.astype(np.float32),
-        member_t=np.ascontiguousarray(member.T),
+        cell_members=cell_member_table(member),
         inv_counts=(1.0 / cell_counts.astype(np.float32))[None, :],
         ci=comparisons[:, 0].astype(np.int64),
         cj=comparisons[:, 1].astype(np.int64),
@@ -209,9 +233,8 @@ def _mldb_pack(ri, rx, ry, co, si, pattern_size):
     reference's uint32 words.
     """
     t = _mldb_device_tables(pattern_size, ri.device)
-    di = (ri @ t["member_t"]) * t["inv_counts"]  # (K, 29)
-    sx = (rx @ t["member_t"]) * t["inv_counts"]
-    sy = (ry @ t["member_t"]) * t["inv_counts"]
+    means = cell_means(torch.stack([ri, rx, ry], dim=1), t["cell_members"], t["inv_counts"])
+    di, sx, sy = means[:, 0], means[:, 1], means[:, 2]  # (K, 29) each
     # Rotate the mean gradient (linear, so mean-then-rotate == rotate-then-
     # mean): dx stores -rx*si + ry*co, dy stores rx*co + ry*si
     # (descriptors.rs:160-166).

@@ -529,3 +529,72 @@ class DeviceExtractor:
         cand = stage_dedup(cand, k, self.dedup_scan_cap)
         sel = stage_refine_select(cfg, specs, cand, planes, k, self.max_features)
         return stage_describe(cfg, planes, sel)
+
+
+class FastAkazeExtractor:
+    """Engine-facing adapter over :class:`DeviceExtractor` (port of
+    ``cv_tpu/akaze/fast.py:769-880``).
+
+    ``extract(image) -> (keypoints dict, words)`` is the contract
+    ``VSlam.kps_descriptors`` consumes (lib.rs:2195-2236): the fixed-budget
+    :class:`FeatureSet` is mask-compacted to host arrays, already sorted by
+    response descending, with words as uint32.  ``dispatch_extract`` /
+    ``fetch_extract`` split extraction plus the frame's LSH sketch into an
+    enqueue and one device-to-host copy, so a caller can queue frame n+1's
+    extraction before frame n's engine work.
+    """
+
+    def __init__(self, config: Akaze | None = None, candidate_budget: int | None = None,
+                 max_features: int | None = None, device="cpu"):
+        self.config = config or Akaze()
+        # The config's feature budget as-is (the engine passes
+        # tracking_features straight through).
+        m = max_features or self.config.maximum_features
+        if candidate_budget is None:
+            # Per-evolution candidate slots scale with the global budget.
+            candidate_budget = max(512, m // 4)
+        # The dedup scan covers the conflicted-candidate count, with the
+        # reference's floor of 1024.
+        self._dev = DeviceExtractor(
+            self.config, candidate_budget=candidate_budget, max_features=m,
+            dedup_scan_cap=max(1024, m), device=device,
+        )
+
+    @property
+    def device(self):
+        return self._dev.device
+
+    def _images(self, image):
+        from .extract import to_gray_f32
+
+        return torch.as_tensor(to_gray_f32(image), device=self._dev.device)[None]
+
+    def extract(self, image: np.ndarray):
+        """Extraction without the sketch: ``(kp dict, words (n, 16) uint32)``."""
+        kp, words, _ = self.fetch_extract((self._dev.extract(self._images(image)), None))
+        return kp, words
+
+    def extract_with_sketch(self, image: np.ndarray):
+        """Extraction plus the frame's LSH sketch, fetched in one copy:
+        ``(kp dict, words, sketch (16,) uint32)``."""
+        return self.fetch_extract(self.dispatch_extract(image))
+
+    @torch.no_grad()
+    def dispatch_extract(self, image: np.ndarray):
+        """Enqueue the extraction and the sketch; returns unfetched tensors."""
+        from ..matching import lsh
+
+        fs = self._dev.extract(self._images(image))
+        cw = lsh._codewords_device(fs.words.device)
+        sketch = lsh.sketch_from_distances(lsh.distance_matrix(fs.words[0], cw), fs.valid[0])
+        return fs, sketch
+
+    def fetch_extract(self, handle):
+        """One device-to-host copy of a :meth:`dispatch_extract` handle ->
+        ``(kp dict, words, sketch or None)``."""
+        fs, sketch = handle
+        host = fs.to_numpy()
+        valid = host["valid"][0]
+        kp = {key: host[key][0][valid] for key in ("point", "response", "size", "angle", "octave", "class_id")}
+        sk = None if sketch is None else sketch.cpu().numpy().view(np.uint32)
+        return kp, host["words"][0][valid], sk

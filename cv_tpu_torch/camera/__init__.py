@@ -1,5 +1,6 @@
-"""Camera models: pinhole intrinsics and the essential matrix."""
+"""Camera models: pinhole intrinsics (plain and with K1 distortion) and the
+essential matrix."""
 
-from .pinhole import CameraIntrinsics
+from .pinhole import CameraIntrinsics, CameraIntrinsicsK1Distortion
 
-__all__ = ["CameraIntrinsics"]
+__all__ = ["CameraIntrinsics", "CameraIntrinsicsK1Distortion"]

@@ -52,3 +52,29 @@ class CameraIntrinsics:
         y = centered[..., 1] / self.focals[..., 1]
         x = (centered[..., 0] - self.skew * y) / self.focals[..., 0]
         return _normalize(torch.stack([x, y, torch.ones_like(x)], dim=-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraIntrinsicsK1Distortion:
+    """Pinhole + one radial distortion coefficient K1 (lib.rs:150-240)."""
+
+    simple_intrinsics: CameraIntrinsics
+    k1: torch.Tensor  # (...,)
+
+    @classmethod
+    def new(cls, simple_intrinsics: CameraIntrinsics, k1):
+        return cls(
+            simple_intrinsics=simple_intrinsics,
+            k1=torch.as_tensor(
+                k1, dtype=simple_intrinsics.focals.dtype, device=simple_intrinsics.focals.device
+            ),
+        )
+
+    def calibrate(self, point: torch.Tensor) -> torch.Tensor:
+        """Undistort ``p' = p / (1 + k1 r^2)`` then normalize (lib.rs:191-202)."""
+        si = self.simple_intrinsics
+        centered = point - si.principal_point
+        y = centered[..., 1] / si.focals[..., 1]
+        x = (centered[..., 0] - si.skew * y) / si.focals[..., 0]
+        f = 1.0 + self.k1 * (x * x + y * y)
+        return _normalize(torch.stack([x / f, y / f, torch.ones_like(x)], dim=-1))

@@ -33,6 +33,17 @@ def _tree_map(fn, tree):
     raise TypeError(f"unsupported tree node {type(tree).__name__}")
 
 
+def _tree_where(cond: torch.Tensor, new, old):
+    """Elementwise ``where(cond, new, old)`` over two trees of one shape."""
+    if isinstance(new, torch.Tensor):
+        return torch.where(cond, new, old)
+    if isinstance(new, (tuple, list)):
+        return type(new)(_tree_where(cond, a, b) for a, b in zip(new, old))
+    return type(new)(
+        **{f.name: _tree_where(cond, getattr(new, f.name), getattr(old, f.name)) for f in dataclasses.fields(new)}
+    )
+
+
 def _first_leaf(tree) -> torch.Tensor:
     while not isinstance(tree, torch.Tensor):
         tree = tree[0] if isinstance(tree, (tuple, list)) else getattr(
@@ -69,13 +80,19 @@ class BatchConsensus:
     """Fixed-budget batched consensus on ``device``.
 
     ``threshold``: inlier residual threshold.  ``hypotheses``: minimal sets
-    drawn per call.  ``prescore_matches`` > 0 turns on ARRSAC-style
-    preemption: every model is first scored on a random block of that many
-    rows and only the best ``prescore_keep`` graduate to full scoring.
+    drawn per call.  ``refit_rounds``/``refit_hypotheses``: inlier-refit
+    rounds, each drawing ``refit_hypotheses`` minimal sets from the best
+    model's inliers and keeping the overall lexicographic best (the batched
+    analog of ARRSAC's refinement; the engine runs one round of 256).
+    ``prescore_matches`` > 0 turns on ARRSAC-style preemption: every model
+    is first scored on a random block of that many rows and only the best
+    ``prescore_keep`` graduate to full scoring.
     """
 
     threshold: float
     hypotheses: int = 1024
+    refit_rounds: int = 0
+    refit_hypotheses: int = 256
     prescore_matches: int = 0
     prescore_keep: int = 256
     device: Any = "cpu"
@@ -139,24 +156,11 @@ class BatchConsensus:
         best_model = _tree_map(lambda x: x.reshape((-1,) + x.shape[2:])[best], models)
         return best_model, inliers.reshape(-1, n)[best], flat_counts[best], flat_total[best]
 
-    def model_inliers(self, generator, estimator: Estimator, data, n_valid=None, sample_idx=None):
-        """Find the best model and its inlier mask.
-
-        ``data``: tree of ``(N, ...)`` tensors on ``self.device``.
-        ``n_valid``: optional count <= N of real rows (rows past it are
-        padding, neither sampled nor scored).  ``sample_idx``: optional
-        ``(hypotheses, min_samples)`` minimal sets to use instead of drawing
-        them from ``generator``.
-
-        Returns ``(model, inlier_mask (N,), inlier_count)``.
-        """
-        n = _first_leaf(data).shape[0]
-        rows = torch.arange(n, device=self.device)
-        valid_row = rows < (n if n_valid is None else n_valid)
+    def _round(self, generator, estimator, data, valid_row, sample_mask, n_hyp, sample_idx):
+        """One draw-solve-(prescore)-score round; returns ``(model, mask,
+        count, total)``."""
         if sample_idx is None:
-            sample_idx = self.sample_indices(
-                generator, valid_row, self.hypotheses, estimator.min_samples
-            )
+            sample_idx = self.sample_indices(generator, sample_mask, n_hyp, estimator.min_samples)
         models = self._estimate_stage(estimator, data, sample_idx)
         if (
             self.prescore_matches > 0
@@ -164,5 +168,43 @@ class BatchConsensus:
         ):
             block = self.prescore_block(generator, valid_row)
             models = self._prescore_stage(estimator, models, data, valid_row, block)
-        model, mask, count, _ = self._score_stage(estimator, models, data, valid_row)
-        return model, mask, count
+        return self._score_stage(estimator, models, data, valid_row)
+
+    def model_inliers(self, generator, estimator: Estimator, data, n_valid=None, sample_idx=None, refit_idx=None):
+        """Find the best model and its inlier mask.
+
+        ``data``: tree of ``(N, ...)`` tensors on ``self.device``.
+        ``n_valid``: optional count <= N of real rows (rows past it are
+        padding, neither sampled nor scored).  ``sample_idx``: optional
+        ``(hypotheses, min_samples)`` minimal sets to use instead of drawing
+        them from ``generator``; ``refit_idx``: likewise, one
+        ``(refit_hypotheses, min_samples)`` tensor per refit round (row
+        indices that must lie in the incumbent's inlier set).
+
+        Returns ``(model, inlier_mask (N,), inlier_count)``; nothing is read
+        back to the host.
+        """
+        n = _first_leaf(data).shape[0]
+        rows = torch.arange(n, device=self.device)
+        valid_row = rows < (n if n_valid is None else n_valid)
+        best = self._round(generator, estimator, data, valid_row, valid_row, self.hypotheses, sample_idx)
+        for r in range(self.refit_rounds):
+            model, mask, count, total = best
+            # Sample from the current inlier set when it can fill a minimal
+            # set; otherwise from all valid rows.
+            enough = count >= estimator.min_samples
+            sample_mask = torch.where(enough, mask & valid_row, valid_row)
+            new = self._round(
+                generator, estimator, data, valid_row, sample_mask, self.refit_hypotheses,
+                None if refit_idx is None else refit_idx[r],
+            )
+            # Count first, then least total inlier residual; exact ties keep
+            # the incumbent.
+            take = (new[2] > count) | ((new[2] == count) & (new[3] < total))
+            best = (
+                _tree_where(take, new[0], model),
+                torch.where(take, new[1], mask),
+                torch.where(take, new[2], count),
+                torch.where(take, new[3], total),
+            )
+        return best[0], best[1], best[2]

@@ -3,8 +3,9 @@
 Port of ``cv_tpu/core/pose.py`` (reference cv-core/src/pose.rs): one
 :class:`Isometry3` holds a batch of rigid transforms as ``rotation
 (..., 3, 3)`` + ``translation (..., 3)``; :class:`CameraToCamera` keeps the
-reference's frame vocabulary.  Small products are plain float matmuls:
-with TF32 off they run in full precision on the card.
+reference's frame vocabulary (:class:`WorldToCamera`,
+:class:`CameraToCamera`).  Small products are plain float matmuls: with
+TF32 off they run in full precision on the card.
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from . import projective
+from .lie import so3_exp
 
 
 def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -45,6 +47,12 @@ class Isometry3:
             translation=torch.tensor(np.asarray(translation), device=device),
         )
 
+    @classmethod
+    def from_tangent(cls, translation: torch.Tensor, rotation: torch.Tensor):
+        """``Se3TangentSpace.isometry`` convention: ``(R, R @ translation)``."""
+        r = so3_exp(rotation)
+        return cls(rotation=r, translation=_mv(r, translation))
+
     def to_numpy(self):
         """``(rotation, translation)`` as NumPy arrays."""
         return self.rotation.cpu().numpy(), self.translation.cpu().numpy()
@@ -68,6 +76,18 @@ class Isometry3:
             translation=_mv(self.rotation, other.translation) + self.translation,
         )
 
+    def scale(self, scale) -> "Isometry3":
+        """Scale the translation component (pose.rs:35-41)."""
+        return type(self)(rotation=self.rotation, translation=self.translation * scale)
+
+    def apply(self, p: torch.Tensor) -> torch.Tensor:
+        """Transform euclidean 3-points ``(..., 3)``."""
+        return _mv(self.rotation, p) + self.translation
+
+    def rotate(self, v: torch.Tensor) -> torch.Tensor:
+        """Rotate vectors/bearings (no translation)."""
+        return _mv(self.rotation, v)
+
     def matrix3x4(self) -> torch.Tensor:
         return torch.cat([self.rotation, self.translation[..., :, None]], dim=-1)
 
@@ -83,8 +103,21 @@ class Isometry3:
 
 
 @dataclasses.dataclass(frozen=True)
+class WorldToCamera(Isometry3):
+    """Pose of the world relative to a camera: WorldPoint -> CameraPoint."""
+
+
+@dataclasses.dataclass(frozen=True)
 class CameraToCamera(Isometry3):
     """Relative pose: CameraPoint of A -> CameraPoint of B."""
+
+
+def world_to_camera_residual(pose: Isometry3, bearing: torch.Tensor, world_point: torch.Tensor):
+    """``Model<FeatureWorldMatch>::residual`` (pose.rs:194-202):
+    ``1 - bearing . bearing(pose @ world_point)``, broadcasting poses
+    against matches."""
+    obs = projective.bearing(pose.transform(world_point))
+    return 1.0 - (bearing * obs).sum(dim=-1)
 
 
 def camera_to_camera_residual(pose: Isometry3, a: torch.Tensor, b: torch.Tensor):

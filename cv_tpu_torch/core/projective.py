@@ -18,6 +18,16 @@ def from_homogeneous(point: torch.Tensor) -> torch.Tensor:
     return point / norm
 
 
+def from_point(p: torch.Tensor) -> torch.Tensor:
+    """Euclidean ``(..., 3)`` point -> projective ``(..., 4)``."""
+    return from_homogeneous(torch.cat([p, torch.ones_like(p[..., :1])], dim=-1))
+
+
+def point(hp: torch.Tensor) -> torch.Tensor:
+    """Projective -> euclidean ``(..., 3)``; infinite points yield inf."""
+    return hp[..., :3] / hp[..., 3:4]
+
+
 def bearing(hp: torch.Tensor) -> torch.Tensor:
     """Unit bearing of the point (its xyz part, already unit-norm)."""
     return hp[..., :3]

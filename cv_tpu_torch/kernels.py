@@ -2,14 +2,21 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface.  At first use it is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``cv_tpu_torch/_build/`` (named by a hash of the source, so an edited
-source is rebuilt) and loaded with ``ctypes``.  Nothing is built at import
-time, and a missing compiler raises: there is no fallback.
+``cv_tpu_torch/_build/`` (named by a hash of the source, the shared
+``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt) and
+loaded with ``ctypes``.  :func:`build_all` starts one ``nvcc`` per source
+at once.  Nothing is built at import time, and a missing compiler raises:
+there is no fallback.
+
+The pose-optimizer loops are built with ``--fmad=false``: no multiply-add
+is contracted, so each float expression rounds as it is written, as the
+kernels' plain versions round.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -24,6 +31,14 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+# Extra nvcc flags per kernel source.
+EXTRA_FLAGS = {
+    "single_view_l2": ["--fmad=false"],
+    "three_view_l2": ["--fmad=false"],
+    "three_view_adaptive": ["--fmad=false"],
+}
+KERNELS = ("select_samples", "single_view_l2", "three_view_l2", "three_view_adaptive")
 
 # name -> (ctypes library, build record); filled at first use.
 _LOADED: dict = {}
@@ -40,31 +55,63 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _target(name: str):
+    """``(source, flags, library path)`` of ``csrc/<name>.cu``."""
+    src = os.path.join(CSRC, f"{name}.cu")
+    flags = NVCC_FLAGS + EXTRA_FLAGS.get(name, [])
+    h = hashlib.sha1(" ".join(flags).encode())
+    for path in [src] + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return src, flags, os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:12]}.so")
+
+
+def _start(name: str):
+    """Start ``nvcc`` for ``name`` unless its library exists; returns
+    ``(out, tmp, proc, t0)`` or ``(out, None, None, None)``."""
+    src, flags, out = _target(name)
+    if os.path.exists(out):
+        return out, None, None, None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    proc = subprocess.Popen(
+        [_nvcc(), *flags, "-o", tmp, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+    )
+    return out, tmp, proc, time.perf_counter()
+
+
+def _finish(name: str, started) -> dict:
+    out, tmp, proc, t0 = started
+    if proc is None:
+        return {"path": out, "seconds": 0.0, "log": ""}
+    log, _ = proc.communicate()
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+    return {"path": out, "seconds": seconds, "log": log}
+
+
 def build(name: str) -> dict:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
 
     Returns a record ``{"path", "seconds", "log"}``; ``seconds`` is 0 and
     ``log`` empty when the library was already built.
     """
-    src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
-    if os.path.exists(out):
-        return {"path": out, "seconds": 0.0, "log": ""}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, src], capture_output=True, text=True
-    )
-    seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
-    return {"path": out, "seconds": seconds, "log": proc.stdout + proc.stderr}
+    return _finish(name, _start(name))
+
+
+def build_all(names=KERNELS) -> dict:
+    """Build several kernels with one ``nvcc`` each, all started together,
+    and load them; returns ``{name: build record}``."""
+    todo = [n for n in names if n not in _LOADED]
+    started = {n: _start(n) for n in todo}
+    for n in todo:
+        record = _finish(n, started[n])
+        _LOADED[n] = (ctypes.CDLL(record["path"]), record)
+    return {n: _LOADED[n][1] for n in names}
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1,5 +1,20 @@
-"""Descriptor matching: brute-force Hamming k-NN."""
+"""Descriptor matching: brute-force Hamming k-NN, mutual-best matching, and
+the frame-level LSH sketches for retrieval."""
 
-from .hamming import PAD_DISTANCE, distance_matrix, knn2, lowes_ratio_matches
+from .hamming import (
+    PAD_DISTANCE,
+    distance_matrix,
+    knn,
+    knn2,
+    lowes_ratio_matches,
+    symmetric_matches,
+)
 
-__all__ = ["PAD_DISTANCE", "distance_matrix", "knn2", "lowes_ratio_matches"]
+__all__ = [
+    "PAD_DISTANCE",
+    "distance_matrix",
+    "knn",
+    "knn2",
+    "lowes_ratio_matches",
+    "symmetric_matches",
+]

@@ -59,3 +59,39 @@ def lowes_ratio_matches(a_words: torch.Tensor, b_words: torch.Tensor, ratio: flo
     idx, d = knn2(distance_matrix(a_words, b_words))
     keep = d[..., 0].to(torch.float32) < d[..., 1].to(torch.float32) * ratio
     return idx[..., 0], keep
+
+
+def knn(dist: torch.Tensor, k: int):
+    """``k`` nearest neighbours per row: ``(distances (..., N, k), indices
+    (..., N, k))``, ties to the lower index as in :func:`knn2` (the
+    engine's 3-NN, engine.py:498-513, where ``jax.lax.top_k`` keeps the
+    lower index first)."""
+    d, idx = torch.sort(dist, dim=-1, stable=True)
+    return d[..., :k], idx[..., :k]
+
+
+def _best2_margin(dist: torch.Tensor, better_by: int):
+    """Best match per row iff best + better_by <= second best
+    (cv-sfm/src/lib.rs:3097-3114)."""
+    idx, d = knn2(dist)
+    return idx[..., 0], d[..., 0] + better_by <= d[..., 1]
+
+
+def symmetric_matches(a_words, b_words, better_by: int = 24, n_valid_a=None, n_valid_b=None):
+    """Mutual-best matching with a distance margin (lib.rs:3116-3133).
+
+    Returns ``(b_index (N,), keep (N,) bool)``: ``keep[i]`` when feature
+    ``i`` of ``a`` and ``b_index[i]`` of ``b`` are each other's best match
+    and both margins hold.  ``n_valid_a``/``n_valid_b``: real row counts of
+    bucket-padded word arrays (padding rows get a sentinel distance and
+    never match).
+    """
+    dist = distance_matrix(a_words, b_words)
+    if n_valid_a is not None:
+        va = torch.arange(a_words.shape[0], device=dist.device) < n_valid_a
+        vb = torch.arange(b_words.shape[0], device=dist.device) < n_valid_b
+        dist = torch.where(va[:, None] & vb[None, :], dist, PAD_DISTANCE)
+    fwd_idx, fwd_ok = _best2_margin(dist, better_by)
+    rev_idx, rev_ok = _best2_margin(dist.T, better_by)
+    mutual = rev_idx[fwd_idx] == torch.arange(a_words.shape[0], device=dist.device)
+    return fwd_idx, fwd_ok & rev_ok[fwd_idx] & mutual

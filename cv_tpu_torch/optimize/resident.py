@@ -1,0 +1,173 @@
+"""The pose-optimizer loops as hand-written CUDA kernels, one launch per
+whole loop.
+
+Counterpart of ``cv_tpu/optimize/pallas_loop.py``.  Each wrapper is a
+drop-in for its plain version in :mod:`cv_tpu_torch.optimize.optimizers`
+and takes the same arguments:
+
+* :func:`single_view_l2` — ``csrc/single_view_l2.cu``, replaces
+  ``single_view_l2_resident`` (plain: ``single_view_simple_optimize_l2``);
+* :func:`three_view_l2` — ``csrc/three_view_l2.cu``, replaces
+  ``three_view_l2_resident`` (plain: ``three_view_simple_optimize_l2``);
+* :func:`three_view_adaptive` — ``csrc/three_view_adaptive.cu``, replaces
+  ``three_view_adaptive_resident`` (plain: the batched
+  ``three_view_adaptive_optimize_l2``), one block per problem.
+
+On CPU tensors a wrapper runs the plain version in the dtype it is given.
+On CUDA tensors it launches the kernel or raises; the kernel computes in
+float32 (as the TPU kernels do) and the result comes back in the pose's
+dtype and type.  ``<wrapper>.launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import kernels
+from ..core.pose import Isometry3
+from . import optimizers
+
+
+def _device(*tensors) -> torch.device:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"tensors on several devices {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+def _flat_pose(pose: Isometry3) -> torch.Tensor:
+    return torch.cat([pose.rotation.reshape(-1, 9), pose.translation.reshape(-1, 3)], dim=-1)
+
+
+def _unflat_pose(flat: torch.Tensor, like: Isometry3) -> Isometry3:
+    shape = tuple(like.translation.shape[:-1])
+    return type(like)(
+        rotation=flat[..., :9].reshape(shape + (3, 3)).to(like.dtype),
+        translation=flat[..., 9:12].reshape(shape + (3,)).to(like.dtype),
+    )
+
+
+def _f32(t: torch.Tensor, shape: tuple, name: str) -> torch.Tensor:
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    return t.to(torch.float32).contiguous()
+
+
+def _mask(valid: torch.Tensor, shape: tuple) -> torch.Tensor:
+    if valid.dtype != torch.bool or tuple(valid.shape) != shape:
+        raise ValueError(f"valid must be bool {shape}, got {valid.dtype} {tuple(valid.shape)}")
+    return valid.contiguous().view(torch.uint8)
+
+
+def _check(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
+
+
+def _bind(name: str, symbol: str, argtypes):
+    fn = getattr(kernels.load(name), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
+
+
+_P = ctypes.c_void_p
+
+
+def single_view_l2(pose: Isometry3, bearings, world_points, valid, optimization_rate: float, iterations: int):
+    """Single-view L2 patience loop; see
+    :func:`optimizers.single_view_simple_optimize_l2` for the arguments."""
+    dev = _device(pose.rotation, pose.translation, bearings, world_points, valid)
+    if dev.type == "cpu":
+        return optimizers.single_view_simple_optimize_l2(
+            pose, bearings, world_points, valid, optimization_rate, iterations
+        )
+    n = bearings.shape[0]
+    if tuple(pose.rotation.shape) != (3, 3) or tuple(pose.translation.shape) != (3,):
+        raise ValueError("single_view_l2 takes one pose: rotation (3, 3), translation (3,)")
+    pose_in = _flat_pose(pose).reshape(12).to(torch.float32).contiguous()
+    bear = _f32(bearings, (n, 3), "bearings")
+    wp = _f32(world_points, (n, 4), "world_points")
+    vmask = _mask(valid, (n,))
+    out = torch.empty(12, dtype=torch.float32, device=dev)
+    fn = _bind("single_view_l2", "cv_single_view_l2", [_P] * 5 + [ctypes.c_int, ctypes.c_float, ctypes.c_int, _P])
+    _check(
+        fn(pose_in.data_ptr(), bear.data_ptr(), wp.data_ptr(), vmask.data_ptr(), out.data_ptr(),
+           n, float(optimization_rate), int(iterations), torch.cuda.current_stream(dev).cuda_stream),
+        "single_view_l2",
+    )
+    single_view_l2.launches += 1
+    return _unflat_pose(out, pose)
+
+
+def _tv_pack(poses, observations, valid, batch: tuple, n: int):
+    """Camera-to-center poses as (..., 24) f32, obs (..., N, 9) f32, mask."""
+    ftoc, stoc = poses[0].inverse(), poses[1].inverse()
+    flat = torch.cat([_flat_pose(ftoc), _flat_pose(stoc)], dim=-1).reshape(batch + (24,))
+    obs = _f32(observations, batch + (n, 3, 3), "observations")
+    return ftoc, stoc, flat.to(torch.float32).contiguous(), obs, _mask(valid, batch + (n,))
+
+
+def _tv_unpack(out, ftoc, stoc):
+    """Kernel output -> the optimized (center->first, center->second) pair,
+    inverted back in the poses' dtype."""
+    return _unflat_pose(out[..., :12], ftoc).inverse(), _unflat_pose(out[..., 12:], stoc).inverse()
+
+
+def three_view_l2(poses: tuple, observations, valid, optimization_rate: float, iterations: int):
+    """Three-view L2 patience loop (one problem); see
+    :func:`optimizers.three_view_simple_optimize_l2` for the arguments."""
+    dev = _device(poses[0].rotation, poses[1].rotation, observations, valid)
+    if dev.type == "cpu":
+        return optimizers.three_view_simple_optimize_l2(
+            poses, observations, valid, optimization_rate, iterations
+        )
+    n = observations.shape[0]
+    ftoc, stoc, flat, obs, vmask = _tv_pack(poses, observations, valid, (), n)
+    out = torch.empty(24, dtype=torch.float32, device=dev)
+    fn = _bind("three_view_l2", "cv_three_view_l2", [_P] * 4 + [ctypes.c_int, ctypes.c_float, ctypes.c_int, _P])
+    _check(
+        fn(flat.data_ptr(), obs.data_ptr(), vmask.data_ptr(), out.data_ptr(), n,
+           float(optimization_rate), int(iterations), torch.cuda.current_stream(dev).cuda_stream),
+        "three_view_l2",
+    )
+    three_view_l2.launches += 1
+    return _tv_unpack(out, ftoc, stoc)
+
+
+def three_view_adaptive(poses: tuple, observations, valid, iterations: int):
+    """K adaptive three-view loops, fixed iterations; see
+    :func:`optimizers.three_view_adaptive_optimize_l2` for the arguments
+    (here batched: poses (K,), observations (K, N, 3, 3), valid (K, N))."""
+    dev = _device(poses[0].rotation, poses[1].rotation, observations, valid)
+    if dev.type == "cpu":
+        return optimizers.three_view_adaptive_optimize_l2(poses, observations, valid, iterations)
+    if observations.ndim != 4:
+        raise ValueError(f"three_view_adaptive takes (K, N, 3, 3) observations, got {tuple(observations.shape)}")
+    k, n = observations.shape[:2]
+    ftoc, stoc, flat, obs, vmask = _tv_pack(poses, observations, valid, (k,), n)
+    out = torch.empty((k, 24), dtype=torch.float32, device=dev)
+    if k == 0:
+        return _tv_unpack(out, ftoc, stoc)
+    fn = _bind(
+        "three_view_adaptive", "cv_three_view_adaptive",
+        [_P] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
+    )
+    _check(
+        fn(flat.data_ptr(), obs.data_ptr(), vmask.data_ptr(), out.data_ptr(), k, n, int(iterations),
+           torch.cuda.current_stream(dev).cuda_stream),
+        "three_view_adaptive",
+    )
+    three_view_adaptive.launches += 1
+    return _tv_unpack(out, ftoc, stoc)
+
+
+# Kernel launches so far (CPU calls, which run the plain versions, do not count).
+single_view_l2.launches = 0
+three_view_l2.launches = 0
+three_view_adaptive.launches = 0

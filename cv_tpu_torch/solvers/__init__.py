@@ -1,5 +1,5 @@
-"""Minimal solvers: eight-point."""
+"""Minimal solvers: eight-point and Lambda-Twist P3P."""
 
-from . import eight_point
+from . import eight_point, lambda_twist
 
-__all__ = ["eight_point"]
+__all__ = ["eight_point", "lambda_twist"]

@@ -6,7 +6,9 @@ every point within 1e-3 px of a partner, angles within 1e-4 rad, at least
 99% of valid rows with bitwise-equal words and no row more than 16 of 486
 bits off.  The tolerances exist because the scale space differs from
 XLA:CPU in the last bits (see test_torch_image_ops) and the M-LDB cell
-means are a float matmul summed in another order.  Measured here: counts
+means are summed in another order than the JAX package's float matmul
+(the port adds each cell's members in a fixed order, held bitwise to a
+NumPy chain below).  Measured here: counts
 equal (185 and 362), points within 1.5e-5 and 7.6e-5 px, angles within
 9.6e-7 rad, one row in each case one bit off (185 and 362 rows).
 
@@ -194,3 +196,25 @@ def test_orientation_and_pack_on_same_samples():
     w_j = np.asarray(jdesc._mldb_pack(*(jnp.asarray(a) for a in (ri, rx, ry, co, si)), 10))
     w_t = tdesc._mldb_pack(*(torch.as_tensor(a) for a in (ri, rx, ry, co, si)), 10).numpy()
     assert (w_t.view(np.uint32) == w_j).all(axis=1).mean() >= 0.99
+
+
+def test_cell_means_fixed_order_bitwise():
+    """The M-LDB cell means equal, bitwise, a NumPy chain of adds over each
+    cell's members in ascending sample order, times the inverse count."""
+    uk, _, member, cell_counts = tdesc.mldb_unique_tables(10)
+    rng = np.random.default_rng(7)
+    values = rng.normal(size=(64, 3, len(uk))).astype(np.float32)
+    inv = (1.0 / cell_counts.astype(np.float32))[None, :]
+    got = tdesc.cell_means(
+        torch.tensor(values),
+        torch.tensor(tdesc.cell_member_table(member)),
+        torch.tensor(inv),
+    ).numpy()
+    want = np.empty(values.shape[:2] + (member.shape[0],), np.float32)
+    for c in range(member.shape[0]):
+        idx = np.nonzero(member[c])[0]
+        acc = values[..., idx[0]].copy()
+        for j in idx[1:]:
+            acc = acc + values[..., j]
+        want[..., c] = acc * inv[0, c]
+    np.testing.assert_array_equal(got, want)

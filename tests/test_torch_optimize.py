@@ -1,0 +1,235 @@
+"""The pose optimizers of cv_tpu_torch (the plain versions of the three
+CUDA kernels, and the kernels on a card) against cv_tpu.
+
+The problems are those of tests/test_pallas_loop.py, built with NumPy and
+handed to both packages.  Gates:
+
+* float32: each plain version against cv_tpu's resident Pallas kernel in
+  interpret mode, within 1e-6 after one step (measured worst 6.0e-8) and
+  1e-4 after a full run of 2,000 steps for the patience loops, 200 for the
+  adaptive loop (measured worst 4.9e-5, the single-view loop), the gates of
+  tests/test_pallas_loop.py;
+* float64: each plain version against cv_tpu.optimize's XLA loop, within
+  1e-12 after one step (measured worst 1.1e-16) and 1e-6 after a long run
+  (the single-view loop stops by patience; measured worst 1.8e-14);
+* padding with invalid rows changes no bit; the pose type is kept;
+* on a card (marker ``cuda``), each kernel against its plain version.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from cv_tpu import optimize as ref_opt
+from cv_tpu.core.pose import CameraToCamera as RefC2C
+from cv_tpu.core.pose import WorldToCamera as RefW2C
+from cv_tpu.optimize import pallas_loop
+from cv_tpu.sfm.se3 import so3_exp
+from cv_tpu_torch.core.pose import CameraToCamera, WorldToCamera
+from cv_tpu_torch.optimize import optimizers, resident
+
+KINDS = ("single_view", "three_view", "adaptive")
+
+
+def _single_view_problem(m=256, seed=0):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-2, -2, 4], [2, 2, 10], (m, 3))
+    wp = np.concatenate([pts, np.ones((m, 1))], axis=1)
+    rot = so3_exp(np.array([0.05, -0.1, 0.04]))
+    t = np.array([0.3, -0.1, 0.05])
+    cam = pts @ rot.T + t
+    bear = cam / np.linalg.norm(cam, axis=1, keepdims=True)
+    valid = np.ones(m, bool)
+    valid[m // 2:] = False
+    return dict(rot=so3_exp(np.array([0.08, -0.07, 0.06])), t=t + 0.05, bear=bear, wp=wp, valid=valid)
+
+
+def _three_view_problem(n=96, seed=0):
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform([-2, -2, 4], [2, 2, 10], (n, 3))
+    obs = np.zeros((n, 3, 3))
+    poses = []
+    for i, tvec in enumerate(([0, 0, 0], [0.4, 0, 0.05], [0.8, 0.05, 0.1])):
+        rot = so3_exp(np.array([0.02, -0.03, 0.01]) * i)
+        cam = (pts - np.array(tvec, float)) @ rot.T
+        obs[:, i] = cam / np.linalg.norm(cam, axis=1, keepdims=True)
+        poses.append((rot, -rot @ np.array(tvec, float)))
+    return dict(
+        r1=poses[1][0], t1=poses[1][1] + 0.03, r2=poses[2][0], t2=poses[2][1] - 0.02,
+        obs=obs, valid=np.ones(n, bool),
+    )
+
+
+def _problem(kind):
+    if kind == "single_view":
+        return _single_view_problem()
+    if kind == "three_view":
+        return _three_view_problem()
+    # Two distinct problems, the second with its last 30 rows invalid.
+    a, b = _three_view_problem(seed=1), _three_view_problem(seed=2)
+    b["valid"][-30:] = False
+    return {key: np.stack([a[key], b[key]]) for key in a}
+
+
+def _pad(kind, prob, extra):
+    """The problem with ``extra`` invalid rows appended (values 0.5/1.0)."""
+    out = dict(prob)
+    rows = {"single_view": ("bear", "wp", "valid"), "three_view": ("obs", "valid"), "adaptive": ("obs", "valid")}
+    axis = 1 if kind == "adaptive" else 0
+    for key in rows[kind]:
+        a = prob[key]
+        shape = list(a.shape)
+        shape[axis] = extra
+        fill = False if key == "valid" else (1.0 if key == "wp" else 0.5)
+        out[key] = np.concatenate([a, np.full(shape, fill, a.dtype)], axis=axis)
+    return out
+
+
+def _port(kind, prob, iters, dtype, device="cpu", plain=True):
+    """Run the port (plain version or wrapper) and return all pose numbers."""
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype if a.dtype != bool else torch.bool, device=device)
+
+    if kind == "single_view":
+        fn = optimizers.single_view_simple_optimize_l2 if plain else resident.single_view_l2
+        pose = fn(
+            WorldToCamera(rotation=t(prob["rot"]), translation=t(prob["t"])),
+            t(prob["bear"]), t(prob["wp"]), t(prob["valid"]), 1e-2, iters,
+        )
+        assert isinstance(pose, WorldToCamera) and pose.dtype == dtype
+        poses = [pose]
+    else:
+        p1 = CameraToCamera(rotation=t(prob["r1"]), translation=t(prob["t1"]))
+        p2 = CameraToCamera(rotation=t(prob["r2"]), translation=t(prob["t2"]))
+        if kind == "three_view":
+            fn = optimizers.three_view_simple_optimize_l2 if plain else resident.three_view_l2
+            poses = fn((p1, p2), t(prob["obs"]), t(prob["valid"]), 1e-2, iters)
+        else:
+            fn = optimizers.three_view_adaptive_optimize_l2 if plain else resident.three_view_adaptive
+            poses = fn((p1, p2), t(prob["obs"]), t(prob["valid"]), iters)
+        assert all(isinstance(p, CameraToCamera) and p.dtype == dtype for p in poses)
+    return np.concatenate(
+        [np.concatenate([p.rotation.cpu().numpy().reshape(-1), p.translation.cpu().numpy().reshape(-1)]) for p in poses]
+    )
+
+
+def _flat(poses):
+    return np.concatenate(
+        [np.concatenate([np.asarray(p.rotation).reshape(-1), np.asarray(p.translation).reshape(-1)]) for p in poses]
+    )
+
+
+def _reference(kind, prob, iters, dtype, resident_kernel):
+    """cv_tpu on the same problem: the Pallas kernel (interpret mode) or the
+    XLA loop."""
+
+    def j(a):
+        return jnp.asarray(a, dtype=dtype if a.dtype != bool else bool)
+
+    if kind == "single_view":
+        pose = RefW2C(rotation=j(prob["rot"]), translation=j(prob["t"]))
+        args = (pose, j(prob["bear"]), j(prob["wp"]), j(prob["valid"]), 1e-2, iters)
+        if resident_kernel:
+            return _flat([pallas_loop.single_view_l2_resident(*args, interpret=True)])
+        return _flat([ref_opt.single_view_simple_optimize_l2(*args)])
+    if kind == "three_view":
+        p1 = RefC2C(rotation=j(prob["r1"]), translation=j(prob["t1"]))
+        p2 = RefC2C(rotation=j(prob["r2"]), translation=j(prob["t2"]))
+        if resident_kernel:
+            i1, i2 = p1.inverse(), p2.inverse()
+            o1r, o1t, o2r, o2t = pallas_loop.three_view_l2_resident(
+                i1.rotation, i1.translation, i2.rotation, i2.translation,
+                j(prob["obs"]), j(prob["valid"]), 1e-2, iters, interpret=True,
+            )
+            return _flat([RefC2C(rotation=o1r, translation=o1t).inverse(),
+                          RefC2C(rotation=o2r, translation=o2t).inverse()])
+        return _flat(ref_opt.three_view_simple_optimize_l2((p1, p2), j(prob["obs"]), j(prob["valid"]), 1e-2, iters))
+    # adaptive: K problems
+    outs = []
+    if resident_kernel:
+        p1 = RefC2C(rotation=j(prob["r1"]), translation=j(prob["t1"])).inverse()
+        p2 = RefC2C(rotation=j(prob["r2"]), translation=j(prob["t2"])).inverse()
+        o1r, o1t, o2r, o2t = pallas_loop.three_view_adaptive_resident(
+            p1.rotation, p1.translation, p2.rotation, p2.translation,
+            j(prob["obs"]), j(prob["valid"]), iters, interpret=True,
+        )
+        outs = [RefC2C(rotation=o1r, translation=o1t).inverse(), RefC2C(rotation=o2r, translation=o2t).inverse()]
+        return _flat(outs)
+    pairs = [
+        ref_opt.three_view_adaptive_optimize_l2(
+            (RefC2C(rotation=j(prob["r1"][k]), translation=j(prob["t1"][k])),
+             RefC2C(rotation=j(prob["r2"][k]), translation=j(prob["t2"][k]))),
+            j(prob["obs"][k]), j(prob["valid"][k]), iters,
+        )
+        for k in range(prob["obs"].shape[0])
+    ]
+    # Same layout as the batched port: all first poses, then all second.
+    first = RefC2C(rotation=jnp.stack([p[0].rotation for p in pairs]), translation=jnp.stack([p[0].translation for p in pairs]))
+    second = RefC2C(rotation=jnp.stack([p[1].rotation for p in pairs]), translation=jnp.stack([p[1].translation for p in pairs]))
+    return _flat([first, second])
+
+
+FULL_RUN = {"single_view": 2000, "three_view": 2000, "adaptive": 200}
+CONVERGED = {"single_view": 20000, "three_view": 3000, "adaptive": 1000}
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("run,tol", [("one_step", 1e-6), ("full", 1e-4)])
+def test_plain_f32_matches_resident_kernel(kind, run, tol):
+    prob = _problem(kind)
+    iters = 1 if run == "one_step" else FULL_RUN[kind]
+    got = _port(kind, prob, iters, torch.float32)
+    ref = _reference(kind, prob, iters, jnp.float32, resident_kernel=True)
+    np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("run,tol", [("one_step", 1e-12), ("converged", 1e-6)])
+def test_plain_f64_matches_xla_loop(kind, run, tol):
+    prob = _problem(kind)
+    iters = 1 if run == "one_step" else CONVERGED[kind]
+    got = _port(kind, prob, iters, torch.float64)
+    ref = _reference(kind, prob, iters, jnp.float64, resident_kernel=False)
+    np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_padding_invariance(kind):
+    """60 invalid rows of padding change no bit of the result."""
+    prob = _problem(kind)
+    iters = 300
+    a = _port(kind, prob, iters, torch.float32)
+    b = _port(kind, _pad(kind, prob, 60), iters, torch.float32)
+    np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_wrapper_on_cpu_is_the_plain_version(kind):
+    """On CPU tensors each wrapper runs its plain version (bitwise) and
+    counts no kernel launch; the pose types are kept (asserted in _port)."""
+    prob = _problem(kind)
+    counters = (resident.single_view_l2, resident.three_view_l2, resident.three_view_adaptive)
+    before = [f.launches for f in counters]
+    a = _port(kind, prob, 50, torch.float32, plain=False)
+    b = _port(kind, prob, 50, torch.float32, plain=True)
+    np.testing.assert_array_equal(a, b)
+    assert [f.launches for f in counters] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", KINDS)
+def test_kernel_matches_plain_on_card(kind):
+    """Each CUDA kernel against its plain version on the card: 1e-6 after
+    one step, 1e-4 after a full run, and bitwise padding invariance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prob = _problem(kind)
+    for iters, tol in ((1, 1e-6), (FULL_RUN[kind], 1e-4)):
+        got = _port(kind, prob, iters, torch.float32, device="cuda", plain=False)
+        ref = _port(kind, prob, iters, torch.float32, device="cuda", plain=True)
+        np.testing.assert_allclose(got, ref, atol=tol, rtol=0)
+    a = _port(kind, prob, 300, torch.float32, device="cuda", plain=False)
+    b = _port(kind, _pad(kind, prob, 60), 300, torch.float32, device="cuda", plain=False)
+    np.testing.assert_array_equal(a, b)
