@@ -3,10 +3,9 @@
 Port of ``cv_tpu/akaze/descriptors.py`` (reference
 scale_space_extrema.rs:157-288 and descriptors.rs).  The static tables are
 copies of the reference's NumPy host code.  The describe path is the
-``pgather`` branch of ``orient_mldb_onehot``: both sample passes
-(orientation, then M-LDB) read the padded plane stack through the
-hand-written select kernel (:mod:`.select`), which reads the stack
-directly and so never builds the per-keypoint patch buffer.
+``pgather`` and ``pallas`` branches of ``orient_mldb_onehot`` and the group
+describe ``orient_mldb_groups``: both sample passes (orientation, then
+M-LDB) go through the hand-written select kernels of :mod:`.select`.
 """
 
 from __future__ import annotations
@@ -16,7 +15,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .select import select_samples
+from .select import GROUP, cut_patches, select_groups, select_samples, select_samples_patch
 
 # 7x7 Gaussian weight table (scale_space_extrema.rs:162-226).
 GAUSS25 = np.array(
@@ -33,6 +32,7 @@ GAUSS25 = np.array(
 )
 
 PATCH = 128  # side of the window around a keypoint that holds all its samples
+TWO_PI = float(np.float32(2.0 * np.pi))
 
 
 @lru_cache(maxsize=None)
@@ -200,24 +200,38 @@ def round_half_away(x: torch.Tensor) -> torch.Tensor:
 
 def _atan2_cv(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """OpenCV-equivalent atan2 in [0, 2pi) (scale_space_extrema.rs:236-239)."""
-    two_pi = float(np.float32(2.0 * np.pi))
-    return torch.remainder(torch.atan2(y, x) + two_pi, two_pi)
+    return torch.remainder(torch.atan2(y, x) + TWO_PI, TWO_PI)
+
+
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in a fixed halving tree: zero-pad it to a
+    power of two ``n``, then ``x[..., i] + x[..., i + n/2]`` for ``i <
+    n/2``, and again, down to one.  Elementwise adds only, so every device
+    and every batch size rounds alike (``Tensor.sum``'s order depends on
+    both), and a kernel that reduces in the same tree gives the same bits."""
+    n = x.shape[-1]
+    width = 1 << max(n - 1, 0).bit_length()
+    x = torch.nn.functional.pad(x, (0, width - n))
+    while x.shape[-1] > 1:
+        half = x.shape[-1] // 2
+        x = x[..., :half] + x[..., half:]
+    return x[..., 0]
 
 
 def _orientation_from_samples(res_x: torch.Tensor, res_y: torch.Tensor) -> torch.Tensor:
-    """Sliding-window dominant orientation from weighted samples (K, 109)."""
+    """Sliding-window dominant orientation from weighted samples (K, 109);
+    each window's sum is a :func:`tree_sum`."""
     t = _orientation_device_tables(res_x.device)
     angs = _atan2_cv(res_y, res_x)
-    two_pi = float(np.float32(2.0 * np.pi))
     a1 = t["ang1s"][None, :, None]
     a2 = t["ang2s"][None, :, None]
     ang = angs[:, None, :]
     in_window = ((a1 < a2) & (a1 < ang) & (ang < a2)) | (
-        (a2 < a1) & (((ang > 0) & (ang < a2)) | ((ang > a1) & (ang < two_pi)))
+        (a2 < a1) & (((ang > 0) & (ang < a2)) | ((ang > a1) & (ang < TWO_PI)))
     )  # (K, 42, 109)
     zero = torch.zeros((), dtype=res_x.dtype, device=res_x.device)
-    sum_x = torch.where(in_window, res_x[:, None, :], zero).sum(dim=-1)
-    sum_y = torch.where(in_window, res_y[:, None, :], zero).sum(dim=-1)
+    sum_x = tree_sum(torch.where(in_window, res_x[:, None, :], zero))
+    sum_y = tree_sum(torch.where(in_window, res_y[:, None, :], zero))
     val = sum_x * sum_x + sum_y * sum_y  # (K, 42)
     best = torch.argmax(val, dim=-1, keepdim=True)  # first max wins (`val > max`)
     angle = _atan2_cv(sum_y.gather(1, best)[:, 0], sum_x.gather(1, best)[:, 0])
@@ -249,6 +263,62 @@ def _mldb_pack(ri, rx, ry, co, si, pattern_size):
     return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
+
+
+def patch_anchor(xf, yf, hmax: int, wmax: int):
+    """``(y0, x0)`` int32: the 128x128 window that holds every sample of a
+    keypoint (the reference's patch), clamped into the padded stack."""
+    p = PATCH
+    y0 = torch.clamp(yf.to(torch.int32) - p // 2, 0, hmax - p)
+    x0 = torch.clamp(xf.to(torch.int32) - p // 2, 0, wmax - p)
+    return y0, x0
+
+
+def orientation_offsets(xf, yf, scale, width, height, x0, y0, span: int):
+    """The 109-disc orientation sample positions, clamped to the plane and
+    then made relative to the window origin ``(y0, x0)`` of side ``span``:
+    ``(rel_x, rel_y)`` int32 (K, 109)."""
+    t = _orientation_device_tables(xf.device)
+    ox = round_half_away(xf[:, None] + t["di"][None, :] * scale[:, None]).to(torch.int32)
+    oy = round_half_away(yf[:, None] + t["dj"][None, :] * scale[:, None]).to(torch.int32)
+    ox = torch.minimum(ox.clamp(min=0), (width - 1)[:, None])
+    oy = torch.minimum(oy.clamp(min=0), (height - 1)[:, None])
+    rel_x = torch.clamp(ox - x0[:, None], 0, span - 1).to(torch.int32)
+    rel_y = torch.clamp(oy - y0[:, None], 0, span - 1).to(torch.int32)
+    return rel_x, rel_y
+
+
+def orientation_from_values(vo: torch.Tensor) -> torch.Tensor:
+    """Dominant angle from the sampled (Lx, Ly) values ``vo`` (K, 2, 109)."""
+    wt = _orientation_device_tables(vo.device)["wt"][None, :]
+    return _orientation_from_samples(wt * vo[:, 0], wt * vo[:, 1])
+
+
+def mldb_offsets(xf, yf, scale, angle, width, height, x0, y0, span: int, pattern_size: int = 10):
+    """The rotated M-LDB sample positions for the unique offsets: ``(rel_x,
+    rel_y, ok, co, si)`` with positions rounded half away from zero,
+    ``ok`` = every sample inside the plane, then clamped to the plane and
+    made relative to the window origin ``(y0, x0)`` of side ``span``."""
+    t = _mldb_device_tables(pattern_size, xf.device)
+    co = torch.cos(angle)[:, None]
+    si = torch.sin(angle)[:, None]
+    sc = scale[:, None]
+    ks, ls = t["ks"][None, :], t["ls"][None, :]
+    sy = yf[:, None] + (ls * co + ks * si) * sc
+    sx = xf[:, None] + (-ls * si + ks * co) * sc
+    x1 = round_half_away(sx).to(torch.int32)
+    y1 = round_half_away(sy).to(torch.int32)
+    w_hi = (width - 1)[:, None]
+    h_hi = (height - 1)[:, None]
+    oob = (x1 < 0) | (x1 > w_hi) | (y1 < 0) | (y1 > h_hi)
+    ok = ~oob.any(dim=-1)
+    x1 = torch.minimum(x1.clamp(min=0), w_hi)
+    y1 = torch.minimum(y1.clamp(min=0), h_hi)
+    rel_x = torch.clamp(x1 - x0[:, None], 0, span - 1).to(torch.int32)
+    rel_y = torch.clamp(y1 - y0[:, None], 0, span - 1).to(torch.int32)
+    return rel_x, rel_y, ok, co, si
+
+
 def orient_mldb(
     planes: torch.Tensor,  # (L, 3, Hp, Wp) channel-major padded (Lt, Lx, Ly) stack
     lvl: torch.Tensor,  # (K,) plane index per keypoint
@@ -258,51 +328,188 @@ def orient_mldb(
     yf: torch.Tensor,
     scale: torch.Tensor,  # (K,) rounded sampling scale
     pattern_size: int = 10,
+    mode: str = "pgather",
 ):
     """Dominant orientation, then M-LDB words, for ``K`` keypoints.
 
-    Port of ``orient_mldb_onehot``'s ``pgather`` mode.  Every sample of a
-    keypoint lies in the 128x128 window anchored at ``(y0, x0)`` (the
-    reference's patch), addressed as a window-relative offset; the select
-    kernel reads ``planes[lvl, c, y0 + rel_y, x0 + rel_x]`` straight from the
-    stack.  Returns ``(words (K, 16) int32, ok (K,), angle (K,))``.
+    Port of ``orient_mldb_onehot``'s ``pgather`` and ``pallas`` modes.
+    Every sample of a keypoint lies in the 128x128 window anchored at
+    ``(y0, x0)`` (the reference's patch), addressed as a window-relative
+    offset.  ``'pgather'``: the select kernel reads ``planes[lvl, c, y0 +
+    rel_y, x0 + rel_x]`` straight from the stack.  ``'pallas'``: the
+    patches are cut first, as ``cv_tpu`` does for its one-hot kernels, and
+    selected through :func:`select_samples_patch`.  Both give the same
+    bits.  Returns ``(words (K, 16) int32, ok (K,), angle (K,))``.
     """
-    t = {**_orientation_device_tables(xf.device), **_mldb_device_tables(pattern_size, xf.device)}
+    if mode not in ("pgather", "pallas"):
+        raise ValueError(f"orient_mldb: mode {mode!r} is not 'pgather' or 'pallas'")
     p = PATCH
-    hmax, wmax = planes.shape[2], planes.shape[3]
     lvl = lvl.to(torch.int32)
-    y0 = torch.clamp(yf.to(torch.int32) - p // 2, 0, hmax - p)
-    x0 = torch.clamp(xf.to(torch.int32) - p // 2, 0, wmax - p)
-    w_hi = (width - 1)[:, None]
-    h_hi = (height - 1)[:, None]
+    y0, x0 = patch_anchor(xf, yf, planes.shape[2], planes.shape[3])
+    if mode == "pallas":
+        patches = cut_patches(planes, lvl, y0, x0, p)
 
-    # Orientation sample positions (109-disc), window-relative.
-    ox = round_half_away(xf[:, None] + t["di"][None, :] * scale[:, None]).to(torch.int32)
-    oy = round_half_away(yf[:, None] + t["dj"][None, :] * scale[:, None]).to(torch.int32)
-    ox = torch.minimum(ox.clamp(min=0), w_hi)
-    oy = torch.minimum(oy.clamp(min=0), h_hi)
-    orel_x = torch.clamp(ox - x0[:, None], 0, p - 1).to(torch.int32)
-    orel_y = torch.clamp(oy - y0[:, None], 0, p - 1).to(torch.int32)
-    vo = select_samples(planes, lvl, y0, x0, orel_x, orel_y, c0=1)  # (K, 2, 109)
-    res_x = t["wt"][None, :] * vo[:, 0]
-    res_y = t["wt"][None, :] * vo[:, 1]
-    angle = _orientation_from_samples(res_x, res_y)
+        def select(rel_x, rel_y, c0):
+            return select_samples_patch(patches, rel_x, rel_y, c0)
+    else:
 
-    # M-LDB sample positions (need the angle).
-    co = torch.cos(angle)[:, None]
-    si = torch.sin(angle)[:, None]
-    sc = scale[:, None]
-    ks, ls = t["ks"][None, :], t["ls"][None, :]
-    sy = yf[:, None] + (ls * co + ks * si) * sc
-    sx = xf[:, None] + (-ls * si + ks * co) * sc
-    x1 = round_half_away(sx).to(torch.int32)
-    y1 = round_half_away(sy).to(torch.int32)
-    oob = (x1 < 0) | (x1 > w_hi) | (y1 < 0) | (y1 > h_hi)
-    ok = ~oob.any(dim=-1)
-    x1 = torch.minimum(x1.clamp(min=0), w_hi)
-    y1 = torch.minimum(y1.clamp(min=0), h_hi)
-    rel_x = torch.clamp(x1 - x0[:, None], 0, p - 1).to(torch.int32)
-    rel_y = torch.clamp(y1 - y0[:, None], 0, p - 1).to(torch.int32)
-    vals = select_samples(planes, lvl, y0, x0, rel_x, rel_y, c0=0)  # (K, 3, 441)
+        def select(rel_x, rel_y, c0):
+            return select_samples(planes, lvl, y0, x0, rel_x, rel_y, c0)
+
+    orel_x, orel_y = orientation_offsets(xf, yf, scale, width, height, x0, y0, p)
+    angle = orientation_from_values(select(orel_x, orel_y, 1))  # (K, 2, 109) samples
+    rel_x, rel_y, ok, co, si = mldb_offsets(xf, yf, scale, angle, width, height, x0, y0, p, pattern_size)
+    vals = select(rel_x, rel_y, 0)  # (K, 3, 441)
     words = _mldb_pack(vals[:, 0], vals[:, 1], vals[:, 2], co, si, pattern_size)
     return words, ok, angle
+
+
+# ---------------------------------------------------------------------------
+# The group describe: keypoints sorted by their 256x256 window
+# ---------------------------------------------------------------------------
+
+
+def window_catalog_size(specs, b: int, hp: int, wp: int) -> int:
+    """Static count of distinct 256x256 tile-aligned sampling windows the
+    extract can occupy: the bound that makes the group tables static.  Per
+    level, ``ty = clip(clip(yf - 64, 0, hp - 128) // 128, 0, ht - 2)`` with
+    ``yf`` below the true height spans ``min((h - 65) // 128, ht - 2) + 1``
+    values (the same for ``tx``)."""
+    ht, wt = hp // 128, wp // 128
+    total = 0
+    for s in specs:
+        nty = min(max(s.height - 65, 0) // 128, max(ht - 2, 0)) + 1
+        ntx = min(max(s.width - 65, 0) // 128, max(wt - 2, 0)) + 1
+        total += nty * ntx
+    return b * total
+
+
+def group_tables(lvl, ty, tx, valid, n_levels: int, ht: int, wt: int, g: int, ng_cap: int, w: int = 1):
+    """Window-sorted padded group tables for :func:`select_groups`.
+
+    Port of ``cv_tpu/akaze/descriptors.py::_group_tables``.  Slots are
+    sorted (stably) by window key, invalid slots into a last segment keyed
+    ``n_levels * ht * wt`` (one above the largest valid key).  A new group
+    starts at every segment boundary and at every ``g``-th slot inside a
+    segment, so every group has one window and at most ``ceil(K / g) +
+    segments <= ng_cap`` groups exist.  The tables come in the column-major
+    layout for ``w`` groups per TPU grid step: canonical group ``t`` sits at
+    position ``(t % ngw) * w + t // ngw`` with ``ngw = ceil(ng_cap / w)``.
+
+    Returns ``(perm, win_lvl, win_ty, win_tx, n_active, src_of, p_of)``:
+    ``perm`` (K,) the sort order; ``win_*``/``n_active`` (NG,) int32 per
+    table position; ``src_of`` (NG * g,) the sorted slot feeding each
+    padded slot; ``p_of`` (K,) the padded slot of each sorted slot.
+    """
+    k = lvl.shape[0]
+    dev = lvl.device
+    i64 = torch.int64
+    sentinel = n_levels * ht * wt
+    key = torch.where(valid, (lvl.to(i64) * ht + ty.to(i64)) * wt + tx.to(i64), sentinel)
+    lvl0, ty0, tx0 = (torch.where(valid, v.to(i64), 0) for v in (lvl, ty, tx))
+    perm = torch.argsort(key, stable=True)
+    ks = key[perm]
+    iota = torch.arange(k, device=dev)
+    newseg = torch.ones((k,), dtype=torch.bool, device=dev)
+    newseg[1:] = ks[1:] != ks[:-1]
+    seg_start = torch.cummax(torch.where(newseg, iota, 0), dim=0).values
+    rank = iota - seg_start
+    new_group = newseg | (rank % g == 0)
+    group_id = torch.cumsum(new_group.to(i64), dim=0) - 1
+    slot_in = rank % g
+
+    ngw = -(-ng_cap // w)
+    ng = ngw * w
+    valid_s = valid[perm]
+    # Each group has one boundary slot; the other slots write a dummy tail
+    # entry that is cut (as are groups past the static bound, which JAX's
+    # scatter drops).
+    head = new_group & (group_id < ng)
+    dump = torch.where(head, group_id, ng)
+
+    def table(v, fill):
+        buf = torch.full((ng + 1,), fill, dtype=i64, device=dev)
+        buf[dump] = torch.where(head, v, fill)
+        return buf
+
+    win_lvl_c = table(lvl0[perm], 0)[:ng]
+    win_ty_c = table(ty0[perm], 0)[:ng]
+    win_tx_c = table(tx0[perm], 0)[:ng]
+    j0_c = table(iota, k)
+    # Groups tile the sorted axis in order: a group's size is the gap to
+    # the next group's first slot (empty tail groups: k - k = 0).
+    size_c = torch.clamp(j0_c[1:] - j0_c[:ng], 0, g)
+    j0_c = j0_c[:ng]
+    bvalid = valid_s[torch.clamp(j0_c, 0, k - 1)] & (j0_c < k)
+    n_active_c = torch.where(bvalid, size_c, 0)
+
+    q = torch.arange(ng, device=dev)
+    stride_idx = (q % w) * ngw + q // w  # position q holds canonical group stride_idx
+    i32 = torch.int32
+    win_lvl, win_ty, win_tx, n_active = (
+        t[stride_idx].to(i32) for t in (win_lvl_c, win_ty_c, win_tx_c, n_active_c)
+    )
+    j0 = j0_c[stride_idx]
+    src_of = torch.clamp(j0[:, None] + torch.arange(g, device=dev)[None, :], 0, k - 1).reshape(-1)
+    p_of = ((group_id % ngw) * w + group_id // ngw) * g + slot_in
+    return perm, win_lvl, win_ty, win_tx, n_active, src_of, p_of
+
+
+def orient_mldb_groups(planes, lvl, width, height, xf, yf, scale, valid, pattern_size: int, ng_cap: int, w: int = 1):
+    """The group describe: orientation and M-LDB words with both sample
+    passes through :func:`select_groups`.
+
+    Port of ``cv_tpu/akaze/descriptors.py::orient_mldb_groups``.  ``K`` is
+    padded to a multiple of 8; keypoints are sorted by the 256x256
+    tile-aligned window that holds their 128x128 patch, grouped eight to a
+    window, and every per-slot table is computed in the padded group layout;
+    words, flags and angles are then put back in keypoint order.  Valid
+    slots get the bits of :func:`orient_mldb`; invalid ones are computed
+    from zero samples.  A stack below 256x256 raises ``ValueError``: it has
+    no 256x256 window (``cv_tpu``'s ``descriptors.py:623`` asserts there).
+    Returns ``(words (K, 16) int32, ok (K,), angle (K,))``.
+    """
+    g = GROUP
+    k_in = xf.shape[0]
+    hmax, wmax = planes.shape[2], planes.shape[3]
+    ht, wt = hmax // 128, wmax // 128
+    if ht < 2 or wt < 2:
+        raise ValueError(
+            f"orient_mldb_groups needs a padded stack of at least 256x256, got {hmax}x{wmax} "
+            "(cv_tpu/akaze/descriptors.py:623 asserts ht >= 2 and wt >= 2); use 'pgather'"
+        )
+    pad_k = (-k_in) % g
+    if pad_k:
+
+        def pad(t, value):
+            return torch.cat([t, torch.full((pad_k,), value, dtype=t.dtype, device=t.device)])
+
+        lvl, width, height = pad(lvl, 0), pad(width, 128), pad(height, 128)
+        xf, yf, scale = pad(xf, 64.0), pad(yf, 64.0), pad(scale, 1.0)
+        valid = pad(valid, False)
+    p = PATCH
+    y0, x0 = patch_anchor(xf, yf, hmax, wmax)
+    ty = torch.clamp(y0 // p, 0, ht - 2)
+    tx = torch.clamp(x0 // p, 0, wt - 2)
+    perm, win_lvl, win_ty, win_tx, n_active, src_of, p_of = group_tables(
+        lvl.to(torch.int32), ty, tx, valid, planes.shape[0], ht, wt, g, ng_cap, w
+    )
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+
+    # Per padded slot: the original keypoint feeding it and its group's
+    # window origin.
+    osrc = perm[src_of]
+    xf_p, yf_p, sc_p, w_p, h_p = (t[osrc] for t in (xf, yf, scale, width, height))
+    x0_p = win_tx.repeat_interleave(g) * p
+    y0_p = win_ty.repeat_interleave(g) * p
+    span = 2 * p
+
+    orel_x, orel_y = orientation_offsets(xf_p, yf_p, sc_p, w_p, h_p, x0_p, y0_p, span)
+    vo = select_groups(planes, win_lvl, win_ty, win_tx, n_active, orel_x, orel_y, c0=1)
+    angle_p = orientation_from_values(vo)
+    rel_x, rel_y, ok_p, co, si = mldb_offsets(xf_p, yf_p, sc_p, angle_p, w_p, h_p, x0_p, y0_p, span, pattern_size)
+    vals = select_groups(planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y)
+    words_p = _mldb_pack(vals[:, 0], vals[:, 1], vals[:, 2], co, si, pattern_size)
+    back = p_of[inv]  # padded slot of each original keypoint
+    return words_p[back][:k_in], ok_p[back][:k_in], angle_p[back][:k_in]

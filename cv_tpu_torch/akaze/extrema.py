@@ -7,15 +7,21 @@ scale_space_extrema.rs):
   comparisons over the whole Ldet plane.
 * ``dedup_scan_device``: the reference's order-dependent dedup with in-place
   replacement and the upper-scale suppression pass.  The JAX package runs
-  it as a vmapped ``lax.while_loop``; here it is a Python loop over
-  candidates whose every step is vectorized over the frame batch.
+  it as a vmapped ``lax.while_loop``; on a CUDA tensor the wrapper launches
+  the hand-written kernel ``csrc/dedup_scan.cu`` (one block per frame), on
+  a CPU tensor it runs ``dedup_scan_plain``, a Python loop over candidates
+  whose every step is vectorized over the frame batch.
 * ``subpixel_refine_batch``: the 2x2 Newton step on the Ldet Hessian.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
+
+from .. import kernels
 
 SMAX = np.float32(10.0) * np.sqrt(np.float32(2.0))
 
@@ -41,7 +47,7 @@ def candidate_mask(ldet: torch.Tensor, threshold: float) -> torch.Tensor:
     return m
 
 
-def dedup_scan_device(
+def dedup_scan_plain(
     px_cmp: torch.Tensor,  # (B, C) unshifted octave-0 x = x * ratio
     py_cmp: torch.Tensor,
     px_store: torch.Tensor,  # (B, C) shifted octave-0 coords (stored on insert)
@@ -129,6 +135,67 @@ def dedup_scan_device(
     out = torch.zeros((b, c), dtype=torch.int64, device=dev)
     out.scatter_reduce_(1, csrc, keep.to(torch.int64), reduce="amax")
     return out > 0
+
+
+def _bind_dedup(lib: ctypes.CDLL):
+    fn = lib.cv_dedup_scan
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def dedup_scan_device(px_cmp, py_cmp, px_store, py_store, resp, class_id, size2, valid,
+                      n_steps=None, max_shared_slots: int | None = None) -> torch.Tensor:
+    """The sequential dedup of :func:`dedup_scan_plain` (same arguments and
+    result).  On a CPU tensor it runs the plain version; on a CUDA tensor it
+    launches ``csrc/dedup_scan.cu`` or raises.  The kernel reads ``n_steps``
+    on the device, so it needs no host sync.
+
+    The kernel keeps its cache in shared memory when the cap ``C`` fits
+    there (up to ~11,600 slots on an H100), else in global memory.
+    ``max_shared_slots`` lowers that bound; ``0`` forces the global-memory
+    cache, which is how the tests reach it at small caps."""
+    args = (px_cmp, py_cmp, px_store, py_store, resp, class_id, size2, valid)
+    devices = {t.device for t in args} | ({n_steps.device} if n_steps is not None else set())
+    if len(devices) != 1:
+        raise ValueError(f"dedup_scan_device: tensors on several devices {devices}")
+    dev = px_cmp.device
+    if dev.type == "cpu":
+        return dedup_scan_plain(*args, n_steps)
+    if dev.type != "cuda":
+        raise ValueError(f"dedup_scan_device: unsupported device {dev}")
+    b, c = px_cmp.shape
+    for name, t in zip(("px_cmp", "py_cmp", "px_store", "py_store", "resp", "size2"),
+                       (px_cmp, py_cmp, px_store, py_store, resp, size2)):
+        if t.dtype != torch.float32 or tuple(t.shape) != (b, c):
+            raise ValueError(f"{name} must be float32 {(b, c)}, got {t.dtype} {tuple(t.shape)}")
+    if tuple(class_id.shape) != (b, c) or valid.dtype != torch.bool or tuple(valid.shape) != (b, c):
+        raise ValueError("class_id and valid must be (B, C), valid bool")
+    if n_steps is None:
+        n_steps = torch.full((b,), c, dtype=torch.int32, device=dev)
+    if tuple(n_steps.shape) != (b,):
+        raise ValueError(f"n_steps must be ({b},), got {tuple(n_steps.shape)}")
+    floats = [t.contiguous() for t in (px_cmp, py_cmp, px_store, py_store, resp)]
+    cls = class_id.to(torch.int32).contiguous()
+    s2 = size2.contiguous()
+    ok = valid.contiguous()
+    steps = n_steps.to(torch.int32).contiguous()
+    out = torch.empty((b, c), dtype=torch.bool, device=dev)
+    if b == 0 or c == 0:
+        return out
+    fn = _bind_dedup(kernels.load("dedup_scan"))
+    err = fn(
+        *(t.data_ptr() for t in floats), cls.data_ptr(), s2.data_ptr(), ok.data_ptr(),
+        steps.data_ptr(), out.data_ptr(), b, c, -1 if max_shared_slots is None else max_shared_slots,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"dedup_scan kernel launch failed: cudaError {err}")
+    dedup_scan_device.launches += 1
+    return out
+
+
+dedup_scan_device.launches = 0  # kernel launches so far (CPU calls do not count)
 
 
 def refine_from_samples(at):

@@ -4,7 +4,8 @@ Port of ``cv_tpu/akaze/fast.py``.  The pipeline keeps static per-frame
 budgets: per-evolution candidates by exact pixel-order compaction, the
 reference's sequential dedup (a conflict prefilter plus an exact scan over
 the conflicted candidates), sub-pixel refinement of a preselection, the
-global top-M, then orientation and M-LDB words through the select kernel.
+global top-M, then orientation and M-LDB words through the select kernels
+(the describe mode picks which; see :func:`check_describe_mode`).
 
 Output is a fixed-budget :class:`FeatureSet` with validity masks.  Static
 per-shape tables (border masks, slot tables, dedup radii) are built once
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from . import descriptors as desc
-from . import extrema
+from . import extrema, fused
 from .config import Akaze, allocate_evolutions
 from .scale_space import build_scale_space
 
@@ -316,15 +317,18 @@ def stage_dedup(cand, k, scan_cap):
 # ---------------------------------------------------------------------------
 
 
+def padded_shape(h: int, w: int):
+    """The padded stack's plane size: multiples of 128, at least 128."""
+    return -(-max(128, h) // 128) * 128, -(-max(128, w) // 128) * 128
+
+
 def padded_plane_stack(planes):
     """(B*n_evo, 3, Hp, Wp) zero-padded (Lt, Lx, Ly) stack: the sampling
     source for orientation and M-LDB, padded to multiples of 128 (and at
     least one 128x128 window)."""
     b = planes[0].ldet.shape[0]
     n_evo = len(planes)
-    h, w = planes[0].lt.shape[-2], planes[0].lt.shape[-1]
-    hp = -(-max(128, h) // 128) * 128
-    wp = -(-max(128, w) // 128) * 128
+    hp, wp = padded_shape(planes[0].lt.shape[-2], planes[0].lt.shape[-1])
     out = torch.zeros((b, n_evo, 3, hp, wp), dtype=planes[0].lt.dtype, device=planes[0].lt.device)
     for e, p in enumerate(planes):
         ho, wo = p.lt.shape[-2], p.lt.shape[-1]
@@ -456,24 +460,64 @@ def stage_refine_select(cfg, specs, cand, planes, k, max_features, slack=128):
 # ---------------------------------------------------------------------------
 
 
-def stage_describe(cfg, planes, sel) -> FeatureSet:
-    """Dominant orientation then M-LDB words for the selected keypoints."""
+# Describe modes with a kernel (cv_tpu's names), and cv_tpu's XLA-only ones.
+KERNEL_MODES = ("pgather", "pgroups", "pfused", "pallas")
+XLA_MODES = ("highest", "bf16x3", "bf16x3k", "+inter", "+fused")
+
+
+def check_describe_mode(mode: str | None) -> None:
+    """Raise ``ValueError`` unless ``mode`` is None (the default rule) or a
+    describe mode of ``cv_tpu`` that reaches a TPU kernel: ``'pgather'``
+    (the select kernel), ``'pgroups'``/``'pgroupsN'`` (the group select, N
+    groups per TPU grid step; a table layout only here), ``'pfused'`` (the
+    fused describe) or ``'pallas'`` (the patch-form select)."""
+    if mode is None or mode in ("pgather", "pfused", "pallas"):
+        return
+    if mode.startswith("pgroups") and (mode == "pgroups" or mode[7:].isdigit() and int(mode[7:]) > 0):
+        return
+    base, plus, _ = mode.partition("+")
+    if plus or base in XLA_MODES:
+        raise ValueError(
+            f"describe mode {mode!r}: {', '.join(map(repr, XLA_MODES))} are cv_tpu's XLA-only "
+            "selection engines; they give the same bits as the kernel modes and run no kernel, "
+            f"so the port has none of them.  Use one of {', '.join(map(repr, KERNEL_MODES))}"
+        )
+    raise ValueError(f"unknown describe mode {mode!r}; use one of {', '.join(map(repr, KERNEL_MODES))}")
+
+
+def default_describe_mode(max_features: int, height: int, width: int) -> str:
+    """``cv_tpu``'s rule on its accelerator: the group describe at 2048 or
+    more features, else the select kernel; and the select kernel too when
+    the padded stack has no 256x256 window (where ``cv_tpu``'s group
+    describe asserts, descriptors.py:623)."""
+    hp, wp = padded_shape(height, width)
+    return "pgroups" if max_features >= 2048 and hp >= 256 and wp >= 256 else "pgather"
+
+
+def stage_describe(cfg, planes, sel, mode: str = "pgather") -> FeatureSet:
+    """Dominant orientation then M-LDB words for the selected keypoints,
+    through describe ``mode`` (see :func:`check_describe_mode`)."""
+    check_describe_mode(mode)
     b, m = sel["resp"].shape
     n_evo = len(planes)
-    xf = sel["px"] / sel["pw"]
-    yf = sel["py"] / sel["pw"]
+    xf = (sel["px"] / sel["pw"]).reshape(-1)
+    yf = (sel["py"] / sel["pw"]).reshape(-1)
     stack = padded_plane_stack(planes)
     lvl = (torch.arange(b, device=sel["cls"].device)[:, None] * n_evo + sel["cls"]).reshape(-1)
-    words, w_ok, angle = desc.orient_mldb(
-        stack,
-        lvl,
-        sel["w"].reshape(-1),
-        sel["h"].reshape(-1),
-        xf.reshape(-1),
-        yf.reshape(-1),
-        sel["ssamp"].reshape(-1),
-        pattern_size=cfg.descriptor_pattern_size,
-    )
+    kp = (lvl, sel["w"].reshape(-1), sel["h"].reshape(-1), xf, yf, sel["ssamp"].reshape(-1))
+    if mode.startswith("pgroups"):
+        # The static group bound: one group per 8 slots plus one per window
+        # the extract can occupy (cv_tpu/akaze/fast.py:711-713).
+        hp, wp = stack.shape[-2], stack.shape[-1]
+        ng_cap = -(-(b * m) // 8) + desc.window_catalog_size([p.spec for p in planes], b, hp, wp) + 1
+        words, w_ok, angle = desc.orient_mldb_groups(
+            stack, *kp, sel["valid"].reshape(-1), pattern_size=cfg.descriptor_pattern_size,
+            ng_cap=ng_cap, w=int(mode[len("pgroups"):] or "1"),
+        )
+    elif mode == "pfused":
+        words, w_ok, angle = fused.orient_mldb_fused(stack, *kp, pattern_size=cfg.descriptor_pattern_size)
+    else:
+        words, w_ok, angle = desc.orient_mldb(stack, *kp, pattern_size=cfg.descriptor_pattern_size, mode=mode)
     return FeatureSet(
         point=torch.stack([sel["px"], sel["py"]], dim=-1),
         response=sel["resp"],
@@ -492,7 +536,10 @@ class DeviceExtractor:
     ``candidate_budget``: max extrema kept per evolution (the first in
     pixel order).  ``max_features``: final per-frame feature budget M.
     ``dedup_scan_cap``: max conflicted candidates the sequential scan
-    resolves (the rest are kept).
+    resolves (the rest are kept).  ``onehot_mode``: the describe mode (see
+    :func:`check_describe_mode`); None takes :func:`default_describe_mode`.
+    The modes give the same keypoints and words (on the CPU, where each
+    runs its kernels' plain versions, up to one-ulp angle differences).
     """
 
     def __init__(
@@ -502,13 +549,22 @@ class DeviceExtractor:
         max_features: int = 1024,
         dedup_scan_cap: int = 1024,
         device="cpu",
+        onehot_mode: str | None = None,
     ):
+        check_describe_mode(onehot_mode)
         self.config = config or Akaze()
         self.candidate_budget = candidate_budget
         self.max_features = max_features
         self.dedup_scan_cap = dedup_scan_cap
         self.device = torch.device(device)
+        self.onehot_mode = onehot_mode
         self._specs: dict = {}
+
+    def describe_mode(self, height: int, width: int) -> str:
+        """The describe mode an extract of ``height`` x ``width`` frames takes."""
+        if self.onehot_mode is not None:
+            return self.onehot_mode
+        return default_describe_mode(self.max_features, height, width)
 
     def specs(self, height: int, width: int):
         key = (height, width)
@@ -528,7 +584,7 @@ class DeviceExtractor:
         cand = stage_candidates(cfg, specs, planes, k)
         cand = stage_dedup(cand, k, self.dedup_scan_cap)
         sel = stage_refine_select(cfg, specs, cand, planes, k, self.max_features)
-        return stage_describe(cfg, planes, sel)
+        return stage_describe(cfg, planes, sel, self.describe_mode(h, w))
 
 
 class FastAkazeExtractor:

@@ -80,3 +80,111 @@ def select_samples(planes, lvl, y0, x0, rel_x, rel_y, c0: int = 0) -> torch.Tens
 
 
 select_samples.launches = 0  # kernel launches so far (CPU calls do not count)
+
+
+def select_samples_patch(patches, rel_x, rel_y, c0: int = 0) -> torch.Tensor:
+    """``out[k, c - c0, s] = patches[k, c, rel_y[k, s], rel_x[k, s]]`` over
+    per-keypoint patches ``(K, C, 128, 128)``.
+
+    Port of ``cv_tpu/akaze/pallas_mldb.py::select_samples_batched`` and
+    ``select_samples``: both compute this exact select, the TPU as bf16x3
+    one-hot matmuls.  Here the patches are a plane stack with one level per
+    keypoint, so the select goes through :func:`select_samples` and its
+    kernel (``lvl = arange(K)``, ``y0 = x0 = 0``); its launches count on
+    ``select_samples.launches``.
+    """
+    k = patches.shape[0]
+    zero = torch.zeros((k,), dtype=torch.int32, device=patches.device)
+    lvl = torch.arange(k, dtype=torch.int32, device=patches.device)
+    return select_samples(patches, lvl, zero, zero, rel_x, rel_y, c0)
+
+
+def cut_patches(planes, lvl, y0, x0, side: int = 128) -> torch.Tensor:
+    """``(K, C, side, side)`` windows ``planes[lvl, :, y0:y0+side,
+    x0:x0+side]``: the patch cut of ``orient_mldb_onehot``."""
+    ar = torch.arange(side, device=planes.device)
+    yy = (y0.long()[:, None] + ar)[:, None, :, None]
+    xx = (x0.long()[:, None] + ar)[:, None, None, :]
+    ch = torch.arange(planes.shape[1], device=planes.device)[None, :, None, None]
+    return planes[lvl.long()[:, None, None, None], ch, yy, xx]
+
+
+GROUP = 8  # keypoint slots per window group (pallas_mldb.G)
+
+
+def select_groups_plain(planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y, c0: int = 0):
+    """The group select by advanced indexing: ``(NG * 8, C - c0, NS)``
+    float32, zero rows for slots ``j >= n_active``."""
+    ng = win_lvl.shape[0]
+    rel_x = rel_x.reshape(ng * GROUP, -1)
+    rel_y = rel_y.reshape(ng * GROUP, -1)
+    rep = lambda t: t.long().repeat_interleave(GROUP)  # noqa: E731
+    yy = 128 * rep(win_ty)[:, None] + rel_y.long()
+    xx = 128 * rep(win_tx)[:, None] + rel_x.long()
+    lv = rep(win_lvl)[:, None]
+    vals = torch.stack([planes[lv, c, yy, xx] for c in range(c0, planes.shape[1])], dim=1)
+    live = torch.arange(GROUP, device=planes.device).repeat(ng) < rep(n_active)
+    return torch.where(live[:, None, None], vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
+
+
+def _bind_groups(lib: ctypes.CDLL):
+    fn = lib.cv_select_groups
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def select_groups(planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y, c0: int = 0) -> torch.Tensor:
+    """Select samples for window-sorted keypoint groups.
+
+    ``out[t*8 + j, c - c0, s] = planes[win_lvl[t], c, 128*win_ty[t] +
+    rel_y[t*8 + j, s], 128*win_tx[t] + rel_x[t*8 + j, s]]`` for ``j <
+    n_active[t]``, zero rows otherwise.  Port of
+    ``cv_tpu/akaze/pallas_mldb.py::select_samples_groups``; ``rel_x`` /
+    ``rel_y`` may come in its ``(NG / w, w * 8, NS)`` layout or flat as
+    ``(NG * 8, NS)`` (the same rows).  On a CPU tensor the wrapper runs the
+    plain version; on a CUDA tensor it launches ``csrc/select_groups.cu`` or
+    raises.
+    """
+    args = (planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y)
+    devices = {t.device for t in args}
+    if len(devices) != 1:
+        raise ValueError(f"select_groups: tensors on several devices {devices}")
+    if planes.device.type == "cpu":
+        return select_groups_plain(*args, c0=c0)
+    if planes.device.type != "cuda":
+        raise ValueError(f"select_groups: unsupported device {planes.device}")
+    if planes.dtype != torch.float32 or planes.ndim != 4:
+        raise ValueError(f"planes must be (L, C, Hp, Wp) float32, got {planes.dtype} {tuple(planes.shape)}")
+    n_levels, channels, height, width = planes.shape
+    ng = win_lvl.shape[0]
+    ns = rel_x.shape[-1]
+    rel_x = rel_x.reshape(ng * GROUP, ns)
+    rel_y = rel_y.reshape(ng * GROUP, ns)
+    for name, t, shape in (
+        ("win_lvl", win_lvl, (ng,)), ("win_ty", win_ty, (ng,)), ("win_tx", win_tx, (ng,)),
+        ("n_active", n_active, (ng,)), ("rel_x", rel_x, (ng * GROUP, ns)), ("rel_y", rel_y, (ng * GROUP, ns)),
+    ):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be int32 {shape}, got {t.dtype} {tuple(t.shape)}")
+    if not all(t.is_contiguous() for t in (planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y)):
+        raise ValueError("select_groups: inputs must be contiguous")
+    if not 0 <= c0 < channels:
+        raise ValueError(f"c0={c0} outside [0, {channels})")
+    out = torch.empty((ng * GROUP, channels - c0, ns), dtype=torch.float32, device=planes.device)
+    if ng == 0 or ns == 0:
+        return out
+    fn = _bind_groups(kernels.load("select_groups"))
+    err = fn(
+        planes.data_ptr(), win_lvl.data_ptr(), win_ty.data_ptr(), win_tx.data_ptr(),
+        n_active.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(), out.data_ptr(),
+        n_levels, channels, height, width, ng, ns, c0,
+        torch.cuda.current_stream(planes.device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"select_groups kernel launch failed: cudaError {err}")
+    select_groups.launches += 1
+    return out
+
+
+select_groups.launches = 0  # kernel launches so far (CPU calls do not count)

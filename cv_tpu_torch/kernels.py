@@ -8,9 +8,9 @@ loaded with ``ctypes``.  :func:`build_all` starts one ``nvcc`` per source
 at once.  Nothing is built at import time, and a missing compiler raises:
 there is no fallback.
 
-The pose-optimizer loops are built with ``--fmad=false``: no multiply-add
-is contracted, so each float expression rounds as it is written, as the
-kernels' plain versions round.
+The pose-optimizer loops, the dedup scan and the fused describe are built
+with ``--fmad=false``: no multiply-add is contracted, so each float
+expression rounds as it is written, as the kernels' plain versions round.
 """
 
 from __future__ import annotations
@@ -37,8 +37,13 @@ EXTRA_FLAGS = {
     "single_view_l2": ["--fmad=false"],
     "three_view_l2": ["--fmad=false"],
     "three_view_adaptive": ["--fmad=false"],
+    "dedup_scan": ["--fmad=false"],
+    "select_fused": ["--fmad=false"],
 }
-KERNELS = ("select_samples", "single_view_l2", "three_view_l2", "three_view_adaptive")
+KERNELS = (
+    "select_samples", "select_groups", "select_fused", "dedup_scan",
+    "single_view_l2", "three_view_l2", "three_view_adaptive",
+)
 
 # name -> (ctypes library, build record); filled at first use.
 _LOADED: dict = {}

@@ -141,6 +141,29 @@ def test_dedup_scan_exact(seed):
     np.testing.assert_array_equal(port.numpy(), np.asarray(ref))
 
 
+def test_dedup_scan_exact_large_cap():
+    """The dedup wrapper on CPU tensors (its plain version) at a cap above
+    1024, against cv_tpu's scan: a cache that grows past a thousand entries
+    while many candidates replace or lose to earlier ones."""
+    rng = np.random.default_rng(12)
+    b, c = 2, 1536
+    cls = np.sort(rng.integers(0, 6, (b, c)), axis=1).astype(np.int32)
+    px = rng.uniform(0, 400, (b, c)).astype(np.float32)
+    py = rng.uniform(0, 300, (b, c)).astype(np.float32)
+    shift = (rng.uniform(0, 1.5, (b, c))).astype(np.float32)
+    resp = rng.uniform(0.01, 1.0, (b, c)).astype(np.float32)
+    size2 = ((2.0 * 2.0 ** (cls / 4.0)) ** 2).astype(np.float32) * 4.0
+    n_steps = np.array([c, 1100], np.int32)
+    valid = (rng.uniform(size=(b, c)) < 0.95) & (np.arange(c)[None, :] < n_steps[:, None])
+    arrays = (px, py, px + shift, py + shift, resp, cls, size2, valid)
+    ref = np.asarray(jax.vmap(jextrema.dedup_scan_device)(*(jnp.asarray(a) for a in arrays), jnp.asarray(n_steps)))
+    before = textrema.dedup_scan_device.launches
+    port = textrema.dedup_scan_device(*(torch.as_tensor(a) for a in arrays), torch.as_tensor(n_steps))
+    assert textrema.dedup_scan_device.launches == before  # the CPU runs the plain version
+    assert 1024 < ref[0].sum() < valid[0].sum()
+    np.testing.assert_array_equal(port.numpy(), ref)
+
+
 def test_subpixel_refine_batch():
     rng = np.random.default_rng(5)
     ldet = rng.normal(size=(3, 20, 30)).astype(np.float32)
