@@ -17,7 +17,12 @@ Drives the port's three main paths:
   KITTI pair, B=2, default threshold 0.001), which takes the group
   describe, the same batch through the ``'pfused'`` and ``'pallas'``
   describe modes, and ``FastAkazeExtractor(Akaze(maximum_features=8192))``
-  as the engine builds it at its default ``tracking_features``.
+  as the engine builds it at its default ``tracking_features``;
+* the retired describe modes ``'pepatch'`` and ``'ptiles'`` (registered by
+  importing ``cv_tpu_torch.experiments.mldb_losers``) on the KITTI batch
+  and the dense pair, and the experiments' runs
+  (``cv_tpu_torch.experiments.runs``: the composed extracts and the probe
+  scripts at their own shapes).
 
 Phases, in order; any failed check raises and the script exits non-zero:
   1. require CUDA, turn TF32 off, print the card's name and power limit;
@@ -32,7 +37,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (three_view_l2, N=1024) and C (three_view_adaptive, K=64, N=64)
      within 1e-6 after one step, 1e-4 after a full run (2,000 / 2,000 /
      1,000 steps), and bitwise equal to themselves with 60 padded invalid
-     rows;
+     rows; the experiments' kernels at their scripts' shapes: the retired
+     selects and the probe selects and gathers bitwise, the trigonometry
+     probe within 2 ulp of torch's functions (bit-equality printed), the
+     summing probes within ``probes.SUM_ATOL``; beside each kernel's time
+     and its plain version's, one PyTorch call computing the same function
+     where there is one (``library_ms``) and the bound;
   4. drive the KITTI path once with the launch counters at zero: gates
      [399, 343] keypoints, 11 matches, 11 inliers, the select kernel
      launched twice and the dedup kernel once per extract;
@@ -48,9 +58,17 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ``'pallas'`` runs give the same counts and words within the fused
      gates; ``FastAkazeExtractor`` at 8192 features takes the group path
      and finds frame 0's count;
-  7. hold the card's output against the port's CPU path on small inputs:
+  7. drive the retired modes, each run with the counters at zero:
+     ``'pepatch'`` at the KITTI batch gives [399, 343] and every valid word
+     row and angle bitwise equal to ``'pgather'``; ``'ptiles'`` at the
+     KITTI batch and on the dense pair gives ``'pgather'``'s / ``'pgroups'``'s
+     keypoints and meets the describe gates (bitwise equality printed);
+     the retired selects launch the select kernel; then every experiments
+     run (``runs.py``) with the counters at zero, each of its kernels
+     launched;
+  8. hold the card's output against the port's CPU path on small inputs:
      every word row equal;
-  8. time warm extract+match, each stage, the dedup scan and consensus.
+  9. time warm extract+match, each stage, the dedup scan and consensus.
 No main-path run may call a kernel's plain version.  The line before the
 last is the per-kernel JSON record; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -96,6 +114,47 @@ POSE_KERNELS = {
     "single_view_l2": dict(n=2048, steps=2000, replaces="cv_tpu/optimize/pallas_loop.py:312"),
     "three_view_l2": dict(n=1024, steps=2000, replaces="cv_tpu/optimize/pallas_loop.py:661"),
     "three_view_adaptive": dict(k=64, n=64, steps=1000, replaces="cv_tpu/optimize/pallas_loop.py:538"),
+}
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W limit):
+# HBM3 bandwidth and float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+# Float32 operations per landmark and step of the pose loops, counted from
+# csrc/single_view_l2.cu (transform, projection, world_pose_gradient) and
+# csrc/pose_loops.cuh::tv_tangent_rows (three triangulations, three rotation
+# gradients); estimates for the operations bound.
+POSE_FLOPS = {"single_view_l2": 80, "three_view_l2": 500, "three_view_adaptive": 520}
+# Float32 operations per keypoint of the fused describe (select_fused.cu):
+# 109 atan2 (~25 each), 42 windows x 109 samples x 4 (two compares, two
+# masked adds), 441 M-LDB positions (~20 each); an estimate.
+FUSED_FLOPS = 30_000
+# The probe scripts' shapes: exp_select_kernels.py / exp_bisect.py (a
+# (16, 3, 544, 1408) stack, 136x128 windows, NS=1280, K=4096 / 512) and
+# exp_r3_gather_probe.py / exp_r3_mxu_probe.py (K=4096 patches of 3x128x128,
+# NS=512).
+PROBE_SHAPES = dict(levels=16, hmax=544, wmax=1408, window_k=4096, window_ns=1280, bisect_k=512, patch_k=4096,
+                    patch_ns=512)
+# The experiments' probe kernels: record name -> (source, the TPU kernel
+# it replaces).
+EXPERIMENT_KERNELS = {
+    "select_samples_epatch": ("select_samples", "experiments/pallas_mldb_losers.py:79"),
+    "select_samples_tiles": ("select_samples", "experiments/pallas_mldb_losers.py:192"),
+    "select_samples_tiles8": ("select_samples", "experiments/pallas_mldb_losers.py:301"),
+    "select_window[exp_select_kernels]": ("select_samples", "experiments/exp_select_kernels.py:67"),
+    "select_samples_patch[phase_select]": ("select_samples", "experiments/exp_r3_gather_probe.py:105"),
+    "take_along[phase_lane]": ("take_along", "experiments/exp_r3_gather_probe.py:51"),
+    "take_along[phase_sublane]": ("take_along", "experiments/exp_r3_gather_probe.py:71"),
+    "trig_probe": ("trig_probe", "experiments/exp_r5_pfused.py:28"),
+    "bisect_dma_only": ("select_probes", "experiments/exp_bisect.py:75"),
+    "bisect_matmul_static": ("select_probes", "experiments/exp_bisect.py:86"),
+    "bisect_matmul_dyn_oh": ("select_probes", "experiments/exp_bisect.py:110"),
+    "bisect_split_nomm": ("select_probes", "experiments/exp_bisect.py:132"),
+    "bisect_vpu_rowstage": ("select_probes", "experiments/exp_bisect.py:153"),
+    "mxu_dots": ("select_probes", "experiments/exp_r3_mxu_probe.py:50"),
+    "mxu_dotsbig": ("select_probes", "experiments/exp_r3_mxu_probe.py:67"),
+    "mxu_onehot": ("select_probes", "experiments/exp_r3_mxu_probe.py:87"),
+    "mxu_split": ("select_probes", "experiments/exp_r3_mxu_probe.py:99"),
+    "mxu_dma": ("select_probes", "experiments/exp_r3_mxu_probe.py:117"),
 }
 
 
@@ -224,6 +283,26 @@ def run_pose(name, prob, steps, dev, plain):
                            for p in poses]).astype(np.float64)
 
 
+def plain_steps(name, prob, steps, dev):
+    """Steps the plain version of pose kernel ``name`` takes on ``prob``
+    before its patience rule stops it (calls of its per-step tangents)."""
+    from cv_tpu_torch.optimize import optimizers
+
+    attr = "landmark_deltas" if name == "single_view_l2" else "_three_view_landmark_gradients"
+    real, calls = getattr(optimizers, attr), [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    setattr(optimizers, attr, counted)
+    try:
+        run_pose(name, prob, steps, dev, plain=True)
+    finally:
+        setattr(optimizers, attr, real)
+    return calls[0]
+
+
 def check_pose_kernels(dev, seed):
     """Phase 3 for kernels A, B, C: gates against the plain versions on the
     card and alternating timings of full runs.  Returns per-kernel records."""
@@ -251,7 +330,14 @@ def check_pose_kernels(dev, seed):
         pms = statistics.median(reps[0] + reps[3])
         kms = statistics.median(reps[1] + reps[2])
         print(f"{name} full run ({spec['steps']} steps): kernel {kms:.3f} ms, plain {pms:.3f} ms (median of 6)")
-        out[name] = dict(max_abs_err=max_err, ms=kms, plain_ms=pms)
+        # The bound counts the steps this problem takes (the patience rule
+        # may stop A and B early) over its valid landmarks.
+        steps = spec["steps"] if name == "three_view_adaptive" else plain_steps(name, prob, spec["steps"], dev)
+        nbytes = sum(v.nbytes for v in prob.values()) + 2 * 24 * 4
+        flops = steps * int(prob["valid"].sum()) * POSE_FLOPS[name]
+        out[name] = kernel_record(kms, pms, max_err, nbytes, flops, steps=steps)
+        print(f"{name}: {steps} steps, bound {out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']}); "
+              f"the chain of {steps} dependent steps bounds it")
     return out
 
 
@@ -322,6 +408,41 @@ def alternate(run_k, run_p, timer):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
+def bound(nbytes, flops=0.0):
+    """``(bound_ms, bound_by)``: the least time an H100 SXM could take for
+    work that moves ``nbytes`` (each input read once, each output written
+    once) and does ``flops`` float32 operations, the larger of the two
+    against the published peaks (HBM_BYTES_PER_S, FP32_FLOPS)."""
+    by_bytes, by_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def select_bytes(k, ns, channels, per_keypoint=12):
+    """Bytes a select of ``ns`` samples for each of ``k`` keypoints must
+    move: per-keypoint words (lvl, y0, x0), two int32 offsets a sample, the
+    sampled values and the output, ``channels`` floats each."""
+    return k * per_keypoint + k * ns * 8 + 2 * k * ns * channels * 4
+
+
+def index_call(planes, rows, ys, xs, c0=0):
+    """One PyTorch advanced-index call computing a select (the library
+    yardstick): ``planes[rows, c, ys, xs]`` for channels ``c >= c0`` with
+    ``rows`` (K,) and ``ys``/``xs`` (K, NS) built beforehand; returns a
+    function of no arguments giving ``(K, C - c0, NS)``."""
+    import torch
+
+    lv = rows.long()[:, None, None]
+    ch = torch.arange(c0, planes.shape[1], device=planes.device)[None, :, None]
+    yy, xx = ys.long()[:, None, :], xs.long()[:, None, :]
+    return lambda: planes[lv, ch, yy, xx]
+
+
+def kernel_record(kms, pms, err, nbytes, flops=0.0, library_ms=None, **extra):
+    """A kernel's record: its times, the library call's, and its bound."""
+    ms, by = bound(nbytes, flops)
+    return dict(max_abs_err=err, ms=kms, plain_ms=pms, library_ms=library_ms, bound_ms=ms, bound_by=by, **extra)
+
+
 def check_select_kernels(dev, seed):
     """Phase 3 for the describe kernels: the select kernel, its patch form,
     the group select and the fused describe against their plain versions,
@@ -346,9 +467,10 @@ def check_select_kernels(dev, seed):
     lvl = rand_i32(n_lvl, (k_kp,))
     y0 = rand_i32(hp - 128 + 1, (k_kp,))
     x0 = rand_i32(wp - 128 + 1, (k_kp,))
-    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0)
     for c0, ns in ((1, 109), (0, 441)):
         rel_x, rel_y = rand_i32(128, (k_kp, ns)), rand_i32(128, (k_kp, ns))
+        lib = index_call(planes, lvl, y0[:, None] + rel_y, x0[:, None] + rel_x, c0)
         run_k = lambda: select.select_samples(planes, lvl, y0, x0, rel_x, rel_y, c0=c0)  # noqa: E731
         run_p = lambda: select.select_samples_plain(planes, lvl, y0, x0, rel_x, rel_y, c0=c0)  # noqa: E731
         got, ref = run_k(), run_p()
@@ -356,12 +478,18 @@ def check_select_kernels(dev, seed):
         require(got.shape == ref.shape == (k_kp, 3 - c0, ns), f"select shape {tuple(got.shape)}")
         err = float((got - ref).abs().max())
         require(torch.equal(got, ref), f"select c0={c0} NS={ns} bitwise equal to plain (max |err| {err})")
+        require(torch.equal(lib(), got), f"select c0={c0}: the advanced-index call gives the kernel's values")
         kms, pms = alternate(run_k, run_p, cuda_ms)
+        lms = cuda_ms(lib)
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
         rec["ms"] += kms
         rec["plain_ms"] += pms
-        print(f"select c0={c0} K={k_kp} NS={ns}: bitwise equal; kernel {kms:.4f} ms, plain {pms:.4f} ms")
-    out["select_samples"] = rec
+        rec["library_ms"] += lms
+        rec["nbytes"] += select_bytes(k_kp, ns, 3 - c0)
+        print(f"select c0={c0} K={k_kp} NS={ns}: bitwise equal; kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+              f"advanced index {lms:.4f} ms, bound {bound(select_bytes(k_kp, ns, 3 - c0))[0]:.4f} ms")
+    out["select_samples"] = kernel_record(rec["ms"], rec["plain_ms"], rec["max_abs_err"], rec["nbytes"],
+                                          library_ms=rec["library_ms"])
     del planes
 
     # The dense stack (B=2: 26 levels) and its K = 2 x 4096 keypoints.
@@ -373,7 +501,7 @@ def check_select_kernels(dev, seed):
     y0 = rand_i32(hp - 128 + 1, (k_kp,))
     x0 = rand_i32(wp - 128 + 1, (k_kp,))
     patches = select.cut_patches(planes, lvl, y0, x0)
-    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    rec = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0)
     zero = torch.zeros_like(lvl)
     arange = torch.arange(k_kp, dtype=torch.int32, device=dev)
     for c0, ns in ((1, 109), (0, 441)):
@@ -385,12 +513,18 @@ def check_select_kernels(dev, seed):
         direct = select.select_samples_plain(planes, lvl, y0, x0, rel_x, rel_y, c0)
         require(torch.equal(got, ref) and torch.equal(got, direct),
                 f"patch-form select c0={c0} NS={ns} bitwise equal to plain and to the stack select")
+        lib = index_call(patches, arange, rel_y, rel_x, c0)
+        require(torch.equal(lib(), got), f"patch form c0={c0}: the advanced-index call gives the kernel's values")
         kms, pms = alternate(run_k, run_p, cuda_ms)
+        lms = cuda_ms(lib)
         rec["ms"] += kms
         rec["plain_ms"] += pms
+        rec["library_ms"] += lms
+        rec["nbytes"] += select_bytes(k_kp, ns, 3 - c0, per_keypoint=0)
         print(f"patch-form select c0={c0} K={k_kp} NS={ns}: bitwise equal; kernel {kms:.4f} ms, "
-              f"plain {pms:.4f} ms")
-    out["select_samples_patch"] = rec
+              f"plain {pms:.4f} ms, advanced index {lms:.4f} ms")
+    out["select_samples_patch"] = kernel_record(rec["ms"], rec["plain_ms"], 0.0, rec["nbytes"],
+                                                library_ms=rec["library_ms"])
     del patches
 
     # The group select at the dense shapes: ~20% invalid slots, w 1 and 4.
@@ -401,7 +535,7 @@ def check_select_kernels(dev, seed):
     ky0, kx0 = desc.patch_anchor(kxf, kyf, hp, wp)
     ty, tx = torch.clamp(ky0 // 128, 0, ht - 2), torch.clamp(kx0 // 128, 0, wt - 2)
     ng_cap = -(-k_kp // 8) + n_lvl * (ht - 1) * (wt - 1) + 1
-    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0)
+    rec = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0)
     for w in (1, 4):
         tables = desc.group_tables(lvl, ty, tx, kvalid, n_lvl, ht, wt, 8, ng_cap, w)[1:5]
         ng = tables[0].shape[0]
@@ -414,14 +548,26 @@ def check_select_kernels(dev, seed):
             zero_rows = int((torch.arange(8, device=dev).repeat(ng) >= tables[3].long().repeat_interleave(8)).sum())
             require(torch.equal(got, ref), f"select_groups w={w} c0={c0} NS={ns} bitwise equal to plain")
             if w == 1:
+                # The library yardstick selects the live rows only.
+                live = torch.arange(8, device=dev).repeat(ng) < tables[3].repeat_interleave(8)
+                rep = lambda t: t.repeat_interleave(8)[live]  # noqa: E731
+                lib = index_call(planes, rep(tables[0]), 128 * rep(tables[1])[:, None] + rel_y[live],
+                                 128 * rep(tables[2])[:, None] + rel_x[live], c0)
+                require(torch.equal(lib(), got[live]), "select_groups: the advanced-index call gives the live rows")
                 kms, pms = alternate(run_k, run_p, cuda_ms)
+                lms = cuda_ms(lib)
+                n_live = int(live.sum())
                 rec["ms"] += kms
                 rec["plain_ms"] += pms
+                rec["library_ms"] += lms
+                rec["nbytes"] += 16 * ng + n_live * ns * (8 + 4 * (3 - c0)) + ng * 8 * ns * (3 - c0) * 4
                 print(f"select_groups w={w} c0={c0} NG={ng} NS={ns}: bitwise equal ({zero_rows} zero rows); "
-                      f"kernel {kms:.4f} ms, plain {pms:.4f} ms")
+                      f"kernel {kms:.4f} ms, plain {pms:.4f} ms, advanced index over {n_live} live rows "
+                      f"{lms:.4f} ms")
             else:
                 print(f"select_groups w={w} c0={c0} NG={ng} NS={ns}: bitwise equal ({zero_rows} zero rows)")
-    out["select_groups"] = rec
+    out["select_groups"] = kernel_record(rec["ms"], rec["plain_ms"], 0.0, rec["nbytes"],
+                                         library_ms=rec["library_ms"])
 
     # The fused describe on real-sized random keypoints of the dense stack.
     width = torch.full((k_kp,), SHAPES["width"], dtype=torch.int32, device=dev)
@@ -448,7 +594,9 @@ def check_select_kernels(dev, seed):
     require(torch.equal(mk, mp) and torch.equal(vk, vp), "select_fused bitwise equal to its plain version")
     kms, pms = alternate(run_k, run_p, cuda_ms)
     print(f"select_fused K={k_kp}: bitwise equal; kernel {kms:.4f} ms, plain (two-pass) {pms:.4f} ms")
-    out["select_fused"] = dict(max_abs_err=da, ms=kms, plain_ms=pms, unequal_rows=unequal, rows=rows)
+    no, ns = orel[0].shape[1], vk.shape[2]
+    nbytes = k_kp * (32 + no * 8 + no * 2 * 4 + 2 * ns * 3 * 4 + 16)
+    out["select_fused"] = kernel_record(kms, pms, da, nbytes, k_kp * FUSED_FLOPS, unequal_rows=unequal, rows=rows)
     return out
 
 
@@ -488,11 +636,195 @@ def check_dedup_kernel(dev, seed, dense_args):
     arrays = [px, py, px + shift, py + shift, rng.uniform(0.01, 1, (b, c)).astype(np.float32), cls, size2,
               rng.uniform(size=(b, c)) < 0.95, np.array([c, c * 5 // 6])]
     args = [torch.as_tensor(a, device=dev) for a in arrays]
-    got, ref = extrema.dedup_scan_device(*args), extrema.dedup_scan_plain(*args)
+    got2, ref = extrema.dedup_scan_device(*args), extrema.dedup_scan_plain(*args)
     torch.cuda.synchronize()
-    require(torch.equal(got, ref), f"dedup kernel bitwise equal to plain at cap {c} (global-memory cache)")
-    print(f"dedup random B={b} cap {c} (global-memory cache): bitwise equal, {got.sum(dim=1).tolist()} survivors")
-    return dict(max_abs_err=0.0, ms=kms, plain_ms=pms)
+    require(torch.equal(got2, ref), f"dedup kernel bitwise equal to plain at cap {c} (global-memory cache)")
+    print(f"dedup random B={b} cap {c} (global-memory cache): bitwise equal, {got2.sum(dim=1).tolist()} survivors")
+    # Bound: every input read once and the mask written; operations, at
+    # least ~8 a step for each cache slot, the cache growing to the
+    # survivors (half of them on average over the steps).
+    nbytes = sum(t.numel() * t.element_size() for t in dense_args) + got.numel()
+    flops = sum(8 * st * int(n) / 2 for st, n in zip(steps, got.sum(dim=1).tolist()))
+    rec = kernel_record(kms, pms, 0.0, nbytes, flops, steps=steps)
+    print(f"dedup bound {rec['bound_ms']:.5f} ms ({rec['bound_by']}); the chain of {max(steps)} dependent "
+          "steps bounds it")
+    return rec
+
+
+def check_experiment_kernels(dev, seed):
+    """Phase 3 for the experiments' kernels, at their scripts' shapes: the
+    retired selects (the select kernel at the KITTI batch's shapes), the
+    probes' selects and gathers bitwise, the trigonometry within 2 ulp of
+    torch's (printing whether each function is bit-equal), the summing
+    probes within ``probes.SUM_ATOL``; alternating timings, the library
+    call where one computes the function, and the bound.  Returns
+    per-kernel records."""
+    import torch
+
+    from cv_tpu_torch.akaze import select
+    from cv_tpu_torch.experiments import mldb_losers, probes
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 21)
+
+    def rand_i32(hi, shape):
+        return torch.randint(0, hi, shape, generator=gen, device=dev, dtype=torch.int32)
+
+    out = {}
+
+    def hold(name, run_k, run_p, nbytes, flops=0.0, lib=None, atol=None):
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        require(got.shape == ref.shape and bool(torch.isfinite(got).all()), f"{name}: shape and finite values")
+        err = float((got - ref).abs().max()) if got.numel() else 0.0
+        if atol is None:
+            require(torch.equal(got, ref), f"{name} bitwise equal to its plain version (max |err| {err})")
+        else:
+            require(err <= atol, f"{name} within {atol} of its plain version (max |err| {err})")
+        if lib is not None:
+            require(torch.equal(lib(), got), f"{name}: the library call gives the same values")
+        kms, pms = alternate(run_k, run_p, cuda_ms)
+        lms = cuda_ms(lib) if lib is not None else None
+        rec = kernel_record(kms, pms, err, nbytes, flops, library_ms=lms)
+        gate = "bitwise" if atol is None else f"max |err| {err:.3e} (gate {atol})"
+        lib_text = "none" if lms is None else f"{lms:.4f} ms"
+        print(f"{name}: {gate}; kernel {kms:.4f} ms, plain {pms:.4f} ms, library {lib_text}, "
+              f"bound {rec['bound_ms']:.4f} ms ({rec['bound_by']})")
+        return rec
+
+    def add(name, recs):
+        """Sum the records of one kernel's calls (the describe's two passes)."""
+        keys = ("ms", "plain_ms", "library_ms", "bound_ms")
+        merged = {k: sum(r[k] for r in recs) for k in keys}
+        merged["max_abs_err"] = max(r["max_abs_err"] for r in recs)
+        merged["bound_by"] = max(recs, key=lambda r: r["bound_ms"])["bound_by"]
+        out[name] = merged
+
+    # Row 9: the retired selects at the KITTI batch's describe shapes (B=8
+    # stack, 4,096 keypoints; orientation NS=109 on Lx/Ly, M-LDB NS=441).
+    hp, wp = SHAPES["hp"], SHAPES["wp"]
+    n_lvl, k = BATCH * SHAPES["levels"], BATCH * SHAPES["kitti_k"]
+    planes = torch.randn((n_lvl, 3, hp, wp), generator=gen, device=dev)
+    lvl = rand_i32(n_lvl, (k,))
+    y0, x0 = rand_i32(hp - 128 + 1, (k,)), rand_i32(wp - 128 + 1, (k,))
+    ht, wt = hp // 128, wp // 128
+    ty, tx = rand_i32(ht - 1, (k,)), rand_i32(wt - 1, (k,))
+    perm = torch.argsort((lvl.long() * ht + ty) * wt + tx, stable=True)  # tile-sorted, as 'ptiles' sorts
+    lvl_s, ty_s, tx_s = lvl[perm], ty[perm], tx[perm]
+    recs = {"select_samples_epatch": [], "select_samples_tiles": [], "select_samples_tiles8": []}
+    for c0, ns in ((1, 109), (0, 441)):
+        rx, ry = rand_i32(128, (k, ns)), rand_i32(128, (k, ns))
+        rx2, ry2 = rand_i32(256, (k, ns)), rand_i32(256, (k, ns))
+        nbytes = select_bytes(k, ns, 3 - c0)
+        recs["select_samples_epatch"].append(hold(
+            f"select_samples_epatch c0={c0} NS={ns}",
+            lambda: mldb_losers.select_samples_epatch(planes, lvl, y0, x0, rx, ry, c0),
+            lambda: select.select_samples_plain(planes, lvl, y0, x0, rx, ry, c0), nbytes,
+            lib=index_call(planes, lvl, y0[:, None] + ry, x0[:, None] + rx, c0)))
+        for name in ("select_samples_tiles", "select_samples_tiles8"):
+            fn = getattr(mldb_losers, name)
+            recs[name].append(hold(
+                f"{name} c0={c0} NS={ns}",
+                lambda fn=fn: fn(planes, lvl_s, ty_s, tx_s, rx2, ry2, c0),
+                lambda: select.select_samples_plain(planes, lvl_s, 128 * ty_s, 128 * tx_s, rx2, ry2, c0), nbytes,
+                lib=index_call(planes, lvl_s, 128 * ty_s[:, None] + ry2, 128 * tx_s[:, None] + rx2, c0)))
+    for name, r in recs.items():
+        add(name, r)
+    del planes
+
+    # Row 10: exp_select_kernels.py (K=4096, NS=1280, 136x128 windows of a
+    # (16, 3, 544, 1408) stack) and exp_bisect.py (K=512, the same stack).
+    sh = PROBE_SHAPES
+    planes = torch.randn((sh["levels"], 3, sh["hmax"], sh["wmax"]), generator=gen, device=dev)
+
+    def window_inputs(k, ns):
+        return (planes, rand_i32(sh["levels"], (k,)), rand_i32(sh["hmax"] - probes.PH, (k,)),
+                rand_i32(sh["wmax"] - probes.PW, (k,)), rand_i32(probes.PH, (k, ns)), rand_i32(probes.PW, (k, ns)))
+
+    k, ns = sh["window_k"], sh["window_ns"]
+    args = window_inputs(k, ns)
+    _, wl, wy, wx, wry, wrx = args
+    out["select_window[exp_select_kernels]"] = hold(
+        f"select_window (exp_select_kernels, K={k}, NS={ns})", lambda: probes.select_window(*args),
+        lambda: probes.select_window_plain(*args), select_bytes(k, ns, 3),
+        lib=lambda f=index_call(planes, wl, wy[:, None] + wry, wx[:, None] + wrx): f().reshape(k, -1))
+    k = sh["bisect_k"]
+    args = window_inputs(k, ns)
+    _, bl, by, bx, bry, brx = args
+    window_bytes = k * (12 + 3 * probes.PH * probes.PW * 4) + k * 3 * ns * 4
+    for body, fn in probes.BISECT.items():
+        flops = {"dma_only": k * 3 * probes.PH * probes.PW, "split_nomm": 8 * k * 3 * probes.PH * probes.PW,
+                 "matmul_static": k * ns * 9 * probes.PH, "matmul_dyn_oh": k * ns * 9 * probes.PH}.get(body, 0)
+        nbytes = window_bytes + (k * ns * 4 if body == "matmul_dyn_oh" else 0)
+        lib = None
+        if body == "vpu_rowstage":
+            nbytes = k * 12 + k * ns * 4 + 2 * k * 3 * ns * 4
+            f = index_call(planes, bl, by[:, None] + bry, bx[:, None].expand(k, ns))
+            lib = lambda f=f: f().reshape(k, -1)  # noqa: E731
+        out[f"bisect_{body}"] = hold(f"bisect {body} (K={k}, NS={ns})", lambda fn=fn: fn(*args),
+                                     lambda body=body: probes.bisect_plain(body, *args), nbytes, flops, lib,
+                                     probes.SUM_ATOL.get(body))
+    del planes, args
+
+    # exp_r3_gather_probe.py and exp_r3_mxu_probe.py: patches (4096, 3, 128,
+    # 128), NS=512 ('split' at NS=128, where its TPU body traces).
+    k, c, p, ns = sh["patch_k"], 3, 128, sh["patch_ns"]
+    patches = torch.randn((k, c, p, p), generator=gen, device=dev)
+    rx, ry = rand_i32(p, (k, ns)), rand_i32(p, (k, ns))
+    kk = torch.arange(k, dtype=torch.int32, device=dev)
+    out["select_samples_patch[phase_select]"] = hold(
+        f"select_samples_patch (phase_select, K={k}, NS={ns})", lambda: select.select_samples_patch(patches, rx, ry),
+        lambda: select.select_samples_plain(patches, kk, kk * 0, kk * 0, rx, ry),
+        select_bytes(k, ns, c, per_keypoint=0), lib=index_call(patches, kk, ry, rx))
+    rx128, ry128 = rand_i32(p, (k, p)), rand_i32(p, (k, p))
+    leaders = ry[torch.arange(k, device=dev) // 8 * 8]
+    rows_read = int(torch.zeros((k, p), device=dev).scatter_(1, leaders.long(), 1.0).sum())
+    for body, fn in probes.MXU.items():
+        n = p if body == "split" else ns
+        bx, bys = (rx128, ry128) if body == "split" else (rx, ry)
+        lib = None
+        if body in ("dots", "dotsbig"):
+            nbytes = k // 8 * n * 4 + rows_read * p * 4 + k * c * n * 4
+            flops = k * n * p * (10 if body == "dots" else 4)
+        elif body == "onehot":
+            nbytes, flops = k * n * 8 + k * 4 + k * c * n * 4, k * n
+        elif body == "split":
+            nbytes, flops = k * c * n * 2 * 4 + k * c * n * 4, k * c * n * 2 * 9
+        else:
+            nbytes, flops = 2 * k * c * n * 4, 0
+            sidx = torch.arange(n, device=dev)
+            lib = lambda s=sidx: patches[:, :, s // p, s % p]  # noqa: E731
+        out[f"mxu_{body}"] = hold(f"mxu {body} (K={k}, NS={n})", lambda fn=fn, bx=bx, bys=bys: fn(bx, bys, patches),
+                                  lambda body=body, bx=bx, bys=bys: probes.mxu_plain(body, bx, bys, patches),
+                                  nbytes, flops, lib, probes.SUM_ATOL.get(body))
+    del patches
+
+    # exp_r3_gather_probe.py phase_lane / phase_sublane: a (128, 512) tile.
+    x = torch.randn((128, 512), generator=gen, device=dev)
+    for phase, axis, hi in (("lane", 1, 512), ("sublane", 0, 128)):
+        idx = rand_i32(hi, (128, 512))
+        idx_l = idx.long()
+        out[f"take_along[phase_{phase}]"] = hold(
+            f"take_along axis {axis} (phase_{phase}, 128x512)",
+            lambda idx=idx, axis=axis: probes.take_along(x, idx, axis),
+            lambda idx=idx, axis=axis: probes.take_along_plain(x, idx, axis), 3 * x.numel() * 4,
+            lib=lambda idx_l=idx_l, axis=axis: torch.take_along_dim(x, idx_l, dim=axis))
+
+    # exp_r5_pfused.py phase_trig: an (8, 128) uniform(-7, 7) tile, held to
+    # torch's functions within 2 ulp; bit-equality per function printed.
+    xt = torch.rand((8, 128), generator=gen, device=dev) * 14.0 - 7.0
+    got, ref = probes.trig_probe(xt), probes.trig_probe_plain(xt)
+    torch.cuda.synchronize()
+    ulp = (got.view(torch.int32).long() - ref.view(torch.int32).long()).abs().amax(dim=1).tolist()
+    for i, fname in enumerate(("atan2", "cos", "sin", "mod")):
+        print(f"trig probe {fname}: bit-equal to torch.{('atan2', 'cos', 'sin', 'remainder')[i]} "
+              f"{bool(torch.equal(got[i], ref[i]))}, max diff {float((got[i] - ref[i]).abs().max()):.3e} "
+              f"({ulp[i]} ulp)")
+    require(max(ulp) <= 2, f"trig probe within 2 ulp of torch's functions ({ulp} ulp)")
+    kms, pms = alternate(lambda: probes.trig_probe(xt), lambda: probes.trig_probe_plain(xt), cuda_ms)
+    n = xt.shape[1]
+    out["trig_probe"] = kernel_record(kms, pms, float((got - ref).abs().max()), 6 * n * 4, 60 * n, trig_ulp=ulp)
+    print(f"trig probe: kernel {kms:.4f} ms, plain {pms:.4f} ms, library none")
+    return out
 
 
 def umeyama(src, dst):
@@ -662,6 +994,8 @@ def main():
     from cv_tpu_torch.camera import CameraIntrinsics
     from cv_tpu_torch.consensus import BatchConsensus, Estimator
     from cv_tpu_torch.core import Isometry3, camera_to_camera_residual
+    from cv_tpu_torch.experiments import mldb_losers, probes
+    from cv_tpu_torch.experiments import runs as exp_runs
     from cv_tpu_torch.matching import PAD_DISTANCE, distance_matrix, knn2
     from cv_tpu_torch.optimize import optimizers, resident
     from cv_tpu_torch.solvers import eight_point
@@ -677,25 +1011,38 @@ def main():
         "single_view_l2": resident.single_view_l2,
         "three_view_l2": resident.three_view_l2,
         "three_view_adaptive": resident.three_view_adaptive,
+        "select_samples_epatch": mldb_losers.select_samples_epatch,
+        "select_samples_tiles": mldb_losers.select_samples_tiles,
+        "select_samples_tiles8": mldb_losers.select_samples_tiles8,
+        "select_window[exp_select_kernels]": probes.select_window,
+        "take_along": probes.take_along,
+        "trig_probe": probes.trig_probe,
+        **{f"bisect_{body}": fn for body, fn in probes.BISECT.items()},
+        **{f"mxu_{body}": fn for body, fn in probes.MXU.items()},
     }
     plains = [
         (select_mod, "select_samples_plain"), (select_mod, "select_groups_plain"),
         (fused_mod, "select_fused_plain"), (extrema, "dedup_scan_plain"),
         (optimizers, "single_view_simple_optimize_l2"), (optimizers, "three_view_simple_optimize_l2"),
-        (optimizers, "three_view_adaptive_optimize_l2"),
+        (optimizers, "three_view_adaptive_optimize_l2"), (probes, "select_window_plain"),
+        (probes, "take_along_plain"), (probes, "trig_probe_plain"), (probes, "bisect_plain"), (probes, "mxu_plain"),
     ]
-    main_launches = {name: 0 for name in counters}
-    main_launches["select_samples_patch"] = 0  # the select kernel's launches in patch form
+    # Launches per kernel row: the main paths' (KITTI, SfM, dense) for rows
+    # 1-8 and the dedup scan; the retired modes' and the experiments' runs
+    # for the rest.  Rows that map to the select kernel count its launches
+    # in their own runs.
+    main_launches = {name: 0 for name in (*counters, *EXPERIMENT_KERNELS, "select_samples_patch")}
 
-    def tally(record, patch_form=False, **expect):
+    def tally(run, attribute=None, **expect):
         """Add a main-path run's launches to the totals and hold each
-        expected count (an int, or (min,) for at least).  In a
-        ``patch_form`` run the select kernel's launches are the patch
-        form's (#2/#3), not the direct select's (#1)."""
-        for name, n in record["launches"].items():
-            main_launches["select_samples_patch" if patch_form and name == "select_samples" else name] += n
+        expected count (an int, or (min,) for at least).  ``attribute``
+        names the row that the select kernel's launches in this run belong
+        to (the patch form's #2/#3 in a 'pallas' run, a retired select or
+        probe in theirs), else #1's."""
+        for name, n in run["launches"].items():
+            main_launches[attribute if attribute and name == "select_samples" else name] += n
         for name, want in expect.items():
-            got = record["launches"][name]
+            got = run["launches"][name]
             ok = got >= want[0] if isinstance(want, tuple) else got == want
             require(ok, f"{name} launched {got} times (expected {want})")
 
@@ -743,6 +1090,7 @@ def main():
         extrema.dedup_scan_device = real_scan
     dedup_record = check_dedup_kernel(dev, args.seed, recorded[0])
     del recorded
+    exp_records = check_experiment_kernels(dev, args.seed)
 
     # -- 4. the KITTI path, once, with the counters at zero ------------------
     imgs = np.stack([to_gray_f32(load_gray(p)) for p in kitti_pair()] * (BATCH // 2))
@@ -827,7 +1175,7 @@ def main():
         cnt = host["valid"].sum(axis=1).tolist()
         print(f"dense {label}: keypoints {cnt} (anchors {DENSE_KEYPOINTS}), launches {run['launches']}, "
               f"plain-version calls {run['plain']}")
-        tally(run, patch_form=mode == "pallas", **expect)
+        tally(run, attribute="select_samples_patch" if mode == "pallas" else None, **expect)
         v = host["valid"]
         require(np.isfinite(host["point"][v]).all() and np.isfinite(host["angle"][v]).all(), f"dense {label} finite")
         if mode is None:
@@ -868,7 +1216,91 @@ def main():
     print(f"dense dedup kernel: median {statistics.median(s[0] for s in dense_scan):.3f} ms, "
           f"sequential steps per frame {dense_scan[0][1]}")
 
-    # -- 7. the card against the port's CPU path on small inputs ------------
+    # -- 7. the retired describe modes and the experiments' runs ------------
+    # 'pepatch' and 'ptiles' (registered by importing mldb_losers) at the
+    # KITTI batch, against phase 4's 'pgather'; 'ptiles' on the dense pair,
+    # against the default 'pgroups'.  Each run with the counters at zero;
+    # the retired wrappers count their own select-kernel launches.
+    kitti_ref = fs.to_numpy()
+    for mode, ex, imgs_in, base, row in (
+        ("pepatch", DeviceExtractor(Akaze.sparse(), 256, 512, device=dev, onehot_mode="pepatch"), images,
+         kitti_ref, "select_samples_epatch"),
+        ("ptiles", DeviceExtractor(Akaze.sparse(), 256, 512, device=dev, onehot_mode="ptiles"), images,
+         kitti_ref, "select_samples_tiles8"),
+        ("ptiles", DeviceExtractor(Akaze(), device=dev, onehot_mode="ptiles", **DENSE), dense_images,
+         runs[None], "select_samples_tiles8"),
+    ):
+        label = f"{'dense' if imgs_in is dense_images else 'KITTI'} {mode}"
+        with main_path(counters, plains) as run:
+            host = ex.extract(imgs_in).to_numpy()
+        launches = run["launches"]
+        cnt = host["valid"].sum(axis=1).tolist()
+        require(launches[row] == 2 and launches["select_groups"] == 0 and launches["dedup_scan"] == 1,
+                f"{label}: launches {launches}")
+        main_launches[row] += launches[row]
+        v = base["valid"]
+        require(cnt == v.sum(axis=1).tolist(), f"{label}: counts {cnt} differ from {v.sum(axis=1).tolist()}")
+        require(np.array_equal(host["valid"], v) and np.array_equal(host["point"], base["point"]),
+                f"{label}: keypoints differ")
+        rows = (host["words"][v] == base["words"][v]).all(axis=1)
+        same_angles = np.array_equal(host["angle"][v], base["angle"][v])
+        print(f"{label}: keypoints {cnt}, {int(rows.sum())} of {int(v.sum())} valid word rows bitwise equal "
+              f"({rows.mean():.4f}), angles bitwise equal {same_angles}, launches {row} {launches[row]}, "
+              f"plain-version calls {run['plain']}")
+        if mode == "pepatch":
+            require(cnt == KITTI_KEYPOINTS * (BATCH // 2), f"{label}: keypoints {cnt}")
+            require(bool(rows.all()) and same_angles, f"{label}: every valid word row and angle bitwise equal")
+        else:
+            describe_gates(f"{label} vs {'pgather' if base is kitti_ref else 'pgroups'}",
+                           host["words"].reshape(-1, 16), host["valid"].reshape(-1), host["angle"].reshape(-1),
+                           base["words"].reshape(-1, 16), v.reshape(-1), base["angle"].reshape(-1))
+
+    def experiment(label, fn, rows):
+        """One experiments entry point with the counters at zero and no
+        plain version; each kernel row in ``rows`` (row -> counter) must
+        launch, and its launches count to the row."""
+        with main_path(counters, plains) as run:
+            res = fn()
+        for row, counter in rows.items():
+            require(run["launches"][counter] >= 1, f"{label}: {counter} not launched ({run['launches']})")
+            main_launches[row] += run["launches"][counter]
+        print(f"experiments {label}: {json.dumps(res)}")
+        return res
+
+    res = experiment("exp_r4_epatch kernel (l=96, K=4096, NS=1280)", lambda: exp_runs.epatch_kernel(dev, args.seed),
+                     {"select_samples_epatch": "select_samples_epatch"})
+    require(res["equal"], "epatch select bitwise equal to the cut + patch-form select")
+    res = experiment("tile selects (K=4096, NS=441)", lambda: exp_runs.tiles_kernel(dev, args.seed),
+                     {"select_samples_tiles": "select_samples_tiles", "select_samples_tiles8": "select_samples_tiles8"})
+    require(res["equal"], "tile selects equal to each other and to NumPy")
+    for label, fn, rows in (
+        ("exp_r4_epatch extract (B=8, 512 / 4096)", exp_runs.epatch_extract,
+         {"select_samples_epatch": "select_samples_epatch"}),
+        ("exp_r4_ptiles (B=8, 256 / 512)", exp_runs.ptiles_extract, {"select_samples_tiles8": "select_samples_tiles8"}),
+        ("exp_r5_pfused extract (B=8, 256 / 512)", exp_runs.pfused_extract, {}),
+    ):
+        res = experiment(label, lambda fn=fn: fn(images), rows)
+        modes = list(res)
+        require(all(res[m]["counts"] == res[modes[0]]["counts"] for m in modes), f"{label}: keypoints differ")
+        require(res[modes[1]]["valid_equal"] and res[modes[1]]["equal_rows"] >= 0.99, f"{label}: words")
+    res = experiment("exp_select_kernels (K=4096, NS=1280)", lambda: exp_runs.select_kernels_run(dev, args.seed),
+                     {"select_window[exp_select_kernels]": "select_window[exp_select_kernels]"})
+    require(res["exact"], "exp_select_kernels: bit-exact to its host reference")
+    for phase, row, counter in (("lane", "take_along[phase_lane]", "take_along"),
+                                ("sublane", "take_along[phase_sublane]", "take_along"),
+                                ("select", "select_samples_patch[phase_select]", "select_samples")):
+        res = experiment(f"exp_r3_gather_probe {phase}", lambda phase=phase: exp_runs.gather_probe_run(
+            dev, args.seed, phases=(phase,)), {row: counter})
+        require(res[phase]["exact"], f"exp_r3_gather_probe {phase}: exact")
+    res = experiment("exp_bisect (K=512, NS=1280)", lambda: exp_runs.bisect_run(dev, args.seed),
+                     {f"bisect_{b}": f"bisect_{b}" for b in probes.BISECT})
+    require(res["finite"], "exp_bisect: finite outputs")
+    res = experiment("exp_r3_mxu_probe (K=4096, NS=512)", lambda: exp_runs.mxu_probe_run(dev, args.seed),
+                     {f"mxu_{b}": f"mxu_{b}" for b in probes.MXU})
+    require(res["finite"], "exp_r3_mxu_probe: finite outputs")
+    experiment("exp_r5_pfused trig", lambda: exp_runs.trig_run(dev, args.seed), {"trig_probe": "trig_probe"})
+
+    # -- 8. the card against the port's CPU path on small inputs ------------
     rng = np.random.default_rng(args.seed + 3)
     crop = imgs[0, 128:384, 400:784]
     for name, img, cfg, cb, mf, share in (
@@ -892,7 +1324,7 @@ def main():
         print(f"cpu reference {name}: {int(vg.sum())} keypoints, max point diff "
               f"{dist.min(1).max():.2e} px, word rows equal {rows:.4f}")
 
-    # -- 8. timings --------------------------------------------------------
+    # -- 9. timings --------------------------------------------------------
     for _ in range(2):
         extract_and_match(images)
     per_iter = wall_ms(lambda: extract_and_match(images), reps=10)
@@ -907,13 +1339,17 @@ def main():
     print(f"stage match: median {statistics.median(match):.3f} ms over 5 reps")
     print(f"dedup kernel: median {statistics.median(s[0] for s in scan):.3f} ms, "
           f"sequential steps per frame {scan[0][1]}")
+    for mode in ("pepatch", "ptiles"):
+        _, retired_ms, _ = staged(extractor, images, mode, reps=5)
+        print(f"stage describe, {mode}: median {retired_ms['describe']:.3f} ms over 5 reps "
+              f"(pgather {stage_ms['describe']:.3f} ms)")
     cons = wall_ms(lambda: pose_pair0(fs, idx, keep), reps=5)
     print(f"consensus (512 hypotheses, f64): median {statistics.median(cons):.3f} ms over {len(cons)} reps")
 
     def row(name, source, replaces, launches, rec):
-        return {"name": name, "route": "cuda", "source": f"cv_tpu_torch/csrc/{source}.cu",
-                "replaces": replaces, "launches": launches, "max_abs_err": rec["max_abs_err"],
-                "ms": rec["ms"], "plain_ms": rec["plain_ms"]}
+        keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        return {"name": name, "route": "cuda", "source": f"cv_tpu_torch/csrc/{source}.cu", "replaces": replaces,
+                "launches": launches, **{k: rec[k] for k in keys}}
 
     # #2 and #3 both map to the patch form of kernel #1: one pair of
     # launches, the 'pallas' run's, stands in both rows.
@@ -934,6 +1370,8 @@ def main():
     ]
     for name, spec in POSE_KERNELS.items():
         records.append(row(name, name, spec["replaces"], main_launches[name], pose_records[name]))
+    for name, (source, replaces) in EXPERIMENT_KERNELS.items():
+        records.append(row(name, source, replaces, main_launches[name], exp_records[name]))
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -3,9 +3,10 @@
 Port of ``cv_tpu/akaze/descriptors.py`` (reference
 scale_space_extrema.rs:157-288 and descriptors.rs).  The static tables are
 copies of the reference's NumPy host code.  The describe path is the
-``pgather`` and ``pallas`` branches of ``orient_mldb_onehot`` and the group
-describe ``orient_mldb_groups``: both sample passes (orientation, then
-M-LDB) go through the hand-written select kernels of :mod:`.select`.
+``pgather``, ``pallas`` and ``pepatch`` branches of ``orient_mldb_onehot``
+and the group describe ``orient_mldb_groups``: both sample passes
+(orientation, then M-LDB) go through the hand-written select kernels of
+:mod:`.select`.
 """
 
 from __future__ import annotations
@@ -33,6 +34,20 @@ GAUSS25 = np.array(
 
 PATCH = 128  # side of the window around a keypoint that holds all its samples
 TWO_PI = float(np.float32(2.0 * np.pi))
+
+# Retired describe modes ('ptiles' and 'pepatch', cv_tpu's measured losers
+# on its TPU) register here when cv_tpu_torch/experiments/mldb_losers.py is
+# imported: 'ptiles' maps to an orient_mldb-like describe, 'pepatch' to a
+# select hook of select_samples' signature.
+EXTERNAL_MODES: dict = {}
+RETIRED_MODULE = "cv_tpu_torch/experiments/mldb_losers.py"
+
+
+def external_mode(mode: str):
+    """The registered hook of a retired describe mode, or ``KeyError``."""
+    if mode not in EXTERNAL_MODES:
+        raise KeyError(f"{mode!r} was retired to {RETIRED_MODULE}; import that module first")
+    return EXTERNAL_MODES[mode]
 
 
 @lru_cache(maxsize=None)
@@ -332,17 +347,20 @@ def orient_mldb(
 ):
     """Dominant orientation, then M-LDB words, for ``K`` keypoints.
 
-    Port of ``orient_mldb_onehot``'s ``pgather`` and ``pallas`` modes.
-    Every sample of a keypoint lies in the 128x128 window anchored at
-    ``(y0, x0)`` (the reference's patch), addressed as a window-relative
-    offset.  ``'pgather'``: the select kernel reads ``planes[lvl, c, y0 +
-    rel_y, x0 + rel_x]`` straight from the stack.  ``'pallas'``: the
-    patches are cut first, as ``cv_tpu`` does for its one-hot kernels, and
-    selected through :func:`select_samples_patch`.  Both give the same
-    bits.  Returns ``(words (K, 16) int32, ok (K,), angle (K,))``.
+    Port of ``orient_mldb_onehot``'s ``pgather``, ``pallas`` and
+    ``pepatch`` modes.  Every sample of a keypoint lies in the 128x128
+    window anchored at ``(y0, x0)`` (the reference's patch), addressed as a
+    window-relative offset.  ``'pgather'``: the select kernel reads
+    ``planes[lvl, c, y0 + rel_y, x0 + rel_x]`` straight from the stack.
+    ``'pallas'``: the patches are cut first, as ``cv_tpu`` does for its
+    one-hot kernels, and selected through :func:`select_samples_patch`.
+    ``'pepatch'``: the retired select hook ``EXTERNAL_MODES['pepatch']``
+    (``KeyError`` until its module is imported) on the same anchors and
+    offsets.  All give the same bits.  Returns ``(words (K, 16) int32, ok
+    (K,), angle (K,))``.
     """
-    if mode not in ("pgather", "pallas"):
-        raise ValueError(f"orient_mldb: mode {mode!r} is not 'pgather' or 'pallas'")
+    if mode not in ("pgather", "pallas", "pepatch"):
+        raise ValueError(f"orient_mldb: mode {mode!r} is not 'pgather', 'pallas' or 'pepatch'")
     p = PATCH
     lvl = lvl.to(torch.int32)
     y0, x0 = patch_anchor(xf, yf, planes.shape[2], planes.shape[3])
@@ -352,9 +370,10 @@ def orient_mldb(
         def select(rel_x, rel_y, c0):
             return select_samples_patch(patches, rel_x, rel_y, c0)
     else:
+        hook = external_mode(mode) if mode == "pepatch" else select_samples
 
         def select(rel_x, rel_y, c0):
-            return select_samples(planes, lvl, y0, x0, rel_x, rel_y, c0)
+            return hook(planes, lvl, y0, x0, rel_x, rel_y, c0)
 
     orel_x, orel_y = orientation_offsets(xf, yf, scale, width, height, x0, y0, p)
     angle = orientation_from_values(select(orel_x, orel_y, 1))  # (K, 2, 109) samples

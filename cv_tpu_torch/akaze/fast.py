@@ -461,7 +461,7 @@ def stage_refine_select(cfg, specs, cand, planes, k, max_features, slack=128):
 
 
 # Describe modes with a kernel (cv_tpu's names), and cv_tpu's XLA-only ones.
-KERNEL_MODES = ("pgather", "pgroups", "pfused", "pallas")
+KERNEL_MODES = ("pgather", "pgroups", "pfused", "pallas", "pepatch", "ptiles")
 XLA_MODES = ("highest", "bf16x3", "bf16x3k", "+inter", "+fused")
 
 
@@ -470,10 +470,13 @@ def check_describe_mode(mode: str | None) -> None:
     describe mode of ``cv_tpu`` that reaches a TPU kernel: ``'pgather'``
     (the select kernel), ``'pgroups'``/``'pgroupsN'`` (the group select, N
     groups per TPU grid step; a table layout only here), ``'pfused'`` (the
-    fused describe) or ``'pallas'`` (the patch-form select)."""
-    if mode is None or mode in ("pgather", "pfused", "pallas"):
+    fused describe), ``'pallas'`` (the patch-form select), or the retired
+    ``'pepatch'``/``'ptiles'``, which run once
+    ``cv_tpu_torch.experiments.mldb_losers`` is imported (an extract raises
+    ``KeyError`` before)."""
+    if mode is None or mode in KERNEL_MODES:
         return
-    if mode.startswith("pgroups") and (mode == "pgroups" or mode[7:].isdigit() and int(mode[7:]) > 0):
+    if mode.startswith("pgroups") and mode[7:].isdigit() and int(mode[7:]) > 0:
         return
     base, plus, _ = mode.partition("+")
     if plus or base in XLA_MODES:
@@ -516,6 +519,8 @@ def stage_describe(cfg, planes, sel, mode: str = "pgather") -> FeatureSet:
         )
     elif mode == "pfused":
         words, w_ok, angle = fused.orient_mldb_fused(stack, *kp, pattern_size=cfg.descriptor_pattern_size)
+    elif mode == "ptiles":
+        words, w_ok, angle = desc.external_mode("ptiles")(stack, *kp, cfg.descriptor_pattern_size)
     else:
         words, w_ok, angle = desc.orient_mldb(stack, *kp, pattern_size=cfg.descriptor_pattern_size, mode=mode)
     return FeatureSet(

@@ -99,12 +99,12 @@ def select_samples_patch(patches, rel_x, rel_y, c0: int = 0) -> torch.Tensor:
     return select_samples(patches, lvl, zero, zero, rel_x, rel_y, c0)
 
 
-def cut_patches(planes, lvl, y0, x0, side: int = 128) -> torch.Tensor:
-    """``(K, C, side, side)`` windows ``planes[lvl, :, y0:y0+side,
-    x0:x0+side]``: the patch cut of ``orient_mldb_onehot``."""
-    ar = torch.arange(side, device=planes.device)
-    yy = (y0.long()[:, None] + ar)[:, None, :, None]
-    xx = (x0.long()[:, None] + ar)[:, None, None, :]
+def cut_patches(planes, lvl, y0, x0, side: int = 128, width: int | None = None) -> torch.Tensor:
+    """``(K, C, side, width)`` windows ``planes[lvl, :, y0:y0+side,
+    x0:x0+width]`` (``width`` defaults to ``side``): the patch cut of
+    ``orient_mldb_onehot``."""
+    yy = (y0.long()[:, None] + torch.arange(side, device=planes.device))[:, None, :, None]
+    xx = (x0.long()[:, None] + torch.arange(width or side, device=planes.device))[:, None, None, :]
     ch = torch.arange(planes.shape[1], device=planes.device)[None, :, None, None]
     return planes[lvl.long()[:, None, None, None], ch, yy, xx]
 

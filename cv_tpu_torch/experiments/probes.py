@@ -1,0 +1,327 @@
+"""The experiments' TPU probes on Hopper, each with its plain PyTorch version.
+
+Ports of the Pallas kernels of the probe scripts in ``experiments/``:
+
+* ``exp_select_kernels.py::_make_runner`` (bodies bf16x3, int8x4,
+  take_along_axis): the select of its ``host_reference`` from a 136x128
+  window, ``out[k, c NS + s] = planes[lvl, c, y0 + rel_y, x0 + rel_x]``:
+  :func:`select_window`, the select kernel reshaped.
+* ``exp_r3_gather_probe.py::phase_select``: ``patches[k, c, rel_y,
+  rel_x]``, which is ``akaze.select.select_samples_patch`` (the select
+  kernel); nothing here.
+* ``exp_r3_gather_probe.py::phase_lane`` / ``phase_sublane``:
+  :func:`take_along` (``csrc/take_along.cu``), one kernel, axis 1 or 0.
+* ``exp_r5_pfused.py::phase_trig``: :func:`trig_probe`
+  (``csrc/trig_probe.cu``).
+* ``exp_bisect.py`` bodies and ``exp_r3_mxu_probe.py`` bodies: the
+  functions their stage-isolating bodies compute (``csrc/select_probes.cu``,
+  one ``__global__`` per body): :data:`BISECT` and :data:`MXU`, keyed by
+  body name.
+
+On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
+launches its kernel or raises.  Each wrapper counts its launches on
+``<wrapper>.launches``; :func:`select_window`'s also count on
+``select_samples.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import kernels
+from ..akaze.select import GROUP, cut_patches, select_samples, select_samples_plain
+
+PH, PW = 136, 128  # the window of exp_select_kernels.py / exp_bisect.py
+P = 128  # the patch side of exp_r3_mxu_probe.py
+TWO_PI = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))
+BISECT_BODIES = ("dma_only", "matmul_static", "matmul_dyn_oh", "split_nomm", "vpu_rowstage")
+MXU_BODIES = ("dots", "dotsbig", "onehot", "split", "dma")
+# The bodies that sum, and the absolute tolerance that holds each to its
+# plain version (the sums run in other orders).  Largest differences
+# measured: against the JAX bodies on the CPU over six seeds, 6.4e-4 for
+# the 52,224-term window sums (magnitude to ~900) and 3.1e-5 for the 1,224-
+# and 128-term column and row sums (to ~500); the kernels against the plain
+# versions on an H100, 1.8e-4 and 6.1e-5 (two ulp at 256-512).  The
+# tolerances are about three times those and eight ulp at 512.  The other
+# bodies are selects, held bitwise.
+SUM_ATOL = {"dma_only": 2e-3, "split_nomm": 2e-3, "matmul_static": 2.5e-4, "matmul_dyn_oh": 2.5e-4,
+            "dots": 2.5e-4, "dotsbig": 2.5e-4}
+
+_VOID, _INT = ctypes.c_void_p, ctypes.c_int
+
+
+def _device(name: str, *tensors) -> torch.device:
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"{name}: tensors on several devices {devices}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev
+
+
+def _require(name: str, t: torch.Tensor, dtype, ndim: int):
+    if t.dtype != dtype or t.ndim != ndim or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous {ndim}-d {dtype}, got {t.dtype} {tuple(t.shape)}")
+
+
+def _launch(source: str, symbol: str, argtypes, *args):
+    fn = getattr(kernels.load(source), symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
+
+
+def _stream(dev: torch.device) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round to bfloat16 (nearest even) and back to float32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _split3(p: torch.Tensor):
+    """The bf16x3 split of the TPU's exact f32 products."""
+    p1 = _bf16(p)
+    r1 = p - p1
+    p2 = _bf16(r1)
+    return p1, p2, _bf16(r1 - p2)
+
+
+# ---------------------------------------------------------------------------
+# exp_select_kernels.py: the select of host_reference
+# ---------------------------------------------------------------------------
+
+
+def select_window_plain(planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
+    """``(K, C * NS)``: ``out[k, c NS + s] = planes[lvl[k], c, y0[k] +
+    rel_y[k, s], x0[k] + rel_x[k, s]]`` (the probe's argument order)."""
+    return select_samples_plain(planes, lvl, y0, x0, rel_x, rel_y).reshape(lvl.shape[0], -1)
+
+
+def select_window(planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
+    """:func:`select_window_plain` through the select kernel; its launches
+    count on ``select_samples.launches`` and on ``select_window.launches``."""
+    before = select_samples.launches
+    out = select_samples(planes, lvl, y0, x0, rel_x, rel_y).reshape(lvl.shape[0], -1)
+    select_window.launches += select_samples.launches - before
+    return out
+
+
+select_window.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# exp_r3_gather_probe.py: lane and sublane gathers
+# ---------------------------------------------------------------------------
+
+
+def take_along_plain(x, idx, axis: int) -> torch.Tensor:
+    """``out[r, c] = x[r, idx[r, c]]`` (axis 1) or ``x[idx[r, c], c]``
+    (axis 0), by advanced indexing."""
+    rows, cols = idx.shape
+    if axis == 1:
+        return x[torch.arange(rows, device=x.device)[:, None], idx.long()]
+    return x[idx.long(), torch.arange(cols, device=x.device)[None, :]]
+
+
+def take_along(x, idx, axis: int) -> torch.Tensor:
+    """:func:`take_along_plain` through ``csrc/take_along.cu``.  ``x``: 2-d
+    float32; ``idx``: 2-d int32 with ``x``'s rows (axis 1) or columns
+    (axis 0)."""
+    dev = _device("take_along", x, idx)
+    if axis not in (0, 1):
+        raise ValueError(f"take_along: axis must be 0 or 1, got {axis}")
+    if dev.type == "cpu":
+        return take_along_plain(x, idx, axis)
+    _require("x", x, torch.float32, 2)
+    _require("idx", idx, torch.int32, 2)
+    if idx.shape[1 - axis] != x.shape[1 - axis]:
+        raise ValueError(f"take_along: idx {tuple(idx.shape)} does not fit x {tuple(x.shape)} on axis {axis}")
+    out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
+    _launch("take_along", "cv_take_along", [_VOID] * 3 + [_INT] * 5 + [_VOID],
+            x.data_ptr(), idx.data_ptr(), out.data_ptr(), *idx.shape, *x.shape, axis, _stream(dev))
+    take_along.launches += 1
+    return out
+
+
+take_along.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# exp_r5_pfused.py: the trigonometry probe
+# ---------------------------------------------------------------------------
+
+
+def trig_probe_plain(x) -> torch.Tensor:
+    """``(4, N)`` rows ``atan2(x[0], x[1])``, ``cos(x[0])``, ``sin(x[0])``
+    and the floored ``mod(x[0] + 2pi, 2pi)``, in float32."""
+    a, b = x[0], x[1]
+    return torch.stack([torch.atan2(a, b), torch.cos(a), torch.sin(a), torch.remainder(a + TWO_PI, TWO_PI)])
+
+
+def trig_probe(x) -> torch.Tensor:
+    """:func:`trig_probe_plain` through ``csrc/trig_probe.cu``; ``x``:
+    (R >= 2, N) float32."""
+    dev = _device("trig_probe", x)
+    if dev.type == "cpu":
+        return trig_probe_plain(x)
+    _require("x", x, torch.float32, 2)
+    if x.shape[0] < 2:
+        raise ValueError(f"trig_probe: x needs two rows, got {tuple(x.shape)}")
+    n = x.shape[1]
+    out = torch.empty((4, n), dtype=torch.float32, device=dev)
+    _launch("trig_probe", "cv_trig_probe", [_VOID] * 3 + [_INT, ctypes.c_float, _VOID],
+            x[0].data_ptr(), x[1].data_ptr(), out.data_ptr(), n, ctypes.c_float(TWO_PI), _stream(dev))
+    trig_probe.launches += 1
+    return out
+
+
+trig_probe.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# exp_bisect.py: the window probes
+# ---------------------------------------------------------------------------
+
+
+def bisect_plain(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
+    """The ``(K, 3 NS)`` output of ``exp_bisect.py``'s body ``body`` (see
+    ``csrc/select_probes.cu``) on the 3x136x128 windows."""
+    k, ns = rel_y.shape
+    win = cut_patches(planes, lvl, y0, x0, PH, PW)
+    if body in ("dma_only", "split_nomm"):
+        if body == "dma_only":
+            s = win.sum(dim=(1, 2, 3))
+        else:
+            p1, p2, p3 = _split3(win)
+            s = p1.sum(dim=(1, 2, 3)) + p2.sum(dim=(1, 2, 3)) + p3.sum(dim=(1, 2, 3))
+        return s[:, None].expand(k, 3 * ns).contiguous()
+    if body == "vpu_rowstage":
+        rows = rel_y.long()[:, None, :].expand(k, win.shape[1], ns)
+        return win[..., 0].gather(2, rows).reshape(k, -1)
+    if body in ("matmul_static", "matmul_dyn_oh"):
+        if body == "matmul_static":
+            cols = (torch.arange(ns, device=planes.device) % PW).expand(k, ns)
+        else:
+            cols = rel_x.long()
+        g = _bf16(win).gather(3, cols[:, None, None, :].expand(k, win.shape[1], PH, ns))
+        # Three stacked copies of the channels, summed over rows: the one-hot
+        # product's column sum, then repeat(3).
+        return torch.cat([g] * 3, dim=1).sum(dim=(1, 2)).repeat_interleave(3, dim=1)
+    raise ValueError(f"unknown exp_bisect body {body!r}")
+
+
+def _bisect_wrapper(body: str):
+    symbol = f"cv_bisect_{body}"
+
+    def run(planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
+        dev = _device(symbol, planes, lvl, y0, x0, rel_y, rel_x)
+        if dev.type == "cpu":
+            return bisect_plain(body, planes, lvl, y0, x0, rel_y, rel_x)
+        _require("planes", planes, torch.float32, 4)
+        if planes.shape[1] != 3:
+            raise ValueError(f"planes must have 3 channels, got {tuple(planes.shape)}")
+        k, ns = rel_y.shape
+        for name, t in (("lvl", lvl), ("y0", y0), ("x0", x0)):
+            _require(name, t, torch.int32, 1)
+        for name, t in (("rel_y", rel_y), ("rel_x", rel_x)):
+            _require(name, t, torch.int32, 2)
+        if {tuple(lvl.shape), tuple(y0.shape), tuple(x0.shape)} != {(k,)} or rel_x.shape != rel_y.shape:
+            raise ValueError(f"{symbol}: lvl/y0/x0 must be ({k},) and rel_x {tuple(rel_y.shape)}")
+        out = torch.empty((k, 3 * ns), dtype=torch.float32, device=dev)
+        _launch("select_probes", symbol, [_VOID] * 7 + [_INT] * 8 + [_VOID],
+                planes.data_ptr(), lvl.data_ptr(), y0.data_ptr(), x0.data_ptr(), rel_y.data_ptr(),
+                rel_x.data_ptr(), out.data_ptr(), *planes.shape, PH, PW, k, ns, _stream(dev))
+        run.launches += 1
+        return out
+
+    run.__name__ = run.__qualname__ = f"bisect_{body}"
+    run.__doc__ = f"``exp_bisect.py``'s ``{body}`` body through ``csrc/select_probes.cu``."
+    run.launches = 0
+    return run
+
+
+BISECT = {body: _bisect_wrapper(body) for body in BISECT_BODIES}
+
+
+# ---------------------------------------------------------------------------
+# exp_r3_mxu_probe.py: the patch probes
+# ---------------------------------------------------------------------------
+
+
+def mxu_plain(body: str, rel_x, rel_y, patches, g: int = GROUP) -> torch.Tensor:
+    """The ``(K, C, NS)`` output of ``exp_r3_mxu_probe.py``'s body ``body``
+    (see ``csrc/select_probes.cu``) on patches ``(K, C, P, P)``.  ``'split'``
+    needs ``NS <= P`` and ``'dma'`` ``NS <= 4 P``: the TPU bodies do not
+    trace beyond (``exp_r3_mxu_probe.py:108-112`` fails at its own NS=512)."""
+    k, c, p, _ = patches.shape
+    ns = rel_x.shape[1]
+    if body in ("dots", "dotsbig"):
+        first = torch.arange(k, device=patches.device) // g * g
+        ry = rel_y[first].long()
+        v = _bf16(patches[:, 0]).gather(1, ry[:, :, None].expand(k, ns, p))  # (K, NS, P)
+        if body == "dots":
+            acc = v
+            for _ in range(8):
+                acc = acc + v
+        else:
+            acc = (v + v) + v
+        s = acc.sum(dim=-1)
+    elif body == "onehot":
+        hit = (rel_x == rel_y).to(torch.float32) + patches[:, 0, 0, 0][:, None]
+        s = torch.where((rel_x >= 0) & (rel_x < p), hit, torch.zeros((), device=patches.device))
+    elif body == "split":
+        if ns > p:
+            raise ValueError(f"mxu split needs NS <= {p}, got {ns} (exp_r3_mxu_probe.py:108-112 fails to trace)")
+        p1, p2, p3 = _split3(patches[:, :, :ns, :2])
+        t = (p1 + p2) + p3  # (K, C, NS, 2)
+        acc = torch.zeros_like(t[:, 0])
+        for ch in range(c):
+            acc = acc + t[:, ch]
+        s = acc[..., 0] * 0 + acc[..., 1]
+    elif body == "dma":
+        if ns > 4 * p:
+            raise ValueError(f"mxu dma needs NS <= {4 * p}, got {ns}")
+        return patches[:, :, :4].reshape(k, c, 4 * p)[:, :, :ns].contiguous()
+    else:
+        raise ValueError(f"unknown exp_r3_mxu_probe body {body!r}")
+    return s[:, None, :].expand(k, c, ns).contiguous()
+
+
+def _mxu_wrapper(body: str):
+    symbol = f"cv_mxu_{body}"
+
+    def run(rel_x, rel_y, patches, g: int = GROUP) -> torch.Tensor:
+        dev = _device(symbol, rel_x, rel_y, patches)
+        if dev.type == "cpu":
+            return mxu_plain(body, rel_x, rel_y, patches, g)
+        _require("patches", patches, torch.float32, 4)
+        _require("rel_x", rel_x, torch.int32, 2)
+        _require("rel_y", rel_y, torch.int32, 2)
+        k, c, p, p2 = patches.shape
+        ns = rel_x.shape[1]
+        if p != p2 or rel_x.shape != (k, ns) or rel_y.shape != (k, ns):
+            raise ValueError(f"{symbol}: patches {tuple(patches.shape)}, rel {tuple(rel_x.shape)}")
+        if body == "split" and ns > p or body == "dma" and ns > 4 * p:
+            raise ValueError(f"{symbol}: NS={ns} beyond what the TPU body traces (exp_r3_mxu_probe.py)")
+        out = torch.empty((k, c, ns), dtype=torch.float32, device=dev)
+        _launch("select_probes", symbol, [_VOID] * 4 + [_INT] * 5 + [_VOID],
+                rel_x.data_ptr(), rel_y.data_ptr(), patches.data_ptr(), out.data_ptr(), c, p, k, ns, g,
+                _stream(dev))
+        run.launches += 1
+        return out
+
+    run.__name__ = run.__qualname__ = f"mxu_{body}"
+    run.__doc__ = f"``exp_r3_mxu_probe.py``'s ``{body}`` body through ``csrc/select_probes.cu``."
+    run.launches = 0
+    return run
+
+
+MXU = {body: _mxu_wrapper(body) for body in MXU_BODIES}

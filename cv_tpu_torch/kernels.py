@@ -8,8 +8,8 @@ loaded with ``ctypes``.  :func:`build_all` starts one ``nvcc`` per source
 at once.  Nothing is built at import time, and a missing compiler raises:
 there is no fallback.
 
-The pose-optimizer loops, the dedup scan and the fused describe are built
-with ``--fmad=false``: no multiply-add is contracted, so each float
+The pose-optimizer loops, the dedup scan, the fused describe and the
+select probes are built with ``--fmad=false``: no multiply-add is contracted, so each float
 expression rounds as it is written, as the kernels' plain versions round.
 """
 
@@ -39,10 +39,12 @@ EXTRA_FLAGS = {
     "three_view_adaptive": ["--fmad=false"],
     "dedup_scan": ["--fmad=false"],
     "select_fused": ["--fmad=false"],
+    "select_probes": ["--fmad=false"],
 }
 KERNELS = (
     "select_samples", "select_groups", "select_fused", "dedup_scan",
     "single_view_l2", "three_view_l2", "three_view_adaptive",
+    "take_along", "trig_probe", "select_probes",
 )
 
 # name -> (ctypes library, build record); filled at first use.

@@ -1,0 +1,491 @@
+"""cv_tpu_torch/experiments against the JAX experiments' TPU kernels.
+
+The retired selects of ``experiments/pallas_mldb_losers.py`` run in
+interpret mode (as ``tests/test_fast_extractor.py`` runs them) and are held
+bitwise: they are pure selects.  The retired describe modes go through both
+packages' ``DeviceExtractor`` under the describe gates of
+``tests/test_torch_groups.py`` (counts equal, points within 1e-3 px, angles
+within 1e-4 rad, >= 99% of valid word rows bitwise equal and none more than
+16 of 486 bits off), and the port's ``'pepatch'`` and ``'ptiles'`` are held
+bitwise to its ``'pgather'``.
+
+The probes' Pallas bodies run through ``pl.pallas_call(...,
+interpret=True)`` built here from each module's own kernel body and a copy
+of its runner's grid spec at K=16, in 32-bit mode as on the TPU (the int8x4
+body's integer sums widen to int64 under x64).  Selects are held bitwise;
+sums, which XLA orders otherwise, within ``probes.SUM_ATOL`` (three times
+the largest difference measured here on six seeds); the trigonometry
+within 2 ulp (measured: atan2, cos and sin 1 ulp apart from torch's, the
+mod bitwise).  Two bodies do not compute what their scripts meant:
+``exp_select_kernels.py``'s bf16x3 body sums its (split, channel, row,
+sample) product over the channel axis (``:121``), so it returns the
+channel sums of the three bf16 splits, not the sample (6.19 off on these
+inputs); it is held bitwise to that function.  ``exp_r3_mxu_probe.py``'s
+``k_split`` does not trace at its own NS=512 (``:108-112`` adds a (512,
+128) and a (128, 128) array); it is held at NS=128.
+
+The probe scripts call ``jax.config.update("jax_compilation_cache_dir",
+...)`` when imported; they are imported with that call stubbed, so this
+worker keeps ``tests/conftest.py``'s cache.  The kernels run only on a
+CUDA card; the tests marked ``cuda`` hold them to their plain versions
+there and skip here.
+"""
+
+import importlib
+import types
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import tpu as pltpu
+
+from cv_tpu.akaze import Akaze as JAkaze
+from cv_tpu.akaze import load_gray as j_load_gray
+from cv_tpu.akaze import to_gray_f32 as j_to_gray
+from cv_tpu.akaze.fast import DeviceExtractor as JDeviceExtractor
+from cv_tpu.utils.fixtures import fixture_path
+from cv_tpu_torch.akaze import Akaze, DeviceExtractor, from_numpy_config, load_gray, to_gray_f32
+from cv_tpu_torch.akaze import descriptors as tdesc
+from cv_tpu_torch.akaze import select as tselect
+from cv_tpu_torch.experiments import mldb_losers, probes, runs
+from cv_tpu_torch.utils import kitti_pair
+
+G = 8
+K = 16
+PROBE_MODULES = ("exp_select_kernels", "exp_bisect", "exp_r3_mxu_probe", "exp_r3_gather_probe", "exp_r5_pfused")
+CACHE_DIR = jax.config.jax_compilation_cache_dir
+
+
+@pytest.fixture(scope="module")
+def exp():
+    """The JAX experiments modules, imported with ``jax.config.update``
+    stubbed (they set the persistent cache dir at import)."""
+    real = jax.config.update
+    jax.config.update = lambda *a, **kw: None
+    try:
+        mods = {name: importlib.import_module(f"experiments.{name}") for name in PROBE_MODULES}
+        losers = importlib.import_module("experiments.pallas_mldb_losers")
+    finally:
+        jax.config.update = real
+    return types.SimpleNamespace(losers=losers, **mods)
+
+
+@pytest.fixture
+def registered(monkeypatch):
+    """The retired modes registered for this test only."""
+    monkeypatch.setitem(tdesc.EXTERNAL_MODES, "pepatch", mldb_losers.epatch_select)
+    monkeypatch.setitem(tdesc.EXTERNAL_MODES, "ptiles", mldb_losers.orient_mldb_ptiles)
+
+
+def test_experiment_imports_keep_the_cache_dir(exp):
+    assert jax.config.jax_compilation_cache_dir == CACHE_DIR
+    assert exp.exp_bisect.K_TOTAL == 512 and exp.exp_select_kernels.K_TOTAL == 4096
+
+
+def test_importing_registers_the_retired_modes():
+    assert tdesc.EXTERNAL_MODES["pepatch"] is mldb_losers.epatch_select
+    assert tdesc.EXTERNAL_MODES["ptiles"] is mldb_losers.orient_mldb_ptiles
+
+
+# ---------------------------------------------------------------------------
+# The retired selects and describe modes
+# ---------------------------------------------------------------------------
+
+
+def _select_inputs(seed, ns, tiles):
+    rng = np.random.default_rng(seed)
+    l, hp, wp = 2, 256, 384
+    planes = rng.normal(size=(l, 3, hp, wp)).astype(np.float32)
+    lvl = rng.integers(0, l, K).astype(np.int32)
+    if tiles:
+        a = rng.integers(0, hp // 128 - 1, K).astype(np.int32)
+        b = rng.integers(0, wp // 128 - 1, K).astype(np.int32)
+        hi = 256
+    else:
+        a = rng.integers(0, hp - 128 + 1, K).astype(np.int32)
+        b = rng.integers(0, wp - 128 + 1, K).astype(np.int32)
+        hi = 128
+    rel_x = rng.integers(0, hi, (K, ns)).astype(np.int32)
+    rel_y = rng.integers(0, hi, (K, ns)).astype(np.int32)
+    return planes, lvl, a, b, rel_x, rel_y
+
+
+@pytest.mark.parametrize("ns", [128, 256])
+@pytest.mark.parametrize("name", ["select_samples_epatch", "select_samples_tiles", "select_samples_tiles8"])
+def test_retired_selects_match_jax(exp, name, ns):
+    args = _select_inputs(3 + ns, ns, tiles=name != "select_samples_epatch")
+    for c0 in (0, 1):
+        ref = np.asarray(getattr(exp.losers, name)(*(jnp.asarray(a) for a in args), interpret=True, c0=c0))
+        got = getattr(mldb_losers, name)(*(torch.as_tensor(a) for a in args), c0=c0).numpy()
+        assert got.shape == ref.shape == (K, 3 - c0, ns)
+        np.testing.assert_array_equal(got, ref)
+
+
+def _gates(w_t, ok_t, a_t, w_j, ok_j, a_j, angle_tol=1e-4):
+    np.testing.assert_array_equal(ok_t, ok_j)
+    da = np.abs(a_t - a_j)
+    assert np.minimum(da, 2 * np.pi - da).max() < angle_tol
+    w_t, w_j = w_t.view(np.uint32), w_j.view(np.uint32)
+    assert (w_t == w_j).all(axis=1).mean() >= 0.99
+    assert np.unpackbits((w_t ^ w_j).view(np.uint8), axis=1).sum(axis=1).max() <= 16
+
+
+def _extract_both(img, mode, jcfg, cb, mf):
+    """Both packages' ``DeviceExtractor`` with describe ``mode`` on one image."""
+    jfs = JDeviceExtractor(jcfg, candidate_budget=cb, max_features=mf, onehot_mode=mode).extract(jnp.asarray(img)[None])
+    tfs = DeviceExtractor(from_numpy_config(jcfg), cb, mf, onehot_mode=mode).extract(img[None]).to_numpy()
+    return {k: np.asarray(getattr(jfs, k))[0] for k in ("valid", "point", "angle", "words")}, {
+        k: v[0] for k, v in tfs.items()
+    }
+
+
+def _hold_to_cv_tpu(j, t):
+    vj, vt = j["valid"], t["valid"]
+    assert vj.sum() == vt.sum() > 20
+    pj, pt = j["point"][vj], t["point"][vt]
+    dist = np.abs(pt[:, None, :] - pj[None, :, :]).max(-1)
+    near = dist.argmin(1)
+    assert dist.min(1).max() < 1e-3
+    ok = np.ones(len(near), bool)
+    _gates(t["words"][vt], ok, t["angle"][vt], j["words"][vj][near], ok, j["angle"][vj][near])
+
+
+def test_ptiles_matches_cv_tpu(exp, registered):
+    """The 'ptiles' describe of both packages on a 256x384 KITTI crop at the
+    default threshold."""
+    img = j_to_gray(j_load_gray(fixture_path("0000000000.png"))[128:384, 400:784])
+    j, t = _extract_both(img, "ptiles", JAkaze(), 256, 512)
+    _hold_to_cv_tpu(j, t)
+
+
+def test_pepatch_matches_cv_tpu(exp, registered):
+    """``TestEpatchCut``'s settings (tests/test_fast_extractor.py:239-253)."""
+    img = to_gray_f32(np.random.default_rng(3).uniform(0, 255, (192, 256)).astype(np.uint8))
+    j, t = _extract_both(img, "pepatch", JAkaze(detector_threshold=0.001), 128, 256)
+    _hold_to_cv_tpu(j, t)
+
+
+@pytest.mark.parametrize("mode", ["pepatch", "ptiles"])
+def test_retired_modes_equal_pgather(registered, mode):
+    """The port's retired modes give its 'pgather' bits (on the CPU both
+    run the plain select on the same batch)."""
+    img = np.ascontiguousarray(to_gray_f32(load_gray(kitti_pair()[1]))[200:456, 300:684])
+    base = DeviceExtractor(Akaze(), 256, 512).extract(img[None]).to_numpy()
+    got = DeviceExtractor(Akaze(), 256, 512, onehot_mode=mode).extract(img[None]).to_numpy()
+    assert base["valid"].sum() > 20
+    for key in ("valid", "point", "words", "angle"):
+        np.testing.assert_array_equal(got[key], base[key], err_msg=key)
+
+
+def test_explicit_ptiles_on_small_stack_raises(registered):
+    """A stack with no 256x256 window: the JAX version clips the tile to -1
+    there (pallas_mldb_losers.py:373-374); the port raises."""
+    img = np.random.default_rng(8).uniform(0, 1, (96, 200)).astype(np.float32)
+    with pytest.raises(ValueError, match="pallas_mldb_losers.py:373-374"):
+        DeviceExtractor(candidate_budget=64, max_features=256, onehot_mode="ptiles").extract(img[None])
+
+
+def test_orient_mldb_ptiles_unsorted_keypoints():
+    """The describe on shuffled keypoints of one stack: the tile sort and
+    its inverse put every row back in keypoint order."""
+    rng = np.random.default_rng(11)
+    n_levels, hp, wp, k = 3, 256, 384, 40
+    planes = torch.as_tensor(rng.normal(size=(n_levels, 3, hp, wp)).astype(np.float32))
+    lvl = torch.as_tensor(rng.integers(0, n_levels, k).astype(np.int32))
+    width = torch.full((k,), wp, dtype=torch.int32)
+    height = torch.full((k,), hp, dtype=torch.int32)
+    xf = torch.as_tensor(rng.uniform(20, wp - 20, k).astype(np.float32))
+    yf = torch.as_tensor(rng.uniform(20, hp - 20, k).astype(np.float32))
+    scale = torch.as_tensor(rng.integers(1, 3, k).astype(np.float32))
+    words, ok, angle = mldb_losers.orient_mldb_ptiles(planes, lvl, width, height, xf, yf, scale)
+    ref = tdesc.orient_mldb(planes, lvl, width, height, xf, yf, scale)
+    for got, want in zip((words, ok), ref[:2]):
+        assert torch.equal(got, want)
+    torch.testing.assert_close(angle, ref[2], rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# The probes
+# ---------------------------------------------------------------------------
+
+
+def _window_inputs(seed, ns=1280):
+    rng = np.random.default_rng(seed)
+    planes = rng.normal(size=(2, 3, 272, 384)).astype(np.float32)
+    lvl = rng.integers(0, 2, K).astype(np.int32)
+    y0 = rng.integers(0, 272 - 136, K).astype(np.int32)
+    x0 = rng.integers(0, 384 - 128, K).astype(np.int32)
+    rel_y = rng.integers(0, 136, (K, ns)).astype(np.int32)
+    rel_x = rng.integers(0, 128, (K, ns)).astype(np.int32)
+    return planes, lvl, y0, x0, rel_y, rel_x
+
+
+def _window_runner(mod, kernel, ns=1280):
+    """``mod._make_runner(kernel)`` at K=16, in interpret mode."""
+    spec = pltpu.PrefetchScalarGridSpec(
+        num_scalar_prefetch=3,
+        grid=(K // mod.G,),
+        in_specs=[
+            pl.BlockSpec((mod.G, ns), lambda i, *_: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((mod.G, ns), lambda i, *_: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec(memory_space=pl.ANY),
+        ],
+        out_specs=pl.BlockSpec((mod.G, 3 * ns), lambda i, *_: (i, 0), memory_space=pltpu.VMEM),
+        scratch_shapes=[pltpu.VMEM((mod.G, 3, mod.PH, mod.PW), jnp.float32), pltpu.SemaphoreType.DMA((mod.G,))],
+    )
+
+    def run(planes, lvl, y0, x0, rel_y, rel_x):
+        call = pl.pallas_call(
+            kernel, out_shape=jax.ShapeDtypeStruct((K, 3 * ns), jnp.float32), grid_spec=spec, interpret=True
+        )
+        with jax.enable_x64(False):
+            return np.asarray(call(*(jnp.asarray(a) for a in (lvl, y0, x0, rel_y, rel_x, planes))))
+
+    return run
+
+
+def _close(body, got, ref):
+    torch.testing.assert_close(torch.as_tensor(np.array(got)), torch.as_tensor(np.array(ref)), rtol=0,
+                               atol=probes.SUM_ATOL[body])
+
+
+@pytest.mark.parametrize("body", ["_kernel_int8", "_kernel_taa"])
+def test_select_window_matches_exp_select_kernels(exp, body):
+    args = _window_inputs(5)
+    ref = _window_runner(exp.exp_select_kernels, getattr(exp.exp_select_kernels, body))(*args)
+    got = probes.select_window_plain(*(torch.as_tensor(a) for a in args)).numpy()
+    np.testing.assert_array_equal(got, ref)
+    k_check = 4
+    host = exp.exp_select_kernels.host_reference(*args, k_check=k_check)
+    np.testing.assert_array_equal(got[:k_check].reshape(host.shape), host)
+
+
+def test_exp_select_kernels_bf16_body_sums_channels(exp):
+    """The bf16x3 body returns, per split j, the sum over channels of split
+    j of the sample: not the sample."""
+    args = _window_inputs(6)
+    ref = _window_runner(exp.exp_select_kernels, exp.exp_select_kernels._kernel_bf16)(*args)
+    sel = probes.select_window_plain(*(torch.as_tensor(a) for a in args)).reshape(K, 3, -1)
+    splits = torch.stack(probes._split3(sel), dim=1)  # (K, split, channel, NS)
+    np.testing.assert_array_equal(splits.sum(dim=2).reshape(K, -1).numpy(), ref)
+    assert np.abs(ref - sel.reshape(K, -1).numpy()).max() > 1.0
+
+
+@pytest.mark.parametrize("body", probes.BISECT_BODIES)
+def test_bisect_plain_matches_exp_bisect(exp, body):
+    args = _window_inputs(7)
+    ref = _window_runner(exp.exp_bisect, getattr(exp.exp_bisect, f"k_{body}"))(*args)
+    got = probes.bisect_plain(body, *(torch.as_tensor(a) for a in args)).numpy()
+    if body in probes.SUM_ATOL:
+        _close(body, got, ref)
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+def _mxu_runner(mod, kernel, ns):
+    """``mod.run``'s pallas_call at K=16 and ``ns`` samples, in interpret mode."""
+    p, c = mod.P, mod.C
+    call = pl.pallas_call(
+        kernel,
+        grid=(K // mod.G,),
+        in_specs=[
+            pl.BlockSpec((mod.G, ns), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((mod.G, ns), lambda i: (i, 0), memory_space=pltpu.VMEM),
+            pl.BlockSpec((mod.G, c, p, p), lambda i: (i, 0, 0, 0), memory_space=pltpu.VMEM),
+        ],
+        out_specs=pl.BlockSpec((mod.G, c, ns), lambda i: (i, 0, 0), memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((K, c, ns), jnp.float32),
+        interpret=True,
+    )
+
+    def run(*args):
+        with jax.enable_x64(False):
+            return np.asarray(call(*(jnp.asarray(a) for a in args)))
+
+    return run
+
+
+def _mxu_inputs(seed, ns):
+    rng = np.random.default_rng(seed)
+    patches = rng.normal(size=(K, 3, 128, 128)).astype(np.float32)
+    return rng.integers(0, 128, (K, ns)).astype(np.int32), rng.integers(0, 128, (K, ns)).astype(np.int32), patches
+
+
+@pytest.mark.parametrize("body", probes.MXU_BODIES)
+def test_mxu_plain_matches_exp_r3_mxu_probe(exp, monkeypatch, body):
+    """Each body at the script's NS=512; ``'split'`` at NS=128 (the body
+    reads the module's NS when traced)."""
+    ns = 128 if body == "split" else exp.exp_r3_mxu_probe.NS
+    monkeypatch.setattr(exp.exp_r3_mxu_probe, "NS", ns)
+    args = _mxu_inputs(9, ns)
+    ref = _mxu_runner(exp.exp_r3_mxu_probe, getattr(exp.exp_r3_mxu_probe, f"k_{body}"), ns)(*args)
+    got = probes.mxu_plain(body, *(torch.as_tensor(a) for a in args)).numpy()
+    if body in probes.SUM_ATOL:
+        _close(body, got, ref)
+    else:
+        np.testing.assert_array_equal(got, ref)
+
+
+def test_mxu_split_fails_at_its_own_shape(exp):
+    mod = exp.exp_r3_mxu_probe
+    assert mod.NS > mod.P
+    args = _mxu_inputs(10, mod.NS)
+    with pytest.raises(TypeError, match="incompatible shapes"):
+        _mxu_runner(mod, mod.k_split, mod.NS)(*args)
+    with pytest.raises(ValueError, match="exp_r3_mxu_probe.py:108-112"):
+        probes.mxu_plain("split", *(torch.as_tensor(a) for a in args))
+
+
+def test_gather_probe_select_matches(exp):
+    """``phase_select``'s body against the patch-form select."""
+    mod = exp.exp_r3_gather_probe
+    rel_x, rel_y, patches = _mxu_inputs(12, mod.NS)
+    ref = _mxu_runner(mod, mod._kern_select, mod.NS)(rel_x, rel_y, patches)
+    got = tselect.select_samples_patch(*(torch.as_tensor(a) for a in (patches, rel_x, rel_y))).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def _nested(fn, name):
+    """The kernel body defined inside ``fn`` (a closure-free nested def)."""
+    code = next(c for c in fn.__code__.co_consts if isinstance(c, types.CodeType) and c.co_name == name)
+    return types.FunctionType(code, fn.__globals__)
+
+
+@pytest.mark.parametrize("phase,axis", [("phase_lane", 1), ("phase_sublane", 0)])
+def test_take_along_matches_gather_probe(exp, phase, axis):
+    mod = exp.exp_r3_gather_probe
+    rng = np.random.default_rng(13)
+    x = rng.normal(size=(128, 512)).astype(np.float32)
+    idx = rng.integers(0, x.shape[axis], (128, 512)).astype(np.int32)
+    call = pl.pallas_call(
+        _nested(getattr(mod, phase), "kern"),
+        out_shape=jax.ShapeDtypeStruct((128, 512), jnp.float32),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)] * 2,
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        interpret=True,
+    )
+    ref = np.asarray(call(jnp.asarray(x), jnp.asarray(idx)))
+    got = probes.take_along(torch.as_tensor(x), torch.as_tensor(idx), axis).numpy()
+    np.testing.assert_array_equal(got, ref)
+
+
+def test_trig_probe_matches_pfused_probe(exp):
+    x = np.random.default_rng(14).uniform(-7, 7, (8, 128)).astype(np.float32)
+    call = pl.pallas_call(
+        _nested(exp.exp_r5_pfused.phase_trig, "body"),
+        in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM)],
+        out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
+        out_shape=jax.ShapeDtypeStruct((8, 128), jnp.float32),
+        interpret=True,
+    )
+    ref = np.asarray(call(jnp.asarray(x)))[:4]
+    got = probes.trig_probe(torch.as_tensor(x)).numpy()
+    ulp = np.abs(got.view(np.int32).astype(np.int64) - ref.view(np.int32).astype(np.int64))
+    assert ulp.max() <= 2, ulp.max(axis=1)
+    np.testing.assert_array_equal(got[3], ref[3])
+
+
+def test_cpu_probe_wrappers_launch_nothing():
+    wrappers = [probes.take_along, probes.trig_probe, *probes.BISECT.values(), *probes.MXU.values()]
+    before = [fn.launches for fn in wrappers]
+    args = [torch.as_tensor(a) for a in _window_inputs(15, ns=16)]
+    for body, fn in probes.BISECT.items():
+        torch.testing.assert_close(fn(*args), probes.bisect_plain(body, *args), rtol=0, atol=0)
+    rel_x, rel_y, patches = (torch.as_tensor(a) for a in _mxu_inputs(16, 16))
+    for body, fn in probes.MXU.items():
+        torch.testing.assert_close(fn(rel_x, rel_y, patches), probes.mxu_plain(body, rel_x, rel_y, patches))
+    probes.take_along(patches[0, 0], rel_x[:, :8].contiguous().repeat(8, 1), 1)
+    probes.trig_probe(patches[0, 0])
+    assert [fn.launches for fn in wrappers] == before
+
+
+def test_runs_on_the_cpu():
+    """The composed runs at toy shapes on the CPU: the selects agree."""
+    cpu = torch.device("cpu")
+    assert runs.epatch_kernel(cpu, l=3, hp=256, wp=384, k=16, ns=128, iters=1)["equal"]
+    assert runs.tiles_kernel(cpu, l=3, hp=256, wp=384, k=16, ns=64, iters=1)["equal"]
+    assert runs.select_kernels_run(cpu, k=16, ns=32, n_levels=2, hmax=272, wmax=256, k_check=4)["exact"]
+    g = runs.gather_probe_run(cpu, k=8, ns=32)
+    assert g["lane"]["exact"] and g["sublane"]["exact"] and g["select"]["exact"]
+    assert runs.bisect_run(cpu, k=8, ns=16, n_levels=2, hmax=272, wmax=256)["finite"]
+    assert runs.mxu_probe_run(cpu, k=8, ns=32)["finite"]
+    trig = runs.trig_run(cpu)
+    assert all(trig[f]["bit_equal"] for f in ("atan2", "cos", "sin", "mod"))
+
+
+# ---------------------------------------------------------------------------
+# The kernels, on a card
+# ---------------------------------------------------------------------------
+
+
+def _cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the probe kernels run only there")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+def test_cuda_take_along_matches_plain(axis):
+    dev = _cuda()
+    gen = torch.Generator(device=dev).manual_seed(axis)
+    x = torch.randn((128, 512), generator=gen, device=dev)
+    idx = torch.randint(0, x.shape[axis], (128, 512), generator=gen, device=dev, dtype=torch.int32)
+    before = probes.take_along.launches
+    got = probes.take_along(x, idx, axis)
+    torch.cuda.synchronize()
+    assert probes.take_along.launches == before + 1
+    assert torch.equal(got, probes.take_along_plain(x, idx, axis))
+
+
+@pytest.mark.cuda
+def test_cuda_trig_probe_within_2_ulp():
+    dev = _cuda()
+    x = torch.rand((8, 128), generator=torch.Generator(device=dev).manual_seed(0), device=dev) * 14 - 7
+    got, ref = probes.trig_probe(x), probes.trig_probe_plain(x)
+    torch.cuda.synchronize()
+    ulp = (got.view(torch.int32).long() - ref.view(torch.int32).long()).abs()
+    assert int(ulp.max()) <= 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", probes.BISECT_BODIES)
+def test_cuda_bisect_matches_plain(body):
+    dev = _cuda()
+    args = [torch.as_tensor(a, device=dev) for a in _window_inputs(17)]
+    got = probes.BISECT[body](*args)
+    ref = probes.bisect_plain(body, *args)
+    torch.cuda.synchronize()
+    if body in probes.SUM_ATOL:
+        torch.testing.assert_close(got, ref, rtol=0, atol=probes.SUM_ATOL[body])
+    else:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", probes.MXU_BODIES)
+def test_cuda_mxu_matches_plain(body):
+    dev = _cuda()
+    args = [torch.as_tensor(a, device=dev) for a in _mxu_inputs(18, 128 if body == "split" else 512)]
+    got = probes.MXU[body](*args)
+    ref = probes.mxu_plain(body, *args)
+    torch.cuda.synchronize()
+    if body in probes.SUM_ATOL:
+        torch.testing.assert_close(got, ref, rtol=0, atol=probes.SUM_ATOL[body])
+    else:
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+def test_cuda_retired_selects_launch_the_select_kernel():
+    dev = _cuda()
+    args = [torch.as_tensor(a, device=dev) for a in _select_inputs(19, 441, tiles=True)]
+    before = tselect.select_samples.launches
+    got = mldb_losers.select_samples_tiles8(*args)
+    torch.cuda.synchronize()
+    assert tselect.select_samples.launches == before + 1
+    planes, lvl, ty, tx, rel_x, rel_y = args
+    assert torch.equal(got, tselect.select_samples_plain(planes, lvl, 128 * ty, 128 * tx, rel_x, rel_y))

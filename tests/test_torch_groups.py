@@ -248,13 +248,25 @@ def test_xla_only_modes_raise(mode):
         DeviceExtractor(onehot_mode=mode)
 
 
-@pytest.mark.parametrize("mode", ["pepatch", "pgroups0", "gather"])
+@pytest.mark.parametrize("mode", ["ptiles8", "pgroups0", "gather"])
 def test_unknown_modes_raise(mode):
     with pytest.raises(ValueError, match="unknown describe mode"):
         DeviceExtractor(onehot_mode=mode)
 
 
-@pytest.mark.parametrize("mode", ["pgather", "pgroups", "pgroups4", "pfused", "pallas"])
+@pytest.mark.parametrize("mode", ["pepatch", "ptiles"])
+def test_retired_modes_raise_until_registered(monkeypatch, mode):
+    """The retired modes are accepted by name but their describe lives in
+    cv_tpu_torch/experiments/mldb_losers.py: unregistered, an extract raises
+    ``KeyError`` naming that module."""
+    monkeypatch.delitem(tdesc.EXTERNAL_MODES, mode, raising=False)
+    img = np.random.default_rng(6).uniform(0, 1, (128, 160)).astype(np.float32)
+    ex = DeviceExtractor(candidate_budget=64, max_features=128, onehot_mode=mode)
+    with pytest.raises(KeyError, match="cv_tpu_torch/experiments/mldb_losers.py"):
+        ex.extract(img[None])
+
+
+@pytest.mark.parametrize("mode", ["pgather", "pgroups", "pgroups4", "pfused", "pallas", "pepatch", "ptiles"])
 def test_kernel_modes_accepted(mode):
     assert DeviceExtractor(onehot_mode=mode).describe_mode(100, 100) == mode
 
