@@ -37,12 +37,22 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (three_view_l2, N=1024) and C (three_view_adaptive, K=64, N=64)
      within 1e-6 after one step, 1e-4 after a full run (2,000 / 2,000 /
      1,000 steps), and bitwise equal to themselves with 60 padded invalid
-     rows; the experiments' kernels at their scripts' shapes: the retired
+     rows (A also with 60 interleaved ones); A's step count (``steps_out``)
+     equal to its plain version's, its device time (``device_ms``: the
+     launch in a CUDA graph) and us a step; A also at an engine-like bucket
+     (N=1,024, 300 valid rows scattered, the engine's 4,000-step cap:
+     within 1e-4, the plain step count, bitwise equal to the same rows
+     without padding) and past its shared-memory tier (12,000 rows:
+     1e-6 / 1e-4, the plain step count); the experiments' kernels at their
+     scripts' shapes: the retired
      selects and the probe selects and gathers bitwise, the trigonometry
      probe within 2 ulp of torch's functions (bit-equality printed), the
      summing probes within ``probes.SUM_ATOL``; beside each kernel's time
      and its plain version's, one PyTorch call computing the same function
-     where there is one (``library_ms``) and the bound;
+     where there is one (``library_ms``) and the bound; for the gather
+     (``take_along``) call and device times alternated with
+     ``torch.take_along_dim``'s, and thin and ragged shapes with
+     out-of-range indices bitwise to its plain version;
   4. drive the KITTI path once with the launch counters at zero: gates
      [399, 343] keypoints, 11 matches, 11 inliers, the select kernel
      launched twice and the dedup kernel once per extract;
@@ -51,7 +61,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      12 frames, ATE / trajectory extent < 0.02 after Umeyama alignment,
      every consecutive relative rotation < 1 degree, an empty
      ``sanity_check``, kernels A, B and C launched, the select kernel on
-     every frame, the dedup kernel once per frame;
+     every frame, the dedup kernel once per frame; every A, B and C call of
+     the warm pass is recorded and, after the timed pass, replayed on its
+     own (calls, N, valid rows, summed device time; A's steps and us a
+     step), and for each of A's valid-row counts one recorded call is held
+     to the plain version (within 1e-4, the same step count);
   6. drive the dense path, each run with the counters at zero: keypoint
      counts within bench.py's tolerance of [3425, 2908], the group select
      launched twice and the dedup kernel once; the ``'pfused'`` and
@@ -178,6 +192,35 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
+def device_ms(fn, iters=20):
+    """Mean device milliseconds of ``fn()`` without the host's dispatch:
+    ``iters`` calls captured in one CUDA graph (a ctypes launch on the
+    current stream is captured like any other), the graph replayed between
+    two events."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / iters
+    del graph
+    return ms
+
+
 def wall_ms(fn, reps=5):
     """Host milliseconds of ``fn()`` ending in a device sync, per rep."""
     import torch
@@ -192,9 +235,10 @@ def wall_ms(fn, reps=5):
     return out
 
 
-def pose_problem(name, seed):
-    """A seeded problem at the engine's shape for pose kernel ``name``, as
-    float32 numpy arrays (poses near the truth, noisy bearings)."""
+def pose_problem(name, seed, n=None):
+    """A seeded problem at the engine's shape for pose kernel ``name`` (at
+    ``n`` landmarks for kernel A when given), as float32 numpy arrays (poses
+    near the truth, noisy bearings)."""
     import numpy as np
 
     from cv_tpu_torch.core.lie import so3_exp
@@ -211,7 +255,7 @@ def pose_problem(name, seed):
         return v / np.linalg.norm(v, axis=-1, keepdims=True)
 
     if name == "single_view_l2":
-        n = spec["n"]
+        n = n or spec["n"]
         pts = rng.uniform([-2, -2, 4], [2, 2, 10], (n, 3))
         r, t = rot([0.05, -0.1, 0.04]), np.array([0.3, -0.1, 0.05])
         return dict(
@@ -238,25 +282,27 @@ def pose_problem(name, seed):
     return {key: np.stack([pr[key] for pr in probs]) for key in probs[0]}
 
 
-def pad_problem(name, prob, extra):
-    """``prob`` with ``extra`` invalid rows appended (values 0.5/1.0)."""
+def pad_problem(name, prob, extra, interleave=False):
+    """``prob`` with ``extra`` invalid rows (values 0.5/1.0) appended, or,
+    with ``interleave``, inserted at seeded random places among its rows."""
     import numpy as np
 
     out = dict(prob)
     axis = 1 if name == "three_view_adaptive" else 0
     keys = ("bear", "wp", "valid") if name == "single_view_l2" else ("obs", "valid")
+    n = prob["valid"].shape[axis]
+    at = np.sort(np.random.default_rng(n + extra).integers(0, n + 1, extra)) if interleave else np.full(extra, n)
     for key in keys:
-        shape = list(prob[key].shape)
-        shape[axis] = extra
         fill = False if key == "valid" else (1.0 if key == "wp" else 0.5)
-        out[key] = np.concatenate([prob[key], np.full(shape, fill, prob[key].dtype)], axis=axis)
+        out[key] = np.insert(prob[key], at, fill, axis=axis)
     return out
 
 
-def run_pose(name, prob, steps, dev, plain):
-    """Run kernel ``name`` (or its plain version) on ``prob`` in float32 on
-    ``dev``; returns all pose numbers as one float64 numpy vector."""
-    import numpy as np
+def pose_call(name, prob, steps, dev, plain, **kw):
+    """A function of no arguments that runs kernel ``name`` (or its plain
+    version) on ``prob`` in float32 on ``dev`` and returns its poses; the
+    inputs go to the device once.  ``kw`` goes to the call (kernel A:
+    ``steps_out``)."""
     import torch
 
     from cv_tpu_torch.core.pose import CameraToCamera, WorldToCamera
@@ -267,20 +313,40 @@ def run_pose(name, prob, steps, dev, plain):
 
     if name == "single_view_l2":
         fn = optimizers.single_view_simple_optimize_l2 if plain else resident.single_view_l2
-        poses = [fn(WorldToCamera(rotation=t(prob["rot"]), translation=t(prob["t"])),
-                    t(prob["bear"]), t(prob["wp"]), t(prob["valid"]), 1e-3, steps)]
+        args = (WorldToCamera(rotation=t(prob["rot"]), translation=t(prob["t"])),
+                t(prob["bear"]), t(prob["wp"]), t(prob["valid"]), 1e-3, steps)
+        return lambda: [fn(*args, **kw)]
+    pair = (CameraToCamera(rotation=t(prob["r1"]), translation=t(prob["t1"])),
+            CameraToCamera(rotation=t(prob["r2"]), translation=t(prob["t2"])))
+    if name == "three_view_l2":
+        fn = optimizers.three_view_simple_optimize_l2 if plain else resident.three_view_l2
+        args = (pair, t(prob["obs"]), t(prob["valid"]), 1e-3, steps)
     else:
-        pair = (CameraToCamera(rotation=t(prob["r1"]), translation=t(prob["t1"])),
-                CameraToCamera(rotation=t(prob["r2"]), translation=t(prob["t2"])))
-        if name == "three_view_l2":
-            fn = optimizers.three_view_simple_optimize_l2 if plain else resident.three_view_l2
-            poses = fn(pair, t(prob["obs"]), t(prob["valid"]), 1e-3, steps)
-        else:
-            fn = optimizers.three_view_adaptive_optimize_l2 if plain else resident.three_view_adaptive
-            poses = fn(pair, t(prob["obs"]), t(prob["valid"]), steps)
+        fn = optimizers.three_view_adaptive_optimize_l2 if plain else resident.three_view_adaptive
+        args = (pair, t(prob["obs"]), t(prob["valid"]), steps)
+    return lambda: list(fn(*args, **kw))
+
+
+def run_pose(name, prob, steps, dev, plain, **kw):
+    """Run kernel ``name`` (or its plain version) on ``prob`` in float32 on
+    ``dev``; returns all pose numbers as one float64 numpy vector."""
+    import numpy as np
+    import torch
+
+    poses = pose_call(name, prob, steps, dev, plain, **kw)()
     torch.cuda.synchronize()
     return np.concatenate([np.concatenate([p.rotation.cpu().numpy().ravel(), p.translation.cpu().numpy().ravel()])
                            for p in poses]).astype(np.float64)
+
+
+def single_view_steps(prob, steps, dev, plain, **kw):
+    """Steps kernel A (or its plain version) takes on ``prob``, from its
+    ``steps_out``."""
+    import torch
+
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    run_pose("single_view_l2", prob, steps, dev, plain, steps_out=out, **kw)
+    return int(out.item())
 
 
 def plain_steps(name, prob, steps, dev):
@@ -288,24 +354,81 @@ def plain_steps(name, prob, steps, dev):
     before its patience rule stops it (calls of its per-step tangents)."""
     from cv_tpu_torch.optimize import optimizers
 
-    attr = "landmark_deltas" if name == "single_view_l2" else "_three_view_landmark_gradients"
-    real, calls = getattr(optimizers, attr), [0]
+    if name == "single_view_l2":
+        return single_view_steps(prob, steps, dev, plain=True)
+    real, calls = optimizers._three_view_landmark_gradients, [0]
 
     def counted(*a, **kw):
         calls[0] += 1
         return real(*a, **kw)
 
-    setattr(optimizers, attr, counted)
+    optimizers._three_view_landmark_gradients = counted
     try:
         run_pose(name, prob, steps, dev, plain=True)
     finally:
-        setattr(optimizers, attr, real)
+        optimizers._three_view_landmark_gradients = real
     return calls[0]
+
+
+def hold_single_view(label, prob, steps, dev, tol):
+    """Kernel A against its plain version on ``prob``: within ``tol``, the
+    same step count.  Returns the kernel's poses (numpy) and steps."""
+    import numpy as np
+    import torch
+
+    k_out, p_out = (torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2))
+    got = run_pose("single_view_l2", prob, steps, dev, plain=False, steps_out=k_out)
+    ref = run_pose("single_view_l2", prob, steps, dev, plain=True, steps_out=p_out)
+    err = float(np.abs(got - ref).max())
+    k_steps, p_steps = int(k_out.item()), int(p_out.item())
+    require(np.isfinite(got).all() and err <= tol, f"single_view_l2 {label} within {tol} (max |err| {err})")
+    require(k_steps == p_steps, f"single_view_l2 {label}: {k_steps} steps, its plain version {p_steps}")
+    print(f"single_view_l2 {label}: max |err| {err:.3e} (gate {tol}), {k_steps} steps as the plain version")
+    return got, k_steps
+
+
+def check_single_view_division(dev, seed, n=1 << 22):
+    """Kernel A's branch-free division (``cv_single_view_div_check``, with
+    ``/`` where an operand is out of its range) bitwise against IEEE
+    division, ``x / y`` on the card: random bit patterns (every exponent,
+    specials included), log-uniform magnitudes across the range's edges at
+    2^-60 and 2^60, and operands whose significand is all ones.  Returns
+    the number of pairs checked."""
+    import ctypes
+
+    import torch
+
+    from cv_tpu_torch import kernels
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+
+    def uniform(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    bits = torch.randint(-2**31, 2**31 - 1, (2, n), generator=gen, device=dev, dtype=torch.int32).view(torch.float32)
+    mag = torch.exp2(uniform(2, n) * 140.0 - 70.0) * torch.where(uniform(2, n) < 0.5, -1.0, 1.0)
+    exps = torch.randint(40, 215, (2, n), generator=gen, device=dev, dtype=torch.int32)
+    ones = ((exps << 23) | 0x7FFFFF).view(torch.float32)
+    fn = kernels.function("single_view_l2", "cv_single_view_div_check", [ctypes.c_void_p] * 3 + [ctypes.c_int,
+                                                                                                  ctypes.c_void_p])
+    for x, y in ((bits[0], bits[1]), (mag[0], mag[1]), (ones[0], mag[1]), (mag[0], ones[1]), (ones[0], ones[1])):
+        x, y = x.contiguous(), y.contiguous()
+        out = torch.empty_like(x)
+        require(fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), n, kernels.current_stream(dev)) == 0,
+                "division check launch")
+        ref = x / y
+        same = (out.view(torch.int32) == ref.view(torch.int32)) | (out.isnan() & ref.isnan())
+        require(bool(same.all()), f"kernel A's division differs from x / y on {int((~same).sum())} pairs")
+    return 5 * n
 
 
 def check_pose_kernels(dev, seed):
     """Phase 3 for kernels A, B, C: gates against the plain versions on the
-    card and alternating timings of full runs.  Returns per-kernel records."""
+    card and alternating timings of full runs (wall time of a call, the
+    inputs' copy to the card and the poses' copy back included); for A also
+    the step count, the device time, bitwise invariance to interleaved
+    invalid rows, an engine-like bucket and the global-memory tier.
+    Returns per-kernel records."""
     import numpy as np
 
     out = {}
@@ -319,25 +442,166 @@ def check_pose_kernels(dev, seed):
             require(np.isfinite(got).all() and err <= tol, f"{name} {steps} steps within {tol} (max |err| {err})")
             print(f"{name} vs plain, {steps} steps: max |err| {err:.3e} (gate {tol})")
             max_err = max(max_err, err)
-        a = run_pose(name, prob, spec["steps"], dev, plain=False)
-        b = run_pose(name, pad_problem(name, prob, 60), spec["steps"], dev, plain=False)
-        require(np.array_equal(a, b), f"{name}: 60 padded invalid rows change the result")
-        print(f"{name}: bitwise equal with 60 padded invalid rows")
+        pads = [("60 appended", pad_problem(name, prob, 60))]
+        if name == "single_view_l2":
+            pads.append(("60 interleaved", pad_problem(name, prob, 60, interleave=True)))
+        for label, padded in pads:
+            b = run_pose(name, padded, spec["steps"], dev, plain=False)
+            require(np.array_equal(got, b), f"{name}: {label} invalid rows change the result")
+            print(f"{name}: bitwise equal with {label} invalid rows")
         # Alternate plain, kernel, kernel, plain; full runs, 3 reps each.
-        reps = []
-        for plain in (True, False, False, True):
-            reps.append(wall_ms(lambda: run_pose(name, prob, spec["steps"], dev, plain), reps=3))
+        reps = [wall_ms(lambda plain=plain: run_pose(name, prob, spec["steps"], dev, plain), reps=3)
+                for plain in (True, False, False, True)]
         pms = statistics.median(reps[0] + reps[3])
         kms = statistics.median(reps[1] + reps[2])
         print(f"{name} full run ({spec['steps']} steps): kernel {kms:.3f} ms, plain {pms:.3f} ms (median of 6)")
         # The bound counts the steps this problem takes (the patience rule
         # may stop A and B early) over its valid landmarks.
         steps = spec["steps"] if name == "three_view_adaptive" else plain_steps(name, prob, spec["steps"], dev)
+        extra = {}
+        if name == "single_view_l2":
+            pairs = check_single_view_division(dev, seed)
+            print(f"single_view_l2 division: bitwise equal to x / y on {pairs} pairs")
+            k_steps = single_view_steps(prob, spec["steps"], dev, plain=False)
+            require(k_steps == steps, f"single_view_l2 took {k_steps} steps, its plain version {steps}")
+            dms = device_ms(pose_call(name, prob, spec["steps"], dev, plain=False), iters=3)
+            extra = dict(device_ms=dms, us_per_step=dms * 1e3 / k_steps)
+            print(f"single_view_l2: {k_steps} steps (plain {steps}); device {dms:.4f} ms, "
+                  f"{dms * 1e3 / k_steps:.3f} us a step")
+            check_single_view_shapes(dev, seed)
         nbytes = sum(v.nbytes for v in prob.values()) + 2 * 24 * 4
         flops = steps * int(prob["valid"].sum()) * POSE_FLOPS[name]
-        out[name] = kernel_record(kms, pms, max_err, nbytes, flops, steps=steps)
+        out[name] = kernel_record(kms, pms, max_err, nbytes, flops, steps=steps, **extra)
         print(f"{name}: {steps} steps, bound {out[name]['bound_ms']:.4f} ms ({out[name]['bound_by']}); "
               f"the chain of {steps} dependent steps bounds it")
+    return out
+
+
+def check_single_view_shapes(dev, seed, bucket=1024, rows=300, beyond=12000):
+    """Kernel A where phase 3's problem does not take it.  An engine-like
+    call: a ``bucket``-row problem with ``rows`` valid rows scattered among
+    it, at the engine's 4,000-step cap (partly filled register slots, warps
+    that skip them, padding rows computed and masked out), held to the plain
+    version and bitwise to the kernel on the valid rows alone.  Then
+    ``beyond`` valid rows, more than the registers and shared memory hold
+    (rows read from global memory each step)."""
+    import numpy as np
+
+    prob = pose_problem("single_view_l2", seed + 5, n=bucket)
+    prob["valid"][:] = False
+    prob["valid"][np.random.default_rng(seed + 5).choice(bucket, rows, replace=False)] = True
+    cap = SFM_SETTINGS["single_view_patience"]
+    got, _ = hold_single_view(f"N={bucket}, {rows} valid rows scattered, {cap} iterations", prob, cap, dev, 1e-4)
+    dense = {k: (v[prob["valid"]] if k in ("bear", "wp", "valid") else v) for k, v in prob.items()}
+    require(np.array_equal(got, run_pose("single_view_l2", dense, cap, dev, plain=False)),
+            "single_view_l2: the bucket's padding rows change the result")
+    print(f"single_view_l2 N={bucket}, {rows} valid rows: bitwise equal to the {rows} rows alone")
+    prob = pose_problem("single_view_l2", seed + 6, n=beyond)
+    for steps, tol in ((1, 1e-6), (300, 1e-4)):
+        hold_single_view(f"N={beyond} (global-memory tier), {steps} steps", prob, steps, dev, tol)
+
+
+def _clone(x):
+    """A copy of a call argument: tensors and poses cloned, containers
+    rebuilt, anything else as it is."""
+    import torch
+
+    from cv_tpu_torch.core.pose import Isometry3
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, Isometry3):
+        return type(x)(rotation=x.rotation.clone(), translation=x.translation.clone())
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+@contextlib.contextmanager
+def record_pose_calls():
+    """Record the arguments (clones) of every call of kernels A, B and C
+    where ``sfm/engine.py`` and ``sfm/device_refine.py`` bind the wrappers;
+    yields ``{kernel name: [(args, kwargs), ...]}``."""
+    from cv_tpu_torch.sfm import device_refine
+    from cv_tpu_torch.sfm import engine as engine_mod
+
+    calls = {name: [] for name in POSE_KERNELS}
+    real = {}
+    for mod in (engine_mod, device_refine):
+        for name in POSE_KERNELS:
+            if hasattr(mod, name):
+                real[(mod, name)] = getattr(mod, name)
+
+                def recorded(*a, _fn=real[(mod, name)], _name=name, **kw):
+                    calls[_name].append((_clone(a), _clone(kw)))
+                    return _fn(*a, **kw)
+
+                setattr(mod, name, recorded)
+    try:
+        yield calls
+    finally:
+        for (mod, name), fn in real.items():
+            setattr(mod, name, fn)
+
+
+def replay_pose_calls(calls):
+    """Each recorded call of A, B and C replayed under ``cuda_ms``.  Per
+    kernel: the number of calls, the ranges of N and of valid rows (per
+    problem for C), the summed device milliseconds; for A also the steps
+    each call took (``steps_out``) and us a step.  For each distinct count
+    of valid rows, A's first call with it is held to the plain version in
+    float32 (within 1e-4, the same step count)."""
+    import numpy as np
+    import torch
+
+    from cv_tpu_torch.optimize import optimizers, resident
+
+    def flat(pose):
+        return np.concatenate([pose.rotation.double().cpu().numpy().ravel(),
+                               pose.translation.double().cpu().numpy().ravel()])
+
+    out = {}
+    for name, recorded in calls.items():
+        fn = getattr(resident, name)
+        ns, rows, ms, steps, held = [], [], [], [], {}
+        for args, kw in recorded:
+            valid = args[3] if name == "single_view_l2" else args[2]
+            ns.append(int(valid.shape[-1]))
+            rows.extend(int(v) for v in valid.reshape(-1, valid.shape[-1]).sum(dim=-1).tolist())
+            ms.append(cuda_ms(lambda: fn(*args, **kw), iters=3, warmup=1))
+            if name != "single_view_l2":
+                continue
+            k_out, p_out = (torch.zeros(1, dtype=torch.int32, device=valid.device) for _ in range(2))
+            got = fn(*args, steps_out=k_out, **kw)
+            steps.append(int(k_out.item()))
+            count = rows[-1]
+            if count in held:
+                continue
+            pose, bear, wp = args[:3]
+            ref = optimizers.single_view_simple_optimize_l2(
+                type(pose)(rotation=pose.rotation.float(), translation=pose.translation.float()), bear.float(),
+                wp.float(), *args[3:], steps_out=p_out, **kw)
+            err = float(np.abs(flat(got) - flat(ref)).max())
+            held[count] = (err, steps[-1])
+            require(np.isfinite(flat(got)).all() and err <= 1e-4,
+                    f"single_view_l2 engine call ({count} valid rows) within 1e-4 of plain (max |err| {err})")
+            require(steps[-1] == int(p_out.item()), f"single_view_l2 engine call ({count} valid rows): "
+                    f"{steps[-1]} steps, its plain version {int(p_out.item())}")
+        rec = dict(calls=len(recorded), n=[min(ns, default=0), max(ns, default=0)],
+                   valid_rows=[min(rows, default=0), max(rows, default=0)], ms=sum(ms))
+        if name == "single_view_l2" and recorded:
+            rec.update(steps=[min(steps), max(steps)], total_steps=sum(steps), us_per_step=sum(ms) * 1e3 / sum(steps),
+                       held_to_plain=len(held), max_abs_err=max(e for e, _ in held.values()))
+        out[name] = rec
+        print(f"engine-shape replay {name}: {rec['calls']} calls, N {rec['n']}, valid rows {rec['valid_rows']}, "
+              f"summed device time {rec['ms']:.3f} ms"
+              + (f", steps {rec['steps']} ({rec['total_steps']} in all), {rec['us_per_step']:.3f} us a step; "
+                 f"{len(held)} calls (one per valid-row count) held to plain: max |err| {rec['max_abs_err']:.3e} "
+                 "(gate 1e-4), step counts equal ("
+                 + ", ".join(f"{c} rows: {st}" for c, (_, st) in sorted(held.items())) + ")"
+                 if "steps" in rec else ""))
     return out
 
 
@@ -799,15 +1063,37 @@ def check_experiment_kernels(dev, seed):
     del patches
 
     # exp_r3_gather_probe.py phase_lane / phase_sublane: a (128, 512) tile.
+    # Beside the call times (cuda_ms over Python calls, the host's dispatch
+    # included), the device times (device_ms: the calls in a CUDA graph),
+    # each alternated with torch.take_along_dim's.
     x = torch.randn((128, 512), generator=gen, device=dev)
     for phase, axis, hi in (("lane", 1, 512), ("sublane", 0, 128)):
         idx = rand_i32(hi, (128, 512))
         idx_l = idx.long()
-        out[f"take_along[phase_{phase}]"] = hold(
-            f"take_along axis {axis} (phase_{phase}, 128x512)",
-            lambda idx=idx, axis=axis: probes.take_along(x, idx, axis),
-            lambda idx=idx, axis=axis: probes.take_along_plain(x, idx, axis), 3 * x.numel() * 4,
-            lib=lambda idx_l=idx_l, axis=axis: torch.take_along_dim(x, idx_l, dim=axis))
+        run_k = lambda idx=idx, axis=axis: probes.take_along(x, idx, axis)  # noqa: E731
+        lib = lambda idx_l=idx_l, axis=axis: torch.take_along_dim(x, idx_l, dim=axis)  # noqa: E731
+        name = f"take_along[phase_{phase}]"
+        rec = out[name] = hold(
+            f"take_along axis {axis} (phase_{phase}, 128x512)", run_k,
+            lambda idx=idx, axis=axis: probes.take_along_plain(x, idx, axis), 3 * x.numel() * 4, lib=lib)
+        rec["ms"], rec["library_ms"] = alternate(run_k, lib, cuda_ms)
+        rec["device_ms"], rec["library_device_ms"] = alternate(run_k, lib, device_ms)
+        print(f"{name}: call {rec['ms']:.4f} ms against torch.take_along_dim {rec['library_ms']:.4f} ms "
+              f"({'no slower' if rec['ms'] <= rec['library_ms'] else 'slower'}); device {rec['device_ms']:.4f} ms "
+              f"against {rec['library_device_ms']:.4f} ms "
+              f"({'no slower' if rec['device_ms'] <= rec['library_device_ms'] else 'slower'}); "
+              f"bound {rec['bound_ms']:.4f} ms")
+    # Its scalar path at the edges of x: one or two rows of x on axis 0 (a
+    # lane past a row's end must read nothing), widths not a multiple of 4,
+    # indices outside x (NaN); bitwise to the plain version.
+    for axis, x_shape, idx_shape in ((0, (1, 130), (5, 130)), (0, (2, 1), (7, 1)), (1, (5, 1), (5, 130)),
+                                     (1, (3, 7), (3, 6))):
+        xs = torch.randn(x_shape, generator=gen, device=dev)
+        ids = torch.randint(-1, x_shape[axis] + 1, idx_shape, generator=gen, device=dev, dtype=torch.int32)
+        got, ref = probes.take_along(xs, ids, axis), probes.take_along_plain(xs, ids, axis)
+        require(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+                f"take_along axis {axis}, x {x_shape}, idx {idx_shape}: bitwise equal to its plain version")
+    print("take_along: thin and ragged shapes with out-of-range indices bitwise equal to its plain version")
 
     # exp_r5_pfused.py phase_trig: an (8, 128) uniform(-7, 7) tile, held to
     # torch's functions within 2 ulp; bit-equality per function printed.
@@ -1147,7 +1433,23 @@ def main():
     )
 
     # -- 5. the SfM engine: a warm pass, then the timed main-path pass -------
-    warm_engine, warm_s, _, _ = run_sfm(dev)
+    # The warm pass records the dedup scan's calls (the wrapper counts its
+    # launches on the name it is bound to, so not in the counted pass) and
+    # A's, B's and C's, so the timed pass runs as it would without them.
+    sfm_scans = []
+    real_scan = extrema.dedup_scan_device
+
+    def record_sfm_scan(*a, **kw):
+        sfm_scans.append((_clone(a), _clone(kw)))
+        return real_scan(*a, **kw)
+
+    record_sfm_scan.launches = 0
+    extrema.dedup_scan_device = record_sfm_scan
+    try:
+        with record_pose_calls() as pose_calls:
+            warm_engine, warm_s, _, _ = run_sfm(dev)
+    finally:
+        extrema.dedup_scan_device = real_scan
     print(f"sfm warm pass: {SFM_FRAMES / warm_s:.3f} fps ({warm_s:.3f} s)")
     del warm_engine
     with main_path(counters, plains) as sfm_run:
@@ -1161,6 +1463,25 @@ def main():
     tally(sfm_run, single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,),
           select_samples=(2 * SFM_FRAMES,), dedup_scan=(SFM_FRAMES,))
     del engine
+    # Every A, B and C call of the warm pass, replayed on its own.
+    for name, recorded in pose_calls.items():
+        require(len(recorded) >= 1, f"{name}: no call recorded in the warm pass")
+        print(f"{name}: {len(recorded)} calls recorded in the warm pass, {sfm_run['launches'][name]} launched "
+              "in the timed pass")
+    engine_records = replay_pose_calls(pose_calls)
+    del pose_calls
+    share = sum(r["ms"] for r in engine_records.values()) / (sfm_s * 1e3)
+    print(f"engine-shape replay: A, B and C take {share:.4f} of the timed pass's {sfm_s * 1e3:.1f} ms "
+          "(the warm pass's calls)")
+    for name, rec in engine_records.items():
+        pose_records[name]["engine"] = rec
+    scan_ms = [cuda_ms(lambda a=a, kw=kw: extrema.dedup_scan_device(*a, **kw), iters=3, warmup=1)
+               for a, kw in sfm_scans]
+    scan_steps = [int(s) for a, _ in sfm_scans for s in a[-1].tolist()]
+    dedup_record["engine"] = dict(calls=len(sfm_scans), steps=[min(scan_steps), max(scan_steps)], ms=sum(scan_ms))
+    print(f"engine-shape replay dedup_scan (warm pass): {len(sfm_scans)} calls, steps {dedup_record['engine']['steps']}, "
+          f"summed device time {sum(scan_ms):.3f} ms")
+    del sfm_scans
 
     # -- 6. the dense path ---------------------------------------------------
     runs = {}
@@ -1348,8 +1669,9 @@ def main():
 
     def row(name, source, replaces, launches, rec):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+        measured = ("device_ms", "library_device_ms", "steps", "us_per_step", "engine")
         return {"name": name, "route": "cuda", "source": f"cv_tpu_torch/csrc/{source}.cu", "replaces": replaces,
-                "launches": launches, **{k: rec[k] for k in keys}}
+                "launches": launches, **{k: rec[k] for k in keys}, **{k: rec[k] for k in measured if k in rec}}
 
     # #2 and #3 both map to the patch form of kernel #1: one pair of
     # launches, the 'pallas' run's, stands in both rows.

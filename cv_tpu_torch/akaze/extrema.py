@@ -137,11 +137,7 @@ def dedup_scan_plain(
     return out > 0
 
 
-def _bind_dedup(lib: ctypes.CDLL):
-    fn = lib.cv_dedup_scan
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_DEDUP_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
 
 
 def dedup_scan_device(px_cmp, py_cmp, px_store, py_store, resp, class_id, size2, valid,
@@ -183,11 +179,10 @@ def dedup_scan_device(px_cmp, py_cmp, px_store, py_store, resp, class_id, size2,
     out = torch.empty((b, c), dtype=torch.bool, device=dev)
     if b == 0 or c == 0:
         return out
-    fn = _bind_dedup(kernels.load("dedup_scan"))
-    err = fn(
+    err = kernels.function("dedup_scan", "cv_dedup_scan", _DEDUP_ARGS)(
         *(t.data_ptr() for t in floats), cls.data_ptr(), s2.data_ptr(), ok.data_ptr(),
         steps.data_ptr(), out.data_ptr(), b, c, -1 if max_shared_slots is None else max_shared_slots,
-        torch.cuda.current_stream(dev).cuda_stream,
+        kernels.current_stream(dev),
     )
     if err != 0:
         raise RuntimeError(f"dedup_scan kernel launch failed: cudaError {err}")

@@ -43,11 +43,7 @@ def select_fused_plain(planes, lvl, y0, x0, orel_x, orel_y, xf, yf, scale, width
     return vals, meta
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.cv_select_fused
-    fn.argtypes = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_FUSED_ARGS = [ctypes.c_void_p] * 18 + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
 
 
 def select_fused(planes, lvl, y0, x0, orel_x, orel_y, xf, yf, scale, width, height,
@@ -93,13 +89,12 @@ def select_fused(planes, lvl, y0, x0, orel_x, orel_y, xf, yf, scale, width, heig
     meta = torch.empty((k, 4), dtype=torch.float32, device=dev)
     if k == 0:
         return vals, meta
-    fn = _bind(kernels.load("select_fused"))
-    err = fn(
+    err = kernels.function("select_fused", "cv_select_fused", _FUSED_ARGS)(
         *(t.data_ptr() for t in args),
         ot["wt"].data_ptr(), ot["ang1s"].data_ptr(), ot["ang2s"].data_ptr(),
         mt["ks"].data_ptr(), mt["ls"].data_ptr(), vals.data_ptr(), meta.data_ptr(),
         n_levels, height_p, width_p, k, no, nw, ns, ctypes.c_float(desc.TWO_PI),
-        torch.cuda.current_stream(dev).cuda_stream,
+        kernels.current_stream(dev),
     )
     if err != 0:
         raise RuntimeError(f"select_fused kernel launch failed: cudaError {err}")

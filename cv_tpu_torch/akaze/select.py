@@ -28,11 +28,7 @@ def select_samples_plain(planes, lvl, y0, x0, rel_x, rel_y, c0: int = 0) -> torc
     return torch.stack([planes[lv, c, yy, xx] for c in range(c0, planes.shape[1])], dim=1)
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.cv_select_samples
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_SELECT_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def select_samples(planes, lvl, y0, x0, rel_x, rel_y, c0: int = 0) -> torch.Tensor:
@@ -66,12 +62,11 @@ def select_samples(planes, lvl, y0, x0, rel_x, rel_y, c0: int = 0) -> torch.Tens
     out = torch.empty((k, channels - c0, ns), dtype=torch.float32, device=planes.device)
     if k == 0 or ns == 0:
         return out
-    fn = _bind(kernels.load("select_samples"))
-    err = fn(
+    err = kernels.function("select_samples", "cv_select_samples", _SELECT_ARGS)(
         planes.data_ptr(), lvl.data_ptr(), y0.data_ptr(), x0.data_ptr(),
         rel_x.data_ptr(), rel_y.data_ptr(), out.data_ptr(),
         n_levels, channels, height, width, k, ns, c0,
-        torch.cuda.current_stream(planes.device).cuda_stream,
+        kernels.current_stream(planes.device),
     )
     if err != 0:
         raise RuntimeError(f"select_samples kernel launch failed: cudaError {err}")
@@ -127,11 +122,7 @@ def select_groups_plain(planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y,
     return torch.where(live[:, None, None], vals, torch.zeros((), dtype=vals.dtype, device=vals.device))
 
 
-def _bind_groups(lib: ctypes.CDLL):
-    fn = lib.cv_select_groups
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+_GROUPS_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 
 
 def select_groups(planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y, c0: int = 0) -> torch.Tensor:
@@ -174,12 +165,11 @@ def select_groups(planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y, c0: i
     out = torch.empty((ng * GROUP, channels - c0, ns), dtype=torch.float32, device=planes.device)
     if ng == 0 or ns == 0:
         return out
-    fn = _bind_groups(kernels.load("select_groups"))
-    err = fn(
+    err = kernels.function("select_groups", "cv_select_groups", _GROUPS_ARGS)(
         planes.data_ptr(), win_lvl.data_ptr(), win_ty.data_ptr(), win_tx.data_ptr(),
         n_active.data_ptr(), rel_x.data_ptr(), rel_y.data_ptr(), out.data_ptr(),
         n_levels, channels, height, width, ng, ns, c0,
-        torch.cuda.current_stream(planes.device).cuda_stream,
+        kernels.current_stream(planes.device),
     )
     if err != 0:
         raise RuntimeError(f"select_groups kernel launch failed: cudaError {err}")

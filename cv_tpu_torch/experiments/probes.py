@@ -69,16 +69,12 @@ def _require(name: str, t: torch.Tensor, dtype, ndim: int):
 
 
 def _launch(source: str, symbol: str, argtypes, *args):
-    fn = getattr(kernels.load(source), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    err = fn(*args)
+    err = kernels.function(source, symbol, argtypes)(*args)
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
+_stream = kernels.current_stream
 
 
 def _bf16(x: torch.Tensor) -> torch.Tensor:
@@ -124,29 +120,52 @@ select_window.launches = 0
 
 def take_along_plain(x, idx, axis: int) -> torch.Tensor:
     """``out[r, c] = x[r, idx[r, c]]`` (axis 1) or ``x[idx[r, c], c]``
-    (axis 0), by advanced indexing."""
+    (axis 0), by advanced indexing; NaN where the index falls outside
+    ``x``."""
     rows, cols = idx.shape
+    j = idx.long()
+    ok = (j >= 0) & (j < x.shape[axis])
+    j = torch.where(ok, j, 0)
     if axis == 1:
-        return x[torch.arange(rows, device=x.device)[:, None], idx.long()]
-    return x[idx.long(), torch.arange(cols, device=x.device)[None, :]]
+        vals = x[torch.arange(rows, device=x.device)[:, None], j]
+    else:
+        vals = x[j, torch.arange(cols, device=x.device)[None, :]]
+    return torch.where(ok, vals, torch.full((), float("nan"), dtype=x.dtype, device=x.device))
+
+
+_TAKE_ALONG_ARGS = [_VOID] * 3 + [_INT] * 5 + [_VOID]
+_INT_LIMIT = 2**31
 
 
 def take_along(x, idx, axis: int) -> torch.Tensor:
     """:func:`take_along_plain` through ``csrc/take_along.cu``.  ``x``: 2-d
     float32; ``idx``: 2-d int32 with ``x``'s rows (axis 1) or columns
-    (axis 0)."""
-    dev = _device("take_along", x, idx)
-    if axis not in (0, 1):
+    (axis 0); each under 2^31 elements.  The checks are attribute reads and
+    the C function is typed once, so a call costs little host time."""
+    dev = x.device
+    if idx.device != dev:
+        raise ValueError(f"take_along: tensors on several devices {{{dev}, {idx.device}}}")
+    if axis != 0 and axis != 1:
         raise ValueError(f"take_along: axis must be 0 or 1, got {axis}")
     if dev.type == "cpu":
         return take_along_plain(x, idx, axis)
-    _require("x", x, torch.float32, 2)
-    _require("idx", idx, torch.int32, 2)
-    if idx.shape[1 - axis] != x.shape[1 - axis]:
-        raise ValueError(f"take_along: idx {tuple(idx.shape)} does not fit x {tuple(x.shape)} on axis {axis}")
-    out = torch.empty(idx.shape, dtype=torch.float32, device=dev)
-    _launch("take_along", "cv_take_along", [_VOID] * 3 + [_INT] * 5 + [_VOID],
-            x.data_ptr(), idx.data_ptr(), out.data_ptr(), *idx.shape, *x.shape, axis, _stream(dev))
+    if dev.type != "cuda":
+        raise ValueError(f"take_along: unsupported device {dev}")
+    if x.dtype != torch.float32 or x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"x must be a contiguous 2-d torch.float32, got {x.dtype} {tuple(x.shape)}")
+    if idx.dtype != torch.int32 or idx.dim() != 2 or not idx.is_contiguous():
+        raise ValueError(f"idx must be a contiguous 2-d torch.int32, got {idx.dtype} {tuple(idx.shape)}")
+    rows, cols = idx.shape
+    x_rows, x_cols = x.shape
+    if (rows != x_rows) if axis == 1 else (cols != x_cols):
+        raise ValueError(f"take_along: idx {(rows, cols)} does not fit x {(x_rows, x_cols)} on axis {axis}")
+    if rows * cols >= _INT_LIMIT or x_rows * x_cols >= _INT_LIMIT:
+        raise ValueError(f"take_along: {(rows, cols)} / {(x_rows, x_cols)} reach 2^31 elements")
+    out = torch.empty((rows, cols), dtype=torch.float32, device=dev)
+    err = kernels.function("take_along", "cv_take_along", _TAKE_ALONG_ARGS)(
+        x.data_ptr(), idx.data_ptr(), out.data_ptr(), rows, cols, x_rows, x_cols, axis, _stream(dev))
+    if err != 0:
+        raise RuntimeError(f"cv_take_along kernel launch failed: cudaError {err}")
     take_along.launches += 1
     return out
 

@@ -6,7 +6,9 @@ compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
 ``csrc/*.cuh`` headers and the flags, so an edited source is rebuilt) and
 loaded with ``ctypes``.  :func:`build_all` starts one ``nvcc`` per source
 at once.  Nothing is built at import time, and a missing compiler raises:
-there is no fallback.
+there is no fallback.  The wrappers take each C function from
+:func:`function`, which resolves and types it once, and the stream to
+launch on from :func:`current_stream`.
 
 The pose-optimizer loops, the dedup scan, the fused describe and the
 select probes are built with ``--fmad=false``: no multiply-add is contracted, so each float
@@ -23,6 +25,8 @@ import shutil
 import subprocess
 import tempfile
 import time
+
+import torch
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
@@ -49,6 +53,8 @@ KERNELS = (
 
 # name -> (ctypes library, build record); filled at first use.
 _LOADED: dict = {}
+# (name, symbol) -> typed ctypes function; filled at first use.
+_FUNCTIONS: dict = {}
 
 
 def _nvcc() -> str:
@@ -133,3 +139,28 @@ def build_record(name: str) -> dict:
     """How ``load(name)`` obtained its library (path, build seconds, log)."""
     load(name)
     return _LOADED[name][1]
+
+
+def function(name: str, symbol: str, argtypes):
+    """The C function ``symbol`` of ``csrc/<name>.cu``'s library, with its
+    ``argtypes`` set and an ``int`` result (the launch's ``cudaError_t``).
+    Resolved and typed at the first call; later calls return the same
+    object."""
+    fn = _FUNCTIONS.get((name, symbol))
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _FUNCTIONS[(name, symbol)] = fn
+    return fn
+
+
+def current_stream(device) -> int:
+    """The handle of PyTorch's current stream on the CUDA ``device``, as an
+    int: the raw getter where PyTorch has one (no Stream object is built),
+    else ``torch.cuda.current_stream``."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(index)
+    return torch.cuda.current_stream(index).cuda_stream

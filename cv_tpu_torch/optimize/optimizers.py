@@ -61,12 +61,14 @@ def landmark_deltas(pose: Isometry3, bearings, world_points, valid):
 
 
 def single_view_simple_optimize_l2(
-    pose: Isometry3, bearings, world_points, valid, optimization_rate: float, iterations: int
+    pose: Isometry3, bearings, world_points, valid, optimization_rate: float, iterations: int, steps_out=None
 ) -> Isometry3:
     """Mean-gradient descent with patience (single_view_optimizer.rs:80-135).
 
     ``bearings``: (N, 3); ``world_points``: (N, 4) homogeneous; ``valid``:
-    (N,) bool.  Returns the pose in its own type and dtype.
+    (N,) bool.  Returns the pose in its own type and dtype.  ``steps_out``,
+    a one-element int32 tensor on any device, gets the number of steps
+    taken (calls of :func:`landmark_deltas`).
     """
     inv_len = _inv_len(valid, pose.dtype)
     # Invalid rows never contribute: drop them once (same sums, same bits).
@@ -83,6 +85,8 @@ def single_view_simple_optimize_l2(
         if stale < PATIENCE:  # the stabilizing step is not applied
             pose = _apply_tangent(l2_t * inv_len * optimization_rate, l2_r * inv_len * optimization_rate, pose)
         it += 1
+    if steps_out is not None:
+        steps_out.fill_(it)
     return pose
 
 

@@ -17,6 +17,11 @@ On CPU tensors a wrapper runs the plain version in the dtype it is given.
 On CUDA tensors it launches the kernel or raises; the kernel computes in
 float32 (as the TPU kernels do) and the result comes back in the pose's
 dtype and type.  ``<wrapper>.launches`` counts kernel launches.
+
+Kernel A ranks the valid rows once per launch and sums them by rank, so
+its sum order depends on its fixed block size (256 threads, set in its
+source) alone: invalid rows, appended or interleaved, change no bit.
+``steps_out`` reports the steps it took, as the plain version's does.
 """
 
 from __future__ import annotations
@@ -69,36 +74,42 @@ def _check(err: int, what: str):
         raise RuntimeError(f"{what} kernel launch failed: cudaError {err}")
 
 
-def _bind(name: str, symbol: str, argtypes):
-    fn = getattr(kernels.load(name), symbol)
-    fn.argtypes = argtypes
-    fn.restype = ctypes.c_int
-    return fn
-
-
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_SV_ARGS = [_P] * 7 + [_I, ctypes.c_float, _I, _P]
 
 
-def single_view_l2(pose: Isometry3, bearings, world_points, valid, optimization_rate: float, iterations: int):
+def single_view_l2(pose: Isometry3, bearings, world_points, valid, optimization_rate: float, iterations: int,
+                   steps_out=None):
     """Single-view L2 patience loop; see
-    :func:`optimizers.single_view_simple_optimize_l2` for the arguments."""
+    :func:`optimizers.single_view_simple_optimize_l2` for the arguments.
+
+    ``steps_out``, a one-element int32 tensor on the inputs' device, gets
+    the number of steps taken."""
     dev = _device(pose.rotation, pose.translation, bearings, world_points, valid)
     if dev.type == "cpu":
         return optimizers.single_view_simple_optimize_l2(
-            pose, bearings, world_points, valid, optimization_rate, iterations
+            pose, bearings, world_points, valid, optimization_rate, iterations, steps_out
         )
     n = bearings.shape[0]
     if tuple(pose.rotation.shape) != (3, 3) or tuple(pose.translation.shape) != (3,):
         raise ValueError("single_view_l2 takes one pose: rotation (3, 3), translation (3,)")
+    if steps_out is not None and (steps_out.dtype != torch.int32 or steps_out.numel() != 1
+                                  or steps_out.device != dev):
+        raise ValueError(f"steps_out must be one int32 on {dev}, got {steps_out.dtype} "
+                         f"{tuple(steps_out.shape)} on {steps_out.device}")
     pose_in = _flat_pose(pose).reshape(12).to(torch.float32).contiguous()
     bear = _f32(bearings, (n, 3), "bearings")
     wp = _f32(world_points, (n, 4), "world_points")
     vmask = _mask(valid, (n,))
     out = torch.empty(12, dtype=torch.float32, device=dev)
-    fn = _bind("single_view_l2", "cv_single_view_l2", [_P] * 5 + [ctypes.c_int, ctypes.c_float, ctypes.c_int, _P])
+    order = torch.empty(n, dtype=torch.int32, device=dev)
     _check(
-        fn(pose_in.data_ptr(), bear.data_ptr(), wp.data_ptr(), vmask.data_ptr(), out.data_ptr(),
-           n, float(optimization_rate), int(iterations), torch.cuda.current_stream(dev).cuda_stream),
+        kernels.function("single_view_l2", "cv_single_view_l2", _SV_ARGS)(
+            pose_in.data_ptr(), bear.data_ptr(), wp.data_ptr(), vmask.data_ptr(), out.data_ptr(),
+            None if steps_out is None else steps_out.data_ptr(), order.data_ptr(), n, float(optimization_rate),
+            int(iterations), kernels.current_stream(dev),
+        ),
         "single_view_l2",
     )
     single_view_l2.launches += 1
@@ -130,10 +141,10 @@ def three_view_l2(poses: tuple, observations, valid, optimization_rate: float, i
     n = observations.shape[0]
     ftoc, stoc, flat, obs, vmask = _tv_pack(poses, observations, valid, (), n)
     out = torch.empty(24, dtype=torch.float32, device=dev)
-    fn = _bind("three_view_l2", "cv_three_view_l2", [_P] * 4 + [ctypes.c_int, ctypes.c_float, ctypes.c_int, _P])
+    fn = kernels.function("three_view_l2", "cv_three_view_l2", [_P] * 4 + [_I, ctypes.c_float, _I, _P])
     _check(
         fn(flat.data_ptr(), obs.data_ptr(), vmask.data_ptr(), out.data_ptr(), n,
-           float(optimization_rate), int(iterations), torch.cuda.current_stream(dev).cuda_stream),
+           float(optimization_rate), int(iterations), kernels.current_stream(dev)),
         "three_view_l2",
     )
     three_view_l2.launches += 1
@@ -154,13 +165,10 @@ def three_view_adaptive(poses: tuple, observations, valid, iterations: int):
     out = torch.empty((k, 24), dtype=torch.float32, device=dev)
     if k == 0:
         return _tv_unpack(out, ftoc, stoc)
-    fn = _bind(
-        "three_view_adaptive", "cv_three_view_adaptive",
-        [_P] * 4 + [ctypes.c_int, ctypes.c_int, ctypes.c_int, _P],
-    )
+    fn = kernels.function("three_view_adaptive", "cv_three_view_adaptive", [_P] * 4 + [_I, _I, _I, _P])
     _check(
         fn(flat.data_ptr(), obs.data_ptr(), vmask.data_ptr(), out.data_ptr(), k, n, int(iterations),
-           torch.cuda.current_stream(dev).cuda_stream),
+           kernels.current_stream(dev)),
         "three_view_adaptive",
     )
     three_view_adaptive.launches += 1

@@ -489,3 +489,114 @@ def test_cuda_retired_selects_launch_the_select_kernel():
     assert tselect.select_samples.launches == before + 1
     planes, lvl, ty, tx, rel_x, rel_y = args
     assert torch.equal(got, tselect.select_samples_plain(planes, lvl, 128 * ty, 128 * tx, rel_x, rel_y))
+
+
+def _ragged_gather(axis, seed, rows=37, cols=130, other=61):
+    """``x`` and int32 ``idx`` with ``cols % 4 != 0`` and indices outside
+    ``x`` (-1, the axis length, 2^31 - 1) in every row."""
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(rows, other) if axis == 1 else (other, cols)).astype(np.float32)
+    idx = rng.integers(0, x.shape[axis], (rows, cols)).astype(np.int32)
+    idx[:, 3] = -1
+    idx[:, 5] = x.shape[axis]
+    idx[::2, 7] = 2**31 - 1
+    return x, idx
+
+
+@pytest.mark.parametrize("axis", [0, 1])
+def test_take_along_plain_out_of_range_is_nan(axis):
+    x, idx = _ragged_gather(axis, 20 + axis)
+    got = probes.take_along(torch.as_tensor(x), torch.as_tensor(idx), axis).numpy()
+    ok = (idx >= 0) & (idx < x.shape[axis])
+    assert np.isnan(got[~ok]).all() and not np.isnan(got[ok]).any()
+    np.testing.assert_array_equal(got[ok], np.take_along_axis(x, np.where(ok, idx, 0), axis)[ok])
+
+
+def test_kernel_functions_are_bound_once(monkeypatch):
+    """``kernels.function`` resolves and types a C function once and hands
+    back the same object; the library is loaded once per source."""
+    from cv_tpu_torch import kernels
+
+    class FakeFunction:
+        def __init__(self):
+            self.typed = 0
+
+        def __setattr__(self, name, value):
+            if name in ("argtypes", "restype"):
+                object.__setattr__(self, "typed", self.typed + 1)
+            object.__setattr__(self, name, value)
+
+    class FakeLibrary:
+        def __init__(self):
+            self.resolved = []
+
+        def __getattr__(self, symbol):
+            self.resolved.append(symbol)
+            return FakeFunction()
+
+    lib = FakeLibrary()
+    loads = []
+    monkeypatch.setattr(kernels, "_FUNCTIONS", {})
+    monkeypatch.setattr(kernels, "load", lambda name: loads.append(name) or lib)
+    argtypes = [kernels.ctypes.c_void_p, kernels.ctypes.c_int]
+    first = kernels.function("take_along", "cv_take_along", argtypes)
+    for _ in range(3):
+        assert kernels.function("take_along", "cv_take_along", argtypes) is first
+    assert lib.resolved == ["cv_take_along"] and loads == ["take_along"]
+    assert first.typed == 2 and first.argtypes == argtypes and first.restype is kernels.ctypes.c_int
+    other = kernels.function("trig_probe", "cv_trig_probe", argtypes)
+    assert other is not first and lib.resolved == ["cv_take_along", "cv_trig_probe"]
+
+
+def test_take_along_rejects_what_the_kernel_does_not_take():
+    x = torch.zeros((4, 8))
+    idx = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="axis"):
+        probes.take_along(x, idx, 2)
+    with pytest.raises(ValueError, match="unsupported device"):
+        probes.take_along(x.to("meta"), idx.to("meta"), 1)
+    with pytest.raises(ValueError, match="several devices"):
+        probes.take_along(x, idx.to("meta"), 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", [0, 1])
+@pytest.mark.parametrize("layout", ["ragged", "misaligned"])
+def test_cuda_take_along_ragged_and_out_of_range(axis, layout):
+    """The kernel's scalar paths (``cols % 4 != 0``, or ``idx`` not on a
+    16-byte boundary) with out-of-range indices: bitwise equal to the plain
+    version (NaN there) and to ``torch.take_along_dim`` where in range."""
+    dev = _cuda()
+    x_np, idx_np = _ragged_gather(axis, 30 + axis, cols=130 if layout == "ragged" else 128)
+    x = torch.as_tensor(x_np, device=dev)
+    idx = torch.as_tensor(idx_np, device=dev)
+    if layout == "misaligned":
+        flat = torch.zeros(idx.numel() + 1, dtype=torch.int32, device=dev)
+        flat[1:] = idx.reshape(-1)
+        idx = flat[1:].view(idx.shape)
+        assert idx.is_contiguous() and idx.data_ptr() % 16 != 0
+    before = probes.take_along.launches
+    got = probes.take_along(x, idx, axis)
+    ref = probes.take_along_plain(x, idx, axis)
+    torch.cuda.synchronize()
+    assert probes.take_along.launches == before + 1
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+    ok = (idx >= 0) & (idx < x.shape[axis])
+    lib = torch.take_along_dim(x, torch.where(ok, idx, 0).long(), dim=axis)
+    assert torch.equal(got[ok], lib[ok]) and bool(got[~ok].isnan().all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("x_shape,idx_shape", [((1, 130), (5, 130)), ((2, 1), (7, 1))])
+def test_cuda_take_along_thin_x_on_axis_0(x_shape, idx_shape):
+    """One or two rows of ``x`` on axis 0 with a width that is not a
+    multiple of 4: the lanes past a row's end read nothing (a read there
+    would fall outside ``x``); bitwise equal to the plain version."""
+    dev = _cuda()
+    rng = np.random.default_rng(40 + x_shape[1])
+    x = torch.as_tensor(rng.normal(size=x_shape).astype(np.float32), device=dev)
+    idx = torch.as_tensor(rng.integers(-1, x_shape[0] + 1, idx_shape).astype(np.int32), device=dev)
+    got = probes.take_along(x, idx, 0)
+    ref = probes.take_along_plain(x, idx, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))

@@ -233,3 +233,110 @@ def test_kernel_matches_plain_on_card(kind):
     a = _port(kind, prob, 300, torch.float32, device="cuda", plain=False)
     b = _port(kind, _pad(kind, prob, 60), 300, torch.float32, device="cuda", plain=False)
     np.testing.assert_array_equal(a, b)
+
+
+def _interleave(kind, prob, extra, seed=7):
+    """The problem with ``extra`` invalid rows (values 0.5/1.0) inserted at
+    seeded random places among its rows, not only at the end."""
+    out = dict(prob)
+    rows = {"single_view": ("bear", "wp", "valid"), "three_view": ("obs", "valid"), "adaptive": ("obs", "valid")}
+    axis = 1 if kind == "adaptive" else 0
+    n = prob["valid"].shape[axis]
+    at = np.sort(np.random.default_rng(seed).integers(0, n + 1, extra))
+    for key in rows[kind]:
+        fill = False if key == "valid" else (1.0 if key == "wp" else 0.5)
+        out[key] = np.insert(prob[key], at, fill, axis=axis)
+    return out
+
+
+@pytest.mark.parametrize("kind", KINDS)
+def test_plain_padding_invariance_interleaved(kind):
+    """60 invalid rows interleaved among the valid ones change no bit."""
+    prob = _problem(kind)
+    a = _port(kind, prob, 300, torch.float32)
+    padded = _interleave(kind, prob, 60)
+    assert padded["valid"].shape[-1] == prob["valid"].shape[-1] + 60
+    b = _port(kind, padded, 300, torch.float32)
+    np.testing.assert_array_equal(a, b)
+
+
+def _single_view_tensors(prob, dtype, device="cpu"):
+    def t(a):
+        return torch.tensor(a, dtype=dtype if a.dtype != bool else torch.bool, device=device)
+
+    return WorldToCamera(rotation=t(prob["rot"]), translation=t(prob["t"])), t(prob["bear"]), t(prob["wp"]), t(
+        prob["valid"])
+
+
+@pytest.mark.parametrize("stop,iters", [("patience", 20000), ("iterations", 37)])
+def test_plain_steps_out_counts_the_steps(monkeypatch, stop, iters):
+    """``steps_out`` of the plain single-view loop equals its calls of
+    ``landmark_deltas``, whether patience or ``iterations`` stops it; the
+    wrapper on the CPU passes it through."""
+    calls = [0]
+    real = optimizers.landmark_deltas
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    monkeypatch.setattr(optimizers, "landmark_deltas", counted)
+    args = _single_view_tensors(_single_view_problem(), torch.float64)
+    steps = torch.full((1,), -1, dtype=torch.int32)
+    optimizers.single_view_simple_optimize_l2(*args, 1e-2, iters, steps)
+    assert int(steps) == calls[0]
+    if stop == "patience":
+        assert calls[0] < iters
+    else:
+        assert calls[0] == iters
+    wrapped = torch.full((1,), -1, dtype=torch.int32)
+    resident.single_view_l2(*args, 1e-2, iters, steps_out=wrapped)
+    assert int(wrapped) == int(steps)
+
+
+def _sized_single_view(case):
+    """Kernel A's shape cases: N valid rows, zero valid rows, a NaN row."""
+    if case.startswith("n"):
+        prob = _single_view_problem(m=int(case[1:]), seed=3)
+        prob["valid"][:] = True
+        return prob
+    prob = _single_view_problem(m=200, seed=4)
+    if case == "zero_valid":
+        prob["valid"][:] = False
+    else:  # nan_row: a valid row whose projection is NaN
+        prob["valid"][:] = True
+        prob["wp"][17] = np.nan
+    return prob
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["n1", "n31", "n1025", "n2048", "n2100", "n12000", "zero_valid", "nan_row"])
+def test_single_view_kernel_shapes_on_card(case):
+    """Kernel A against its plain version on the card, 1e-6 after one step
+    and 1e-4 after 300, and the same step count; 12,000 rows are more than
+    its registers and shared memory hold (~9,100 on an H100), so the rest
+    are read from global memory each step."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prob = _sized_single_view(case)
+    for iters, tol in ((1, 1e-6), (300, 1e-4)):
+        args = _single_view_tensors(prob, torch.float32, "cuda")
+        sk, sp = (torch.zeros(1, dtype=torch.int32, device="cuda") for _ in range(2))
+        got = resident.single_view_l2(*args, 1e-2, iters, steps_out=sk)
+        ref = optimizers.single_view_simple_optimize_l2(*args, 1e-2, iters, sp)
+        torch.cuda.synchronize()
+        for g, r in ((got.rotation, ref.rotation), (got.translation, ref.translation)):
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=tol, rtol=0)
+        assert int(sk) == int(sp)
+
+
+@pytest.mark.cuda
+def test_single_view_kernel_interleaved_padding_on_card():
+    """Invalid rows interleaved among the valid ones change no bit of
+    kernel A's result."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    prob = _single_view_problem(m=3000, seed=5)  # 1,500 valid rows: registers and shared memory
+    a = _port("single_view", prob, 300, torch.float32, device="cuda", plain=False)
+    b = _port("single_view", _interleave("single_view", prob, 700), 300, torch.float32, device="cuda", plain=False)
+    np.testing.assert_array_equal(a, b)
