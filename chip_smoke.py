@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of cv_tpu_torch on one CUDA card.
 
-Drives the port's three main paths:
+Drives the port's main paths:
 
 * the two-frame KITTI pipeline at full resolution (1392x512) with the pair
   stacked four times as a batch of 8: ``DeviceExtractor(Akaze.sparse(),
@@ -18,6 +18,9 @@ Drives the port's three main paths:
   describe, the same batch through the ``'pfused'`` and ``'pallas'``
   describe modes, and ``FastAkazeExtractor(Akaze(maximum_features=8192))``
   as the engine builds it at its default ``tracking_features``;
+* the SfM engine on bench.py's loop-closure scenario (bench.py:646-698):
+  23 rendered 512x640 frames, two segments that form two reconstructions
+  and three bridge frames that merge them;
 * the retired describe modes ``'pepatch'`` and ``'ptiles'`` (registered by
   importing ``cv_tpu_torch.experiments.mldb_losers``) on the KITTI batch
   and the dense pair, and the experiments' runs
@@ -33,19 +36,32 @@ Phases, in order; any failed check raises and the script exits non-zero:
      select (zero rows included), the dedup scan and the fused describe
      bitwise (the fused describe also within its stated gates: ok flags
      equal, angles within 1e-5 rad, >= 99% of word rows bitwise equal, no
-     row more than 16 of 486 bits off); the pose-optimizer loops A (single_view_l2, N=2048), B
+     row more than 16 of 486 bits off); the pose kernels' branch-free
+     division bitwise to ``x / y``, square root bitwise to sqrtf and
+     Taylor-branch division bitwise to ``/`` on every float of their
+     ranges; the pose-optimizer loops A (single_view_l2, N=2048), B
      (three_view_l2, N=1024) and C (three_view_adaptive, K=64, N=64)
      within 1e-6 after one step, 1e-4 after a full run (2,000 / 2,000 /
-     1,000 steps), and bitwise equal to themselves with 60 padded invalid
-     rows (A also with 60 interleaved ones); A's step count (``steps_out``)
-     equal to its plain version's, its device time (``device_ms``: the
-     launch in a CUDA graph) and us a step; A also at an engine-like bucket
-     (N=1,024, 300 valid rows scattered, the engine's 4,000-step cap:
-     within 1e-4, the plain step count, bitwise equal to the same rows
-     without padding) and past its shared-memory tier (12,000 rows:
-     1e-6 / 1e-4, the plain step count); the experiments' kernels at their
-     scripts' shapes: the retired
-     selects and the probe selects and gathers bitwise, the trigonometry
+     1,000 steps), A's and B's step counts (``steps_out``) equal to
+     their plain versions', each bitwise equal to itself with 60 appended
+     and with 60 interleaved invalid rows, its device time (``device_ms``:
+     the launch in a CUDA graph) and us a step; B and C held the same way
+     on a second problem in which the bearings of every row (B) or every
+     fourth row (C) come from the camera centres negated, so that there the
+     three triangulations of the three-view gradient pass their cheirality
+     tests and the translation tangents are nonzero (checked first; on the
+     first problem and on the engine's calls every triangulation fails and
+     only the rotations move); C's full run there is 10 steps, as its
+     translations diverge within tens (``TRANSLATING``); A and B at an
+     engine-like bucket (N=1,024 with 300 / 222 valid rows scattered, the
+     engine's 4,000-step cap: within 1e-4, the plain step count, bitwise
+     equal to the same rows without padding) and past their shared-memory
+     tiers (12,000 / 8,000 rows: 1e-6 / 1e-4, the plain step count); B at
+     one row, 31 rows, no valid row and a NaN row; C at K=1, 9 ragged
+     problems and a problem without valid rows; B's and C's shape cases in
+     both geometries, with the padding gates; the experiments' kernels at their scripts'
+     shapes: the retired selects and the probe selects and gathers
+     bitwise, the trigonometry
      probe within 2 ulp of torch's functions (bit-equality printed), the
      summing probes within ``probes.SUM_ATOL``; beside each kernel's time
      and its plain version's, one PyTorch call computing the same function
@@ -63,16 +79,21 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ``sanity_check``, kernels A, B and C launched, the select kernel on
      every frame, the dedup kernel once per frame; every A, B and C call of
      the warm pass is recorded and, after the timed pass, replayed on its
-     own (calls, N, valid rows, summed device time; A's steps and us a
-     step), and for each of A's valid-row counts one recorded call is held
-     to the plain version (within 1e-4, the same step count);
-  6. drive the dense path, each run with the counters at zero: keypoint
+     own (calls, N, valid rows, summed device time; A's and B's steps and
+     us a step); for each of A's and B's valid-row counts one recorded call,
+     and every call of C, is held to the plain version (within 1e-4; A and
+     B the same step count);
+  6. drive the loop-closure scenario with the counters at zero: at least
+     two reconstructions during the run and fewer at the end (bench.py's
+     gate), an empty ``sanity_check`` of the largest; its views beside
+     cv_tpu's 13, the seconds, kernels A, B and C launched;
+  7. drive the dense path, each run with the counters at zero: keypoint
      counts within bench.py's tolerance of [3425, 2908], the group select
      launched twice and the dedup kernel once; the ``'pfused'`` and
      ``'pallas'`` runs give the same counts and words within the fused
      gates; ``FastAkazeExtractor`` at 8192 features takes the group path
      and finds frame 0's count;
-  7. drive the retired modes, each run with the counters at zero:
+  8. drive the retired modes, each run with the counters at zero:
      ``'pepatch'`` at the KITTI batch gives [399, 343] and every valid word
      row and angle bitwise equal to ``'pgather'``; ``'ptiles'`` at the
      KITTI batch and on the dense pair gives ``'pgather'``'s / ``'pgroups'``'s
@@ -80,9 +101,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      the retired selects launch the select kernel; then every experiments
      run (``runs.py``) with the counters at zero, each of its kernels
      launched;
-  8. hold the card's output against the port's CPU path on small inputs:
+  9. hold the card's output against the port's CPU path on small inputs:
      every word row equal;
-  9. time warm extract+match, each stage, the dedup scan and consensus.
+  10. time warm extract+match, each stage, the dedup scan and consensus.
 No main-path run may call a kernel's plain version.  The line before the
 last is the per-kernel JSON record; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -123,11 +144,33 @@ SFM_SETTINGS = dict(
     constraint_patience=1000,
     tracking_recent_frames=8,
 )
+# bench.py's loop-closure scenario (_bench_sfm_merge, bench.py:646-698):
+# segment A, the far segment B, then three bridge frames between them.
+MERGE_SEGMENT = 5
+MERGE_SEED = 5
+MERGE_SETTINGS = dict(SFM_SETTINGS, tracking_recent_frames=3, tracking_similar_frames=6,
+                      tracking_similar_frame_recent_threshold=3, tracking_similar_frame_search_num=64)
+MERGE_REFERENCE_VIEWS = 13  # cv_tpu's largest final reconstruction (BENCH_r05.json, sfm_merge_views)
 # Pose-optimizer kernels: (engine shape, full-run steps).
 POSE_KERNELS = {
     "single_view_l2": dict(n=2048, steps=2000, replaces="cv_tpu/optimize/pallas_loop.py:312"),
     "three_view_l2": dict(n=1024, steps=2000, replaces="cv_tpu/optimize/pallas_loop.py:661"),
     "three_view_adaptive": dict(k=64, n=64, steps=1000, replaces="cv_tpu/optimize/pallas_loop.py:538"),
+}
+# B's and C's problems whose translations move (pose_problem's
+# ``translating``): every how many rows take the translation path, and the
+# steps of the full run.  C's adaptive rate moves a pose by about the size
+# of its translation each step, so a problem with translating rows diverges
+# within tens of steps, in float64 too; a quarter of the rows and 10 steps
+# keep it well posed.
+TRANSLATING = {"three_view_l2": dict(every=1, steps=2000), "three_view_adaptive": dict(every=4, steps=10)}
+# The pose kernels that report their steps (steps_out), and each kernel's
+# plain version in cv_tpu_torch.optimize.optimizers.
+STEPPED = ("single_view_l2", "three_view_l2")
+PLAIN_VERSIONS = {
+    "single_view_l2": "single_view_simple_optimize_l2",
+    "three_view_l2": "three_view_simple_optimize_l2",
+    "three_view_adaptive": "three_view_adaptive_optimize_l2",
 }
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W limit):
 # HBM3 bandwidth and float32 outside the tensor cores.
@@ -235,10 +278,16 @@ def wall_ms(fn, reps=5):
     return out
 
 
-def pose_problem(name, seed, n=None):
+def pose_problem(name, seed, n=None, k=None, translating=0):
     """A seeded problem at the engine's shape for pose kernel ``name`` (at
-    ``n`` landmarks for kernel A when given), as float32 numpy arrays (poses
-    near the truth, noisy bearings)."""
+    ``n`` landmarks, and ``k`` problems for C, when given), as float32
+    numpy arrays (poses near the truth, noisy bearings).  C's problems have
+    ragged valid-row counts.  B and C: with the camera centres as given,
+    every triangulation of the three-view gradient fails its cheirality
+    test, as on the engine's calls, and only the rotations move; with
+    ``translating`` > 0 the bearings of every ``translating``-th row are
+    made from the centres negated, so there the three triangulations pass
+    and the translation tangents are nonzero."""
     import numpy as np
 
     from cv_tpu_torch.core.lie import so3_exp
@@ -246,6 +295,7 @@ def pose_problem(name, seed, n=None):
 
     rng = np.random.default_rng(seed)
     spec = POSE_KERNELS[name]
+    n = n or spec["n"]
 
     def rot(w):
         return so3_exp(torch.tensor(w, dtype=torch.float64)).numpy()
@@ -255,7 +305,6 @@ def pose_problem(name, seed, n=None):
         return v / np.linalg.norm(v, axis=-1, keepdims=True)
 
     if name == "single_view_l2":
-        n = n or spec["n"]
         pts = rng.uniform([-2, -2, 4], [2, 2, 10], (n, 3))
         r, t = rot([0.05, -0.1, 0.04]), np.array([0.3, -0.1, 0.05])
         return dict(
@@ -265,20 +314,21 @@ def pose_problem(name, seed, n=None):
 
     def three_view(n):
         pts = rng.uniform([-2, -2, 4], [2, 2, 10], (n, 3))
+        negated = (np.arange(n) % translating == 0)[:, None] if translating else False
         obs = np.zeros((n, 3, 3))
         poses = []
         for i, c in enumerate(([0, 0, 0], [0.4, 0, 0.05], [0.8, 0.05, 0.1])):
-            r = rot(np.array([0.02, -0.03, 0.01]) * i)
-            obs[:, i] = bearing((pts - np.array(c, float)) @ r.T)
-            poses.append((r, -r @ np.array(c, float)))
+            r, c = rot(np.array([0.02, -0.03, 0.01]) * i), np.array(c, float)
+            obs[:, i] = bearing(np.where(negated, pts + c, pts - c) @ r.T)
+            poses.append((r, -r @ c))
         return dict(r1=poses[1][0], t1=poses[1][1] + 0.03, r2=poses[2][0], t2=poses[2][1] - 0.02,
                     obs=obs, valid=np.ones(n, bool))
 
     if name == "three_view_l2":
-        return three_view(spec["n"])
-    probs = [three_view(spec["n"]) for _ in range(spec["k"])]
+        return three_view(n)
+    probs = [three_view(n) for _ in range(k or spec["k"])]
     for j, pr in enumerate(probs):
-        pr["valid"][spec["n"] - j % 16:] = False  # ragged problem sizes
+        pr["valid"][n - j % 16:] = False  # ragged problem sizes
     return {key: np.stack([pr[key] for pr in probs]) for key in probs[0]}
 
 
@@ -298,10 +348,43 @@ def pad_problem(name, prob, extra, interleave=False):
     return out
 
 
+def valid_rows_only(name, prob):
+    """``prob`` without its invalid rows (one problem: A or B)."""
+    keys = ("bear", "wp", "valid") if name == "single_view_l2" else ("obs", "valid")
+    return {key: (v[prob["valid"]] if key in keys else v) for key, v in prob.items()}
+
+
+def translation_rows(prob):
+    """A B or C problem at its start poses, through the plain functions in
+    float64 on the CPU: per triangulation of the three-view gradient (p_f,
+    p_s, p_c) the valid rows that pass its cheirality test, and the norms of
+    the summed translation tangents of both poses."""
+    import torch
+
+    from cv_tpu_torch.core.pose import CameraToCamera
+    from cv_tpu_torch.geom import epipolar
+
+    def t(a):
+        return torch.tensor(a, dtype=torch.float64)
+
+    ftoc = CameraToCamera(rotation=t(prob["r1"]), translation=t(prob["t1"])).inverse()
+    stoc = CameraToCamera(rotation=t(prob["r2"]), translation=t(prob["t2"])).inverse()
+    obs, valid = t(prob["obs"]), torch.tensor(prob["valid"])
+    c = obs[..., 0, :]
+    f = (ftoc.rotation[..., None, :, :] * obs[..., 1, None, :]).sum(dim=-1)
+    s = (stoc.rotation[..., None, :, :] * obs[..., 2, None, :]).sum(dim=-1)
+    ft, st = ftoc.translation[..., None, :], stoc.translation[..., None, :]
+    rows = [int((epipolar.two_view_same_space_triangulate_sine_l1(d, a, b)[1] & valid).sum())
+            for d, a, b in ((-st, c, s), (-ft, c, f), (-(st - ft), f, s))]
+    (t1, _), (t2, _) = epipolar.three_view_gradients(c, f, ft, s, st)
+    sums = [float(torch.where(valid[..., None], x, 0.0).sum(dim=-2).norm()) for x in (t1, t2)]
+    return rows, sums
+
+
 def pose_call(name, prob, steps, dev, plain, **kw):
     """A function of no arguments that runs kernel ``name`` (or its plain
     version) on ``prob`` in float32 on ``dev`` and returns its poses; the
-    inputs go to the device once.  ``kw`` goes to the call (kernel A:
+    inputs go to the device once.  ``kw`` goes to the call (A and B:
     ``steps_out``)."""
     import torch
 
@@ -327,73 +410,61 @@ def pose_call(name, prob, steps, dev, plain, **kw):
     return lambda: list(fn(*args, **kw))
 
 
+def flat_poses(poses):
+    """One pose or a sequence of poses -> all their numbers as one float64
+    numpy vector."""
+    import numpy as np
+
+    from cv_tpu_torch.core.pose import Isometry3
+
+    poses = [poses] if isinstance(poses, Isometry3) else poses
+    return np.concatenate([np.concatenate([p.rotation.double().cpu().numpy().ravel(),
+                                           p.translation.double().cpu().numpy().ravel()]) for p in poses])
+
+
 def run_pose(name, prob, steps, dev, plain, **kw):
     """Run kernel ``name`` (or its plain version) on ``prob`` in float32 on
     ``dev``; returns all pose numbers as one float64 numpy vector."""
-    import numpy as np
     import torch
 
     poses = pose_call(name, prob, steps, dev, plain, **kw)()
     torch.cuda.synchronize()
-    return np.concatenate([np.concatenate([p.rotation.cpu().numpy().ravel(), p.translation.cpu().numpy().ravel()])
-                           for p in poses]).astype(np.float64)
+    return flat_poses(poses)
 
 
-def single_view_steps(prob, steps, dev, plain, **kw):
-    """Steps kernel A (or its plain version) takes on ``prob``, from its
-    ``steps_out``."""
-    import torch
-
-    out = torch.zeros(1, dtype=torch.int32, device=dev)
-    run_pose("single_view_l2", prob, steps, dev, plain, steps_out=out, **kw)
-    return int(out.item())
-
-
-def plain_steps(name, prob, steps, dev):
-    """Steps the plain version of pose kernel ``name`` takes on ``prob``
-    before its patience rule stops it (calls of its per-step tangents)."""
-    from cv_tpu_torch.optimize import optimizers
-
-    if name == "single_view_l2":
-        return single_view_steps(prob, steps, dev, plain=True)
-    real, calls = optimizers._three_view_landmark_gradients, [0]
-
-    def counted(*a, **kw):
-        calls[0] += 1
-        return real(*a, **kw)
-
-    optimizers._three_view_landmark_gradients = counted
-    try:
-        run_pose(name, prob, steps, dev, plain=True)
-    finally:
-        optimizers._three_view_landmark_gradients = real
-    return calls[0]
-
-
-def hold_single_view(label, prob, steps, dev, tol):
-    """Kernel A against its plain version on ``prob``: within ``tol``, the
-    same step count.  Returns the kernel's poses (numpy) and steps."""
+def hold_pose(name, label, prob, steps, dev, tol):
+    """Kernel ``name`` against its plain version on ``prob``: within ``tol``
+    and, for A and B, the same step count.  Returns the kernel's poses
+    (numpy), its steps (``steps`` for C) and the largest difference."""
     import numpy as np
     import torch
 
-    k_out, p_out = (torch.zeros(1, dtype=torch.int32, device=dev) for _ in range(2))
-    got = run_pose("single_view_l2", prob, steps, dev, plain=False, steps_out=k_out)
-    ref = run_pose("single_view_l2", prob, steps, dev, plain=True, steps_out=p_out)
+    kw_k, kw_p = ({"steps_out": torch.zeros(1, dtype=torch.int32, device=dev)} if name in STEPPED else {}
+                  for _ in range(2))
+    got = run_pose(name, prob, steps, dev, plain=False, **kw_k)
+    ref = run_pose(name, prob, steps, dev, plain=True, **kw_p)
     err = float(np.abs(got - ref).max())
-    k_steps, p_steps = int(k_out.item()), int(p_out.item())
-    require(np.isfinite(got).all() and err <= tol, f"single_view_l2 {label} within {tol} (max |err| {err})")
-    require(k_steps == p_steps, f"single_view_l2 {label}: {k_steps} steps, its plain version {p_steps}")
-    print(f"single_view_l2 {label}: max |err| {err:.3e} (gate {tol}), {k_steps} steps as the plain version")
-    return got, k_steps
+    require(np.isfinite(got).all() and err <= tol, f"{name} {label} within {tol} (max |err| {err})")
+    k_steps = steps
+    if name in STEPPED:
+        k_steps, p_steps = int(kw_k["steps_out"].item()), int(kw_p["steps_out"].item())
+        require(k_steps == p_steps, f"{name} {label}: {k_steps} steps, its plain version {p_steps}")
+    print(f"{name} {label}: max |err| {err:.3e} (gate {tol})"
+          + (f", {k_steps} steps as the plain version" if name in STEPPED else ""))
+    return got, k_steps, err
 
 
-def check_single_view_division(dev, seed, n=1 << 22):
-    """Kernel A's branch-free division (``cv_single_view_div_check``, with
-    ``/`` where an operand is out of its range) bitwise against IEEE
-    division, ``x / y`` on the card: random bit patterns (every exponent,
-    specials included), log-uniform magnitudes across the range's edges at
-    2^-60 and 2^60, and operands whose significand is all ones.  Returns
-    the number of pairs checked."""
+def check_pose_arithmetic(dev, seed, n=1 << 22):
+    """The pose kernels' branch-free division and square root against IEEE
+    on the card.  The division (``cv_single_view_div_check``, with ``/``
+    where an operand is out of its range) bitwise against ``x / y``: random
+    bit patterns (every exponent, specials included), log-uniform
+    magnitudes across the range's edges at 2^-60 and 2^60, and operands
+    whose significand is all ones.  The square root against sqrtf on every
+    float of its range, and the division of Rodrigues' Taylor branch against
+    ``x / 6`` and ``x / 24`` on every float of its (``cv_pose_fast_path_check``).
+    Returns the numbers of pairs, square roots and Taylor divisors
+    checked."""
     import ctypes
 
     import torch
@@ -418,37 +489,88 @@ def check_single_view_division(dev, seed, n=1 << 22):
                 "division check launch")
         ref = x / y
         same = (out.view(torch.int32) == ref.view(torch.int32)) | (out.isnan() & ref.isnan())
-        require(bool(same.all()), f"kernel A's division differs from x / y on {int((~same).sum())} pairs")
-    return 5 * n
+        require(bool(same.all()), f"the pose kernels' division differs from x / y on {int((~same).sum())} pairs")
+    bad = torch.zeros(2, dtype=torch.int64, device=dev)
+    check = kernels.function("three_view_l2", "cv_pose_fast_path_check", [ctypes.c_void_p] * 2)
+    require(check(bad.data_ptr(), kernels.current_stream(dev)) == 0, "fast-path check launch")
+    sqrt_bad, taylor_bad = (int(b) for b in bad.tolist())
+    require(sqrt_bad == 0, f"the pose kernels' square root differs from sqrtf on {sqrt_bad} floats")
+    require(taylor_bad == 0, f"the Rodrigues Taylor-branch division differs from x / y on {taylor_bad} floats")
+    return 5 * n, 0x7F7FFFFF - 0x0D000000 + 1, 0x34000000 + 1
+
+
+def gate_pose(name, label, prob, steps, dev):
+    """Kernel ``name`` on ``prob`` against its plain version: within 1e-6
+    after one step and 1e-4 after ``steps`` (A and B: the plain step
+    count), and bitwise unchanged by 60 appended and by 60 interleaved
+    invalid rows.  Returns the kernel's poses after ``steps``, its steps and
+    the largest difference."""
+    import numpy as np
+
+    max_err = 0.0
+    for n_steps, tol in ((1, 1e-6), (steps, 1e-4)):
+        got, k_steps, err = hold_pose(name, f"{label}{n_steps} steps", prob, n_steps, dev, tol)
+        max_err = max(max_err, err)
+    for what, padded in (("60 appended", pad_problem(name, prob, 60)),
+                         ("60 interleaved", pad_problem(name, prob, 60, interleave=True))):
+        require(np.array_equal(got, run_pose(name, padded, steps, dev, plain=False)),
+                f"{name} {label}{what} invalid rows change the result")
+        print(f"{name} {label}{steps} steps: bitwise equal with {what} invalid rows")
+    return got, k_steps, max_err
+
+
+def translation_path(name, label, prob):
+    """``prob`` (B or C) after ``translation_rows`` showed that it takes the
+    translation path: each triangulation passes its cheirality test on some
+    valid row, and both summed translation tangents are nonzero."""
+    rows, sums = translation_rows(prob)
+    require(min(rows) > 0 and min(sums) > 0,
+            f"{name} {label}the translation path: p_f / p_s / p_c pass on {rows} rows, translation sums {sums}")
+    print(f"{name} {label}p_f / p_s / p_c pass their cheirality test on {rows} of {int(prob['valid'].sum())} "
+          f"valid rows; summed translation tangents {sums[0]:.4g} / {sums[1]:.4g}")
+    return prob
+
+
+def translating_problem(name, seed, label, edit=lambda prob: prob, **kw):
+    """B's or C's ``pose_problem(name, seed, **kw)`` with its rows
+    translating as ``TRANSLATING`` says, passed through ``edit`` and checked
+    by ``translation_path``."""
+    prob = edit(pose_problem(name, seed, translating=TRANSLATING[name]["every"], **kw))
+    return translation_path(name, label, prob)
+
+
+def both_geometries(name, seed, label, steps, edit=lambda prob: prob, **kw):
+    """``[(label, problem, steps), ...]``: B's or C's ``pose_problem(name,
+    seed, **kw)`` as given (rotations only, ``steps``) and translating (at
+    most the steps of ``TRANSLATING``), each passed through ``edit``."""
+    moving = f"{label}translating, "
+    return [(label, edit(pose_problem(name, seed, **kw)), steps),
+            (moving, translating_problem(name, seed, moving, edit, **kw), min(steps, TRANSLATING[name]["steps"]))]
 
 
 def check_pose_kernels(dev, seed):
-    """Phase 3 for kernels A, B, C: gates against the plain versions on the
-    card and alternating timings of full runs (wall time of a call, the
-    inputs' copy to the card and the poses' copy back included); for A also
-    the step count, the device time, bitwise invariance to interleaved
-    invalid rows, an engine-like bucket and the global-memory tier.
-    Returns per-kernel records."""
-    import numpy as np
-
+    """Phase 3 for kernels A, B, C: the division and square root, then per
+    kernel the gates of ``gate_pose`` against its plain version on the card
+    (B and C also on a problem that moves the translations), alternating
+    timings of full runs (wall time of a call, the inputs' copy to the card
+    and the poses' copy back included), the device time (the launch in a
+    CUDA graph) and, for A and B, us a step; then each kernel's shape
+    cases.  Returns per-kernel records."""
+    pairs, roots, taylor = check_pose_arithmetic(dev, seed)
+    print(f"pose kernels' division bitwise equal to x / y on {pairs} pairs; square root bitwise equal to sqrtf "
+          f"on all {roots} floats of its range; Rodrigues' Taylor division bitwise equal to x / 6 and x / 24 on all "
+          f"{taylor} floats of its range")
     out = {}
     for i, (name, spec) in enumerate(POSE_KERNELS.items()):
         prob = pose_problem(name, seed + i)
-        max_err = 0.0
-        for steps, tol in ((1, 1e-6), (spec["steps"], 1e-4)):
-            got = run_pose(name, prob, steps, dev, plain=False)
-            ref = run_pose(name, prob, steps, dev, plain=True)
-            err = float(np.abs(got - ref).max())
-            require(np.isfinite(got).all() and err <= tol, f"{name} {steps} steps within {tol} (max |err| {err})")
-            print(f"{name} vs plain, {steps} steps: max |err| {err:.3e} (gate {tol})")
-            max_err = max(max_err, err)
-        pads = [("60 appended", pad_problem(name, prob, 60))]
-        if name == "single_view_l2":
-            pads.append(("60 interleaved", pad_problem(name, prob, 60, interleave=True)))
-        for label, padded in pads:
-            b = run_pose(name, padded, spec["steps"], dev, plain=False)
-            require(np.array_equal(got, b), f"{name}: {label} invalid rows change the result")
-            print(f"{name}: bitwise equal with {label} invalid rows")
+        if name != "single_view_l2":
+            rows, _ = translation_rows(prob)
+            print(f"{name}: p_f / p_s / p_c pass their cheirality test on {rows} of {int(prob['valid'].sum())} "
+                  f"valid rows (rotations only, as on the engine's calls); timed on this problem")
+        got, k_steps, max_err = gate_pose(name, "", prob, spec["steps"], dev)
+        if name != "single_view_l2":
+            moving = translating_problem(name, seed + i, "translating, ")
+            max_err = max(max_err, gate_pose(name, "translating, ", moving, TRANSLATING[name]["steps"], dev)[2])
         # Alternate plain, kernel, kernel, plain; full runs, 3 reps each.
         reps = [wall_ms(lambda plain=plain: run_pose(name, prob, spec["steps"], dev, plain), reps=3)
                 for plain in (True, False, False, True)]
@@ -456,19 +578,13 @@ def check_pose_kernels(dev, seed):
         kms = statistics.median(reps[1] + reps[2])
         print(f"{name} full run ({spec['steps']} steps): kernel {kms:.3f} ms, plain {pms:.3f} ms (median of 6)")
         # The bound counts the steps this problem takes (the patience rule
-        # may stop A and B early) over its valid landmarks.
-        steps = spec["steps"] if name == "three_view_adaptive" else plain_steps(name, prob, spec["steps"], dev)
-        extra = {}
-        if name == "single_view_l2":
-            pairs = check_single_view_division(dev, seed)
-            print(f"single_view_l2 division: bitwise equal to x / y on {pairs} pairs")
-            k_steps = single_view_steps(prob, spec["steps"], dev, plain=False)
-            require(k_steps == steps, f"single_view_l2 took {k_steps} steps, its plain version {steps}")
-            dms = device_ms(pose_call(name, prob, spec["steps"], dev, plain=False), iters=3)
-            extra = dict(device_ms=dms, us_per_step=dms * 1e3 / k_steps)
-            print(f"single_view_l2: {k_steps} steps (plain {steps}); device {dms:.4f} ms, "
-                  f"{dms * 1e3 / k_steps:.3f} us a step")
-            check_single_view_shapes(dev, seed)
+        # may stop A and B early; hold_pose held them to the plain count)
+        # over its valid landmarks.
+        steps = k_steps
+        dms = device_ms(pose_call(name, prob, spec["steps"], dev, plain=False), iters=3)
+        extra = dict(device_ms=dms, us_per_step=dms * 1e3 / steps)
+        print(f"{name}: {steps} steps; device {dms:.4f} ms, {dms * 1e3 / steps:.3f} us a step")
+        SHAPE_CASES[name](dev, seed)
         nbytes = sum(v.nbytes for v in prob.values()) + 2 * 24 * 4
         flops = steps * int(prob["valid"].sum()) * POSE_FLOPS[name]
         out[name] = kernel_record(kms, pms, max_err, nbytes, flops, steps=steps, **extra)
@@ -477,28 +593,92 @@ def check_pose_kernels(dev, seed):
     return out
 
 
-def check_single_view_shapes(dev, seed, bucket=1024, rows=300, beyond=12000):
-    """Kernel A where phase 3's problem does not take it.  An engine-like
-    call: a ``bucket``-row problem with ``rows`` valid rows scattered among
-    it, at the engine's 4,000-step cap (partly filled register slots, warps
-    that skip them, padding rows computed and masked out), held to the plain
-    version and bitwise to the kernel on the valid rows alone.  Then
-    ``beyond`` valid rows, more than the registers and shared memory hold
-    (rows read from global memory each step)."""
+def scatter_rows(prob, seed, rows):
+    """``prob`` (one problem: A or B) with only ``rows`` seeded rows valid."""
     import numpy as np
 
-    prob = pose_problem("single_view_l2", seed + 5, n=bucket)
+    bucket = prob["valid"].shape[0]
     prob["valid"][:] = False
-    prob["valid"][np.random.default_rng(seed + 5).choice(bucket, rows, replace=False)] = True
-    cap = SFM_SETTINGS["single_view_patience"]
-    got, _ = hold_single_view(f"N={bucket}, {rows} valid rows scattered, {cap} iterations", prob, cap, dev, 1e-4)
-    dense = {k: (v[prob["valid"]] if k in ("bear", "wp", "valid") else v) for k, v in prob.items()}
-    require(np.array_equal(got, run_pose("single_view_l2", dense, cap, dev, plain=False)),
-            "single_view_l2: the bucket's padding rows change the result")
-    print(f"single_view_l2 N={bucket}, {rows} valid rows: bitwise equal to the {rows} rows alone")
-    prob = pose_problem("single_view_l2", seed + 6, n=beyond)
+    prob["valid"][np.random.default_rng(seed).choice(bucket, rows, replace=False)] = True
+    return prob
+
+
+def check_bucket(name, label, prob, cap, dev):
+    """An engine-like call of A or B: ``prob``, a bucket with its valid rows
+    scattered, at the engine's step cap ``cap`` (partly filled register
+    slots, warps that skip them, padding rows masked out), held to the plain
+    version and bitwise to the kernel on the valid rows alone."""
+    import numpy as np
+
+    bucket, rows = prob["valid"].shape[0], int(prob["valid"].sum())
+    what = f"{label}N={bucket}, {rows} valid rows scattered"
+    got, _, _ = hold_pose(name, f"{what}, {cap} iterations", prob, cap, dev, 1e-4)
+    require(np.array_equal(got, run_pose(name, valid_rows_only(name, prob), cap, dev, plain=False)),
+            f"{name} {what}: the bucket's padding rows change the result")
+    print(f"{name} {what}: bitwise equal to the {rows} rows alone")
+
+
+def check_single_view_shapes(dev, seed, beyond=12000):
+    """Kernel A where phase 3's problem does not take it: the engine-like
+    bucket (1,024 rows, 300 valid), then ``beyond`` valid rows, more than
+    the registers and shared memory hold (rows read from global memory each
+    step)."""
+    name = "single_view_l2"
+    check_bucket(name, "", scatter_rows(pose_problem(name, seed + 5, n=1024), seed + 5, 300),
+                 SFM_SETTINGS["single_view_patience"], dev)
+    prob = pose_problem(name, seed + 6, n=beyond)
     for steps, tol in ((1, 1e-6), (300, 1e-4)):
-        hold_single_view(f"N={beyond} (global-memory tier), {steps} steps", prob, steps, dev, tol)
+        hold_pose(name, f"N={beyond} (global-memory tier), {steps} steps", prob, steps, dev, tol)
+
+
+def check_three_view_shapes(dev, seed, beyond=8000):
+    """Kernel B where phase 3's problem does not take it, in both
+    geometries: the engine's bucket (1,024 rows, 222 valid, as its calls in
+    the SfM pass), one row, a partial warp and ``beyond`` rows, more than
+    its registers and shared memory hold, a NaN row; and no valid row.
+    Each but the bucket held by ``gate_pose`` (300 steps)."""
+    import numpy as np
+
+    name = "three_view_l2"
+    cap = SFM_SETTINGS["three_view_patience"]
+    for label, prob, _ in both_geometries(name, seed + 5, "", cap, lambda p: scatter_rows(p, seed + 5, 222), n=1024):
+        check_bucket(name, label, prob, cap, dev)
+
+    def nan_row(prob):
+        prob["obs"][17] = np.nan
+        return prob
+
+    cases = [case for n in (1, 31, beyond) for case in both_geometries(name, seed + 7, f"N={n}, ", 300, n=n)]
+    cases += both_geometries(name, seed + 9, "N=200, a NaN row, ", 300, nan_row, n=200)
+    none = pose_problem(name, seed + 8, n=200)
+    none["valid"][:] = False
+    for label, prob, steps in cases + [("N=200, no valid row, ", none, 300)]:
+        gate_pose(name, label, prob, steps, dev)
+
+
+def check_adaptive_shapes(dev, seed):
+    """Kernel C at the engine's problem counts, in both geometries: one
+    problem, nine with ragged valid rows, and four of which one has no
+    valid row.  Each held by ``gate_pose`` (200 steps; translating, the 10
+    of ``TRANSLATING``)."""
+    name = "three_view_adaptive"
+
+    def empty_third(prob):
+        prob["valid"][2] = False
+        return prob
+
+    cases = (both_geometries(name, seed + 10, "K=1, ", 200, k=1)
+             + both_geometries(name, seed + 11, "K=9, ragged, ", 200, k=9)
+             + both_geometries(name, seed + 12, "K=4, one problem without valid rows, ", 200, empty_third, k=4))
+    for label, prob, steps in cases:
+        gate_pose(name, f"{label}N=64, ", prob, steps, dev)
+
+
+SHAPE_CASES = {
+    "single_view_l2": check_single_view_shapes,
+    "three_view_l2": check_three_view_shapes,
+    "three_view_adaptive": check_adaptive_shapes,
+}
 
 
 def _clone(x):
@@ -516,6 +696,21 @@ def _clone(x):
         return type(x)(_clone(v) for v in x)
     if isinstance(x, dict):
         return {k: _clone(v) for k, v in x.items()}
+    return x
+
+
+def _as_f32(x):
+    """A call argument with its floating tensors and poses in float32."""
+    import torch
+
+    from cv_tpu_torch.core.pose import Isometry3
+
+    if isinstance(x, torch.Tensor):
+        return x.float() if x.is_floating_point() else x
+    if isinstance(x, Isometry3):
+        return type(x)(rotation=x.rotation.float(), translation=x.translation.float())
+    if isinstance(x, (tuple, list)):
+        return type(x)(_as_f32(v) for v in x)
     return x
 
 
@@ -549,59 +744,59 @@ def record_pose_calls():
 def replay_pose_calls(calls):
     """Each recorded call of A, B and C replayed under ``cuda_ms``.  Per
     kernel: the number of calls, the ranges of N and of valid rows (per
-    problem for C), the summed device milliseconds; for A also the steps
-    each call took (``steps_out``) and us a step.  For each distinct count
-    of valid rows, A's first call with it is held to the plain version in
-    float32 (within 1e-4, the same step count)."""
+    problem for C), the summed device milliseconds; for A and B also the
+    steps each call took (``steps_out``) and us a step.  Held to the plain
+    version in float32 (within 1e-4; A and B also the same step count): A's
+    and B's first call with each distinct count of valid rows, and every
+    call of C."""
     import numpy as np
     import torch
 
     from cv_tpu_torch.optimize import optimizers, resident
 
-    def flat(pose):
-        return np.concatenate([pose.rotation.double().cpu().numpy().ravel(),
-                               pose.translation.double().cpu().numpy().ravel()])
-
     out = {}
     for name, recorded in calls.items():
-        fn = getattr(resident, name)
+        fn, plain = getattr(resident, name), getattr(optimizers, PLAIN_VERSIONS[name])
+        stepped = name in STEPPED
         ns, rows, ms, steps, held = [], [], [], [], {}
-        for args, kw in recorded:
+        for j, (args, kw) in enumerate(recorded):
             valid = args[3] if name == "single_view_l2" else args[2]
+            counts = [int(v) for v in valid.reshape(-1, valid.shape[-1]).sum(dim=-1).tolist()]
             ns.append(int(valid.shape[-1]))
-            rows.extend(int(v) for v in valid.reshape(-1, valid.shape[-1]).sum(dim=-1).tolist())
+            rows.extend(counts)
             ms.append(cuda_ms(lambda: fn(*args, **kw), iters=3, warmup=1))
-            if name != "single_view_l2":
+            key = counts[0] if stepped else j
+            kw_k, kw_p = dict(kw), dict(kw)
+            if stepped:
+                kw_k["steps_out"], kw_p["steps_out"] = (torch.zeros(1, dtype=torch.int32, device=valid.device)
+                                                        for _ in range(2))
+            got = fn(*args, **kw_k)
+            if stepped:
+                steps.append(int(kw_k["steps_out"].item()))
+            if key in held:
                 continue
-            k_out, p_out = (torch.zeros(1, dtype=torch.int32, device=valid.device) for _ in range(2))
-            got = fn(*args, steps_out=k_out, **kw)
-            steps.append(int(k_out.item()))
-            count = rows[-1]
-            if count in held:
-                continue
-            pose, bear, wp = args[:3]
-            ref = optimizers.single_view_simple_optimize_l2(
-                type(pose)(rotation=pose.rotation.float(), translation=pose.translation.float()), bear.float(),
-                wp.float(), *args[3:], steps_out=p_out, **kw)
-            err = float(np.abs(flat(got) - flat(ref)).max())
-            held[count] = (err, steps[-1])
-            require(np.isfinite(flat(got)).all() and err <= 1e-4,
-                    f"single_view_l2 engine call ({count} valid rows) within 1e-4 of plain (max |err| {err})")
-            require(steps[-1] == int(p_out.item()), f"single_view_l2 engine call ({count} valid rows): "
-                    f"{steps[-1]} steps, its plain version {int(p_out.item())}")
+            ref = plain(*_as_f32(args), **kw_p)
+            err = float(np.abs(flat_poses(got) - flat_poses(ref)).max())
+            held[key] = (err, steps[-1] if stepped else None)
+            what = f"{name} engine call {j} ({counts[0] if stepped else counts} valid rows)"
+            require(np.isfinite(flat_poses(got)).all() and err <= 1e-4,
+                    f"{what} within 1e-4 of plain (max |err| {err})")
+            if stepped:
+                p_steps = int(kw_p["steps_out"].item())
+                require(steps[-1] == p_steps, f"{what}: {steps[-1]} steps, its plain version {p_steps}")
         rec = dict(calls=len(recorded), n=[min(ns, default=0), max(ns, default=0)],
-                   valid_rows=[min(rows, default=0), max(rows, default=0)], ms=sum(ms))
-        if name == "single_view_l2" and recorded:
-            rec.update(steps=[min(steps), max(steps)], total_steps=sum(steps), us_per_step=sum(ms) * 1e3 / sum(steps),
-                       held_to_plain=len(held), max_abs_err=max(e for e, _ in held.values()))
+                   valid_rows=[min(rows, default=0), max(rows, default=0)], ms=sum(ms), held_to_plain=len(held),
+                   max_abs_err=max((e for e, _ in held.values()), default=0.0))
+        if stepped and recorded:
+            rec.update(steps=[min(steps), max(steps)], total_steps=sum(steps), us_per_step=sum(ms) * 1e3 / sum(steps))
         out[name] = rec
         print(f"engine-shape replay {name}: {rec['calls']} calls, N {rec['n']}, valid rows {rec['valid_rows']}, "
               f"summed device time {rec['ms']:.3f} ms"
-              + (f", steps {rec['steps']} ({rec['total_steps']} in all), {rec['us_per_step']:.3f} us a step; "
-                 f"{len(held)} calls (one per valid-row count) held to plain: max |err| {rec['max_abs_err']:.3e} "
-                 "(gate 1e-4), step counts equal ("
-                 + ", ".join(f"{c} rows: {st}" for c, (_, st) in sorted(held.items())) + ")"
-                 if "steps" in rec else ""))
+              + (f", steps {rec['steps']} ({rec['total_steps']} in all), {rec['us_per_step']:.3f} us a step"
+                 if "steps" in rec else "")
+              + f"; {len(held)} calls held to plain: max |err| {rec['max_abs_err']:.3e} (gate 1e-4)"
+              + (", step counts equal (" + ", ".join(f"{c} rows: {st}" for c, (_, st) in sorted(held.items())) + ")"
+                 if stepped else ""))
     return out
 
 
@@ -1180,6 +1375,46 @@ def run_sfm(dev, n_frames=SFM_FRAMES, timed_phases=False):
     return engine, time.perf_counter() - t0, phase_ms, true_poses
 
 
+def run_merge(dev, n_seg=MERGE_SEGMENT, seed=MERGE_SEED):
+    """bench.py's loop-closure scenario through the port on ``dev``:
+    ``render_sequence(n_frames=23, 512x640, n_points=1200, seed=5)``, the
+    engine's ``FastAkazeExtractor`` at 1024 features, segment A (frames
+    0-4), the far segment B (18-22), then the bridge frames 10-12, which
+    retrieve both segments and must merge their reconstructions.  Returns
+    ``(engine, reconstructions after each frame, merges, seconds)``."""
+    import torch
+
+    from cv_tpu_torch.apps.synth import render_sequence
+    from cv_tpu_torch.camera import CameraIntrinsics, CameraIntrinsicsK1Distortion
+    from cv_tpu_torch.sfm import VSlam, VSlamSettings
+
+    gap = int(2.7 * n_seg)
+    n_total = n_seg + gap + n_seg
+    images, (fx, fy, cx, cy), _ = render_sequence(n_frames=n_total, height=512, width=640, n_points=1200, seed=seed)
+    mid = n_seg + gap // 2
+    order = list(range(n_seg)) + list(range(n_seg + gap, n_total)) + [mid - 1, mid, mid + 1]
+    engine = VSlam(settings=VSlamSettings(**MERGE_SETTINGS), seed=0, device=dev)
+    intr = CameraIntrinsicsK1Distortion.new(CameraIntrinsics.from_values(fx, fy, cx, cy, device=dev), 0.0)
+    merges = []
+    real_merge = engine.try_merge_reconstructions
+
+    def counted(*a, **kw):
+        out = real_merge(*a, **kw)
+        merges.append(out is not None)
+        return out
+
+    engine.try_merge_reconstructions = counted
+    feed = engine.add_feed(intr)
+    counts = []
+    t0 = time.perf_counter()
+    for i in order:
+        engine.add_frame(feed, images[i])
+        counts.append(len(engine.data.reconstructions))
+    engine.flush_pending()
+    torch.cuda.synchronize()
+    return engine, counts, merges, time.perf_counter() - t0
+
+
 def sfm_gates(engine, true_poses, n_frames=SFM_FRAMES):
     """The gates of tests/test_sfm.py:620-674; returns (views, landmarks,
     ate / extent, worst consecutive rotation error in degrees)."""
@@ -1483,7 +1718,28 @@ def main():
           f"summed device time {sum(scan_ms):.3f} ms")
     del sfm_scans
 
-    # -- 6. the dense path ---------------------------------------------------
+    # -- 6. the loop-closure merge, once, with the counters at zero ---------
+    with main_path(counters, plains) as merge_run:
+        merge_engine, merge_counts, merges, merge_s = run_merge(dev)
+    final = len(merge_engine.data.reconstructions)
+    require(max(merge_counts) >= 2 and final < max(merge_counts),
+            f"merge: reconstructions after each frame {merge_counts}, {final} at the end")
+    largest = max(merge_engine.data.reconstructions, key=lambda k: len(merge_engine.data.reconstructions[k].views))
+    merge_views = len(merge_engine.data.reconstructions[largest].views)
+    problems = merge_engine.sanity_check(largest)
+    require(problems == [], f"merge: sanity_check {problems[:3]}")
+    print(f"merge (bench.py's loop-closure scenario, seed {MERGE_SEED}): reconstructions after each frame "
+          f"{merge_counts}, {final} at the end; {sum(merges)} of {len(merges)} merge attempts merged; largest "
+          f"reconstruction {merge_views} views, {len(merge_engine.data.reconstructions[largest].landmarks)} "
+          f"landmarks (cv_tpu: {MERGE_REFERENCE_VIEWS} views), sanity_check empty; {merge_s:.3f} s for "
+          f"{len(merge_counts)} frames; launches three_view_l2 {merge_run['launches']['three_view_l2']}, "
+          f"three_view_adaptive {merge_run['launches']['three_view_adaptive']}, single_view_l2 "
+          f"{merge_run['launches']['single_view_l2']}; plain-version calls {merge_run['plain']}")
+    tally(merge_run, three_view_l2=(1,), three_view_adaptive=(1,), single_view_l2=(1,),
+          select_samples=(2 * len(merge_counts),), dedup_scan=(len(merge_counts),))
+    del merge_engine
+
+    # -- 7. the dense path ---------------------------------------------------
     runs = {}
     for mode, expect in ((None, dict(select_groups=2, dedup_scan=1, select_samples=0)),
                          ("pfused", dict(select_fused=1, dedup_scan=1, select_groups=0)),
@@ -1537,7 +1793,7 @@ def main():
     print(f"dense dedup kernel: median {statistics.median(s[0] for s in dense_scan):.3f} ms, "
           f"sequential steps per frame {dense_scan[0][1]}")
 
-    # -- 7. the retired describe modes and the experiments' runs ------------
+    # -- 8. the retired describe modes and the experiments' runs ------------
     # 'pepatch' and 'ptiles' (registered by importing mldb_losers) at the
     # KITTI batch, against phase 4's 'pgather'; 'ptiles' on the dense pair,
     # against the default 'pgroups'.  Each run with the counters at zero;
@@ -1621,7 +1877,7 @@ def main():
     require(res["finite"], "exp_r3_mxu_probe: finite outputs")
     experiment("exp_r5_pfused trig", lambda: exp_runs.trig_run(dev, args.seed), {"trig_probe": "trig_probe"})
 
-    # -- 8. the card against the port's CPU path on small inputs ------------
+    # -- 9. the card against the port's CPU path on small inputs ------------
     rng = np.random.default_rng(args.seed + 3)
     crop = imgs[0, 128:384, 400:784]
     for name, img, cfg, cb, mf, share in (
@@ -1645,7 +1901,7 @@ def main():
         print(f"cpu reference {name}: {int(vg.sum())} keypoints, max point diff "
               f"{dist.min(1).max():.2e} px, word rows equal {rows:.4f}")
 
-    # -- 9. timings --------------------------------------------------------
+    # -- 10. timings -------------------------------------------------------
     for _ in range(2):
         extract_and_match(images)
     per_iter = wall_ms(lambda: extract_and_match(images), reps=10)

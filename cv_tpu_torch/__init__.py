@@ -17,6 +17,23 @@ kernels (``csrc/``) are the describe stage's sample select
 
 __version__ = "0.1.0"
 
+# The eager top-level names of cv_tpu/__init__.py.  cv_tpu's lazy
+# ``parallel`` and ``video`` are not ported yet.
+from .camera import (  # noqa: E402,F401
+    CameraIntrinsics,
+    CameraIntrinsicsK1Distortion,
+    CameraSpecification,
+)
+from .core import (  # noqa: E402,F401
+    CameraToCamera,
+    CameraToWorld,
+    Isometry3,
+    WorldToCamera,
+    WorldToWorld,
+    camera_to_camera_residual,
+    world_to_camera_residual,
+)
+
 
 def __getattr__(name):
     # Lazy subpackage access, as in cv_tpu/__init__.py.

@@ -536,7 +536,8 @@ def stage_describe(cfg, planes, sel, mode: str = "pgather") -> FeatureSet:
 
 
 class DeviceExtractor:
-    """Batched extractor on ``device``.
+    """Batched extractor on ``device`` (the CUDA card unless the caller
+    asks for the CPU).
 
     ``candidate_budget``: max extrema kept per evolution (the first in
     pixel order).  ``max_features``: final per-frame feature budget M.
@@ -553,7 +554,7 @@ class DeviceExtractor:
         candidate_budget: int = 256,
         max_features: int = 1024,
         dedup_scan_cap: int = 1024,
-        device="cpu",
+        device="cuda",
         onehot_mode: str | None = None,
     ):
         check_describe_mode(onehot_mode)
@@ -606,7 +607,7 @@ class FastAkazeExtractor:
     """
 
     def __init__(self, config: Akaze | None = None, candidate_budget: int | None = None,
-                 max_features: int | None = None, device="cpu"):
+                 max_features: int | None = None, device="cuda"):
         self.config = config or Akaze()
         # The config's feature budget as-is (the engine passes
         # tracking_features straight through).

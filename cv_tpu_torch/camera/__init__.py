@@ -1,6 +1,6 @@
 """Camera models: pinhole intrinsics (plain and with K1 distortion) and the
 essential matrix."""
 
-from .pinhole import CameraIntrinsics, CameraIntrinsicsK1Distortion
+from .pinhole import CameraIntrinsics, CameraIntrinsicsK1Distortion, CameraSpecification
 
-__all__ = ["CameraIntrinsics", "CameraIntrinsicsK1Distortion"]
+__all__ = ["CameraIntrinsics", "CameraIntrinsicsK1Distortion", "CameraSpecification"]

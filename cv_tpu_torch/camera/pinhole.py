@@ -78,3 +78,35 @@ class CameraIntrinsicsK1Distortion:
         x = (centered[..., 0] - si.skew * y) / si.focals[..., 0]
         f = 1.0 + self.k1 * (x * x + y * y)
         return _normalize(torch.stack([x / f, y / f, torch.ones_like(x)], dim=-1))
+
+
+@dataclasses.dataclass(frozen=True)
+class CameraSpecification:
+    """Manufacturer-style sensor spec -> intrinsics helper (lib.rs:250-284)."""
+
+    pixels: torch.Tensor  # (..., 2)
+    pixel_dimensions: torch.Tensor  # (..., 2)
+
+    @classmethod
+    def from_sensor(cls, pixels, sensor_dimensions):
+        pixels = torch.as_tensor(pixels)
+        sensor_dimensions = torch.as_tensor(sensor_dimensions)
+        return cls(pixels=pixels, pixel_dimensions=sensor_dimensions / pixels)
+
+    @classmethod
+    def from_sensor_square(cls, pixels, sensor_width):
+        pixels = torch.as_tensor(pixels)
+        pw = sensor_width / pixels[..., 0]
+        return cls(pixels=pixels, pixel_dimensions=torch.stack([pw, pw], dim=-1))
+
+    def intrinsics_centered(self, focal) -> CameraIntrinsics:
+        # As the reference (lib.rs:278-284), which centers on
+        # pixel_dimensions rather than the pixel count (the principal point
+        # would be pixels / 2 - 0.5); kept so both packages agree.
+        pp = self.pixel_dimensions / 2.0 - 0.5
+        focal = torch.as_tensor(focal, dtype=pp.dtype, device=pp.device)
+        return CameraIntrinsics(
+            focals=torch.stack([focal, focal], dim=-1),
+            principal_point=pp,
+            skew=torch.zeros_like(focal),
+        )

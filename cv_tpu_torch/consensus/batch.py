@@ -77,7 +77,8 @@ class Estimator:
 
 @dataclasses.dataclass(frozen=True)
 class BatchConsensus:
-    """Fixed-budget batched consensus on ``device``.
+    """Fixed-budget batched consensus on ``device`` (the CUDA card unless
+    the caller asks for the CPU).
 
     ``threshold``: inlier residual threshold.  ``hypotheses``: minimal sets
     drawn per call.  ``refit_rounds``/``refit_hypotheses``: inlier-refit
@@ -95,7 +96,7 @@ class BatchConsensus:
     refit_hypotheses: int = 256
     prescore_matches: int = 0
     prescore_keep: int = 256
-    device: Any = "cpu"
+    device: Any = torch.device("cuda")
 
     def sample_indices(self, generator, sample_mask, n_hyp: int, m: int):
         """``(n_hyp, m)`` minimal-set row indices by masked Gumbel top-k:

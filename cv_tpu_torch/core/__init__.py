@@ -3,8 +3,10 @@
 from . import lie, projective
 from .pose import (
     CameraToCamera,
+    CameraToWorld,
     Isometry3,
     WorldToCamera,
+    WorldToWorld,
     camera_to_camera_residual,
     world_to_camera_residual,
 )
@@ -14,7 +16,9 @@ __all__ = [
     "projective",
     "Isometry3",
     "CameraToCamera",
+    "CameraToWorld",
     "WorldToCamera",
+    "WorldToWorld",
     "camera_to_camera_residual",
     "world_to_camera_residual",
 ]

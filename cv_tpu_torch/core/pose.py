@@ -2,9 +2,9 @@
 
 Port of ``cv_tpu/core/pose.py`` (reference cv-core/src/pose.rs): one
 :class:`Isometry3` holds a batch of rigid transforms as ``rotation
-(..., 3, 3)`` + ``translation (..., 3)``; :class:`CameraToCamera` keeps the
+(..., 3, 3)`` + ``translation (..., 3)``; the subclasses keep the
 reference's frame vocabulary (:class:`WorldToCamera`,
-:class:`CameraToCamera`).  Small products are plain float matmuls: with
+:class:`CameraToWorld`, :class:`CameraToCamera`, :class:`WorldToWorld`).  Small products are plain float matmuls: with
 TF32 off they run in full precision on the card.
 """
 
@@ -108,8 +108,24 @@ class WorldToCamera(Isometry3):
 
 
 @dataclasses.dataclass(frozen=True)
+class CameraToWorld(Isometry3):
+    """Camera extrinsics: CameraPoint -> WorldPoint."""
+
+
+@dataclasses.dataclass(frozen=True)
 class CameraToCamera(Isometry3):
     """Relative pose: CameraPoint of A -> CameraPoint of B."""
+
+
+@dataclasses.dataclass(frozen=True)
+class WorldToWorld(Isometry3):
+    """Relative transform between two reconstructions' world frames."""
+
+    @classmethod
+    def from_camera_poses(cls, a_pose: Isometry3, b_pose: Isometry3) -> "WorldToWorld":
+        """From one camera's pose in both reconstructions (pose.rs:322-324)."""
+        iso = b_pose.inverse().compose(a_pose)
+        return cls(rotation=iso.rotation, translation=iso.translation)
 
 
 def world_to_camera_residual(pose: Isometry3, bearing: torch.Tensor, world_point: torch.Tensor):

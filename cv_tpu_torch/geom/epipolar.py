@@ -82,25 +82,30 @@ def three_view_gradients(c, f, ftoc, s, stoc):
     ``((t1, r1), (t2, r2))`` with the reference's 2/3-1/3 edge weighting.
     """
     stof = stoc - ftoc
+    # The three rotation gradients, and the three triangulations, each run
+    # as one call over a leading axis of 3: the functions are elementwise
+    # over their batch, so the values are those of three calls.
+    ftoc_b, stoc_b, stof_b, c_b, f_b, s_b = torch.broadcast_tensors(ftoc, stoc, stof, c, f, s)
+    ccf = torch.stack([c_b, c_b, f_b])
 
-    rot_cf = two_view_rotation_gradient(ftoc, c, f)
-    rot_cs = two_view_rotation_gradient(stoc, c, s)
-    rot_fs = two_view_rotation_gradient(stof, f, s)
+    rot_cf, rot_cs, rot_fs = two_view_rotation_gradient(
+        torch.stack([ftoc_b, stoc_b, stof_b]), ccf, torch.stack([f_b, s_b, s_b])
+    )
     rot_sf = -rot_fs
 
     first_rotation = rot_cf * (2.0 / 3.0) + rot_sf * (1.0 / 3.0)
     second_rotation = rot_cs * (2.0 / 3.0) + rot_fs * (1.0 / 3.0)
 
     zero = torch.zeros((), dtype=c.dtype, device=c.device)
-    p_f, ok_f = two_view_same_space_triangulate_sine_l1(-stoc, c, s)
+    (p_f, p_s, p_c), (ok_f, ok_s, ok_c) = two_view_same_space_triangulate_sine_l1(
+        -torch.stack([stoc_b, ftoc_b, stof_b]), ccf, torch.stack([s_b, f_b, s_b])
+    )
     pf = p_f - ftoc
     trans_f = torch.where(ok_f[..., None], pf - _dot(pf, f)[..., None] * f, zero)
 
-    p_s, ok_s = two_view_same_space_triangulate_sine_l1(-ftoc, c, f)
     ps = p_s - stoc
     trans_s = torch.where(ok_s[..., None], ps - _dot(ps, s)[..., None] * s, zero)
 
-    p_c, ok_c = two_view_same_space_triangulate_sine_l1(-stof, f, s)
     pc = p_c + ftoc
     trans_c = torch.where(ok_c[..., None], _dot(pc, c)[..., None] * c - pc, zero)
 

@@ -57,7 +57,8 @@ _LOADED: dict = {}
 _FUNCTIONS: dict = {}
 
 
-def _nvcc() -> str:
+def nvcc() -> str:
+    """The path of ``nvcc``: on ``PATH``, else under PyTorch's ``CUDA_HOME``."""
     found = shutil.which("nvcc")
     if found:
         return found
@@ -89,7 +90,7 @@ def _start(name: str):
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     proc = subprocess.Popen(
-        [_nvcc(), *flags, "-o", tmp, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        [nvcc(), *flags, "-o", tmp, src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
     )
     return out, tmp, proc, time.perf_counter()
 

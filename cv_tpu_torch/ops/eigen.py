@@ -16,36 +16,40 @@ def eigh_small(a: torch.Tensor, sweeps: int = 6):
 
     Returns ``(eigenvalues (..., N) ascending, eigenvectors (..., N, N))``
     with eigenvectors in columns.  A Python loop over sweeps and the
-    ``N (N - 1) / 2`` rotation pairs; every rotation is batched.
+    ``N (N - 1) / 2`` rotation pairs; every rotation is batched.  The
+    rotations run on a batch-last copy, ``(N, N, batch)``, so that a row
+    or column of every matrix is one contiguous slice; the arithmetic is
+    elementwise and the same in any layout.
     """
     n = a.shape[-1]
+    batch = a.shape[:-2]
     pairs = [(p, q) for p in range(n) for q in range(p + 1, n)]
-    a = a.clone()
-    v = torch.eye(n, dtype=a.dtype, device=a.device).expand(a.shape).clone()
+    a = a.reshape(-1, n, n).permute(1, 2, 0).contiguous()
+    v = torch.eye(n, dtype=a.dtype, device=a.device)[:, :, None].expand(a.shape).contiguous()
     for _ in range(sweeps):
         for p, q in pairs:
-            app = a[..., p, p]
-            aqq = a[..., q, q]
-            apq = a[..., p, q]
+            app = a[p, p]
+            aqq = a[q, q]
+            apq = a[p, q]
             # Jacobi angle annihilating a[p, q]: theta = atan2(2 apq, aqq - app)/2
             theta = 0.5 * torch.atan2(2.0 * apq, aqq - app)
-            c = torch.cos(theta)[..., None]
-            s = torch.sin(theta)[..., None]
-            # A <- G^T A G with G the (p, q) Givens rotation.
-            col_p = a[..., :, p].clone()
-            col_q = a[..., :, q].clone()
-            a[..., :, p] = c * col_p - s * col_q
-            a[..., :, q] = s * col_p + c * col_q
-            row_p = a[..., p, :].clone()
-            row_q = a[..., q, :].clone()
-            a[..., p, :] = c * row_p - s * row_q
-            a[..., q, :] = s * row_p + c * row_q
+            c = torch.cos(theta)
+            s = torch.sin(theta)
+            # A <- G^T A G with G the (p, q) Givens rotation; both new
+            # columns (rows) are computed before either is written.
+            col_p, col_q = a[:, p], a[:, q]
+            new_p, new_q = c * col_p - s * col_q, s * col_p + c * col_q
+            a[:, p], a[:, q] = new_p, new_q
+            row_p, row_q = a[p], a[q]
+            new_p, new_q = c * row_p - s * row_q, s * row_p + c * row_q
+            a[p], a[q] = new_p, new_q
             # Accumulate eigenvectors: V <- V G.
-            vp = v[..., :, p].clone()
-            vq = v[..., :, q].clone()
-            v[..., :, p] = c * vp - s * vq
-            v[..., :, q] = s * vp + c * vq
+            vp, vq = v[:, p], v[:, q]
+            new_p, new_q = c * vp - s * vq, s * vp + c * vq
+            v[:, p], v[:, q] = new_p, new_q
 
+    a = a.permute(2, 0, 1).reshape(batch + (n, n))
+    v = v.permute(2, 0, 1).reshape(batch + (n, n))
     w = torch.diagonal(a, dim1=-2, dim2=-1)
     order = torch.sort(w, dim=-1, stable=True).indices
     w = torch.gather(w, -1, order)

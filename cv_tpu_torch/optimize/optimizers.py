@@ -108,13 +108,15 @@ def _masked(valid, *vs):
 
 
 def three_view_simple_optimize_l2(
-    poses: tuple, observations, valid, optimization_rate: float, iterations: int
+    poses: tuple, observations, valid, optimization_rate: float, iterations: int, steps_out=None
 ):
     """Mean-gradient three-view optimization with patience over the four sum
     norms (three_view_optimizer.rs:126-200).
 
     ``poses``: (center->first, center->second) camera-to-camera isometries;
     ``observations``: (N, 3, 3); ``valid``: (N,).  Returns the pose pair.
+    ``steps_out``, a one-element int32 tensor on any device, gets the number
+    of steps taken (calls of the per-landmark tangents).
     """
     ftoc, stoc = poses[0].inverse(), poses[1].inverse()
     inv_len = _inv_len(valid, ftoc.dtype)
@@ -135,6 +137,8 @@ def three_view_simple_optimize_l2(
             ftoc = _apply_tangent(sums[0] * scale, sums[1] * scale, ftoc)
             stoc = _apply_tangent(sums[2] * scale, sums[3] * scale, stoc)
         it += 1
+    if steps_out is not None:
+        steps_out.fill_(it)
     return ftoc.inverse(), stoc.inverse()
 
 

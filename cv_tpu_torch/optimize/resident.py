@@ -18,10 +18,12 @@ On CUDA tensors it launches the kernel or raises; the kernel computes in
 float32 (as the TPU kernels do) and the result comes back in the pose's
 dtype and type.  ``<wrapper>.launches`` counts kernel launches.
 
-Kernel A ranks the valid rows once per launch and sums them by rank, so
-its sum order depends on its fixed block size (256 threads, set in its
-source) alone: invalid rows, appended or interleaved, change no bit.
-``steps_out`` reports the steps it took, as the plain version's does.
+Each kernel ranks the valid rows once per launch and sums them by rank, so
+its sum order depends on its fixed block size (256 threads each, set in
+its source) alone: invalid rows, appended or interleaved, change no bit.
+``steps_out`` of A and B reports the steps taken, as the plain versions'
+does.  The wrappers allocate each launch's scratch (``order``, the rank ->
+row table of rows past the on-chip tiers).
 """
 
 from __future__ import annotations
@@ -79,6 +81,17 @@ _I = ctypes.c_int
 _SV_ARGS = [_P] * 7 + [_I, ctypes.c_float, _I, _P]
 
 
+def _check_steps_out(steps_out, dev):
+    if steps_out is not None and (steps_out.dtype != torch.int32 or steps_out.numel() != 1
+                                  or steps_out.device != dev):
+        raise ValueError(f"steps_out must be one int32 on {dev}, got {steps_out.dtype} "
+                         f"{tuple(steps_out.shape)} on {steps_out.device}")
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
 def single_view_l2(pose: Isometry3, bearings, world_points, valid, optimization_rate: float, iterations: int,
                    steps_out=None):
     """Single-view L2 patience loop; see
@@ -94,10 +107,7 @@ def single_view_l2(pose: Isometry3, bearings, world_points, valid, optimization_
     n = bearings.shape[0]
     if tuple(pose.rotation.shape) != (3, 3) or tuple(pose.translation.shape) != (3,):
         raise ValueError("single_view_l2 takes one pose: rotation (3, 3), translation (3,)")
-    if steps_out is not None and (steps_out.dtype != torch.int32 or steps_out.numel() != 1
-                                  or steps_out.device != dev):
-        raise ValueError(f"steps_out must be one int32 on {dev}, got {steps_out.dtype} "
-                         f"{tuple(steps_out.shape)} on {steps_out.device}")
+    _check_steps_out(steps_out, dev)
     pose_in = _flat_pose(pose).reshape(12).to(torch.float32).contiguous()
     bear = _f32(bearings, (n, 3), "bearings")
     wp = _f32(world_points, (n, 4), "world_points")
@@ -107,7 +117,7 @@ def single_view_l2(pose: Isometry3, bearings, world_points, valid, optimization_
     _check(
         kernels.function("single_view_l2", "cv_single_view_l2", _SV_ARGS)(
             pose_in.data_ptr(), bear.data_ptr(), wp.data_ptr(), vmask.data_ptr(), out.data_ptr(),
-            None if steps_out is None else steps_out.data_ptr(), order.data_ptr(), n, float(optimization_rate),
+            _ptr(steps_out), order.data_ptr(), n, float(optimization_rate),
             int(iterations), kernels.current_stream(dev),
         ),
         "single_view_l2",
@@ -130,20 +140,25 @@ def _tv_unpack(out, ftoc, stoc):
     return _unflat_pose(out[..., :12], ftoc).inverse(), _unflat_pose(out[..., 12:], stoc).inverse()
 
 
-def three_view_l2(poses: tuple, observations, valid, optimization_rate: float, iterations: int):
+def three_view_l2(poses: tuple, observations, valid, optimization_rate: float, iterations: int, steps_out=None):
     """Three-view L2 patience loop (one problem); see
-    :func:`optimizers.three_view_simple_optimize_l2` for the arguments."""
+    :func:`optimizers.three_view_simple_optimize_l2` for the arguments.
+
+    ``steps_out``, a one-element int32 tensor on the inputs' device, gets
+    the number of steps taken."""
     dev = _device(poses[0].rotation, poses[1].rotation, observations, valid)
     if dev.type == "cpu":
         return optimizers.three_view_simple_optimize_l2(
-            poses, observations, valid, optimization_rate, iterations
+            poses, observations, valid, optimization_rate, iterations, steps_out
         )
+    _check_steps_out(steps_out, dev)
     n = observations.shape[0]
     ftoc, stoc, flat, obs, vmask = _tv_pack(poses, observations, valid, (), n)
     out = torch.empty(24, dtype=torch.float32, device=dev)
-    fn = kernels.function("three_view_l2", "cv_three_view_l2", [_P] * 4 + [_I, ctypes.c_float, _I, _P])
+    order = torch.empty(n, dtype=torch.int32, device=dev)
+    fn = kernels.function("three_view_l2", "cv_three_view_l2", [_P] * 6 + [_I, ctypes.c_float, _I, _P])
     _check(
-        fn(flat.data_ptr(), obs.data_ptr(), vmask.data_ptr(), out.data_ptr(), n,
+        fn(flat.data_ptr(), obs.data_ptr(), vmask.data_ptr(), out.data_ptr(), _ptr(steps_out), order.data_ptr(), n,
            float(optimization_rate), int(iterations), kernels.current_stream(dev)),
         "three_view_l2",
     )
@@ -165,9 +180,10 @@ def three_view_adaptive(poses: tuple, observations, valid, iterations: int):
     out = torch.empty((k, 24), dtype=torch.float32, device=dev)
     if k == 0:
         return _tv_unpack(out, ftoc, stoc)
-    fn = kernels.function("three_view_adaptive", "cv_three_view_adaptive", [_P] * 4 + [_I, _I, _I, _P])
+    order = torch.empty((k, n), dtype=torch.int32, device=dev)
+    fn = kernels.function("three_view_adaptive", "cv_three_view_adaptive", [_P] * 5 + [_I, _I, _I, _P])
     _check(
-        fn(flat.data_ptr(), obs.data_ptr(), vmask.data_ptr(), out.data_ptr(), k, n, int(iterations),
+        fn(flat.data_ptr(), obs.data_ptr(), vmask.data_ptr(), out.data_ptr(), order.data_ptr(), k, n, int(iterations),
            kernels.current_stream(dev)),
         "three_view_adaptive",
     )

@@ -17,9 +17,8 @@ generation, rollback on failure — is host Python over the NumPy data model
   (:func:`cv_tpu_torch.sfm.device_refine.ba_filter`).
 
 The reference's injected generics (Consensus/Estimator/Triangulator) are
-constructor arguments with the same roles.  Not ported yet: reconstruction
-merging (raises ``NotImplementedError``), export, landmark merge/split
-helpers, normalization and the exact host extractor.
+constructor arguments with the same roles.  Not ported yet: export,
+landmark merge/split helpers, normalization and the exact host extractor.
 """
 
 from __future__ import annotations
@@ -39,15 +38,10 @@ from ..optimize import single_view_l2, three_view_adaptive, three_view_l2
 from ..solvers import eight_point, lambda_twist
 from . import batch_geom, device_refine, host_geom, se3
 from .bicubic import bicubic_colors
-from .data import Feed, ThreeViewConstraint, VSlamData, canonical_view_order
+from .data import Feed, ThreeViewConstraint, View, VSlamData, canonical_view_order
 from .settings import VSlamSettings
 
 log = logging.getLogger("cv_tpu_torch.sfm")
-
-MERGE_NOT_PORTED = (
-    "reconstruction merging is not ported to cv_tpu_torch yet "
-    "(ROADMAP Queue 1 item 7: try_merge_reconstructions, incorporate_reconstruction)"
-)
 
 
 def _bucket(n, minimum=64):
@@ -147,7 +141,8 @@ DEFAULT_POSE_ESTIMATOR = Estimator(
 
 
 class VSlam:
-    """The reconstruction engine (lib.rs:724-790) on ``device``."""
+    """The reconstruction engine (lib.rs:724-790) on ``device``: the CUDA
+    card unless the caller asks for the CPU."""
 
     def __init__(
         self,
@@ -162,7 +157,7 @@ class VSlam:
         triangulator=None,
         single_view_consensus: BatchConsensus | None = None,
         two_view_consensus: BatchConsensus | None = None,
-        device="cpu",
+        device="cuda",
     ):
         """The roles of ``VSlam<C1, C2, PE, EE, T, R>`` (lib.rs:724-774):
         ``single_view_consensus``/``two_view_consensus`` (C1/C2),
@@ -291,6 +286,13 @@ class VSlam:
     def try_localize(self, frame, reconstruction_frames, free_frames):
         recs = sorted(reconstruction_frames.items(), key=lambda kv: -len(kv[1]))
         for dest_reconstruction, view_matches in recs:
+            # The previous round may have left a BA+filter pass pending;
+            # its verdicts can remove views or whole reconstructions, so
+            # finish it before reading the frame's view and the view counts
+            # (cv_tpu reads them first, engine.py:404-410).
+            self._flush_pending()
+            if dest_reconstruction not in self.data.reconstructions:
+                continue
             if self.data.frames[frame].view is not None:
                 src_reconstruction, view = self.data.frames[frame].view
                 if (
@@ -1150,10 +1152,57 @@ class VSlam:
 
     # -- reconstruction merging (lib.rs:1817-1887, 2116-2193) -----------------------
     def try_merge_reconstructions(self, src_reconstruction, src_view, dest_reconstruction, dest_view_matches):
-        raise NotImplementedError(MERGE_NOT_PORTED)
+        """Register the frame of ``src_view`` in ``dest_reconstruction`` and,
+        when its constraints hold, move the whole source reconstruction
+        over (lib.rs:1817-1887).  Returns ``dest_reconstruction`` or None."""
+        self._flush_pending()
+        frame = self.data.view(src_reconstruction, src_view).frame
+        src_pose = self.data.view(src_reconstruction, src_view).pose
+        result = self.register_frame(dest_reconstruction, frame, dest_view_matches)
+        if result is None:
+            return None
+        dest_pose, matches = result
+        dest_view = self.data.add_view(dest_reconstruction, frame, dest_pose, lambda f: matches.get(f))
+        if not self.record_view_constraints(dest_reconstruction, dest_view):
+            self.data.remove_view(dest_reconstruction, dest_view)
+            self.data.frames[frame].view = (src_reconstruction, src_view)
+            return None
+        dest_pose = self.data.view(dest_reconstruction, dest_view).pose
+        src_landmarks = self.data.view(src_reconstruction, src_view).landmarks
+        landmark_map = {src_landmarks[f]: lms[0] for f, lms in matches.items()}
+        del self.data.reconstructions[src_reconstruction].views[src_view]
+        # WorldToWorld from the frame's pose in both (pose.rs:322-324).
+        world_transform = se3.compose(se3.inverse(dest_pose), src_pose)
+        self.incorporate_reconstruction(src_reconstruction, dest_reconstruction, world_transform, landmark_map)
+        return dest_reconstruction
 
     def incorporate_reconstruction(self, src_reconstruction, dest_reconstruction, world_transform, landmark_map):
-        raise NotImplementedError(MERGE_NOT_PORTED)
+        """Move every view of ``src_reconstruction`` into
+        ``dest_reconstruction`` through ``world_transform``, mapping source
+        landmarks by ``landmark_map`` (extended as new ones are made), then
+        delete the source (lib.rs:2116-2193)."""
+        dest_to_src = se3.inverse(world_transform)
+        rec = self.data.reconstructions[dest_reconstruction]
+        dest_views = []
+        for src_view in list(self.data.reconstructions[src_reconstruction].views):
+            frame = self.data.view(src_reconstruction, src_view).frame
+            pose = se3.compose(self.data.view(src_reconstruction, src_view).pose, dest_to_src)
+            dest_view = rec.views.insert(View(frame=frame, pose=pose, landmarks=[]))
+            dest_views.append(dest_view)
+            self.data.frames[frame].view = (dest_reconstruction, dest_view)
+            for feature in range(len(self.data.frames[frame])):
+                src_landmark = self.data.observation_landmark(src_reconstruction, src_view, feature)
+                if src_landmark in landmark_map:
+                    dest_landmark = landmark_map[src_landmark]
+                    self.data.landmark(dest_reconstruction, dest_landmark).observations[dest_view] = feature
+                else:
+                    dest_landmark = self.data.add_landmark(dest_reconstruction, dest_view, feature)
+                    landmark_map[src_landmark] = dest_landmark
+                rec.views[dest_view].landmarks.append(dest_landmark)
+        for view in dest_views:
+            if not self.record_view_constraints(dest_reconstruction, view):
+                self.data.remove_view(dest_reconstruction, view)
+        del self.data.reconstructions[src_reconstruction]
 
     # -- bundle adjustment (lib.rs:2343-2435) ----------------------------------------
     def optimize_reconstruction(self, reconstruction):

@@ -1,0 +1,104 @@
+"""cv_tpu_torch's top-level names, the frame and camera-spec classes behind
+them, and the entry points' device default, against cv_tpu.
+
+* The eager top-level names (public attributes that are not modules) equal
+  cv_tpu's; every cv_tpu subpackage and top-level module resolves lazily on
+  the port except ``parallel`` and ``video``, which are still to port.
+* ``CameraSpecification`` and ``WorldToWorld.from_camera_poses`` on seeded
+  float64 inputs, within 1e-12 of cv_tpu's.
+* ``DeviceExtractor``, ``FastAkazeExtractor``, ``BatchConsensus`` and
+  ``VSlam`` run on the CUDA card unless the caller asks for the CPU: built
+  without ``device`` the first three hold ``torch.device("cuda")`` (their
+  construction allocates nothing, so this runs without a card), and
+  ``VSlam()`` without a card raises instead of running on the CPU.
+"""
+
+import inspect
+import pathlib
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import cv_tpu
+import cv_tpu_torch
+from cv_tpu.core.lie import so3_exp as ref_so3_exp
+from cv_tpu_torch.akaze import DeviceExtractor, FastAkazeExtractor
+from cv_tpu_torch.consensus import BatchConsensus
+from cv_tpu_torch.sfm import VSlam
+
+NOT_PORTED = {"parallel", "video"}
+
+
+def _eager_names(pkg):
+    return {n for n, v in vars(pkg).items() if not n.startswith("_") and not isinstance(v, types.ModuleType)}
+
+
+def test_eager_top_level_names_equal_cv_tpu():
+    assert _eager_names(cv_tpu_torch) == _eager_names(cv_tpu)
+    for name in _eager_names(cv_tpu):
+        assert getattr(cv_tpu_torch, name).__name__ == getattr(cv_tpu, name).__name__
+
+
+def test_lazy_subpackages_resolve_except_the_unported():
+    root = pathlib.Path(cv_tpu.__file__).parent
+    ref = {p.name for p in root.iterdir() if p.is_dir() and (p / "__init__.py").exists()}
+    ref |= {p.stem for p in root.glob("*.py") if p.stem != "__init__"}
+    assert NOT_PORTED <= ref
+    for name in sorted(ref - NOT_PORTED):
+        assert isinstance(getattr(cv_tpu_torch, name), types.ModuleType), name
+    for name in sorted(NOT_PORTED):
+        with pytest.raises(AttributeError):
+            getattr(cv_tpu_torch, name)
+
+
+def test_camera_specification_matches_cv_tpu():
+    rng = np.random.default_rng(4)
+    pixels = rng.integers(200, 4000, 2).astype(np.float64)
+    sensor = rng.uniform(2.0, 40.0, 2)
+    width, focal = float(rng.uniform(2.0, 40.0)), float(rng.uniform(100.0, 3000.0))
+    cases = (
+        (cv_tpu.CameraSpecification.from_sensor(jnp.asarray(pixels), jnp.asarray(sensor)),
+         cv_tpu_torch.CameraSpecification.from_sensor(torch.tensor(pixels), torch.tensor(sensor))),
+        (cv_tpu.CameraSpecification.from_sensor_square(jnp.asarray(pixels), width),
+         cv_tpu_torch.CameraSpecification.from_sensor_square(torch.tensor(pixels), width)),
+    )
+    for ref, port in cases:
+        np.testing.assert_allclose(port.pixel_dimensions.numpy(), np.asarray(ref.pixel_dimensions), atol=1e-12, rtol=0)
+        ri, pi = ref.intrinsics_centered(focal), port.intrinsics_centered(focal)
+        assert isinstance(pi, cv_tpu_torch.CameraIntrinsics) and pi.focals.dtype == torch.float64
+        for a, b in ((pi.focals, ri.focals), (pi.principal_point, ri.principal_point), (pi.skew, ri.skew)):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=1e-12, rtol=0)
+
+
+def test_world_to_world_from_camera_poses_matches_cv_tpu():
+    rng = np.random.default_rng(5)
+    rot = [np.asarray(ref_so3_exp(jnp.asarray(rng.normal(0.0, 0.7, 3)))) for _ in range(2)]
+    trans = [rng.normal(0.0, 2.0, 3) for _ in range(2)]
+    ref = cv_tpu.WorldToWorld.from_camera_poses(
+        *(cv_tpu.WorldToCamera(rotation=jnp.asarray(r), translation=jnp.asarray(t)) for r, t in zip(rot, trans)))
+    port = cv_tpu_torch.WorldToWorld.from_camera_poses(
+        *(cv_tpu_torch.WorldToCamera(rotation=torch.tensor(r), translation=torch.tensor(t)) for r, t in zip(rot, trans)))
+    assert type(port) is cv_tpu_torch.WorldToWorld and port.dtype == torch.float64
+    np.testing.assert_allclose(port.rotation.numpy(), np.asarray(ref.rotation), atol=1e-12, rtol=0)
+    np.testing.assert_allclose(port.translation.numpy(), np.asarray(ref.translation), atol=1e-12, rtol=0)
+    assert issubclass(cv_tpu_torch.CameraToWorld, cv_tpu_torch.Isometry3)
+
+
+@pytest.mark.parametrize("build", [
+    lambda: DeviceExtractor(),
+    lambda: FastAkazeExtractor(),
+    lambda: BatchConsensus(threshold=0.1),
+], ids=["DeviceExtractor", "FastAkazeExtractor", "BatchConsensus"])
+def test_entry_points_default_to_the_card(build):
+    assert torch.device(build().device) == torch.device("cuda")
+
+
+def test_vslam_defaults_to_the_card():
+    assert inspect.signature(VSlam.__init__).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: VSlam() would run on it")
+    with pytest.raises(RuntimeError):
+        VSlam()

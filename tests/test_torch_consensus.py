@@ -67,7 +67,7 @@ def test_refit_round_matches_cv_tpu(seed):
     refit_idx = inl[rng.integers(0, len(inl), (32, 3))]
     model, mask, count = _reference(ref_cons, bear, wp, n_valid, sample_idx, refit_idx)
 
-    cons = BatchConsensus(threshold=1e-9, hypotheses=64, refit_rounds=1, refit_hypotheses=32)
+    cons = BatchConsensus(threshold=1e-9, hypotheses=64, refit_rounds=1, refit_hypotheses=32, device="cpu")
     got_model, got_mask, got_count = cons.model_inliers(
         torch.Generator().manual_seed(0),
         engine.DEFAULT_POSE_ESTIMATOR,

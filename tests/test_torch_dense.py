@@ -47,7 +47,7 @@ def dense(crop):
     ref = jfast.DeviceExtractor(jcfg, onehot_mode="highest", **BUDGETS).extract(jnp.asarray(crop)[None])
     ref = {k: np.asarray(getattr(ref, k)) for k in ("point", "angle", "words", "valid")}
     ref["words"] = ref["words"].view(np.uint32)
-    ex = DeviceExtractor(from_numpy_config(jcfg), **BUDGETS)
+    ex = DeviceExtractor(from_numpy_config(jcfg), device="cpu", **BUDGETS)
     return ex, ex.extract(crop[None]).to_numpy(), ref
 
 
@@ -78,7 +78,7 @@ def test_dense_crop_matches_cv_tpu(dense):
 @pytest.mark.parametrize("mode", ["pgather", "pfused", "pallas", "pgroups4"])
 def test_dense_modes_agree(dense, crop, mode):
     ex, base, _ = dense
-    other = DeviceExtractor(ex.config, onehot_mode=mode, **BUDGETS).extract(crop[None]).to_numpy()
+    other = DeviceExtractor(ex.config, device="cpu", onehot_mode=mode, **BUDGETS).extract(crop[None]).to_numpy()
     _gates(other, base, 1e-6)
     np.testing.assert_array_equal(other["point"], base["point"])
 
@@ -87,7 +87,7 @@ def test_engine_budget_adapter():
     """``FastAkazeExtractor`` as the engine builds it (tracking_features =
     8192): candidate budget 2048, dedup cap 8192, the group describe on a
     KITTI frame."""
-    fx = FastAkazeExtractor(Akaze(maximum_features=8192))
+    fx = FastAkazeExtractor(Akaze(maximum_features=8192), device="cpu")
     dev = fx._dev
     assert (dev.candidate_budget, dev.max_features, dev.dedup_scan_cap) == (2048, 8192, 8192)
     assert dev.describe_mode(512, 1392) == "pgroups"
@@ -96,8 +96,8 @@ def test_engine_budget_adapter():
 def test_fast_extractor_group_path_equals_device_extractor(crop):
     """The adapter at 2048 features returns exactly the device extractor's
     valid rows, in response order."""
-    kp, words = FastAkazeExtractor(Akaze(maximum_features=2048)).extract(crop)
-    fs = DeviceExtractor(Akaze(), **BUDGETS).extract(crop[None]).to_numpy()
+    kp, words = FastAkazeExtractor(Akaze(maximum_features=2048), device="cpu").extract(crop)
+    fs = DeviceExtractor(Akaze(), device="cpu", **BUDGETS).extract(crop[None]).to_numpy()
     valid = fs["valid"][0]
     np.testing.assert_array_equal(kp["point"], fs["point"][0][valid])
     np.testing.assert_array_equal(words, fs["words"][0][valid])

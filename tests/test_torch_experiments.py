@@ -136,7 +136,7 @@ def _gates(w_t, ok_t, a_t, w_j, ok_j, a_j, angle_tol=1e-4):
 def _extract_both(img, mode, jcfg, cb, mf):
     """Both packages' ``DeviceExtractor`` with describe ``mode`` on one image."""
     jfs = JDeviceExtractor(jcfg, candidate_budget=cb, max_features=mf, onehot_mode=mode).extract(jnp.asarray(img)[None])
-    tfs = DeviceExtractor(from_numpy_config(jcfg), cb, mf, onehot_mode=mode).extract(img[None]).to_numpy()
+    tfs = DeviceExtractor(from_numpy_config(jcfg), cb, mf, device="cpu", onehot_mode=mode).extract(img[None]).to_numpy()
     return {k: np.asarray(getattr(jfs, k))[0] for k in ("valid", "point", "angle", "words")}, {
         k: v[0] for k, v in tfs.items()
     }
@@ -173,8 +173,8 @@ def test_retired_modes_equal_pgather(registered, mode):
     """The port's retired modes give its 'pgather' bits (on the CPU both
     run the plain select on the same batch)."""
     img = np.ascontiguousarray(to_gray_f32(load_gray(kitti_pair()[1]))[200:456, 300:684])
-    base = DeviceExtractor(Akaze(), 256, 512).extract(img[None]).to_numpy()
-    got = DeviceExtractor(Akaze(), 256, 512, onehot_mode=mode).extract(img[None]).to_numpy()
+    base = DeviceExtractor(Akaze(), 256, 512, device="cpu").extract(img[None]).to_numpy()
+    got = DeviceExtractor(Akaze(), 256, 512, device="cpu", onehot_mode=mode).extract(img[None]).to_numpy()
     assert base["valid"].sum() > 20
     for key in ("valid", "point", "words", "angle"):
         np.testing.assert_array_equal(got[key], base[key], err_msg=key)
@@ -185,7 +185,7 @@ def test_explicit_ptiles_on_small_stack_raises(registered):
     there (pallas_mldb_losers.py:373-374); the port raises."""
     img = np.random.default_rng(8).uniform(0, 1, (96, 200)).astype(np.float32)
     with pytest.raises(ValueError, match="pallas_mldb_losers.py:373-374"):
-        DeviceExtractor(candidate_budget=64, max_features=256, onehot_mode="ptiles").extract(img[None])
+        DeviceExtractor(candidate_budget=64, max_features=256, device="cpu", onehot_mode="ptiles").extract(img[None])
 
 
 def test_orient_mldb_ptiles_unsorted_keypoints():

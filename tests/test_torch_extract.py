@@ -58,7 +58,7 @@ def both_features(request):
     ref = jfast.DeviceExtractor(
         jcfg, candidate_budget=cb, max_features=mf, onehot_mode="highest"
     ).extract(jnp.asarray(img)[None])
-    port = DeviceExtractor(from_numpy_config(jcfg), candidate_budget=cb, max_features=mf).extract(
+    port = DeviceExtractor(from_numpy_config(jcfg), candidate_budget=cb, max_features=mf, device="cpu").extract(
         img[None]
     )
     ref = {k: np.asarray(getattr(ref, k)) for k in ("point", "angle", "words", "valid", "response")}

@@ -179,7 +179,7 @@ def test_score_stage_same_best(seed):
     a, b = _scene(seed, n=40, outliers=12)
     idx = _minimal_sets(seed, 40, 128)
     je, te = _estimators()
-    jc, tc = JConsensus(threshold=1e-6, hypotheses=128), TConsensus(threshold=1e-6, hypotheses=128)
+    jc, tc = JConsensus(threshold=1e-6, hypotheses=128), TConsensus(threshold=1e-6, hypotheses=128, device="cpu")
     valid = np.arange(40) < 36  # the last 4 rows are padding
     jm = je.estimate((jnp.asarray(a[idx]), jnp.asarray(b[idx])))
     mj, maskj, cj, totj = jc._score_stage(je, jm, (jnp.asarray(a), jnp.asarray(b)), jnp.asarray(valid))
@@ -196,7 +196,7 @@ def test_prescore_stage_same_survivors():
     idx = _minimal_sets(6, 40, 96)
     je, te = _estimators()
     jc = JConsensus(threshold=1e-6, hypotheses=96, prescore_matches=16, prescore_keep=32)
-    tc = TConsensus(threshold=1e-6, hypotheses=96, prescore_matches=16, prescore_keep=32)
+    tc = TConsensus(threshold=1e-6, hypotheses=96, prescore_matches=16, prescore_keep=32, device="cpu")
     valid = np.ones(40, bool)
     key = jax.random.key(7)
     # The reference draws its block from the key inside the stage; hand the
@@ -220,7 +220,7 @@ def test_model_inliers_recovers_motion():
     a, b = _scene(8, n=40, outliers=8)
     _, te = _estimators()
     g = torch.Generator().manual_seed(0)
-    model, mask, count = TConsensus(threshold=1e-6, hypotheses=256).model_inliers(
+    model, mask, count = TConsensus(threshold=1e-6, hypotheses=256, device="cpu").model_inliers(
         g, te, (torch.as_tensor(a), torch.as_tensor(b))
     )
     assert int(count) == 32

@@ -245,13 +245,13 @@ def test_select_fused_plain_meta():
 @pytest.mark.parametrize("mode", ["highest", "bf16x3", "bf16x3k", "pgather+inter", "highest+fused"])
 def test_xla_only_modes_raise(mode):
     with pytest.raises(ValueError, match="XLA-only"):
-        DeviceExtractor(onehot_mode=mode)
+        DeviceExtractor(device="cpu", onehot_mode=mode)
 
 
 @pytest.mark.parametrize("mode", ["ptiles8", "pgroups0", "gather"])
 def test_unknown_modes_raise(mode):
     with pytest.raises(ValueError, match="unknown describe mode"):
-        DeviceExtractor(onehot_mode=mode)
+        DeviceExtractor(device="cpu", onehot_mode=mode)
 
 
 @pytest.mark.parametrize("mode", ["pepatch", "ptiles"])
@@ -261,23 +261,23 @@ def test_retired_modes_raise_until_registered(monkeypatch, mode):
     ``KeyError`` naming that module."""
     monkeypatch.delitem(tdesc.EXTERNAL_MODES, mode, raising=False)
     img = np.random.default_rng(6).uniform(0, 1, (128, 160)).astype(np.float32)
-    ex = DeviceExtractor(candidate_budget=64, max_features=128, onehot_mode=mode)
+    ex = DeviceExtractor(candidate_budget=64, max_features=128, device="cpu", onehot_mode=mode)
     with pytest.raises(KeyError, match="cv_tpu_torch/experiments/mldb_losers.py"):
         ex.extract(img[None])
 
 
 @pytest.mark.parametrize("mode", ["pgather", "pgroups", "pgroups4", "pfused", "pallas", "pepatch", "ptiles"])
 def test_kernel_modes_accepted(mode):
-    assert DeviceExtractor(onehot_mode=mode).describe_mode(100, 100) == mode
+    assert DeviceExtractor(device="cpu", onehot_mode=mode).describe_mode(100, 100) == mode
 
 
 def test_default_mode_rule():
-    big = DeviceExtractor(max_features=2048)
+    big = DeviceExtractor(max_features=2048, device="cpu")
     assert big.describe_mode(512, 1392) == "pgroups"
     assert big.describe_mode(200, 1392) == "pgroups"  # padded to 256 rows
     assert big.describe_mode(128, 1392) == "pgather"  # no 256x256 window
     assert big.describe_mode(512, 100) == "pgather"
-    assert DeviceExtractor(max_features=2047).describe_mode(512, 1392) == "pgather"
+    assert DeviceExtractor(max_features=2047, device="cpu").describe_mode(512, 1392) == "pgather"
 
 
 def test_explicit_pgroups_on_small_stack_raises():
@@ -286,8 +286,8 @@ def test_explicit_pgroups_on_small_stack_raises():
     rng = np.random.default_rng(8)
     img = rng.uniform(0, 1, (96, 200)).astype(np.float32)
     with pytest.raises(ValueError, match="descriptors.py:623"):
-        DeviceExtractor(candidate_budget=64, max_features=2048, onehot_mode="pgroups").extract(img[None])
-    ex = DeviceExtractor(candidate_budget=64, max_features=2048)
+        DeviceExtractor(candidate_budget=64, max_features=2048, device="cpu", onehot_mode="pgroups").extract(img[None])
+    ex = DeviceExtractor(candidate_budget=64, max_features=2048, device="cpu")
     assert ex.describe_mode(96, 200) == "pgather"
     fs = ex.extract(img[None])
     assert fs.words.shape[0] == 1 and fs.words.shape[-1] == 16 and fs.valid.any()

@@ -19,7 +19,7 @@ from cv_tpu_torch.utils import KITTI_INTRINSICS, kitti_pair
 @pytest.fixture(scope="module")
 def kitti_features():
     images = np.stack([to_gray_f32(load_gray(p)) for p in kitti_pair()])
-    extractor = DeviceExtractor(Akaze.sparse(), candidate_budget=256, max_features=512)
+    extractor = DeviceExtractor(Akaze.sparse(), candidate_budget=256, max_features=512, device="cpu")
     return extractor.extract(images)
 
 
@@ -73,7 +73,7 @@ def test_eleven_inliers(kitti_features, kitti_matches):
         ),
     )
     g = torch.Generator().manual_seed(42)
-    model, mask, count = BatchConsensus(threshold=0.1, hypotheses=512).model_inliers(g, est, (a, b))
+    model, mask, count = BatchConsensus(threshold=0.1, hypotheses=512, device="cpu").model_inliers(g, est, (a, b))
     assert int(count) == 11 and bool(mask.all())
     rot = model.rotation
     torch.testing.assert_close(rot @ rot.T, torch.eye(3, dtype=torch.float64), atol=1e-6, rtol=0)

@@ -77,8 +77,8 @@ def engines():
     scene = make_scene(np.random.default_rng(42))
     settings = VSlamSettings.from_json(REF_SETTINGS.to_json())
     ref = _run(RefVSlam(settings=REF_SETTINGS, seed=7), RefFeed, scene)
-    port = _run(VSlam(settings=settings, seed=7), Feed, scene)
-    port_sync = _run(VSlam(settings=settings.replace(async_optimize=False), seed=7), Feed, scene)
+    port = _run(VSlam(settings=settings, seed=7, device="cpu"), Feed, scene)
+    port_sync = _run(VSlam(settings=settings.replace(async_optimize=False), seed=7, device="cpu"), Feed, scene)
     return scene, ref, port, port_sync
 
 
