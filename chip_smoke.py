@@ -33,7 +33,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      nvcc per source, all started together;
   3. hold each kernel against its plain PyTorch version at the main paths'
      shapes and time both: the select kernel, its patch form, the group
-     select (zero rows included), the dedup scan and the fused describe
+     select (zero rows included), the dedup scan (on the dense candidates
+     and on ``dedup_adversarial``'s set, the cache in shared and in global
+     memory, and at a cap above the shared limit) and the fused describe
      bitwise (the fused describe also within its stated gates: ok flags
      equal, angles within 1e-5 rad, >= 99% of word rows bitwise equal, no
      row more than 16 of 486 bits off); the pose kernels' branch-free
@@ -92,7 +94,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      launched twice and the dedup kernel once; the ``'pfused'`` and
      ``'pallas'`` runs give the same counts and words within the fused
      gates; ``FastAkazeExtractor`` at 8192 features takes the group path
-     and finds frame 0's count;
+     and finds frame 0's count; then every select call of the KITTI path
+     and of the SfM warm pass, and every dedup call of the KITTI, SfM warm,
+     merge and dense runs (recorded where the extractor binds the wrappers,
+     the counts handed on), replayed: bitwise to the plain version, summed
+     device time per path, the select's byte bound, the scan's us a step
+     and its chain floor;
   8. drive the retired modes, each run with the counters at zero:
      ``'pepatch'`` at the KITTI batch gives [399, 343] and every valid word
      row and angle bitwise equal to ``'pgather'``; ``'ptiles'`` at the
@@ -715,6 +722,37 @@ def _as_f32(x):
 
 
 @contextlib.contextmanager
+def recording(mod, attr, keep=_clone):
+    """Record every call of ``mod.attr`` while the body runs; yields
+    ``[(keep(args), kwargs clone), ...]``.  The recorder passes each call on
+    and stays out of the launch counts: a wrapper counts its launches on the
+    name it is bound to (here the recorder), so the recorder hands them on
+    to the real function."""
+    calls = []
+    real = getattr(mod, attr)
+
+    def recorded(*a, **kw):
+        calls.append((keep(a), _clone(kw)))
+        out = real(*a, **kw)
+        real.launches += recorded.launches
+        recorded.launches = 0
+        return out
+
+    recorded.launches = 0
+    setattr(mod, attr, recorded)
+    try:
+        yield calls
+    finally:
+        setattr(mod, attr, real)
+
+
+def keep_planes(args):
+    """A select call's arguments: the plane stack by reference (the extract
+    never writes it after the call), the rest cloned."""
+    return (args[0],) + _clone(tuple(args[1:]))
+
+
+@contextlib.contextmanager
 def record_pose_calls():
     """Record the arguments (clones) of every call of kernels A, B and C
     where ``sfm/engine.py`` and ``sfm/device_refine.py`` bind the wrappers;
@@ -1059,12 +1097,148 @@ def check_select_kernels(dev, seed):
     return out
 
 
+def dedup_adversarial(seed=0, c=192):
+    """A dedup batch (numpy, the wrapper's argument order) built against the
+    scan's class window, one frame each:
+
+    * frame 0, class-major: eight chains, each a candidate of every class
+      0-5 at one place with rising responses (even chains; odd chains drop
+      their class-3 candidate), so an early slot carries its chain up through
+      the classes while fillers of every class, some on the chains, append
+      above it; the window of a late class then starts at an early slot and
+      holds slots of older classes;
+    * frame 1: runs of classes that come back after a gap (0, 1, 2, 0, 3, 1,
+      4, 2, 5, 0), with chains across the runs;
+    * frame 2: no order at all (a random class a candidate), with classes
+      63-65 beside 0-3 (past the kernel's 64-entry class table) and a prefix
+      shorter than the cap.
+
+    About 10% of the prefix candidates are invalid; every valid one lies in
+    the ``n_steps`` prefix, as stage_dedup hands them over."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed + 41)
+    cols = {key: np.zeros((3, c), dt) for key, dt in (("x", np.float32), ("y", np.float32), ("r", np.float32),
+                                                      ("cls", np.int32))}
+
+    def put(f, j, x, y, r, cls):
+        cols["x"][f, j], cols["y"][f, j], cols["r"][f, j], cols["cls"][f, j] = x, y, r, cls
+
+    # Frame 0: chains through classes 0-5 and fillers, class-major.
+    centers = [(12.0 + 9.0 * m, 14.0 + 4.0 * (m % 3)) for m in range(8)]
+    rows = []
+    for e in range(6):
+        cands = [(cx + rng.uniform(-0.4, 0.4), cy + rng.uniform(-0.4, 0.4), 0.05 if m % 2 and e == 3 else 0.1 + 0.1 * e,
+                  e) for m, (cx, cy) in enumerate(centers)]
+        cands += [(rng.uniform(5, 85), rng.uniform(5, 30), rng.uniform(0.01, 1.0), e) for _ in range(24)]
+        rows += [cands[i] for i in rng.permutation(len(cands))]
+    for j, cand in enumerate(rows[:c]):
+        put(0, j, *cand)
+    # Frame 1: classes that return after a gap.
+    j = 0
+    for cls, n in ((0, 24), (1, 20), (2, 20), (0, 16), (3, 20), (1, 16), (4, 20), (2, 16), (5, 20), (0, 16)):
+        for i in range(n):
+            if i % 4 == 0:  # on a chain centre
+                cx, cy = centers[(i // 4) % len(centers)]
+                put(1, j, cx + rng.uniform(-0.4, 0.4), cy + rng.uniform(-0.4, 0.4), rng.uniform(0.01, 1.0), cls)
+            else:
+                put(1, j, rng.uniform(5, 85), rng.uniform(5, 30), rng.uniform(0.01, 1.0), cls)
+            j += 1
+    # Frame 2: a random class a candidate, classes past the table included.
+    classes = np.array([0, 1, 2, 3, 63, 64, 65])
+    for j in range(c):
+        put(2, j, rng.uniform(5, 60), rng.uniform(5, 25), rng.uniform(0.01, 1.0), rng.choice(classes))
+    n_steps = np.array([c, c, c - 23], np.int32)
+    shift = rng.uniform(0, 1.5, (3, c)).astype(np.float32)
+    size2 = ((2.0 * 2.0 ** (np.minimum(cols["cls"], 6) / 4.0)) ** 2 * 2.0).astype(np.float32)
+    valid = (rng.uniform(size=(3, c)) < 0.9) & (np.arange(c)[None, :] < n_steps[:, None])
+    x, y = cols["x"], cols["y"]
+    return [x, y, x + shift, y + shift, cols["r"], cols["cls"], size2, valid, n_steps]
+
+
+def dedup_floor(args):
+    """Launch the dedup scan's chain floor (``cv_dedup_scan_floor``: the
+    kernel's steps without the cache work) on a call's arguments, prepared
+    as the wrapper prepares them.  A measurement: its output is not a
+    dedup."""
+    import torch
+
+    from cv_tpu_torch import kernels
+    from cv_tpu_torch.akaze import extrema
+
+    floats = [t.contiguous() for t in args[:5]]
+    cls, s2, ok = args[5].to(torch.int32).contiguous(), args[6].contiguous(), args[7].contiguous()
+    steps = args[8].to(torch.int32).contiguous()
+    b, c = floats[0].shape
+    out = torch.empty((b, c), dtype=torch.bool, device=floats[0].device)
+    err = kernels.function("dedup_scan", "cv_dedup_scan_floor", extrema._DEDUP_ARGS)(
+        *(t.data_ptr() for t in floats), cls.data_ptr(), s2.data_ptr(), ok.data_ptr(), steps.data_ptr(),
+        out.data_ptr(), b, c, -1, kernels.current_stream(floats[0].device))
+    require(err == 0, f"dedup floor launch: cudaError {err}")
+    return out
+
+
+def replay_dedup(paths):
+    """Each recorded dedup call (``paths``: path -> [(args, kwargs)]) held
+    bitwise to the plain version, then timed in a CUDA graph (``device_ms``)
+    with its chain floor beside it.  Per path: calls, the steps of the chain
+    (the frame batch's longest prefix, summed over calls), the summed device
+    ms and us a step of the kernel and of its floor."""
+    import torch
+
+    from cv_tpu_torch.akaze import extrema
+
+    out = {}
+    for path, calls in paths.items():
+        rec = dict(calls=len(calls), steps=0, ms=0.0, floor_ms=0.0)
+        for j, (args, kw) in enumerate(calls):
+            got, ref = extrema.dedup_scan_device(*args, **kw), extrema.dedup_scan_plain(*args)
+            torch.cuda.synchronize()
+            require(torch.equal(got, ref), f"dedup {path} call {j}: bitwise equal to the plain version")
+            rec["steps"] += int(args[8].max())
+            rec["ms"] += device_ms(lambda a=args, kw=kw: extrema.dedup_scan_device(*a, **kw), iters=3)
+            rec["floor_ms"] += device_ms(lambda a=args: dedup_floor(a), iters=3)
+        steps = max(rec["steps"], 1)
+        rec.update(us_per_step=rec["ms"] * 1e3 / steps, floor_us_per_step=rec["floor_ms"] * 1e3 / steps)
+        out[path] = rec
+        print(f"engine-call replay dedup_scan {path}: {rec['calls']} calls bitwise equal to plain, "
+              f"{rec['steps']} steps, summed device {rec['ms']:.4f} ms ({rec['us_per_step']:.4f} us a step); "
+              f"chain floor {rec['floor_ms']:.4f} ms ({rec['floor_us_per_step']:.4f} us a step)")
+    return out
+
+
+def replay_select(paths):
+    """Each recorded select call held bitwise to the plain version, then
+    timed in a CUDA graph.  Per path: calls, summed device ms, the summed
+    byte bound (``select_bytes``) and its share of the time."""
+    import torch
+
+    from cv_tpu_torch.akaze import select
+
+    out = {}
+    for path, calls in paths.items():
+        rec = dict(calls=len(calls), ms=0.0, bound_ms=0.0)
+        for j, (args, kw) in enumerate(calls):
+            got, ref = select.select_samples(*args, **kw), select.select_samples_plain(*args, **kw)
+            torch.cuda.synchronize()
+            require(torch.equal(got, ref), f"select {path} call {j}: bitwise equal to the plain version")
+            rec["ms"] += device_ms(lambda a=args, kw=kw: select.select_samples(*a, **kw), iters=10)
+            k, ns = args[4].shape
+            rec["bound_ms"] += bound(select_bytes(k, ns, got.shape[1]))[0]
+        rec["bound_share"] = rec["bound_ms"] / rec["ms"] if rec["ms"] else 0.0
+        out[path] = rec
+        print(f"engine-call replay select_samples {path}: {rec['calls']} calls bitwise equal to plain, summed "
+              f"device {rec['ms']:.4f} ms, byte bound {rec['bound_ms']:.4f} ms ({100 * rec['bound_share']:.1f}%)")
+    return out
+
+
 def check_dedup_kernel(dev, seed, dense_args):
     """Phase 3 for the dedup kernel: bitwise against its plain version on
-    the dense KITTI candidates (``dense_args``, as stage_dedup passed them),
-    with the cache in shared memory and forced to global memory, and on a
-    random batch whose cap is above the shared-memory cache size;
-    alternating timings on the dense candidates."""
+    the dense KITTI candidates (``dense_args``, as stage_dedup passed them)
+    and on ``dedup_adversarial``'s set, each with the cache in shared memory
+    and forced to global memory, and on a random batch whose cap is above
+    the shared-memory cache size; alternating timings on the dense
+    candidates."""
     import numpy as np
     import torch
 
@@ -1084,6 +1258,18 @@ def check_dedup_kernel(dev, seed, dense_args):
           f"in shared and in global memory, {got.sum(dim=1).tolist()} survivors")
     kms, pms = alternate(run_k, run_p, lambda fn: wall_ms(fn, reps=1)[0])
     print(f"dedup dense: kernel {kms:.3f} ms, plain {pms:.3f} ms (host clock, plain-kernel-kernel-plain)")
+
+    # The adversarial set (chains through the classes, classes that return,
+    # no order), with the cache in shared and in global memory.
+    adv = [torch.as_tensor(a, device=dev) for a in dedup_adversarial(seed)]
+    ref = extrema.dedup_scan_plain(*adv)
+    for slots in (None, 0):
+        got_adv = extrema.dedup_scan_device(*adv, max_shared_slots=slots)
+        torch.cuda.synchronize()
+        require(torch.equal(got_adv, ref), f"dedup kernel bitwise equal to plain on the adversarial set "
+                                           f"(max_shared_slots={slots})")
+    print(f"dedup adversarial set B=3 cap {adv[0].shape[1]}: bitwise equal with the cache in shared and in global "
+          f"memory, {ref.sum(dim=1).tolist()} survivors")
 
     rng = np.random.default_rng(seed + 11)
     b, c = 2, DEDUP_GLOBAL_CAP
@@ -1510,6 +1696,7 @@ def main():
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from cv_tpu_torch import kernels
     from cv_tpu_torch.akaze import Akaze, DeviceExtractor, FastAkazeExtractor, extrema, load_gray, to_gray_f32
+    from cv_tpu_torch.akaze import descriptors as desc_mod
     from cv_tpu_torch.akaze import fused as fused_mod
     from cv_tpu_torch.akaze import select as select_mod
     from cv_tpu_torch.camera import CameraIntrinsics
@@ -1595,21 +1782,9 @@ def main():
     dense_pair = np.stack([to_gray_f32(load_gray(p)) for p in kitti_pair()])
     dense_images = torch.as_tensor(dense_pair, device=dev)
     dense = DeviceExtractor(Akaze(), device=dev, **DENSE)
-    recorded = []
-    real_scan = extrema.dedup_scan_device
-
-    def record_scan(*a, **kw):
-        recorded.append(a)
-        return real_scan(*a, **kw)
-
-    record_scan.launches = 0  # the wrapper counts on the name it is bound to
-
-    extrema.dedup_scan_device = record_scan
-    try:
+    with recording(extrema, "dedup_scan_device") as recorded:
         dense.extract(dense_images)
-    finally:
-        extrema.dedup_scan_device = real_scan
-    dedup_record = check_dedup_kernel(dev, args.seed, recorded[0])
+    dedup_record = check_dedup_kernel(dev, args.seed, recorded[0][0])
     del recorded
     exp_records = check_experiment_kernels(dev, args.seed)
 
@@ -1646,7 +1821,12 @@ def main():
         model, mask, count = consensus.model_inliers(g, estimator, (a, b))
         return model, mask, count
 
-    with main_path(counters, plains) as kitti_run:
+    # The select's and the dedup scan's calls of every path are recorded
+    # where the extractor binds them (replayed after phase 7).
+    select_calls, scan_calls = {}, {}
+    with main_path(counters, plains) as kitti_run, \
+            recording(desc_mod, "select_samples", keep_planes) as select_calls["kitti"], \
+            recording(extrema, "dedup_scan_device") as scan_calls["kitti"]:
         fs, idx, keep = extract_and_match(images)
         model, mask, count = pose_pair0(fs, idx, keep)
     counts = fs.count.tolist()
@@ -1668,23 +1848,12 @@ def main():
     )
 
     # -- 5. the SfM engine: a warm pass, then the timed main-path pass -------
-    # The warm pass records the dedup scan's calls (the wrapper counts its
-    # launches on the name it is bound to, so not in the counted pass) and
-    # A's, B's and C's, so the timed pass runs as it would without them.
-    sfm_scans = []
-    real_scan = extrema.dedup_scan_device
-
-    def record_sfm_scan(*a, **kw):
-        sfm_scans.append((_clone(a), _clone(kw)))
-        return real_scan(*a, **kw)
-
-    record_sfm_scan.launches = 0
-    extrema.dedup_scan_device = record_sfm_scan
-    try:
-        with record_pose_calls() as pose_calls:
-            warm_engine, warm_s, _, _ = run_sfm(dev)
-    finally:
-        extrema.dedup_scan_device = real_scan
+    # The warm pass records the select's, the dedup scan's and A's, B's and
+    # C's calls, so the timed pass runs as it would without them.
+    with record_pose_calls() as pose_calls, \
+            recording(desc_mod, "select_samples", keep_planes) as select_calls["sfm"], \
+            recording(extrema, "dedup_scan_device") as scan_calls["sfm"]:
+        warm_engine, warm_s, _, _ = run_sfm(dev)
     print(f"sfm warm pass: {SFM_FRAMES / warm_s:.3f} fps ({warm_s:.3f} s)")
     del warm_engine
     with main_path(counters, plains) as sfm_run:
@@ -1710,16 +1879,10 @@ def main():
           "(the warm pass's calls)")
     for name, rec in engine_records.items():
         pose_records[name]["engine"] = rec
-    scan_ms = [cuda_ms(lambda a=a, kw=kw: extrema.dedup_scan_device(*a, **kw), iters=3, warmup=1)
-               for a, kw in sfm_scans]
-    scan_steps = [int(s) for a, _ in sfm_scans for s in a[-1].tolist()]
-    dedup_record["engine"] = dict(calls=len(sfm_scans), steps=[min(scan_steps), max(scan_steps)], ms=sum(scan_ms))
-    print(f"engine-shape replay dedup_scan (warm pass): {len(sfm_scans)} calls, steps {dedup_record['engine']['steps']}, "
-          f"summed device time {sum(scan_ms):.3f} ms")
-    del sfm_scans
 
     # -- 6. the loop-closure merge, once, with the counters at zero ---------
-    with main_path(counters, plains) as merge_run:
+    with main_path(counters, plains) as merge_run, \
+            recording(extrema, "dedup_scan_device") as scan_calls["merge"]:
         merge_engine, merge_counts, merges, merge_s = run_merge(dev)
     final = len(merge_engine.data.reconstructions)
     require(max(merge_counts) >= 2 and final < max(merge_counts),
@@ -1745,8 +1908,9 @@ def main():
                          ("pfused", dict(select_fused=1, dedup_scan=1, select_groups=0)),
                          ("pallas", dict(select_samples=2, dedup_scan=1, select_groups=0))):
         ex = dense if mode is None else DeviceExtractor(Akaze(), device=dev, onehot_mode=mode, **DENSE)
-        with main_path(counters, plains) as run:
+        with main_path(counters, plains) as run, recording(extrema, "dedup_scan_device") as calls:
             fs_d = ex.extract(dense_images)
+        scan_calls.setdefault("dense", []).extend(calls)
         host = fs_d.to_numpy()
         label = ex.describe_mode(*dense_pair.shape[-2:])
         cnt = host["valid"].sum(axis=1).tolist()
@@ -1770,8 +1934,9 @@ def main():
     engine_ex = FastAkazeExtractor(Akaze(maximum_features=8192), device=dev)
     frame0 = np.ascontiguousarray(dense_pair[0])
     require(engine_ex._dev.describe_mode(*frame0.shape) == "pgroups", "engine-budget extractor takes pgroups")
-    with main_path(counters, plains) as run:
+    with main_path(counters, plains) as run, recording(extrema, "dedup_scan_device") as calls:
         kp, words0, sketch = engine_ex.fetch_extract(engine_ex.dispatch_extract(frame0))
+    scan_calls["dense"].extend(calls)
     n0 = len(kp["response"])
     print(f"FastAkazeExtractor(maximum_features=8192) frame 0: {n0} keypoints (dense DeviceExtractor: "
           f"{int(runs[None]['valid'][0].sum())}), launches {run['launches']}")
@@ -1792,6 +1957,16 @@ def main():
           f"(pgroups {dense_stages['describe']:.3f} ms)")
     print(f"dense dedup kernel: median {statistics.median(s[0] for s in dense_scan):.3f} ms, "
           f"sequential steps per frame {dense_scan[0][1]}")
+
+    # The select's and the dedup scan's recorded calls, replayed: each held
+    # bitwise to its plain version and timed on the card.
+    for path, want in (("kitti", 2), ("sfm", 2 * SFM_FRAMES)):
+        require(len(select_calls[path]) == want, f"select: {len(select_calls[path])} {path} calls recorded")
+    for path, want in (("kitti", 1), ("sfm", SFM_FRAMES), ("merge", len(merge_counts)), ("dense", 4)):
+        require(len(scan_calls[path]) == want, f"dedup: {len(scan_calls[path])} {path} calls recorded")
+    select_records["select_samples"]["engine"] = replay_select(select_calls)
+    dedup_record["engine"] = replay_dedup(scan_calls)
+    del select_calls, scan_calls
 
     # -- 8. the retired describe modes and the experiments' runs ------------
     # 'pepatch' and 'ptiles' (registered by importing mldb_losers) at the

@@ -148,7 +148,7 @@ def dedup_scan_device(px_cmp, py_cmp, px_store, py_store, resp, class_id, size2,
     on the device, so it needs no host sync.
 
     The kernel keeps its cache in shared memory when the cap ``C`` fits
-    there (up to ~11,600 slots on an H100), else in global memory.
+    there (up to ~10,800 slots on an H100), else in global memory.
     ``max_shared_slots`` lowers that bound; ``0`` forces the global-memory
     cache, which is how the tests reach it at small caps."""
     args = (px_cmp, py_cmp, px_store, py_store, resp, class_id, size2, valid)

@@ -14,47 +14,98 @@
 // VMEM tile; here the kernel reads the plane stack directly, so the patch
 // buffer (805 MB at 4096 keypoints) is never built.
 //
-// What bounds it: scattered 4-byte reads.  At B=8 the stack is ~0.9 GB, but
-// every sample of one keypoint lies in its 128x128 window (192 KB over three
-// channels), which fits in L2; a keypoint reads at most NS x 3 words of it.
-// Design: one block per keypoint, so a block's reads stay inside one window
-// and neighbouring samples of the rotated grid (adjacent columns) share
-// cache sectors; threads stride over samples, each loading its two indices
-// and its channels through the read-only cache (__ldg); writes run along s,
-// so they are fully coalesced.  No shared memory, no tensor cores.
+// What bounds it: bytes, as scattered 4-byte reads.  Every sample of one
+// keypoint lies in its 128x128 window; at the engine's calls the offsets
+// are a rotated grid with spacing `scale`, so neighbouring samples share
+// sectors, and a keypoint reads a few KB of the stack.  Each sample costs
+// two dependent round trips (its offsets, then its values).
+//
+// Design: the (K, NS) samples are one flat range; a block of kThreads takes
+// kThreads * kPer consecutive samples, thread t the samples t, t + kThreads,
+// ... of it, so each load and store instruction of a warp covers 32
+// consecutive words (offsets in, values out) and a keypoint's samples sit
+// in one or a few warps of one block.  A thread issues all its offset loads
+// at once, then all its value loads (kPer samples x C - c0 channels, the
+// channel count a template constant for 1 to 3), and stores only after the
+// last load: kPer * (C - c0) loads in flight a thread.  No shared memory,
+// no tensor cores.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 256;
+constexpr int kPer = 1;  // samples a thread
 
-__global__ void __launch_bounds__(kThreads) select_samples_kernel(
-    const float* __restrict__ planes, const int* __restrict__ lvl,
-    const int* __restrict__ y0, const int* __restrict__ x0,
-    const int* __restrict__ rel_x, const int* __restrict__ rel_y,
-    float* __restrict__ out, int n_levels, int channels, int height, int width,
-    int ns, int c0) {
-  const int k = blockIdx.x;
-  const int l = __ldg(lvl + k);
-  const int yb = __ldg(y0 + k);
-  const int xb = __ldg(x0 + k);
-  const size_t plane = static_cast<size_t>(height) * width;
-  const bool level_ok = l >= 0 && l < n_levels;
-  const float* base =
-      planes + static_cast<size_t>(level_ok ? l : 0) * channels * plane;
-  const int* rx = rel_x + static_cast<size_t>(k) * ns;
-  const int* ry = rel_y + static_cast<size_t>(k) * ns;
-  float* o = out + static_cast<size_t>(k) * (channels - c0) * ns;
-  for (int s = threadIdx.x; s < ns; s += blockDim.x) {
-    const int y = yb + __ldg(ry + s);
-    const int x = xb + __ldg(rx + s);
-    const bool ok = level_ok && y >= 0 && y < height && x >= 0 && x < width;
-    const size_t off = ok ? static_cast<size_t>(y) * width + x : 0;
-    for (int c = c0; c < channels; ++c) {
-      o[static_cast<size_t>(c - c0) * ns + s] =
-          ok ? __ldg(base + c * plane + off) : __int_as_float(0x7fc00000);
+struct Args {
+  const float* planes;
+  const int* lvl;
+  const int* y0;
+  const int* x0;
+  const int* rel_x;
+  const int* rel_y;
+  float* out;
+  int n_levels, channels, height, width, ns, c0;
+  unsigned total;  // K * NS
+};
+
+// kC = C - c0 when it is 1, 2 or 3; 0: read at run time.
+template <int kC>
+__global__ void __launch_bounds__(kThreads) select_samples_kernel(Args a) {
+  const int nc = kC > 0 ? kC : a.channels - a.c0;
+  constexpr int kSlots = kC > 0 ? kC : 1;
+  const size_t plane = static_cast<size_t>(a.height) * a.width;
+  const unsigned first = blockIdx.x * static_cast<unsigned>(kThreads * kPer) + threadIdx.x;
+
+  int rx[kPer], ry[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const unsigned e = first + p * kThreads;
+    const bool live = e < a.total;
+    rx[p] = live ? __ldg(a.rel_x + e) : 0;
+    ry[p] = live ? __ldg(a.rel_y + e) : 0;
+  }
+  const float* src[kPer];
+  size_t dst[kPer];
+  bool ok[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const unsigned e = first + p * kThreads;
+    const unsigned k = e < a.total ? e / a.ns : 0;
+    const unsigned s = e - k * a.ns;
+    const int l = __ldg(a.lvl + k);
+    const int y = __ldg(a.y0 + k) + ry[p];
+    const int x = __ldg(a.x0 + k) + rx[p];
+    ok[p] = e < a.total && l >= 0 && l < a.n_levels && y >= 0 && y < a.height && x >= 0 && x < a.width;
+    src[p] = a.planes + (ok[p] ? (static_cast<size_t>(l) * a.channels + a.c0) * plane +
+                                     static_cast<size_t>(y) * a.width + x
+                               : 0);
+    dst[p] = static_cast<size_t>(k) * nc * a.ns + s;
+  }
+  const float nan = __int_as_float(0x7fc00000);
+  if constexpr (kC > 0) {
+    float v[kPer][kSlots];
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+#pragma unroll
+      for (int c = 0; c < kSlots; ++c) v[p][c] = ok[p] ? __ldg(src[p] + c * plane) : nan;
+    }
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      if (first + p * kThreads < a.total) {
+#pragma unroll
+        for (int c = 0; c < kSlots; ++c) a.out[dst[p] + static_cast<size_t>(c) * a.ns] = v[p][c];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < kPer; ++p) {
+      if (first + p * kThreads < a.total) {
+        for (int c = 0; c < nc; ++c) {
+          a.out[dst[p] + static_cast<size_t>(c) * a.ns] = ok[p] ? __ldg(src[p] + c * plane) : nan;
+        }
+      }
     }
   }
 }
@@ -69,8 +120,17 @@ extern "C" int cv_select_samples(const float* planes, const int* lvl,
                                  int width, int k, int ns, int c0,
                                  void* stream) {
   if (k <= 0 || ns <= 0) return 0;
-  select_samples_kernel<<<k, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      planes, lvl, y0, x0, rel_x, rel_y, out, n_levels, channels, height,
-      width, ns, c0);
+  const unsigned long long total = static_cast<unsigned long long>(k) * ns;
+  if (total > 0xffffffffull - kThreads * kPer) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{planes, lvl, y0, x0, rel_x, rel_y, out, n_levels, channels, height, width, ns, c0,
+               static_cast<unsigned>(total)};
+  const unsigned blocks = static_cast<unsigned>((total + kThreads * kPer - 1) / (kThreads * kPer));
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (channels - c0) {
+    case 1: select_samples_kernel<1><<<blocks, kThreads, 0, s>>>(a); break;
+    case 2: select_samples_kernel<2><<<blocks, kThreads, 0, s>>>(a); break;
+    case 3: select_samples_kernel<3><<<blocks, kThreads, 0, s>>>(a); break;
+    default: select_samples_kernel<0><<<blocks, kThreads, 0, s>>>(a); break;
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -134,6 +134,23 @@ def test_cuda_dedup_matches_plain(cap, max_shared_slots):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("max_shared_slots", [None, 0])
+def test_cuda_dedup_adversarial_matches_plain(max_shared_slots):
+    """The kernel on chip_smoke's adversarial set (chains through the
+    classes, classes that return, no order, classes past its class table),
+    with the cache in shared and in global memory."""
+    import chip_smoke
+    from cv_tpu_torch.akaze import extrema
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the dedup kernel runs only there")
+    args = [torch.as_tensor(a, device="cuda") for a in chip_smoke.dedup_adversarial(0)]
+    got = extrema.dedup_scan_device(*args, max_shared_slots=max_shared_slots)
+    torch.cuda.synchronize()
+    assert torch.equal(got, extrema.dedup_scan_plain(*args))
+
+
+@pytest.mark.cuda
 def test_cuda_select_fused_matches_plain():
     """The fused describe against its plain two-pass version on the card:
     ok flags equal, angles within 1e-5 rad, >= 99% of word rows equal."""

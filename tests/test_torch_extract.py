@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from cv_tpu.akaze import Akaze as JAkaze
 from cv_tpu.akaze import descriptors as jdesc
 from cv_tpu.akaze import extrema as jextrema
@@ -29,7 +30,7 @@ from cv_tpu.akaze import fast as jfast
 from cv_tpu.akaze import load_gray as j_load_gray
 from cv_tpu.akaze import to_gray_f32 as j_to_gray
 from cv_tpu.utils.fixtures import fixture_path
-from cv_tpu_torch.akaze import DeviceExtractor, FeatureSet, from_numpy_config
+from cv_tpu_torch.akaze import Akaze, DeviceExtractor, FeatureSet, from_numpy_config
 from cv_tpu_torch.akaze import descriptors as tdesc
 from cv_tpu_torch.akaze import extrema as textrema
 from cv_tpu_torch.akaze import fast as tfast
@@ -162,6 +163,115 @@ def test_dedup_scan_exact_large_cap():
     assert textrema.dedup_scan_device.launches == before  # the CPU runs the plain version
     assert 1024 < ref[0].sum() < valid[0].sum()
     np.testing.assert_array_equal(port.numpy(), ref)
+
+
+def _kernel_dedup(px_cmp, py_cmp, px_store, py_store, resp, cls, size2, valid, n_steps, table=64):
+    """The dedup kernel's rules as a NumPy loop (csrc/dedup_scan.cu): the
+    scan takes the first close slot of class k or k - 1 in slot order; the
+    upper-scale pass walks, for slot i, the slots from i + 1 within the
+    first and last slot of class class(i) + 1 (for a class in [0, table);
+    every later slot otherwise).  Returns the (B, C) mask and what the
+    inputs exercised: classes that come back, the longest chain of classes
+    one slot carried by replacement, upper-pass walks the class range cut
+    short, and slots whose next class has no range."""
+    b, c = px_cmp.shape
+    out = np.zeros((b, c), bool)
+    stats = dict(returns=0, longest_chain=0, narrowed=0, unranged=0)
+    for f in range(b):
+        cpx, cpy, cresp = (np.zeros(c, np.float32) for _ in range(3))
+        ccls, csrc, chain = (np.zeros(c, np.int64) for _ in range(3))
+        count, prev, seen = 0, None, set()
+        for j in range(min(max(int(n_steps[f]), 0), c)):
+            if not valid[f, j]:
+                continue
+            k = int(cls[f, j])
+            if k != prev:
+                stats["returns"] += k in seen
+                seen.add(k)
+                prev = k
+            dx = px_cmp[f, j] - cpx[:count]
+            dy = py_cmp[f, j] - cpy[:count]
+            in_win = (ccls[:count] == k) | (ccls[:count] == k - 1)
+            close = in_win & ((dx * dx + dy * dy) <= size2[f, j])
+            first = int(np.argmax(close)) if close.any() else None
+            if first is None:
+                slot, count = count, count + 1
+                chain[slot] = 1
+            elif resp[f, j] > cresp[first]:
+                slot = first
+                chain[slot] += ccls[slot] != k
+            else:
+                continue
+            cpx[slot], cpy[slot], cresp[slot], ccls[slot], csrc[slot] = px_store[f, j], py_store[f, j], resp[f, j], k, j
+            stats["longest_chain"] = max(stats["longest_chain"], int(chain[slot]))
+        first_of = {k: int(np.argmax(ccls[:count] == k)) for k in set(ccls[:count].tolist())}
+        last_of = {k: count - 1 - int(np.argmax(ccls[:count][::-1] == k)) for k in first_of}
+        for i in range(count):
+            up = int(ccls[i]) + 1
+            q0, q1 = i + 1, count - 1
+            if 0 <= up < table:
+                q0, q1 = max(q0, first_of.get(up, c)), min(q1, last_of.get(up, -1))
+                stats["narrowed"] += (q0, q1) != (i + 1, count - 1)
+            else:
+                stats["unranged"] += 1
+            qs = np.arange(q0, q1 + 1)
+            dx = cpx[i] - cpx[qs]
+            dy = cpy[i] - cpy[qs]
+            hit = (ccls[qs] == up) & ((dx * dx + dy * dy) <= size2[f, csrc[i]]) & (cresp[i] <= cresp[qs])
+            out[f, csrc[i]] = not hit.any()
+    return out, stats
+
+
+def _jax_dedup(arrays):
+    *cols, n_steps = arrays
+    cols[5] = np.asarray(cols[5], np.int32)
+    n_steps = np.asarray(n_steps, np.int32)
+    return np.asarray(jax.vmap(jextrema.dedup_scan_device)(*(jnp.asarray(a) for a in cols), jnp.asarray(n_steps)))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dedup_scan_adversarial_exact(seed):
+    """chip_smoke's adversarial dedup set (replacement chains through the
+    classes, classes that return after a gap, an unordered frame with
+    classes past the kernel's class table): cv_tpu's scan, the port's plain
+    version and the kernel's rules agree bitwise, and the set exercises
+    what they rely on: slots carried into new classes by replacement,
+    classes that come back, upper-pass walks the class ranges cut short,
+    and classes past the ranges' table."""
+    arrays = chip_smoke.dedup_adversarial(seed)
+    ref = _jax_dedup(arrays)
+    port = textrema.dedup_scan_device(*(torch.as_tensor(a) for a in arrays)).numpy()
+    rules, stats = _kernel_dedup(*arrays)
+    np.testing.assert_array_equal(port, ref)
+    np.testing.assert_array_equal(rules, ref)
+    assert ref.any(axis=1).all() and not ref[:, : arrays[-1].min()].all()
+    assert stats["longest_chain"] >= 4 and stats["returns"] >= 3
+    assert stats["narrowed"] > 0 and stats["unranged"] > 0
+
+
+def test_dedup_kernel_rules_on_kitti_candidates():
+    """The kernel's rules on the dense KITTI candidates (the crop at the
+    default threshold and the default scan cap of 1024: 554 conflicted
+    candidates of nine classes) as stage_dedup hands them to the scan:
+    cv_tpu's mask, bitwise."""
+    calls = []
+    real = textrema.dedup_scan_device
+
+    def record(*a, **kw):
+        calls.append([t.numpy() for t in a])
+        return real(*a, **kw)
+
+    textrema.dedup_scan_device = record
+    try:
+        DeviceExtractor(Akaze(), candidate_budget=512, max_features=1024, dedup_scan_cap=1024,
+                        device="cpu").extract(j_to_gray(_kitti_crop())[None])
+    finally:
+        textrema.dedup_scan_device = real
+    (arrays,) = calls
+    ref = _jax_dedup(arrays)
+    rules, stats = _kernel_dedup(*arrays)
+    np.testing.assert_array_equal(rules, ref)
+    assert arrays[-1].min() > 500 and stats["narrowed"] > 0 and stats["longest_chain"] >= 2
 
 
 def test_subpixel_refine_batch():

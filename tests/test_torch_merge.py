@@ -6,7 +6,8 @@
   rejected) leaves the same views (frames, poses within 1e-12, landmark
   lists) and the same landmarks' observations in both.
 * The scenario of tests/test_sfm.py:465-501 through both engines with that
-  file's settings: feed A sees cameras 0-2, feed B cameras 4-6 (two
+  file's settings, the patience loops cut to 250 steps and the consensus
+  to ``CONSENSUS``'s budgets: feed A sees cameras 0-2, feed B cameras 4-6 (two
   reconstructions), camera 3 bridges them and the cascade merges them.  Each
   engine ends with one reconstruction of 7 views, the relative rotation of
   cameras 0 and 6 (across the seam) within 5e-2 rad of the truth, and counts
@@ -19,28 +20,42 @@
   matched, ``try_localize`` neither raises nor attempts a merge on the
   stale counts.
 
-The scenario fixture runs both engines once (module scope): 6-7 min on one
-core, about 40% of it cv_tpu's run.
+The scenario fixture runs both engines once (module scope): ~1.6 min on one
+core with JAX's compile cache warm, ~3.2 min cold, a little over half of it
+cv_tpu's run.
 """
 
 import numpy as np
 import pytest
 
+from cv_tpu.consensus import BatchConsensus as RefConsensus
 from cv_tpu.sfm import VSlam as RefVSlam
 from cv_tpu.sfm import VSlamSettings as RefSettings
 from cv_tpu.sfm import data as ref_data
+from cv_tpu_torch.consensus import BatchConsensus
 from cv_tpu_torch.sfm import VSlam, VSlamSettings, se3
 from cv_tpu_torch.sfm import data as port_data
 
 REF_SETTINGS = RefSettings(
     two_view_minimum_robust_matches=128,
-    three_view_patience=2000,
-    single_view_patience=2000,
+    three_view_patience=250,
+    single_view_patience=250,
     constraint_patience=500,
     optimization_iterations=128,
     tracking_recent_frames=8,
 )
 PORT_SETTINGS = VSlamSettings.from_json(REF_SETTINGS.to_json())
+# The scenario's consensus budgets, the same in both engines (their defaults
+# draw 2048 / 1024 hypotheses and score 512 in full).  The bearings are
+# exact, so these find the same models; the defaults' consensus was most of
+# the fixture's time.
+CONSENSUS = dict(hypotheses=256, refit_rounds=1, refit_hypotheses=128, prescore_matches=64, prescore_keep=64)
+
+
+def _consensus(cls, settings, **kw):
+    """Both engines' consensus roles at ``CONSENSUS``."""
+    return dict(two_view_consensus=cls(threshold=settings.two_view_consensus_threshold, **CONSENSUS, **kw),
+                single_view_consensus=cls(threshold=settings.single_view_consensus_threshold, **CONSENSUS, **kw))
 
 
 def _pose(rng):
@@ -162,8 +177,11 @@ def _merge_scenario(engine, feed_cls, scene):
 @pytest.fixture(scope="module")
 def merged():
     scene = _scene(np.random.default_rng(11))
-    ref = _merge_scenario(RefVSlam(settings=REF_SETTINGS, seed=5), ref_data.Feed, scene)
-    port = _merge_scenario(VSlam(settings=PORT_SETTINGS, seed=5, device="cpu"), port_data.Feed, scene)
+    ref = _merge_scenario(RefVSlam(settings=REF_SETTINGS, seed=5, **_consensus(RefConsensus, REF_SETTINGS)),
+                          ref_data.Feed, scene)
+    port = _merge_scenario(
+        VSlam(settings=PORT_SETTINGS, seed=5, device="cpu", **_consensus(BatchConsensus, PORT_SETTINGS, device="cpu")),
+        port_data.Feed, scene)
     return scene, ref, port
 
 

@@ -41,9 +41,9 @@ def test_source_names_no_jax(path):
     assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|cv_tpu)\b", text, re.M), path
 
 
-@pytest.mark.parametrize("script", ["chip_smoke.py"])
+@pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/sweep_pose_blocks.py", "scripts/time_engine_calls.py"])
 def test_card_scripts_leave_jax_out(script):
-    """The script run on the card imports neither JAX nor cv_tpu, at import
+    """A script run on the card imports neither JAX nor cv_tpu, at import
     or in its text."""
     path = PKG.parent / script
     assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|cv_tpu)\b", path.read_text(), re.M), script
@@ -53,6 +53,6 @@ def test_card_scripts_leave_jax_out(script):
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'cv_tpu'))\n"
         "sys.exit(1 if bad else 0)\n"
     )
-    env = dict(os.environ, PYTHONPATH=str(PKG.parent))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(PKG.parent), str(path.parent)]))
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
