@@ -95,11 +95,14 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ``'pallas'`` runs give the same counts and words within the fused
      gates; ``FastAkazeExtractor`` at 8192 features takes the group path
      and finds frame 0's count; then every select call of the KITTI path
-     and of the SfM warm pass, and every dedup call of the KITTI, SfM warm,
-     merge and dense runs (recorded where the extractor binds the wrappers,
-     the counts handed on), replayed: bitwise to the plain version, summed
-     device time per path, the select's byte bound, the scan's us a step
-     and its chain floor;
+     and of the SfM warm pass, every dedup call of the KITTI, SfM warm,
+     merge and dense runs, every group-select call of the dense and
+     engine-budget runs and the fused describe's call of the ``'pfused'``
+     run (recorded where the extractor binds the wrappers, the counts
+     handed on), replayed: bitwise to the plain version, summed device time
+     per path, the selects' byte bounds (the group select's and the fused
+     describe's also at 32 bytes a distinct plane sector), the scan's us a
+     step and its chain floor;
   8. drive the retired modes, each run with the counters at zero:
      ``'pepatch'`` at the KITTI batch gives [399, 343] and every valid word
      row and angle bitwise equal to ``'pgather'``; ``'ptiles'`` at the
@@ -921,6 +924,90 @@ def select_bytes(k, ns, channels, per_keypoint=12):
     return k * per_keypoint + k * ns * 8 + 2 * k * ns * channels * 4
 
 
+def group_select_bytes(ng, n_live, ns, nc, sectors=None):
+    """Bytes a group select of ``ng`` groups must move: 16 bytes of tables
+    a group, two int32 offsets a live sample, the plane reads (4 bytes a
+    live sample and channel, or 32 bytes for each of ``sectors`` distinct
+    32-byte sectors when given) and ``nc`` floats a sample for all ``ng * 8``
+    slots."""
+    reads = n_live * ns * nc * 4 if sectors is None else 32 * sectors
+    return 16 * ng + n_live * ns * 8 + reads + ng * 8 * ns * nc * 4
+
+
+def fused_bytes(k, no, ns, sectors=None):
+    """Bytes the fused describe of ``k`` keypoints must move: 32 bytes of
+    per-keypoint words, two int32 offsets an orientation sample, the plane
+    reads (2 floats an orientation sample and 3 an M-LDB sample, or 32
+    bytes for each of ``sectors`` distinct sectors when given), the (3,
+    ``ns``) values and 4 meta floats."""
+    reads = k * (no * 2 + ns * 3) * 4 if sectors is None else 32 * sectors
+    return k * (32 + no * 8 + ns * 3 * 4 + 16) + reads
+
+
+def plane_sectors(planes, lvl, c0, ys, xs):
+    """The distinct 32-byte sectors of ``planes`` (L, C, Hp, Wp) float32
+    that reads of channels ``c0:`` at ``planes[lvl, c, ys, xs]`` touch
+    (``lvl`` (N,), ``ys``/``xs`` (N, S)): a 1-D int64 tensor of sector
+    numbers (the stack's base is 32-byte aligned)."""
+    import torch
+
+    _, c, h, w = planes.shape
+    ch = torch.arange(c0, c, device=planes.device)[None, :, None]
+    addr = ((lvl.long()[:, None, None] * c + ch) * h + ys.long()[:, None, :]) * w + xs.long()[:, None, :]
+    return torch.unique(addr // 8)
+
+
+def group_call_bounds(args, kw):
+    """``(bytes at 4 a sample, bytes at 32 a sector, sectors)`` of one
+    recorded ``select_groups`` call: only live slots read the planes."""
+    import torch
+
+    planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y = args[:7]
+    c0 = kw.get("c0", args[7] if len(args) > 7 else 0)
+    ng, ns = win_lvl.shape[0], rel_x.shape[-1]
+    rep = lambda t: t.long().repeat_interleave(8)  # noqa: E731
+    live = torch.arange(8, device=planes.device).repeat(ng) < rep(n_active)
+    ys = 128 * rep(win_ty)[live][:, None] + rel_y.reshape(ng * 8, ns)[live]
+    xs = 128 * rep(win_tx)[live][:, None] + rel_x.reshape(ng * 8, ns)[live]
+    sectors = plane_sectors(planes, rep(win_lvl)[live], c0, ys, xs).numel()
+    n_live, nc = int(live.sum()), planes.shape[1] - c0
+    return group_select_bytes(ng, n_live, ns, nc), group_select_bytes(ng, n_live, ns, nc, sectors), sectors
+
+
+def fused_call_bounds(args, kw, meta):
+    """``(bytes at 4 a sample, bytes at 32 a sector, sectors)`` of one
+    recorded ``select_fused`` call whose meta rows are ``meta``: the
+    orientation reads (channels 1:) and the M-LDB reads at the positions of
+    the call's angles, sectors counted once over both."""
+    import torch
+
+    from cv_tpu_torch.akaze import descriptors as desc
+
+    planes, lvl, y0, x0, orel_x, orel_y, xf, yf, scale, width, height = args[:11]
+    pattern = kw.get("pattern_size", args[11] if len(args) > 11 else 10)
+    rel_x, rel_y = desc.mldb_offsets(xf, yf, scale, meta[:, 0], width, height, x0, y0, desc.PATCH, pattern)[:2]
+    y0, x0 = y0.long()[:, None], x0.long()[:, None]
+    sectors = torch.unique(torch.cat([plane_sectors(planes, lvl, 1, y0 + orel_y, x0 + orel_x),
+                                      plane_sectors(planes, lvl, 0, y0 + rel_y, x0 + rel_x)])).numel()
+    k, no, ns = orel_x.shape[0], orel_x.shape[1], rel_x.shape[1]
+    return fused_bytes(k, no, ns), fused_bytes(k, no, ns, sectors), sectors
+
+
+def describe_call_bounds(name, args, kw, out):
+    """The bounds of one recorded group-select (``out`` its values) or
+    fused-describe (``out`` its ``(vals, meta)``) call."""
+    return group_call_bounds(args, kw) if name == "select_groups" else fused_call_bounds(args, kw, out[1])
+
+
+def same(a, b):
+    """Bitwise equality of two outputs: tensors, or tuples of tensors."""
+    import torch
+
+    if isinstance(a, tuple):
+        return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
 def index_call(planes, rows, ys, xs, c0=0):
     """One PyTorch advanced-index call computing a select (the library
     yardstick): ``planes[rows, c, ys, xs]`` for channels ``c >= c0`` with
@@ -1057,7 +1144,7 @@ def check_select_kernels(dev, seed):
                 rec["ms"] += kms
                 rec["plain_ms"] += pms
                 rec["library_ms"] += lms
-                rec["nbytes"] += 16 * ng + n_live * ns * (8 + 4 * (3 - c0)) + ng * 8 * ns * (3 - c0) * 4
+                rec["nbytes"] += group_select_bytes(ng, n_live, ns, 3 - c0)
                 print(f"select_groups w={w} c0={c0} NG={ng} NS={ns}: bitwise equal ({zero_rows} zero rows); "
                       f"kernel {kms:.4f} ms, plain {pms:.4f} ms, advanced index over {n_live} live rows "
                       f"{lms:.4f} ms")
@@ -1092,8 +1179,8 @@ def check_select_kernels(dev, seed):
     kms, pms = alternate(run_k, run_p, cuda_ms)
     print(f"select_fused K={k_kp}: bitwise equal; kernel {kms:.4f} ms, plain (two-pass) {pms:.4f} ms")
     no, ns = orel[0].shape[1], vk.shape[2]
-    nbytes = k_kp * (32 + no * 8 + no * 2 * 4 + 2 * ns * 3 * 4 + 16)
-    out["select_fused"] = kernel_record(kms, pms, da, nbytes, k_kp * FUSED_FLOPS, unequal_rows=unequal, rows=rows)
+    out["select_fused"] = kernel_record(kms, pms, da, fused_bytes(k_kp, no, ns), k_kp * FUSED_FLOPS,
+                                        unequal_rows=unequal, rows=rows)
     return out
 
 
@@ -1229,6 +1316,43 @@ def replay_select(paths):
         out[path] = rec
         print(f"engine-call replay select_samples {path}: {rec['calls']} calls bitwise equal to plain, summed "
               f"device {rec['ms']:.4f} ms, byte bound {rec['bound_ms']:.4f} ms ({100 * rec['bound_share']:.1f}%)")
+    return out
+
+
+def replay_describe(paths):
+    """Each recorded group-select and fused-describe call (``paths``:
+    kernel -> path -> [(args, kwargs)]) held bitwise to its plain version,
+    then timed in a CUDA graph.  Per kernel and path: calls, summed device
+    ms, the byte bound at 4 bytes a sample and at 32 bytes a distinct plane
+    sector, their shares of the time, and the sectors."""
+    import torch
+
+    from cv_tpu_torch.akaze import fused, select
+
+    fns = {"select_groups": (select.select_groups, select.select_groups_plain),
+           "select_fused": (fused.select_fused, fused.select_fused_plain)}
+    out = {}
+    for name, by_path in paths.items():
+        kernel, plain = fns[name]
+        out[name] = {}
+        for path, calls in by_path.items():
+            rec = dict(calls=len(calls), ms=0.0, bound_ms=0.0, sector_bound_ms=0.0, sectors=0)
+            for j, (args, kw) in enumerate(calls):
+                got, ref = kernel(*args, **kw), plain(*args, **kw)
+                torch.cuda.synchronize()
+                require(same(got, ref), f"{name} {path} call {j}: bitwise equal to the plain version")
+                rec["ms"] += device_ms(lambda a=args, kw=kw: kernel(*a, **kw), iters=10)
+                b4, bs, sectors = describe_call_bounds(name, args, kw, got)
+                rec["bound_ms"] += bound(b4)[0]
+                rec["sector_bound_ms"] += bound(bs)[0]
+                rec["sectors"] += sectors
+            rec["bound_share"] = rec["bound_ms"] / rec["ms"] if rec["ms"] else 0.0
+            rec["sector_bound_share"] = rec["sector_bound_ms"] / rec["ms"] if rec["ms"] else 0.0
+            out[name][path] = rec
+            print(f"engine-call replay {name} {path}: {rec['calls']} calls bitwise equal to plain, summed device "
+                  f"{rec['ms']:.4f} ms; byte bound {rec['bound_ms']:.4f} ms ({100 * rec['bound_share']:.1f}%), "
+                  f"{rec['sectors']} plane sectors: sector bound {rec['sector_bound_ms']:.4f} ms "
+                  f"({100 * rec['sector_bound_share']:.1f}%)")
     return out
 
 
@@ -1904,13 +2028,23 @@ def main():
 
     # -- 7. the dense path ---------------------------------------------------
     runs = {}
+    # The group select's calls (default mode; the engine-budget extractor
+    # below) and the fused describe's ('pfused'), recorded where the
+    # describe binds them.
+    describe_calls = {"select_groups": {}, "select_fused": {}}
     for mode, expect in ((None, dict(select_groups=2, dedup_scan=1, select_samples=0)),
                          ("pfused", dict(select_fused=1, dedup_scan=1, select_groups=0)),
                          ("pallas", dict(select_samples=2, dedup_scan=1, select_groups=0))):
         ex = dense if mode is None else DeviceExtractor(Akaze(), device=dev, onehot_mode=mode, **DENSE)
-        with main_path(counters, plains) as run, recording(extrema, "dedup_scan_device") as calls:
+        with main_path(counters, plains) as run, recording(extrema, "dedup_scan_device") as calls, \
+                recording(desc_mod, "select_groups", keep_planes) as group_calls, \
+                recording(fused_mod, "select_fused", keep_planes) as fused_calls:
             fs_d = ex.extract(dense_images)
         scan_calls.setdefault("dense", []).extend(calls)
+        if mode is None:
+            describe_calls["select_groups"]["dense"] = group_calls
+        elif mode == "pfused":
+            describe_calls["select_fused"]["pfused"] = fused_calls
         host = fs_d.to_numpy()
         label = ex.describe_mode(*dense_pair.shape[-2:])
         cnt = host["valid"].sum(axis=1).tolist()
@@ -1934,7 +2068,8 @@ def main():
     engine_ex = FastAkazeExtractor(Akaze(maximum_features=8192), device=dev)
     frame0 = np.ascontiguousarray(dense_pair[0])
     require(engine_ex._dev.describe_mode(*frame0.shape) == "pgroups", "engine-budget extractor takes pgroups")
-    with main_path(counters, plains) as run, recording(extrema, "dedup_scan_device") as calls:
+    with main_path(counters, plains) as run, recording(extrema, "dedup_scan_device") as calls, \
+            recording(desc_mod, "select_groups", keep_planes) as describe_calls["select_groups"]["engine"]:
         kp, words0, sketch = engine_ex.fetch_extract(engine_ex.dispatch_extract(frame0))
     scan_calls["dense"].extend(calls)
     n0 = len(kp["response"])
@@ -1964,9 +2099,15 @@ def main():
         require(len(select_calls[path]) == want, f"select: {len(select_calls[path])} {path} calls recorded")
     for path, want in (("kitti", 1), ("sfm", SFM_FRAMES), ("merge", len(merge_counts)), ("dense", 4)):
         require(len(scan_calls[path]) == want, f"dedup: {len(scan_calls[path])} {path} calls recorded")
+    for name, path, want in (("select_groups", "dense", 2), ("select_groups", "engine", 2),
+                             ("select_fused", "pfused", 1)):
+        got = len(describe_calls[name][path])
+        require(got == want, f"{name}: {got} {path} calls recorded")
     select_records["select_samples"]["engine"] = replay_select(select_calls)
     dedup_record["engine"] = replay_dedup(scan_calls)
-    del select_calls, scan_calls
+    for name, rec in replay_describe(describe_calls).items():
+        select_records[name]["engine"] = rec
+    del select_calls, scan_calls, describe_calls
 
     # -- 8. the retired describe modes and the experiments' runs ------------
     # 'pepatch' and 'ptiles' (registered by importing mldb_losers) at the

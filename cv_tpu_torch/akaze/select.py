@@ -133,9 +133,9 @@ def select_groups(planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y, c0: i
     n_active[t]``, zero rows otherwise.  Port of
     ``cv_tpu/akaze/pallas_mldb.py::select_samples_groups``; ``rel_x`` /
     ``rel_y`` may come in its ``(NG / w, w * 8, NS)`` layout or flat as
-    ``(NG * 8, NS)`` (the same rows).  On a CPU tensor the wrapper runs the
-    plain version; on a CUDA tensor it launches ``csrc/select_groups.cu`` or
-    raises.
+    ``(NG * 8, NS)`` (the same rows).  At most 3 channels are selected
+    (``C - c0 <= 3``).  On a CPU tensor the wrapper runs the plain version;
+    on a CUDA tensor it launches ``csrc/select_groups.cu`` or raises.
     """
     args = (planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y)
     devices = {t.device for t in args}
@@ -160,8 +160,8 @@ def select_groups(planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y, c0: i
             raise ValueError(f"{name} must be int32 {shape}, got {t.dtype} {tuple(t.shape)}")
     if not all(t.is_contiguous() for t in (planes, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y)):
         raise ValueError("select_groups: inputs must be contiguous")
-    if not 0 <= c0 < channels:
-        raise ValueError(f"c0={c0} outside [0, {channels})")
+    if not 0 <= c0 < channels or channels - c0 > 3:
+        raise ValueError(f"c0={c0}: select_groups takes channels c0: of C={channels}, at most 3 of them")
     out = torch.empty((ng * GROUP, channels - c0, ns), dtype=torch.float32, device=planes.device)
     if ng == 0 or ns == 0:
         return out

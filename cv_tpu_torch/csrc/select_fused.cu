@@ -1,5 +1,5 @@
 // Single-pass AKAZE describe samples: orientation select, dominant angle,
-// M-LDB sample positions and the M-LDB select, one block per keypoint.
+// M-LDB sample positions and the M-LDB select, one warp per keypoint.
 //
 // planes: (L, 3, Hp, Wp) f32, the padded (Lt, Lx, Ly) stack; per keypoint
 // k: lvl, y0, x0 (the 128x128 window anchor), wlim, hlim (true plane size)
@@ -25,14 +25,29 @@
 // _select_kernel_fused).  The TPU kernel reads a cut 3x128x128 patch per
 // keypoint and could not be built there (Mosaic has no atan2); this one
 // reads the plane stack directly, as select_samples.cu does, so no patch
-// buffer exists, and the keypoint's angle never leaves the block.
+// buffer exists, and the keypoint's angle never leaves its warp.
 //
 // What bounds it: the 3 x 441 + 2 x 109 scattered 4-byte reads per
-// keypoint, and 42 x 128 window tests.  Design: the samples, their angles
-// and the (42, 128) masked window rows (43 KB of dynamic shared memory)
-// stay on chip; threads stride over samples, then over (window, lane)
-// pairs for each tree level, then over M-LDB offsets; one barrier-or gives
-// `ok`.
+// keypoint (in the extractor's keypoint order, so neighbouring warps
+// rarely share a window), and 42 x 128 window tests; at the engine's
+// 'pfused' call it runs at ~31% of its byte bound (PERF.md).
+//
+// Design: one warp a keypoint, no shared memory and no block barrier.
+// Lane l holds samples l, l + 32, l + 64 and l + 96 (zeros past NO) in
+// registers; a window's tree is the lane's ((v[l] + v[l+64]) + (v[l+32] +
+// v[l+96])), the first two levels, then a butterfly of shuffles at 16, 8,
+// 4, 2, 1, the other five: each lane adds its partner's partial sum, the
+// same two operands as the tree's add (in either order, and a float add
+// commutes), so every lane ends with the tree's bits and runs the
+// first-max scan, atan2f, cosf and sinf itself (a warp issues them once
+// whichever lanes take part).  The window test takes its warp-uniform
+// half (lo < hi) as a branch, and an angle's wrap into [0, 2pi) skips
+// fmodf on its exact fast path.  The M-LDB pass loads kPer samples' three
+// channels a lane before it stores them; `ok` is one __any_sync.  Measured
+// and not kept (scripts/time_engine_calls.py): 2, 7 and 14 M-LDB samples a
+// lane, 2 and 8 keypoints a block, __launch_bounds__ asking 12 or 16
+// blocks an SM (both spill), the window loop unrolled by 2, evict-first
+// stores.
 //
 // Build with --fmad=false: the positions must round as the plain version's
 // separate multiplies and adds do, or a rounded position moves and a
@@ -44,10 +59,15 @@
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kTree = 128;        // tree width: NO (109 in AKAZE) <= kTree
-constexpr int kMaxWindows = 48;   // NW bound (42 in AKAZE)
+constexpr int kWarps = 4;  // keypoints a block
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTree = 128;  // tree width: NO (109 in AKAZE) <= kTree
+constexpr int kLane = kTree / 32;  // orientation samples a lane
+constexpr int kMaxWindows = 48;  // NW bound (42 in AKAZE)
 constexpr int kPatch = 128;
+constexpr int kPer = 4;  // M-LDB samples a lane loads before it stores
+constexpr unsigned kFull = 0xffffffffu;
+static_assert(kLane == 4, "a lane's first two tree levels are written out for 4 samples");
 
 // torch.remainder for float (c10::div_mod): fmod with the sign of b.
 __device__ __forceinline__ float remainder_f(float a, float b) {
@@ -58,6 +78,13 @@ __device__ __forceinline__ float remainder_f(float a, float b) {
     mod += b;
   }
   return mod;
+}
+
+// remainder_f(a, b) for b > 0, on the fast path where 0 < a < 2b (every
+// angle here: atan2 + 2pi lies in [pi, 3pi]): fmod's exact result is a,
+// or a - b, which is exact there (Sterbenz).
+__device__ __forceinline__ float wrap(float a, float b) {
+  return a > 0.0f && a < 2.0f * b ? (a >= b ? a - b : a) : remainder_f(a, b);
 }
 
 // sign(x) * floor(|x| + 0.5) (Rust f32::round), then toward-zero to int.
@@ -75,19 +102,11 @@ __global__ void __launch_bounds__(kThreads) select_fused_kernel(
     const int* __restrict__ hlim, const float* __restrict__ wt,
     const float* __restrict__ a1, const float* __restrict__ a2,
     const float* __restrict__ ks, const float* __restrict__ ls,
-    float* __restrict__ vals, float* __restrict__ meta, int n_levels,
+    float* __restrict__ vals, float* __restrict__ meta, int n_kp, int n_levels,
     int height, int width, int no, int nw, int ns, float two_pi) {
-  __shared__ float s_rx[kTree];
-  __shared__ float s_ry[kTree];
-  __shared__ float s_ang[kTree];
-  __shared__ float s_val[kMaxWindows];
-  __shared__ float s_trig[3];  // angle, cos, sin
-  extern __shared__ float s_rows[];  // (2, nw, kTree): masked rows, then sums
-  float* row_x = s_rows;
-  float* row_y = s_rows + nw * kTree;
-
-  const int k = blockIdx.x;
-  const int tid = threadIdx.x;
+  const int k = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (k >= n_kp) return;  // the whole warp
   const int l = __ldg(lvl + k);
   const int yb = __ldg(y0 + k);
   const int xb = __ldg(x0 + k);
@@ -96,74 +115,73 @@ __global__ void __launch_bounds__(kThreads) select_fused_kernel(
   const float* base = planes + static_cast<size_t>(level_ok ? l : 0) * 3 * plane;
   const float nan = __int_as_float(0x7fc00000);
 
-  // 1. orientation samples, weighted, and their angles.
-  for (int s = tid; s < no; s += kThreads) {
-    const int y = yb + __ldg(orel_y + static_cast<size_t>(k) * no + s);
-    const int x = xb + __ldg(orel_x + static_cast<size_t>(k) * no + s);
-    const bool ok = level_ok && y >= 0 && y < height && x >= 0 && x < width;
-    const size_t off = static_cast<size_t>(y) * width + x;
-    const float vx = ok ? __ldg(base + plane + off) : nan;
-    const float vy = ok ? __ldg(base + 2 * plane + off) : nan;
-    const float w = __ldg(wt + s);
-    const float rx = w * vx;
-    const float ry = w * vy;
-    s_rx[s] = rx;
-    s_ry[s] = ry;
-    s_ang[s] = remainder_f(atan2f(ry, rx) + two_pi, two_pi);
+  // 1. orientation samples, weighted, and their angles; zeros past NO.
+  int off[kLane];
+  bool ok[kLane];
+#pragma unroll
+  for (int i = 0; i < kLane; ++i) {
+    const int s = lane + 32 * i;
+    const bool in = s < no;
+    const int y = yb + (in ? __ldg(orel_y + static_cast<size_t>(k) * no + s) : 0);
+    const int x = xb + (in ? __ldg(orel_x + static_cast<size_t>(k) * no + s) : 0);
+    ok[i] = in && level_ok && y >= 0 && y < height && x >= 0 && x < width;
+    off[i] = ok[i] ? y * width + x : 0;
   }
-  __syncthreads();
+  float rx[kLane], ry[kLane], ang[kLane];
+#pragma unroll
+  for (int i = 0; i < kLane; ++i) {
+    const int s = lane + 32 * i;
+    const float vx = ok[i] ? __ldg(base + plane + off[i]) : nan;
+    const float vy = ok[i] ? __ldg(base + 2 * plane + off[i]) : nan;
+    const float w = s < no ? __ldg(wt + s) : 0.0f;
+    rx[i] = s < no ? w * vx : 0.0f;
+    ry[i] = s < no ? w * vy : 0.0f;
+    ang[i] = s < no ? wrap(atan2f(ry[i], rx[i]) + two_pi, two_pi) : 0.0f;
+  }
 
-  // 2. masked window rows, then their halving-tree sums.
-  for (int idx = tid; idx < nw * kTree; idx += kThreads) {
-    const int w = idx / kTree;
-    const int s = idx - w * kTree;
-    bool in = false;
-    if (s < no) {
-      const float lo = __ldg(a1 + w);
-      const float hi = __ldg(a2 + w);
-      const float ang = s_ang[s];
-      in = (lo < hi && lo < ang && ang < hi) ||
-           (hi < lo && ((ang > 0.0f && ang < hi) || (ang > lo && ang < two_pi)));
-    }
-    row_x[idx] = in ? s_rx[s] : 0.0f;
-    row_y[idx] = in ? s_ry[s] : 0.0f;
-  }
-  __syncthreads();
-  for (int half = kTree / 2; half >= 1; half >>= 1) {
-    for (int idx = tid; idx < nw * half; idx += kThreads) {
-      const int w = idx / half;
-      const int i = w * kTree + idx - w * half;
-      row_x[i] = row_x[i] + row_x[i + half];
-      row_y[i] = row_y[i] + row_y[i + half];
-    }
-    __syncthreads();
-  }
-  for (int w = tid; w < nw; w += kThreads) {
-    const float sx = row_x[w * kTree];
-    const float sy = row_y[w * kTree];
-    s_val[w] = sx * sx + sy * sy;
-  }
-  __syncthreads();
-
-  // 3. the first maximal window, its angle, cos and sin.
-  if (tid == 0) {
-    int best = 0;
-    float top = s_val[0];
-    for (int w = 1; w < nw; ++w) {
-      if (s_val[w] > top) {
-        top = s_val[w];
-        best = w;
+  // 2-3. each window's tree sums, the first maximal window.
+  float top = 0.0f, best_x = 0.0f, best_y = 0.0f;
+  for (int w = 0; w < nw; ++w) {
+    const float lo = __ldg(a1 + w);
+    const float hi = __ldg(a2 + w);
+    float px[kLane], py[kLane];
+    // (lo < hi && lo < a && a < hi) || (hi < lo && ((a > 0 && a < hi) ||
+    // (a > lo && a < 2pi))), with the warp-uniform test taken first.
+    if (lo < hi) {
+#pragma unroll
+      for (int i = 0; i < kLane; ++i) {
+        const bool in = lo < ang[i] && ang[i] < hi;
+        px[i] = in ? rx[i] : 0.0f;
+        py[i] = in ? ry[i] : 0.0f;
+      }
+    } else {
+      const bool wraps = hi < lo;
+#pragma unroll
+      for (int i = 0; i < kLane; ++i) {
+        const float a = ang[i];
+        const bool in = wraps && ((a > 0.0f && a < hi) || (a > lo && a < two_pi));
+        px[i] = in ? rx[i] : 0.0f;
+        py[i] = in ? ry[i] : 0.0f;
       }
     }
-    float angle = remainder_f(atan2f(row_y[best * kTree], row_x[best * kTree]) + two_pi, two_pi);
-    if (!(top > 0.0f)) angle = 0.0f;
-    s_trig[0] = angle;
-    s_trig[1] = cosf(angle);
-    s_trig[2] = sinf(angle);
+    float sx = (px[0] + px[2]) + (px[1] + px[3]);
+    float sy = (py[0] + py[2]) + (py[1] + py[3]);
+#pragma unroll
+    for (int d = 16; d >= 1; d >>= 1) {
+      sx = sx + __shfl_xor_sync(kFull, sx, d);
+      sy = sy + __shfl_xor_sync(kFull, sy, d);
+    }
+    const float val = sx * sx + sy * sy;
+    if (w == 0 || val > top) {
+      top = val;
+      best_x = sx;
+      best_y = sy;
+    }
   }
-  __syncthreads();
-  const float co = s_trig[1];
-  const float si = s_trig[2];
+  float angle = wrap(atan2f(best_y, best_x) + two_pi, two_pi);
+  if (!(top > 0.0f)) angle = 0.0f;
+  const float co = cosf(angle);
+  const float si = sinf(angle);
   const float xc = __ldg(xf + k);
   const float yc = __ldg(yf + k);
   const float sc = __ldg(scale + k);
@@ -171,33 +189,47 @@ __global__ void __launch_bounds__(kThreads) select_fused_kernel(
   const int h_hi = __ldg(hlim + k) - 1;
 
   // 4-5. M-LDB positions, the bounds flag, and the select.
-  int oob = 0;
+  bool oob = false;
   float* o = vals + static_cast<size_t>(k) * 3 * ns;
-  for (int s = tid; s < ns; s += kThreads) {
-    const float kk = __ldg(ks + s);
-    const float ll = __ldg(ls + s);
-    const float sy = yc + (ll * co + kk * si) * sc;
-    const float sx = xc + (-ll * si + kk * co) * sc;
-    int x1 = round_half_away(sx);
-    int y1 = round_half_away(sy);
-    oob |= x1 < 0 || x1 > w_hi || y1 < 0 || y1 > h_hi;
-    x1 = min(max(x1, 0), w_hi);
-    y1 = min(max(y1, 0), h_hi);
-    const int y = yb + min(max(y1 - yb, 0), kPatch - 1);
-    const int x = xb + min(max(x1 - xb, 0), kPatch - 1);
-    const bool ok = level_ok && y >= 0 && y < height && x >= 0 && x < width;
-    const size_t off = static_cast<size_t>(y) * width + x;
-    for (int c = 0; c < 3; ++c) {
-      o[static_cast<size_t>(c) * ns + s] = ok ? __ldg(base + c * plane + off) : nan;
+  for (int s0 = lane; s0 < ns; s0 += 32 * kPer) {
+    int moff[kPer];
+    bool mok[kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int s = s0 + 32 * i;
+      const bool in = s < ns;
+      const float kk = in ? __ldg(ks + s) : 0.0f;
+      const float ll = in ? __ldg(ls + s) : 0.0f;
+      const float sy = yc + (ll * co + kk * si) * sc;
+      const float sx = xc + (-ll * si + kk * co) * sc;
+      int x1 = round_half_away(sx);
+      int y1 = round_half_away(sy);
+      oob |= in && (x1 < 0 || x1 > w_hi || y1 < 0 || y1 > h_hi);
+      x1 = min(max(x1, 0), w_hi);
+      y1 = min(max(y1, 0), h_hi);
+      const int y = yb + min(max(y1 - yb, 0), kPatch - 1);
+      const int x = xb + min(max(x1 - xb, 0), kPatch - 1);
+      mok[i] = in && level_ok && y >= 0 && y < height && x >= 0 && x < width;
+      moff[i] = mok[i] ? y * width + x : 0;
+    }
+    float v[kPer][3];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+#pragma unroll
+      for (int c = 0; c < 3; ++c) v[i][c] = mok[i] ? __ldg(base + c * plane + moff[i]) : nan;
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int s = s0 + 32 * i;
+      if (s < ns) {
+#pragma unroll
+        for (int c = 0; c < 3; ++c) o[static_cast<size_t>(c) * ns + s] = v[i][c];
+      }
     }
   }
-  const int any_oob = __syncthreads_or(oob);
-  if (tid == 0) {
-    float* m = meta + static_cast<size_t>(k) * 4;
-    m[0] = s_trig[0];
-    m[1] = co;
-    m[2] = si;
-    m[3] = any_oob ? 0.0f : 1.0f;
+  const bool any_oob = __any_sync(kFull, oob);
+  if (lane == 0) {
+    reinterpret_cast<float4*>(meta)[k] = make_float4(angle, co, si, any_oob ? 0.0f : 1.0f);
   }
 }
 
@@ -215,9 +247,8 @@ extern "C" int cv_select_fused(
   if (no < 1 || no > kTree || nw < 1 || nw > kMaxWindows)
     return static_cast<int>(cudaErrorInvalidValue);
   if (k <= 0) return 0;
-  const size_t rows = 2 * static_cast<size_t>(nw) * kTree * sizeof(float);  // 43 KB at nw = 42
-  select_fused_kernel<<<k, kThreads, rows, static_cast<cudaStream_t>(stream)>>>(
+  select_fused_kernel<<<(k + kWarps - 1) / kWarps, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       planes, lvl, y0, x0, orel_x, orel_y, xf, yf, scale, wlim, hlim, wt, a1,
-      a2, ks, ls, vals, meta, n_levels, height, width, no, nw, ns, two_pi);
+      a2, ks, ls, vals, meta, k, n_levels, height, width, no, nw, ns, two_pi);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,40 +1,48 @@
 #!/usr/bin/env python3
-"""The dedup scan and the sample select at the engine's own calls, for
-several builds of each, on one CUDA card.
+"""The dedup scan, the sample select, the group select and the fused
+describe at the engine's own calls, for several builds of each, on one
+CUDA card.
 
 Builds, with each source's own flags (one nvcc per build, all started
 together), into the git-ignored ``cv_tpu_torch/_build/variants/``:
 
-* copies of ``csrc/dedup_scan.cu`` at each block size of ``--sizes`` (its
-  line ``constexpr int kThreads = ...;`` changed): the scan's block-size
-  sweep; with ``--ablations``, copies with one design point taken out
-  (``ABLATIONS``);
-* with ``--per`` and ``--select-sizes``, copies of ``csrc/select_samples.cu``
-  at other numbers of samples a thread and other block sizes;
+* with ``--variants KERNEL:NAME=VALUE[,NAME=VALUE...] ...``, copies of
+  ``csrc/KERNEL.cu`` with each line ``constexpr int NAME = ...;`` named
+  set to its VALUE (a block size, samples a thread);
+* with ``--ablations``, copies of a kernel's source with one design point
+  taken out (``ABLATIONS``);
 * with ``--parent DIR`` (the root of another checkout, e.g. the parent
-  commit unpacked with ``git archive``), that tree's ``dedup_scan.cu`` and
-  ``select_samples.cu``.
+  commit unpacked with ``git archive``), that tree's sources of the timed
+  kernels.
 
 Then records the calls of chip_smoke.py's paths where the extractor binds
 the wrappers: the KITTI extract (B=8: two select calls, one dedup call),
-the SfM warm pass (12 frames: 24 select calls, 12 dedup calls) and the
-dense extract (B=2) with ``FastAkazeExtractor`` at 8192 features on frame 0
-(two dedup calls).  For each kernel the builds take turns behind the
-wrapper (its C function swapped), in the order of the builds and then
-reversed, so that with a parent the order is parent, this tree, ..., this
-tree, parent; each turn holds every recorded call bitwise to this tree's
-build in the checkout and sums the calls' device times (a CUDA graph each)
-per path.  A build's time is the mean of its two turns.
+the SfM warm pass (12 frames: 24 select calls, 12 dedup calls), the dense
+extract (B=2: two group-select calls, one dedup call), the same pair in
+describe mode ``'pfused'`` (one fused-describe call) and
+``FastAkazeExtractor`` at 8192 features on frame 0 (path ``engine``: two
+group-select calls; its dedup call counts to ``dense``).  For each kernel
+of ``--kernels`` the builds take turns behind the wrapper (its C function
+swapped), in the order of the builds and then reversed, so that with a
+parent the order is parent, this tree, ..., this tree, parent; each turn
+holds every recorded call bitwise to this tree's build in the checkout
+(itself held bitwise to the plain version for the group select and the
+fused describe) and sums the calls' device times (a CUDA graph each) per
+path.  A build's time is the mean of its two turns.  For the group select
+and the fused describe each path also gets its byte bound at 4 bytes a
+sample and at 32 bytes a distinct plane sector that the recorded offsets
+touch (``chip_smoke.describe_call_bounds``).
 
 Prints one line per build and path, and last one JSON object with every
 number.
-Usage: python3 scripts/time_engine_calls.py [--sizes 128 256 512] [--ablations upper-all]
-       [--per 1 4] [--select-sizes 128 512] [--parent _parent]
+Usage: python3 scripts/time_engine_calls.py [--kernels select_groups select_fused]
+       [--variants select_groups:kPer=2 dedup_scan:kThreads=256] [--ablations upper-all] [--parent _parent]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import ctypes
 import json
 import os
@@ -42,61 +50,67 @@ import re
 import subprocess
 import sys
 
-SYMBOLS = {"dedup_scan": "cv_dedup_scan", "select_samples": "cv_select_samples"}
-# The lines the copies change (regular expressions, each matching once).
-BLOCK_LINE = r"constexpr int kThreads = \d+;"
-PER_LINE = r"constexpr int kPer = \d+;"
-# Design points of the scan taken out one at a time, each by replacing one
-# line of csrc/dedup_scan.cu: the upper-scale pass's class ranges (every
-# slot walks every later slot).
+SYMBOLS = {"dedup_scan": "cv_dedup_scan", "select_samples": "cv_select_samples",
+           "select_groups": "cv_select_groups", "select_fused": "cv_select_fused"}
+# Design points taken out one at a time, each by replacing one line of a
+# kernel's source: the scan's upper-scale class ranges (every slot walks
+# every later slot).
 ABLATIONS = {
-    "upper-all": (re.escape("if (up >= 0 && up < kClassTable) {"), "if (false) {"),
+    "upper-all": ("dedup_scan", re.escape("if (up >= 0 && up < kClassTable) {"), "if (false) {"),
 }
 
 
-def variant_jobs(sizes, pers, select_sizes, ablations):
-    """``[(kernel, label, source text)]``: the scan at each block size and
-    with each ablation, the select at each samples-a-thread count and block
-    size."""
+def edited(name, *edits):
+    """The text of ``csrc/<name>.cu`` with, for each ``(pattern, new)`` of
+    ``edits``, the one line matching ``pattern`` replaced by ``new``."""
     from cv_tpu_torch import kernels
 
-    def edited(name, pattern, new):
-        with open(os.path.join(kernels.CSRC, f"{name}.cu")) as f:
-            text, n = re.subn(pattern, new, f.read())
+    with open(os.path.join(kernels.CSRC, f"{name}.cu")) as f:
+        text = f.read()
+    for pattern, new in edits:
+        text, n = re.subn(pattern, new, text)
         if n != 1:
             raise RuntimeError(f"csrc/{name}.cu does not hold a line {pattern!r} once")
-        return text
+    return text
 
-    jobs = [("dedup_scan", f"{size} threads", edited("dedup_scan", BLOCK_LINE, f"constexpr int kThreads = {size};"))
-            for size in sizes]
-    jobs += [("dedup_scan", label, edited("dedup_scan", *ABLATIONS[label])) for label in ablations]
-    jobs += [("select_samples", f"{per} samples a thread",
-              edited("select_samples", PER_LINE, f"constexpr int kPer = {per};")) for per in pers]
-    jobs += [("select_samples", f"select {size} threads",
-              edited("select_samples", BLOCK_LINE, f"constexpr int kThreads = {size};")) for size in select_sizes]
+
+def variant_jobs(variants, ablations):
+    """``[(kernel, label, source text)]``: each ``KERNEL:NAME=VALUE[,NAME=
+    VALUE...]`` of ``variants`` and each ablation."""
+    jobs = []
+    for spec in variants:
+        name, _, settings = spec.partition(":")
+        edits = []
+        for setting in settings.split(","):
+            const, _, value = setting.partition("=")
+            if name not in SYMBOLS or not const or not value.isdigit():
+                raise SystemExit(f"time_engine_calls: a variant is KERNEL:NAME=VALUE[,NAME=VALUE...], got {spec!r}")
+            edits.append((rf"constexpr int {const} = \d+;", f"constexpr int {const} = {value};"))
+        jobs.append((name, settings, edited(name, *edits)))
+    jobs += [(ABLATIONS[label][0], label, edited(ABLATIONS[label][0], ABLATIONS[label][1:])) for label in ablations]
     return jobs
 
 
-def build_variants(jobs, parent):
+def build_variants(jobs, parent, names):
     """``{kernel: {label: ctypes library}}`` for the edited sources of
-    ``jobs`` and, when ``parent`` is given, that tree's two sources; every
-    build started at once."""
+    ``jobs`` and, when ``parent`` is given, that tree's sources of
+    ``names``; every build started at once."""
     from cv_tpu_torch import kernels
 
     out_dir = os.path.join(kernels.BUILD_DIR, "variants")
     os.makedirs(out_dir, exist_ok=True)
     todo = []
     for name, label, text in jobs:
-        src = os.path.join(out_dir, f"{name}-{label.replace(' ', '_')}.cu")
+        src = os.path.join(out_dir, f"{name}-{re.sub(r'[^A-Za-z0-9]', '_', label)}.cu")
         with open(src, "w") as f:
             f.write(text)
         todo.append((name, label, src, kernels.CSRC))
     if parent:
         csrc = os.path.join(parent, "cv_tpu_torch", "csrc")
-        todo += [(name, "parent", os.path.join(csrc, f"{name}.cu"), csrc) for name in SYMBOLS]
+        todo += [(name, "parent", os.path.join(csrc, f"{name}.cu"), csrc) for name in names]
     procs = []
     for name, label, src, include in todo:
-        lib = os.path.join(out_dir, f"lib{name}-{label.replace(' ', '_')}.so")
+        lib = os.path.join(out_dir, f"lib{name}-{re.sub(r'[^A-Za-z0-9]', '_', label)}.so")
         cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, *kernels.EXTRA_FLAGS.get(name, []), "-I", include, "-o", lib, src]
         procs.append((name, label, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                                          text=True)))
@@ -106,51 +120,92 @@ def build_variants(jobs, parent):
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} ({label}):\n{log}")
         regs = [line.strip() for line in log.splitlines() if "registers" in line]
-        print(f"build {name} ({label}): {regs[-1] if regs else ''}")
+        print(f"build {name} ({label}): {'; '.join(regs)}")
         libs[name][label] = ctypes.CDLL(lib)
     return libs
 
 
-def record_paths(dev):
-    """``({path: select calls}, {path: dedup calls})`` of chip_smoke.py's
-    KITTI, SfM warm-pass and dense runs."""
+def group_footprints(args, kw):
+    """The live slots' footprints of one recorded ``select_groups`` call,
+    as a staging design would see them: per slot the box of rows by
+    16-byte-aligned columns that holds its samples.  Returns ``(slots,
+    median floats a channel, slots whose box fits 1,536 floats (a warp's
+    6 KB of a 48 KB block), slots whose box has fewer 32-byte sectors than
+    the slot has samples)``."""
+    import torch
+
+    _, win_lvl, win_ty, win_tx, n_active, rel_x, rel_y = args[:7]
+    ng, ns = win_lvl.shape[0], rel_x.shape[-1]
+    live = torch.arange(8, device=rel_x.device).repeat(ng) < n_active.long().repeat_interleave(8)
+    rx, ry = (t.reshape(ng * 8, ns)[live].long() for t in (rel_x, rel_y))
+    xb = 128 * win_tx.long().repeat_interleave(8)[live]
+    x_lo, x_hi = (xb + rx.min(dim=1).values) // 4, (xb + rx.max(dim=1).values) // 4
+    box = (ry.max(dim=1).values - ry.min(dim=1).values + 1) * (x_hi - x_lo + 1) * 4
+    if box.numel() == 0:
+        return 0, 0, 0, 0
+    return (box.numel(), int(box.median()), int((box <= 1536).sum()), int((box < 8 * ns).sum()))
+
+
+def record_paths(dev, names):
+    """``{kernel: {path: [(args, kwargs)]}}`` for the kernels of ``names``:
+    their calls in chip_smoke.py's KITTI, SfM warm-pass, dense, 'pfused'
+    and engine-budget runs (a run is skipped when no kernel of ``names``
+    has a call in it)."""
     import numpy as np
     import torch
 
     import chip_smoke as cs
     from cv_tpu_torch.akaze import Akaze, DeviceExtractor, FastAkazeExtractor, load_gray, to_gray_f32
-    from cv_tpu_torch.akaze import descriptors, extrema
+    from cv_tpu_torch.akaze import descriptors, extrema, fused
     from cv_tpu_torch.utils import kitti_pair
+
+    calls = {name: {} for name in names}
+    where = {"select_samples": (descriptors, "select_samples", cs.keep_planes),
+             "dedup_scan": (extrema, "dedup_scan_device", cs._clone),
+             "select_groups": (descriptors, "select_groups", cs.keep_planes),
+             "select_fused": (fused, "select_fused", cs.keep_planes)}
+
+    def run(fn, **paths):
+        """Run ``fn`` with the calls of each kernel in ``paths`` (kernel ->
+        path) recorded and added to that path."""
+        wanted = {name: path for name, path in paths.items() if name in names}
+        if not wanted:
+            return
+        with contextlib.ExitStack() as stack:
+            got = {name: stack.enter_context(cs.recording(*where[name])) for name in wanted}
+            fn()
+        for name, path in wanted.items():
+            calls[name].setdefault(path, []).extend(got[name])
 
     pair = np.stack([to_gray_f32(load_gray(p)) for p in kitti_pair()])
     kitti = torch.as_tensor(np.concatenate([pair] * (cs.BATCH // 2)), device=dev)
     dense = torch.as_tensor(pair, device=dev)
-    select_calls, scan_calls = {}, {}
-    with cs.recording(descriptors, "select_samples", cs.keep_planes) as select_calls["kitti"], \
-            cs.recording(extrema, "dedup_scan_device") as scan_calls["kitti"]:
-        DeviceExtractor(Akaze.sparse(), 256, 512, device=dev).extract(kitti)
-    with cs.recording(descriptors, "select_samples", cs.keep_planes) as select_calls["sfm"], \
-            cs.recording(extrema, "dedup_scan_device") as scan_calls["sfm"]:
-        cs.run_sfm(dev)
-    with cs.recording(extrema, "dedup_scan_device") as scan_calls["dense"]:
-        DeviceExtractor(Akaze(), device=dev, **cs.DENSE).extract(dense)
-        ex = FastAkazeExtractor(Akaze(maximum_features=8192), device=dev)
-        ex.fetch_extract(ex.dispatch_extract(np.ascontiguousarray(pair[0])))
+    run(lambda: DeviceExtractor(Akaze.sparse(), 256, 512, device=dev).extract(kitti),
+        select_samples="kitti", dedup_scan="kitti")
+    run(lambda: cs.run_sfm(dev), select_samples="sfm", dedup_scan="sfm")
+    run(lambda: DeviceExtractor(Akaze(), device=dev, **cs.DENSE).extract(dense),
+        dedup_scan="dense", select_groups="dense")
+    run(lambda: DeviceExtractor(Akaze(), device=dev, onehot_mode="pfused", **cs.DENSE).extract(dense),
+        select_fused="pfused")
+    ex = FastAkazeExtractor(Akaze(maximum_features=8192), device=dev)
+    run(lambda: ex.fetch_extract(ex.dispatch_extract(np.ascontiguousarray(pair[0]))),
+        dedup_scan="dense", select_groups="engine")
     torch.cuda.synchronize()
-    for kind, paths in (("select", select_calls), ("dedup", scan_calls)):
-        print(f"recorded {kind} calls: " + ", ".join(f"{p} {len(c)}" for p, c in paths.items()))
-    return select_calls, scan_calls
+    for name, paths in calls.items():
+        print(f"recorded {name} calls: " + ", ".join(f"{p} {len(c)}" for p, c in paths.items()))
+    return calls
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--sizes", type=int, nargs="*", default=[128, 256, 512],
-                        help="block sizes of the scan's copies")
-    parser.add_argument("--per", type=int, nargs="*", default=[], help="samples a thread of the select's copies")
-    parser.add_argument("--select-sizes", type=int, nargs="*", default=[], help="block sizes of the select's copies")
+    parser.add_argument("--kernels", nargs="*", default=list(SYMBOLS), choices=list(SYMBOLS),
+                        help="the kernels to time")
+    parser.add_argument("--variants", nargs="*", default=[],
+                        help="copies to build, each KERNEL:NAME=VALUE[,NAME=VALUE...] "
+                             "(constexpr int lines of csrc/KERNEL.cu)")
     parser.add_argument("--ablations", nargs="*", default=[], choices=sorted(ABLATIONS),
-                        help="the scan's design points to take out, one copy each")
-    parser.add_argument("--parent", default=None, help="root of another checkout whose two sources to time")
+                        help="design points to take out, one copy each")
+    parser.add_argument("--parent", default=None, help="root of another checkout whose sources to time")
     args = parser.parse_args()
 
     import torch
@@ -161,7 +216,7 @@ def main():
     sys.path.insert(0, root)
     import chip_smoke as cs
     from cv_tpu_torch import kernels
-    from cv_tpu_torch.akaze import extrema, select
+    from cv_tpu_torch.akaze import extrema, fused, select
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -169,16 +224,39 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"],
                          capture_output=True, text=True, check=True)
     print(smi.stdout.strip())
+    names = list(dict.fromkeys(args.kernels))
+    jobs = variant_jobs(args.variants, args.ablations)
+    names += [name for name, _, _ in jobs if name not in names]
     kernels.build_all()
-    libs = build_variants(variant_jobs(args.sizes, args.per, args.select_sizes, args.ablations), args.parent)
-    select_calls, scan_calls = record_paths(dev)
-    wrappers = {"dedup_scan": (extrema.dedup_scan_device, scan_calls, 3),
-                "select_samples": (select.select_samples, select_calls, 10)}
+    libs = build_variants(jobs, args.parent, names)
+    recorded = record_paths(dev, names)
+    wrappers = {"dedup_scan": (extrema.dedup_scan_device, None, 3),
+                "select_samples": (select.select_samples, None, 10),
+                "select_groups": (select.select_groups, select.select_groups_plain, 10),
+                "select_fused": (fused.select_fused, fused.select_fused_plain, 10)}
 
     source_function = kernels.function
     results = {}
-    for name, (wrapper, paths, iters) in wrappers.items():
+    for name in names:
+        wrapper, plain, iters = wrappers[name]
+        paths = recorded[name]
         reference = {p: [wrapper(*a, **kw) for a, kw in calls] for p, calls in paths.items()}
+        bounds = {}
+        if plain is not None:
+            for p, calls in paths.items():
+                b4 = bs = sectors = 0
+                for j, (a, kw) in enumerate(calls):
+                    cs.require(cs.same(reference[p][j], plain(*a, **kw)),
+                               f"{name} (this tree) {p} call {j}: bitwise equal to the plain version")
+                    b, s, n = cs.describe_call_bounds(name, a, kw, reference[p][j])
+                    b4, bs, sectors = b4 + cs.bound(b)[0], bs + cs.bound(s)[0], sectors + n
+                bounds[p] = dict(bound_ms=b4, sector_bound_ms=bs, sectors=sectors)
+                if name == "select_groups":
+                    for j, (a, kw) in enumerate(calls):
+                        n, med, fits, fewer = group_footprints(a, kw)
+                        print(f"select_groups {p} call {j} (NS={a[5].shape[-1]}): {n} live slots, footprint box "
+                              f"median {med} floats a channel; {fits} fit 1,536 floats, {fewer} have fewer box "
+                              "sectors than samples")
         variants = dict(libs[name])
         builds = ([("parent", variants.pop("parent"))] if "parent" in variants else []) + [("this tree", None)]
         builds += list(variants.items())
@@ -200,7 +278,7 @@ def main():
                     for j, (a, kw) in enumerate(calls):
                         got = wrapper(*a, **kw)
                         torch.cuda.synchronize()
-                        cs.require(torch.equal(got, reference[p][j]),
+                        cs.require(cs.same(got, reference[p][j]),
                                    f"{name} ({label}) {p} call {j}: bitwise equal to this tree's build")
                     times[label][p].append(sum(cs.device_ms(lambda a=a, kw=kw: wrapper(*a, **kw), iters=iters)
                                                for a, kw in calls))
@@ -216,6 +294,12 @@ def main():
                     steps = sum(int(a[8].max()) for a, _ in calls)
                     rec[p].update(steps=steps, us_per_step=ms * 1e3 / steps)
                     line += f", {steps} steps, {ms * 1e3 / steps:.4f} us a step"
+                if p in bounds:
+                    b = bounds[p]
+                    rec[p].update(b, bound_share=b["bound_ms"] / ms, sector_bound_share=b["sector_bound_ms"] / ms)
+                    line += (f", byte bound {b['bound_ms']:.4f} ms ({100 * b['bound_ms'] / ms:.1f}%), "
+                             f"{b['sectors']} plane sectors: sector bound {b['sector_bound_ms']:.4f} ms "
+                             f"({100 * b['sector_bound_ms'] / ms:.1f}%)")
                 print(line + f" (turns {', '.join(f'{t:.4f}' for t in times[label][p])})")
             results[f"{name}@{label}"] = rec
     print(json.dumps({"card": smi.stdout.strip(), "builds": results}))

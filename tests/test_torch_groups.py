@@ -16,7 +16,11 @@ so a keypoint's place in the batch can move an angle by one ulp (measured:
 two angles of 44 one ulp apart, every word row equal).
 
 The kernels themselves run only on a CUDA card; the tests marked ``cuda``
-hold them to their plain versions there and skip here.
+hold them to their plain versions there and skip here.  What of the fused
+describe kernel's arithmetic can be held here is held on NumPy models of
+its rules: a window's sum as ``csrc/select_fused.cu`` forms it across a
+warp's lanes, bitwise to ``descriptors.tree_sum``; its first-max scan, to
+``_orientation_from_samples``; its angle wrap, to ``torch.remainder``.
 """
 
 import jax.numpy as jnp
@@ -305,26 +309,226 @@ def test_window_catalog_size_equal():
         assert tdesc.window_catalog_size(allocate_evolutions(Akaze(), w, h), 2, hp, wp) == ref
 
 
+def _warp_tree_sums(rows):
+    """``csrc/select_fused.cu``'s window sum as a NumPy model: each row
+    (float32, at most 128 samples) zero-padded to 128; lane ``l`` holds
+    samples ``l, l+32, l+64, l+96`` and forms ``(v[l] + v[l+64]) + (v[l+32]
+    + v[l+96])``; then five butterfly steps in which lane ``l`` adds lane
+    ``l ^ d``'s partial sum, ``d`` = 16, 8, 4, 2, 1.  Returns every lane's
+    sum, (N, 32) float32."""
+    v = np.zeros((rows.shape[0], 128), np.float32)
+    v[:, : rows.shape[1]] = rows
+    lane = v.reshape(-1, 4, 32)  # lane[:, i, l] = v[l + 32 i]
+    s = (lane[:, 0] + lane[:, 2]) + (lane[:, 1] + lane[:, 3])
+    for d in (16, 8, 4, 2, 1):
+        s = s + s[:, np.arange(32) ^ d]
+    return s
+
+
+def _tree_rows(case, seed=0, n=256, no=109):
+    """Rows of orientation samples: normal values; magnitudes from 1e-38
+    (denormals) to 1e30 of both signs; signed zeros; one live sample in a
+    row of zeros."""
+    rng = np.random.default_rng(seed)
+    if case == "normal":
+        return rng.normal(size=(n, no)).astype(np.float32)
+    if case == "magnitudes":
+        mag = 10.0 ** rng.uniform(-45, 30, (n, no))
+        return (rng.choice([-1.0, 1.0], (n, no)) * mag).astype(np.float32)
+    if case == "signed_zeros":
+        rows = rng.choice(np.array([0.0, -0.0, 1e-3, -1e-3], np.float32), (n, no))
+        rows[: n // 2] = np.where(rng.uniform(size=(n // 2, no)) < 0.5, np.float32(-0.0), np.float32(0.0))
+        return rows
+    rows = np.zeros((n, no), np.float32)
+    rows[np.arange(n), rng.integers(0, no, n)] = rng.normal(size=n).astype(np.float32)
+    if case == "one_negative_zero":
+        rows[:] = np.float32(-0.0)
+    return rows
+
+
+@pytest.mark.parametrize("case", ["normal", "magnitudes", "signed_zeros", "one_live", "one_negative_zero"])
+def test_warp_tree_sum_is_tree_sum(case):
+    """Every lane of the fused kernel's window sum ends with the bits of
+    ``descriptors.tree_sum`` (signed zeros and denormals included)."""
+    rows = _tree_rows(case)
+    lanes = _warp_tree_sums(rows)
+    want = tdesc.tree_sum(torch.as_tensor(rows)).numpy()
+    np.testing.assert_array_equal(lanes.view(np.uint32), np.repeat(want.view(np.uint32)[:, None], 32, axis=1))
+
+
+def test_angle_wrap_fast_path():
+    """The fused kernel wraps ``atan2 + 2pi`` (in [pi, 3pi]) into [0, 2pi)
+    as ``a - 2pi if a >= 2pi else a`` (exact there, Sterbenz) instead of
+    ``fmodf``: bitwise ``torch.remainder`` on every float32 of [pi, 3pi]
+    near 2pi and on a million more spread over the range."""
+    two_pi = np.float32(tdesc.TWO_PI)
+    near = two_pi.view(np.int32) + np.arange(-50_000, 50_001, dtype=np.int32)
+    spread = np.random.default_rng(0).uniform(np.pi, 3 * np.pi, 1_000_000).astype(np.float32)
+    a = np.concatenate([near.view(np.float32), spread, np.float32([np.pi, 3 * np.pi])])
+    got = np.where(a >= two_pi, a - two_pi, a)
+    want = torch.remainder(torch.as_tensor(a), float(two_pi)).numpy()
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _warp_orientation(res_x, res_y):
+    """The fused kernel's steps 2-3 as a model on (K, 109) float32 weighted
+    samples: per window the masked rows summed by :func:`_warp_tree_sums`,
+    ``val = sx * sx + sy * sy``, then the scan ``w == 0 or val > top`` over
+    the windows in order, the angle of the chosen sums, 0 unless ``top >
+    0``.  Returns ``(angle, chosen window)``."""
+    t = tdesc._orientation_device_tables(torch.device("cpu"))
+    ang = tdesc._atan2_cv(torch.as_tensor(res_y), torch.as_tensor(res_x)).numpy()[:, None, :]
+    a1, a2 = t["ang1s"].numpy()[None, :, None], t["ang2s"].numpy()[None, :, None]
+    two_pi = np.float32(tdesc.TWO_PI)
+    inw = ((a1 < a2) & (a1 < ang) & (ang < a2)) | (
+        (a2 < a1) & (((ang > 0) & (ang < a2)) | ((ang > a1) & (ang < two_pi)))
+    )
+    k, nw = res_x.shape[0], a1.shape[1]
+    sx = _warp_tree_sums(np.where(inw, res_x[:, None, :], np.float32(0)).reshape(k * nw, -1))[:, 0].reshape(k, nw)
+    sy = _warp_tree_sums(np.where(inw, res_y[:, None, :], np.float32(0)).reshape(k * nw, -1))[:, 0].reshape(k, nw)
+    val = sx * sx + sy * sy
+    top, best = val[:, 0].copy(), np.zeros(k, np.int64)
+    for w in range(1, nw):
+        up = val[:, w] > top
+        top, best = np.where(up, val[:, w], top), np.where(up, w, best)
+    rows = np.arange(k)
+    angle = tdesc._atan2_cv(torch.as_tensor(sy[rows, best]), torch.as_tensor(sx[rows, best]))
+    return torch.where(torch.as_tensor(top > 0), angle, torch.zeros(())).numpy(), best
+
+
+def _orientation_rows(case, seed=1, k=96, no=109):
+    """Weighted orientation samples: normal; two samples of equal norm,
+    (-4, 3) and (-3, -4), in windows that never hold both (first held by
+    windows 10 and 21), so windows tie and the first must win; a single
+    sample, so every window holding it ties; all zeros, so no ``val`` is
+    above 0."""
+    rng = np.random.default_rng(seed)
+    if case == "normal":
+        return rng.normal(size=(k, no)).astype(np.float32), rng.normal(size=(k, no)).astype(np.float32)
+    rx, ry = np.zeros((k, no), np.float32), np.zeros((k, no), np.float32)
+    rows = np.arange(k)
+    if case == "tied_pair":
+        i, j = rng.integers(0, no, k), rng.integers(0, no, k)
+        j = np.where(j == i, (i + 1) % no, j)
+        rx[rows, i], ry[rows, i] = -4.0, 3.0
+        rx[rows, j], ry[rows, j] = -3.0, -4.0
+    elif case == "one_sample":
+        i = rng.integers(0, no, k)
+        rx[rows, i], ry[rows, i] = rng.normal(size=k).astype(np.float32), rng.normal(size=k).astype(np.float32)
+    return rx, ry
+
+
+@pytest.mark.parametrize("case", ["normal", "tied_pair", "one_sample", "zeros"])
+def test_warp_first_max_matches_orientation(case):
+    """The fused kernel's first-max scan chooses the window, and gives the
+    angle, of ``_orientation_from_samples`` (``torch.argmax``'s first
+    maximum; angle 0 when no window's ``val`` is above 0)."""
+    rx, ry = _orientation_rows(case)
+    angle, best = _warp_orientation(rx, ry)
+    want = tdesc._orientation_from_samples(torch.as_tensor(rx), torch.as_tensor(ry)).numpy()
+    np.testing.assert_array_equal(angle.view(np.uint32), want.view(np.uint32))
+    if case == "zeros":
+        assert (best == 0).all() and (angle == 0).all()
+    if case == "tied_pair":  # the (-4, 3) and (-3, -4) windows tie: the lower index wins
+        assert (best == 10).all()
+        np.testing.assert_allclose(angle, np.arctan2(3, -4), rtol=0, atol=1e-6)
+
+
+def _slot_offsets(n_levels, hp, wp, k, w, scale, seed=3):
+    """Group tables and the two passes' offsets of ``k`` keypoint slots at
+    ``scale`` (as ``orient_mldb_groups`` builds them, with random angles;
+    about 20% of the slots dead, so groups with dead slots and empty groups
+    both occur), on the CPU: ``(tables, (orel_x, orel_y), (rel_x,
+    rel_y))``."""
+    lvl, xf, yf, valid = _keypoints(seed, k, n_levels, hp, wp)
+    ht, wt = hp // 128, wp // 128
+    ng_cap = -(-k // G) + n_levels * (ht - 1) * (wt - 1) + 1
+    xf_t, yf_t = torch.as_tensor(xf), torch.as_tensor(yf)
+    y0, x0 = tdesc.patch_anchor(xf_t, yf_t, hp, wp)
+    ty, tx = torch.clamp(y0 // 128, 0, ht - 2), torch.clamp(x0 // 128, 0, wt - 2)
+    perm, *tables, src_of, _ = tdesc.group_tables(torch.as_tensor(lvl), ty, tx, torch.as_tensor(valid),
+                                                  n_levels, ht, wt, G, ng_cap, w)
+    osrc = perm[src_of]
+    n = osrc.shape[0]
+    xf_p, yf_p = xf_t[osrc], yf_t[osrc]
+    sc = torch.full((n,), float(scale))
+    width, height = torch.full((n,), wp - 16, dtype=torch.int32), torch.full((n,), hp, dtype=torch.int32)
+    x0_p, y0_p = tables[2].repeat_interleave(G) * 128, tables[1].repeat_interleave(G) * 128
+    orel = tdesc.orientation_offsets(xf_p, yf_p, sc, width, height, x0_p, y0_p, 256)
+    angle = torch.as_tensor(np.random.default_rng(seed).uniform(0, 2 * np.pi, n).astype(np.float32))
+    rel = tdesc.mldb_offsets(xf_p, yf_p, sc, angle, width, height, x0_p, y0_p, 256)[:2]
+    return tables, orel, rel
+
+
+def test_slot_offsets_layout():
+    """The cuda tests' slot layout holds empty groups, groups with dead
+    slots and full groups, and its offsets stay inside the 256x256 window."""
+    tables, orel, rel = _slot_offsets(6, 512, 640, 400, 1, 6)
+    n_active = tables[3].numpy()
+    assert (n_active == 0).any() and ((n_active > 0) & (n_active < G)).any() and (n_active == G).any()
+    for t in (*orel, *rel):
+        assert t.dtype == torch.int32 and int(t.min()) >= 0 and int(t.max()) < 256
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("w", [1, 4])
 @pytest.mark.parametrize("c0,ns", [(1, 109), (0, 441)])
-def test_cuda_select_groups_matches_plain(w, c0, ns):
+@pytest.mark.parametrize("scale", [None, 1, 2, 4, 6])
+def test_cuda_select_groups_matches_plain(w, c0, ns, scale):
+    """The group select bitwise to its plain version on the card: random
+    offsets over the window (``scale`` None) and a keypoint's own offsets at
+    ``scale`` (orientation disc for ``c0 = 1``, M-LDB grid for ``c0 = 0``),
+    with empty groups and dead slots."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the group select kernel runs only there")
     n_levels, hp, wp, k = 26, 512, 1408, 8192
-    lvl, xf, yf, valid = _keypoints(3, k, n_levels, hp, wp)
-    ty, tx = _windows(xf, yf, hp, wp)
-    ht, wt = hp // 128, wp // 128
-    ng_cap = -(-k // G) + n_levels * (ht - 1) * (wt - 1) + 1
     dev = torch.device("cuda")
-    tables = tdesc.group_tables(*(torch.as_tensor(a, device=dev) for a in (lvl, ty, tx, valid)),
-                                n_levels, ht, wt, G, ng_cap, w)
-    ng = tables[1].shape[0]
-    gen = torch.Generator(device=dev).manual_seed(0)
+    if scale is None:
+        lvl, xf, yf, valid = _keypoints(3, k, n_levels, hp, wp)
+        ty, tx = _windows(xf, yf, hp, wp)
+        ht, wt = hp // 128, wp // 128
+        ng_cap = -(-k // G) + n_levels * (ht - 1) * (wt - 1) + 1
+        tables = tdesc.group_tables(*(torch.as_tensor(a, device=dev) for a in (lvl, ty, tx, valid)),
+                                    n_levels, ht, wt, G, ng_cap, w)[1:5]
+        ng = tables[0].shape[0]
+        gen = torch.Generator(device=dev).manual_seed(0)
+        rel = [torch.randint(0, 256, (ng * G, ns), generator=gen, device=dev, dtype=torch.int32) for _ in range(2)]
+    else:
+        tables, orel, mrel = _slot_offsets(n_levels, hp, wp, k, w, scale)
+        tables = [t.to(dev) for t in tables]
+        rel = [t.to(dev).contiguous() for t in (orel if c0 == 1 else mrel)]
+        assert rel[0].shape[1] == ns
+    gen = torch.Generator(device=dev).manual_seed(1)
     planes = torch.randn((n_levels, 3, hp, wp), generator=gen, device=dev)
-    rel = [torch.randint(0, 256, (ng * G, ns), generator=gen, device=dev, dtype=torch.int32) for _ in range(2)]
     before = tselect.select_groups.launches
-    got = tselect.select_groups(planes, *tables[1:5], *rel, c0=c0)
+    got = tselect.select_groups(planes, *tables, *rel, c0=c0)
     torch.cuda.synchronize()
     assert tselect.select_groups.launches == before + 1
-    torch.testing.assert_close(got, tselect.select_groups_plain(planes, *tables[1:5], *rel, c0=c0), rtol=0, atol=0)
+    assert torch.equal(got, tselect.select_groups_plain(planes, *tables, *rel, c0=c0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scale", [1, 2, 4, 6])
+def test_cuda_select_fused_matches_plain_at_scale(scale):
+    """The fused describe bitwise to its plain version on the card, every
+    keypoint at ``scale``, some near the plane's edges (``ok`` false)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the fused describe kernel runs only there")
+    n_levels, hp, wp, k = 26, 512, 1408, 8192
+    lvl, xf, yf, _ = _keypoints(5, k, n_levels, hp, wp)
+    dev = torch.device("cuda")
+    xf, yf, lvl = (torch.as_tensor(a, device=dev) for a in (xf, yf, lvl))
+    sc = torch.full((k,), float(scale), device=dev)
+    width = torch.full((k,), wp - 16, dtype=torch.int32, device=dev)
+    height = torch.full((k,), hp, dtype=torch.int32, device=dev)
+    y0, x0 = tdesc.patch_anchor(xf, yf, hp, wp)
+    orel = tdesc.orientation_offsets(xf, yf, sc, width, height, x0, y0, 128)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    planes = torch.randn((n_levels, 3, hp, wp), generator=gen, device=dev)
+    args = (planes, lvl, y0, x0, *orel, xf, yf, sc, width, height)
+    before = tfused.select_fused.launches
+    (vk, mk), (vp, mp) = tfused.select_fused(*args), tfused.select_fused_plain(*args)
+    torch.cuda.synchronize()
+    assert tfused.select_fused.launches == before + 1
+    assert 0 < int((mk[:, 3] > 0.5).sum()) < k
+    assert torch.equal(mk, mp) and torch.equal(vk, vp)
