@@ -21,6 +21,13 @@ Drives the port's main paths:
 * the SfM engine on bench.py's loop-closure scenario (bench.py:646-698):
   23 rendered 512x640 frames, two segments that form two reconstructions
   and three bridge frames that merge them;
+* the vslam-sandbox app (``cv_tpu_torch.apps.vslam_sandbox.main``, the
+  counterpart of the Rust reference's ``vslam-sandbox``) at its own
+  defaults: ``VSlamSettings()`` with no settings file (8192 features, 1024
+  graph-BA iterations, patience 100,000 / 65,536) and the app's consensus
+  budgets (16,384 / 8,192 hypotheses, two refit rounds of 1,024), on
+  ``SANDBOX``'s rendered 1080x1920 frames written as PNGs; run 1 maps the
+  first frames and saves vslam.cvr, run 2 resumes from it;
 * the retired describe modes ``'pepatch'`` and ``'ptiles'`` (registered by
   importing ``cv_tpu_torch.experiments.mldb_losers``) on the KITTI batch
   and the dense pair, and the experiments' runs
@@ -82,13 +89,33 @@ Phases, in order; any failed check raises and the script exits non-zero:
      every frame, the dedup kernel once per frame; every A, B and C call of
      the warm pass is recorded and, after the timed pass, replayed on its
      own (calls, N, valid rows, summed device time; A's and B's steps and
-     us a step); for each of A's and B's valid-row counts one recorded call,
-     and every call of C, is held to the plain version (within 1e-4; A and
-     B the same step count);
+     us a step); A's and B's call of fewest steps, their first call with
+     each valid-row count among those of at most ``HOLD_STEPS`` steps, and
+     every call of C are held to the plain version (within 1e-4; A and B
+     the same step count, unless both stop by patience before the cap:
+     there the float32 summation order sets the step);
   6. drive the loop-closure scenario with the counters at zero: at least
      two reconstructions during the run and fewer at the end (bench.py's
      gate), an empty ``sanity_check`` of the largest; its views beside
      cv_tpu's 13, the seconds, kernels A, B and C launched;
+  6b. the vslam-sandbox app: render ``SANDBOX``'s frames and write them
+     with ``write_png`` (libpng's per-row filter choice, so Average and Paeth
+     rows); the compiled unfilter (``csrc/png_unfilter.cu``) bitwise to the
+     plain walk and both timed; then run 1 and run 2 through ``main``, each
+     with the counters at zero and every plain version counted (none may
+     run, the PNG walk included): at least one reconstruction after run 1,
+     an empty ``sanity_check`` of every reconstruction, each
+     reconstruction's views within ``SANDBOX_POSE_GATES`` of the rendered
+     poses (ATE / extent < 0.05, consecutive rotations < 1 degree),
+     one PLY file a new reconstruction whose vertex count at every export
+     is its robust landmarks plus 5 a camera, each new reconstruction's
+     first view at identity after its normalize, ``vslam.cvr`` equal to a
+     save of the live state; run 2 loads run 1's checkpoint, whose arrays equal a save
+     of run 1's live state, with its intrinsics on the card; the launches of
+     #4, the scan, A, B and C, the phase times (extract, init,
+     registration, BA+filter, normalize, export, save, load, PNG decode a
+     frame), and A's, B's and C's calls replayed and held to plain as the
+     SfM path's are; the #4 and scan calls are replayed with phase 7's;
   7. drive the dense path, each run with the counters at zero: keypoint
      counts within bench.py's tolerance of [3425, 2908], the group select
      launched twice and the dedup kernel once; the ``'pfused'`` and
@@ -96,8 +123,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      gates; ``FastAkazeExtractor`` at 8192 features takes the group path
      and finds frame 0's count; then every select call of the KITTI path
      and of the SfM warm pass, every dedup call of the KITTI, SfM warm,
-     merge and dense runs, every group-select call of the dense and
-     engine-budget runs and the fused describe's call of the ``'pfused'``
+     merge, sandbox and dense runs, every group-select call of the
+     sandbox, dense and engine-budget runs and the fused describe's call of the ``'pfused'``
      run (recorded where the extractor binds the wrappers, the counts
      handed on), replayed: bitwise to the plain version, summed device time
      per path, the selects' byte bounds (the group select's and the fused
@@ -127,6 +154,7 @@ import argparse
 import contextlib
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -161,6 +189,18 @@ MERGE_SEED = 5
 MERGE_SETTINGS = dict(SFM_SETTINGS, tracking_recent_frames=3, tracking_similar_frames=6,
                       tracking_similar_frame_recent_threshold=3, tracking_similar_frame_search_num=64)
 MERGE_REFERENCE_VIEWS = 13  # cv_tpu's largest final reconstruction (BENCH_r05.json, sfm_merge_views)
+# The vslam-sandbox app at its own defaults (cv_tpu/apps/vslam_sandbox.py, Rust vslam-sandbox/src/main.rs):
+# ``VSlamSettings()`` (no settings file) and the app's consensus budgets, on rendered star-field frames at the
+# frame size its default principal point (951.1, 555.1) implies and its default focals.  Run 1 maps the first
+# ``run1`` frames and saves vslam.cvr; run 2 resumes from it on the next ``run2``.
+SANDBOX = dict(height=1080, width=1920, fx=893.39010814, fy=898.32648616, n_points=3000, seed=0, run1=8, run2=4)
+# The sandbox's pose gates against the rendered poses: ATE / trajectory extent and the worst consecutive rotation
+# in degrees.  The engine's FastAkazeExtractor at the app's settings places views less tightly than the SfM
+# configuration does, in cv_tpu as in the port: over engine seeds 0-2 on 8 small rendered frames both reach
+# ATE / extent up to ~0.018 and rotations up to ~0.76 degree (tests/test_torch_sandbox.py::pose_spread), and
+# the ratio of a reconstruction of 4 views is about twice that of 8 for the same error.  A view off by one
+# frame's motion is ~0.14 of an 8-view extent.
+SANDBOX_POSE_GATES = (0.05, 1.0)
 # Pose-optimizer kernels: (engine shape, full-run steps).
 POSE_KERNELS = {
     "single_view_l2": dict(n=2048, steps=2000, replaces="cv_tpu/optimize/pallas_loop.py:312"),
@@ -177,6 +217,10 @@ TRANSLATING = {"three_view_l2": dict(every=1, steps=2000), "three_view_adaptive"
 # The pose kernels that report their steps (steps_out), and each kernel's
 # plain version in cv_tpu_torch.optimize.optimizers.
 STEPPED = ("single_view_l2", "three_view_l2")
+# The most steps of an A or B engine call held to its plain version (besides
+# each replay's call of fewest steps): the plain versions take about 1.5 and
+# 3.4 ms a step, and the SfM path's calls stop at 4000 steps.
+HOLD_STEPS = 4000
 PLAIN_VERSIONS = {
     "single_view_l2": "single_view_simple_optimize_l2",
     "three_view_l2": "three_view_simple_optimize_l2",
@@ -787,9 +831,11 @@ def replay_pose_calls(calls):
     kernel: the number of calls, the ranges of N and of valid rows (per
     problem for C), the summed device milliseconds; for A and B also the
     steps each call took (``steps_out``) and us a step.  Held to the plain
-    version in float32 (within 1e-4; A and B also the same step count): A's
-    and B's first call with each distinct count of valid rows, and every
-    call of C."""
+    version in float32 (within 1e-4; A and B also the same step count,
+    unless both stop by patience before the cap): every call of C, and of
+    A's and B's calls the one with the fewest steps and the first with each
+    distinct count of valid rows among those of at most ``HOLD_STEPS``
+    steps."""
     import numpy as np
     import torch
 
@@ -799,35 +845,53 @@ def replay_pose_calls(calls):
     for name, recorded in calls.items():
         fn, plain = getattr(resident, name), getattr(optimizers, PLAIN_VERSIONS[name])
         stepped = name in STEPPED
-        ns, rows, ms, steps, held = [], [], [], [], {}
-        for j, (args, kw) in enumerate(recorded):
+        ns, rows, ms, steps, got, firsts = [], [], [], [], [], []
+        for args, kw in recorded:
             valid = args[3] if name == "single_view_l2" else args[2]
             counts = [int(v) for v in valid.reshape(-1, valid.shape[-1]).sum(dim=-1).tolist()]
             ns.append(int(valid.shape[-1]))
             rows.extend(counts)
+            firsts.append(counts[0] if stepped else counts)
             ms.append(cuda_ms(lambda: fn(*args, **kw), iters=3, warmup=1))
-            key = counts[0] if stepped else j
-            kw_k, kw_p = dict(kw), dict(kw)
+            kw = dict(kw)
             if stepped:
-                kw_k["steps_out"], kw_p["steps_out"] = (torch.zeros(1, dtype=torch.int32, device=valid.device)
-                                                        for _ in range(2))
-            got = fn(*args, **kw_k)
+                kw["steps_out"] = torch.zeros(1, dtype=torch.int32, device=valid.device)
+            got.append(fn(*args, **kw))
             if stepped:
-                steps.append(int(kw_k["steps_out"].item()))
-            if key in held:
-                continue
-            ref = plain(*_as_f32(args), **kw_p)
-            err = float(np.abs(flat_poses(got) - flat_poses(ref)).max())
-            held[key] = (err, steps[-1] if stepped else None)
-            what = f"{name} engine call {j} ({counts[0] if stepped else counts} valid rows)"
-            require(np.isfinite(flat_poses(got)).all() and err <= 1e-4,
+                steps.append(int(kw["steps_out"].item()))
+        if stepped and recorded:
+            chosen = {}
+            for j, st in enumerate(steps):
+                if st <= HOLD_STEPS:
+                    chosen.setdefault(firsts[j], j)
+            held_calls = sorted(set(chosen.values()) | {int(np.argmin(steps))})
+        else:
+            held_calls = range(len(recorded))
+        held = {}
+        for j in held_calls:
+            args, kw = recorded[j]
+            kw = dict(kw)
+            if stepped:
+                kw["steps_out"] = torch.zeros(1, dtype=torch.int32, device=valid.device)
+            ref = plain(*_as_f32(args), **kw)
+            err = float(np.abs(flat_poses(got[j]) - flat_poses(ref)).max())
+            what = f"{name} engine call {j} ({firsts[j]} valid rows)"
+            require(np.isfinite(flat_poses(got[j])).all() and err <= 1e-4,
                     f"{what} within 1e-4 of plain (max |err| {err})")
+            held[j] = (err, None)
             if stepped:
-                p_steps = int(kw_p["steps_out"].item())
-                require(steps[-1] == p_steps, f"{what}: {steps[-1]} steps, its plain version {p_steps}")
+                # A stop by patience (no better sum norm in PATIENCE steps)
+                # at a float32 plateau depends on the summation order, so two
+                # such stops may differ; a run to the cap may not.
+                p_steps, cap = int(kw["steps_out"].item()), args[5 if name == "single_view_l2" else 4]
+                require(steps[j] == p_steps or max(steps[j], p_steps) < cap,
+                        f"{what}: {steps[j]} steps, its plain version {p_steps} (cap {cap})")
+                held[j] = (err, p_steps)
         rec = dict(calls=len(recorded), n=[min(ns, default=0), max(ns, default=0)],
                    valid_rows=[min(rows, default=0), max(rows, default=0)], ms=sum(ms), held_to_plain=len(held),
                    max_abs_err=max((e for e, _ in held.values()), default=0.0))
+        if stepped:
+            rec["held_steps"] = {j: [steps[j], p] for j, (_, p) in held.items()}
         if stepped and recorded:
             rec.update(steps=[min(steps), max(steps)], total_steps=sum(steps), us_per_step=sum(ms) * 1e3 / sum(steps))
         out[name] = rec
@@ -836,7 +900,8 @@ def replay_pose_calls(calls):
               + (f", steps {rec['steps']} ({rec['total_steps']} in all), {rec['us_per_step']:.3f} us a step"
                  if "steps" in rec else "")
               + f"; {len(held)} calls held to plain: max |err| {rec['max_abs_err']:.3e} (gate 1e-4)"
-              + (", step counts equal (" + ", ".join(f"{c} rows: {st}" for c, (_, st) in sorted(held.items())) + ")"
+              + ("; steps, kernel / plain (" + ", ".join(f"call {j}, {firsts[j]} rows: {k} / {p}"
+                                                         for j, (k, p) in rec["held_steps"].items()) + ")"
                  if stepped else ""))
     return out
 
@@ -1618,6 +1683,264 @@ def check_experiment_kernels(dev, seed):
     return out
 
 
+def npz_arrays(path):
+    """Every array of an npz checkpoint, by key."""
+    import numpy as np
+
+    with np.load(path, allow_pickle=False) as z:
+        return {k: z[k] for k in z.files}
+
+
+def same_checkpoint(a, b):
+    """The keys whose arrays differ (value, dtype or shape) between two
+    checkpoints' arrays."""
+    import numpy as np
+
+    return sorted(k for k in a.keys() | b.keys()
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k]))
+
+
+def sandbox_frames(work):
+    """Render the sandbox's frames and write them as PNGs into ``work``;
+    returns ``(paths, (fx, fy, cx, cy), per-frame row filter counts, the
+    frames' true poses)``."""
+    import numpy as np
+
+    from cv_tpu_torch.apps.synth import render_sequence
+    from cv_tpu_torch.utils.png import write_png
+
+    images, intrinsics, true_poses = render_sequence(
+        n_frames=SANDBOX["run1"] + SANDBOX["run2"], height=SANDBOX["height"], width=SANDBOX["width"],
+        n_points=SANDBOX["n_points"], seed=SANDBOX["seed"], fx=SANDBOX["fx"], fy=SANDBOX["fy"])
+    paths, filters = [], []
+    for i, img in enumerate(images):
+        paths.append(os.path.join(work, f"frame-{i:03d}.png"))
+        filters.append(np.bincount(write_png(paths[-1], img), minlength=5).tolist())
+    return paths, intrinsics, filters, true_poses
+
+
+def sandbox_argv(work, run, intrinsics, frames):
+    """The sandbox's command line for one run: the shared checkpoint, no
+    settings file, the run's own output directory, the renderer's pinhole
+    intrinsics without distortion (as tests/test_pipelines.py:155-166 passes
+    KITTI's)."""
+    out = os.path.join(work, f"out-{run}")
+    os.makedirs(out, exist_ok=True)
+    fx, fy, cx, cy = intrinsics
+    return out, ["-d", os.path.join(work, "vslam.cvr"), "-s", os.path.join(work, "no-settings.json"), "-o", out,
+                 "--x-focal", repr(fx), "--y-focal", repr(fy), "--x-center", repr(cx), "--y-center", repr(cy),
+                 "--radial-distortion", "0", *frames]
+
+
+@contextlib.contextmanager
+def sandbox_hooks(dev):
+    """Time the sandbox's phases and check its per-frame gates while the
+    body runs.  Yields a dict: ``ms`` (phase -> [milliseconds a call];
+    engine phases synchronized, PNG decode timed in the loader's threads),
+    ``normalized`` ([(reconstruction, max |first view pose - identity|)]),
+    ``exports`` ([(reconstruction, vertices in the file, robust landmarks, views)]),
+    ``loaded`` (the arrays of a save of each loaded checkpoint, taken before
+    the engine touches it, and its feeds' intrinsics devices)."""
+    import numpy as np
+    import torch
+
+    from cv_tpu_torch.akaze import extract
+    from cv_tpu_torch.sfm import VSlam, VSlamData, host_geom
+    from cv_tpu_torch.sfm.serialize import save_npz
+    from cv_tpu_torch.utils import loader
+
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    hooks = dict(ms={}, normalized=[], exports=[], loaded=[])
+    saved = []
+
+    def patch(owner, attr, phase, after=None, synced=True):
+        raw = owner.__dict__[attr]
+        static = isinstance(raw, staticmethod)
+        fn = raw.__func__ if static else raw
+        hooks["ms"].setdefault(phase, [])
+
+        def timed(*a, **kw):
+            if synced:
+                sync()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            if synced:
+                sync()
+            hooks["ms"][phase].append((time.perf_counter() - t0) * 1e3)
+            if after is not None:
+                after(out, *a, **kw)
+            return out
+
+        saved.append((owner, attr, raw))
+        setattr(owner, attr, staticmethod(timed) if static else timed)
+
+    def normalized(_, engine, reconstruction):
+        rec = engine.data.reconstructions.get(reconstruction)
+        if rec is not None and rec.views:
+            r, t = next(iter(rec.views.values())).pose
+            hooks["normalized"].append((reconstruction, float(max(np.abs(r - np.eye(3)).max(), np.abs(t).max()))))
+
+    def exported(_, engine, reconstruction, path, camera_faces=True):
+        rec = engine.data.reconstructions[reconstruction]
+        robust = 0
+        for landmark in rec.landmarks:
+            hp = engine.triangulate_landmark_robust(reconstruction, landmark)
+            robust += hp is not None and host_geom.point_of(hp) is not None
+        with open(path) as f:
+            vertices = next(int(line.split()[2]) for line in f if line.startswith("element vertex"))
+        hooks["exports"].append((reconstruction, vertices, robust, len(rec.views)))
+
+    def loaded(data, path, device="cuda"):
+        keep = os.path.join(os.path.dirname(os.path.abspath(path)), "loaded-resave.cvr")
+        save_npz(data, keep)
+        devices = sorted({str(f.intrinsics.simple_intrinsics.focals.device) for f in data.feeds.values()
+                          if f.intrinsics is not None})
+        hooks["loaded"].append((npz_arrays(keep), devices))
+
+    for method, phase in (("kps_descriptors", "extract"), ("init_reconstruction", "init"),
+                          ("init_two_view", "init: two-view (of init)"), ("register_frame", "registration"),
+                          ("_dispatch_ba_filter", "ba+filter"), ("_finish_ba_filter", "ba+filter")):
+        patch(VSlam, method, phase)
+    patch(VSlam, "normalize_reconstruction", "normalize", normalized)
+    patch(VSlam, "export_reconstruction", "export", exported)
+    patch(VSlamData, "save", "save")
+    patch(VSlamData, "load", "load", loaded)
+    patch(extract, "load_gray", "png decode (loader thread)", synced=False)
+    patch(loader, "load_gray_compiled", "png decode (loader thread)", synced=False)
+    try:
+        yield hooks
+    finally:
+        for owner, attr, raw in reversed(saved):
+            setattr(owner, attr, raw)
+
+
+def sandbox_phase(dev, counters, plains, tally, describe_calls, scan_calls):
+    """Phase 6b: the vslam-sandbox app through ``main`` at its defaults,
+    run 1 then run 2 resuming from run 1's checkpoint, each with the
+    counters at zero; the gates of the module docstring.  Records the group
+    select's and the dedup scan's calls into ``describe_calls`` and
+    ``scan_calls`` (replayed in phase 7) and replays A's, B's and C's calls
+    on their own.  Returns per run: seconds, launches, phase ms, the median
+    PNG decode ms."""
+    import numpy as np
+    import torch
+
+    from cv_tpu_torch.akaze import descriptors as desc_mod
+    from cv_tpu_torch.akaze import extrema
+    from cv_tpu_torch.akaze.extract import load_gray
+    from cv_tpu_torch.apps import vslam_sandbox as sandbox_app
+    from cv_tpu_torch.utils import loader
+    from cv_tpu_torch.utils import png as png_mod
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_sandbox_run")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    os.environ["LOGLEVEL"] = "WARNING"
+    t0 = time.perf_counter()
+    paths, sb_intr, sb_filters, true_poses = sandbox_frames(work)
+    print(f"sandbox frames: {len(paths)} rendered {SANDBOX['height']}x{SANDBOX['width']} star-field frames "
+          f"({SANDBOX['n_points']} points, seed {SANDBOX['seed']}, fx {sb_intr[0]}, fy {sb_intr[1]}, cx {sb_intr[2]}, "
+          f"cy {sb_intr[3]}) written as PNGs in {time.perf_counter() - t0:.2f} s; rows by filter type 0-4 "
+          f"(None, Sub, Up, Average, Paeth): {np.sum(sb_filters, axis=0).tolist()}")
+    # The loader's compiled decode against the plain one, on the first frames.
+    for path in paths[:2]:
+        t0 = time.perf_counter()
+        plain_img = load_gray(path)
+        plain_s = time.perf_counter() - t0
+        compiled_s = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            compiled_img = loader.load_gray_compiled(path)
+            compiled_s.append(time.perf_counter() - t0)
+        require(np.array_equal(compiled_img, plain_img),
+                f"{path}: the compiled unfilter bitwise equal to the plain walk")
+        print(f"png decode {os.path.basename(path)}: plain walk {plain_s * 1e3:.1f} ms, compiled unfilter "
+              f"{statistics.median(compiled_s) * 1e3:.1f} ms (median of 3), bitwise equal")
+    sandbox, split, feed_base = {}, SANDBOX["run1"], {}
+    for run, frames in (("run1", paths[:split]), ("run2", paths[split:])):
+        out_dir, argv = sandbox_argv(work, run, sb_intr, frames)
+        png_mod.unfilter.calls = 0
+        with sandbox_hooks(dev) as hooks, main_path(counters, plains + [(png_mod, "unfilter_plain")]) as sb_run, \
+                recording(desc_mod, "select_groups", keep_planes) as describe_calls["select_groups"][f"sandbox {run}"], \
+                recording(extrema, "dedup_scan_device") as scan_calls[f"sandbox {run}"], \
+                record_pose_calls() as sb_pose:
+            t0 = time.perf_counter()
+            sb_engine = sandbox_app.main(argv, device=dev)
+            torch.cuda.synchronize()
+            sb_s = time.perf_counter() - t0
+        recs = sb_engine.data.reconstructions
+        new_feeds = sorted(set(sb_engine.data.feeds) - set(feed_base))
+        require(len(new_feeds) == 1, f"sandbox {run}: new feeds {new_feeds}")
+        feed_base[new_feeds[0]] = 0 if run == "run1" else split
+        launches = sb_run["launches"]
+        print(f"sandbox {run}: {len(frames)} frames in {sb_s:.3f} s ({len(frames) / sb_s:.4f} fps), "
+              f"{len(recs)} reconstructions, launches select_groups {launches['select_groups']}, dedup_scan "
+              f"{launches['dedup_scan']}, single_view_l2 {launches['single_view_l2']}, three_view_l2 "
+              f"{launches['three_view_l2']}, three_view_adaptive {launches['three_view_adaptive']}, select_samples "
+              f"{launches['select_samples']}, select_fused {launches['select_fused']}; compiled unfilter calls "
+              f"{png_mod.unfilter.calls}; plain-version calls {sb_run['plain']}")
+        require(png_mod.unfilter.calls == len(frames), f"sandbox {run}: {png_mod.unfilter.calls} compiled decodes")
+        expect = dict(select_groups=2 * len(frames), dedup_scan=len(frames))
+        if run == "run1":
+            expect.update(single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,))
+        tally(sb_run, **expect)
+        ms = hooks["ms"]
+        decode = ms.pop("png decode (loader thread)")
+        print(f"sandbox {run} phases (ms, synchronized; calls): "
+              + ", ".join(f"{k} {sum(v):.1f} ({len(v)})" for k, v in ms.items())
+              + f"; png decode a frame (loader thread) median {statistics.median(decode):.1f}, max {max(decode):.1f}")
+        if run == "run1":
+            require(len(recs) >= 1, "sandbox run 1: no reconstruction")
+        for key, rec in recs.items():
+            problems = sb_engine.sanity_check(key)
+            require(problems == [], f"sandbox {run} reconstruction {key}: sanity_check {problems[:3]}")
+        new_recs = {k for k, _ in hooks["normalized"]}
+        for key, dev_max in hooks["normalized"]:
+            require(dev_max < 1e-9, f"sandbox {run} reconstruction {key}: first view {dev_max} from identity")
+        plys = sorted(os.listdir(out_dir))
+        require(plys == sorted(f"reconstruction-{k}.ply" for k in new_recs),
+                f"sandbox {run}: PLY files {plys} for the new reconstructions {sorted(new_recs)}")
+        for key, vertices, robust, views in hooks["exports"]:
+            require(vertices == robust + 5 * views,
+                    f"sandbox {run} reconstruction {key}: {vertices} vertices, {robust} robust landmarks, {views} views")
+        require(os.path.exists(argv[1]), f"sandbox {run}: {argv[1]} not written")
+        live = os.path.join(work, f"live-{run}.cvr")
+        sb_engine.data.save(live)
+        differ = same_checkpoint(npz_arrays(argv[1]), npz_arrays(live))
+        require(not differ, f"sandbox {run}: vslam.cvr differs from a save of the live state in {differ}")
+        if run == "run2":
+            require(len(hooks["loaded"]) == 1, f"sandbox run 2: {len(hooks['loaded'])} checkpoints loaded")
+            arrays, devices = hooks["loaded"][0]
+            differ = same_checkpoint(arrays, npz_arrays(os.path.join(work, "live-run1.cvr")))
+            require(not differ, f"sandbox run 2: the loaded checkpoint differs from run 1's live state in {differ}")
+            require(all(d.startswith("cuda") for d in devices), f"sandbox run 2: loaded intrinsics on {devices}")
+        for key, rec in recs.items():
+            frames_of = [sb_engine.data.frames[v.frame] for v in rec.views.values()]
+            est = {feed_base[f.feed] + f.feed_frame: v.pose for f, v in zip(frames_of, rec.views.values())}
+            ate_rel, rot_deg = trajectory_errors(est, true_poses)
+            require(ate_rel < SANDBOX_POSE_GATES[0] and rot_deg < SANDBOX_POSE_GATES[1],
+                    f"sandbox {run} reconstruction {key} (frames {sorted(est)}): ATE / extent {ate_rel:.5f}, worst "
+                    f"consecutive rotation {rot_deg:.4f} deg (gates {SANDBOX_POSE_GATES})")
+            # cv_tpu's app at these consensus budgets does not fit a CPU's
+            # memory (PERF.md section 4), so there is no reference count.
+            print(f"sandbox {run} reconstruction {key}: {len(rec.views)} views (frames {sorted(est)}), "
+                  f"{len(rec.landmarks)} landmarks (cv_tpu's sandbox on these frames: not measured); sanity_check "
+                  f"empty; against the rendered poses ATE / extent {ate_rel:.5f}, worst consecutive rotation "
+                  f"{rot_deg:.4f} deg")
+        print(f"sandbox {run}: first views of {sorted(new_recs)} at identity after normalize; PLY vertices = robust "
+              f"landmarks + 5 a camera on all {len(hooks['exports'])} exports; vslam.cvr equals a save of the live "
+              "state" + ("; the loaded checkpoint equals run 1's live state, intrinsics on " + ", ".join(devices)
+                         if run == "run2" else ""))
+        sandbox[run] = dict(seconds=sb_s, launches=launches, ms={k: sum(v) for k, v in ms.items()},
+                            decode_ms=statistics.median(decode), pose=sb_pose)
+        del sb_engine, recs
+    for run in ("run1", "run2"):
+        print(f"sandbox {run}: pose kernels' calls replayed")
+        replay_pose_calls(sandbox[run].pop("pose"))
+    shutil.rmtree(work, ignore_errors=True)
+    return sandbox
+
+
 def umeyama(src, dst):
     """Similarity (s, R, t) minimizing ||s R src + t - dst|| (tests/test_sfm.py)."""
     import numpy as np
@@ -1725,38 +2048,47 @@ def run_merge(dev, n_seg=MERGE_SEGMENT, seed=MERGE_SEED):
     return engine, counts, merges, time.perf_counter() - t0
 
 
-def sfm_gates(engine, true_poses, n_frames=SFM_FRAMES):
-    """The gates of tests/test_sfm.py:620-674; returns (views, landmarks,
-    ate / extent, worst consecutive rotation error in degrees)."""
+def trajectory_errors(est, true_poses):
+    """A reconstruction's poses ``est`` ({frame index: (R, t)}) against
+    the rendered ``true_poses``: ATE / trajectory extent after Umeyama
+    alignment of the camera centres, and the worst relative rotation error
+    in degrees between frames consecutive in ``est``."""
     import numpy as np
 
     from cv_tpu_torch.sfm import se3
 
+    def center(pose):
+        return -pose[0].T @ pose[1]
+
+    frames = sorted(est)
+    est_c = np.stack([center(est[i]) for i in frames])
+    true_c = np.stack([center(true_poses[i]) for i in frames])
+    s, r, t = umeyama(est_c, true_c)
+    resid = (s * est_c @ r.T + t) - true_c
+    ate = float(np.sqrt((resid**2).sum(axis=1).mean()))
+    extent = float(np.linalg.norm(true_c.max(axis=0) - true_c.min(axis=0)))
+    worst = 0.0
+    for i, k in zip(frames, frames[1:]):
+        est_rel = se3.compose(est[k], se3.inverse(est[i]))
+        true_rel = se3.compose(true_poses[k], se3.inverse(true_poses[i]))
+        worst = max(worst, float(np.rad2deg(np.linalg.norm(se3.so3_log(est_rel[0].T @ true_rel[0])))))
+    return ate / extent, worst
+
+
+def sfm_gates(engine, true_poses, n_frames=SFM_FRAMES):
+    """The gates of tests/test_sfm.py:620-674; returns (views, landmarks,
+    ate / extent, worst consecutive rotation error in degrees)."""
     require(len(engine.data.reconstructions) == 1, f"{len(engine.data.reconstructions)} reconstructions")
     rec_key = next(iter(engine.data.reconstructions))
     rec = engine.data.reconstructions[rec_key]
     est = {engine.data.frames[v.frame].feed_frame: v.pose for v in rec.views.values()}
     require(len(est) == n_frames, f"only {len(est)}/{n_frames} frames registered")
-
-    def center(pose):
-        return -pose[0].T @ pose[1]
-
-    est_c = np.stack([center(est[i]) for i in range(n_frames)])
-    true_c = np.stack([center(true_poses[i]) for i in range(n_frames)])
-    s, r, t = umeyama(est_c, true_c)
-    resid = (s * est_c @ r.T + t) - true_c
-    ate = float(np.sqrt((resid**2).sum(axis=1).mean()))
-    extent = float(np.linalg.norm(true_c.max(axis=0) - true_c.min(axis=0)))
-    require(ate / extent < 0.02, f"ATE / extent {ate / extent:.4f}")
-    worst = 0.0
-    for i in range(n_frames - 1):
-        est_rel = se3.compose(est[i + 1], se3.inverse(est[i]))
-        true_rel = se3.compose(true_poses[i + 1], se3.inverse(true_poses[i]))
-        worst = max(worst, float(np.rad2deg(np.linalg.norm(se3.so3_log(est_rel[0].T @ true_rel[0])))))
+    ate_rel, worst = trajectory_errors(est, true_poses)
+    require(ate_rel < 0.02, f"ATE / extent {ate_rel:.4f}")
     require(worst < 1.0, f"consecutive rotation error {worst:.4f} deg")
     problems = engine.sanity_check(rec_key)
     require(problems == [], f"sanity_check: {problems[:3]}")
-    return len(rec.views), len(rec.landmarks), ate / extent, worst
+    return len(rec.views), len(rec.landmarks), ate_rel, worst
 
 
 def staged(extractor, images, mode, reps):
@@ -2026,12 +2358,15 @@ def main():
           select_samples=(2 * len(merge_counts),), dedup_scan=(len(merge_counts),))
     del merge_engine
 
+    # -- 6b. the vslam-sandbox app at its own defaults ----------------------
+    # The group select's calls (the sandbox; the dense path's default mode
+    # and engine-budget extractor below) and the fused describe's
+    # ('pfused'), recorded where the describe binds them.
+    describe_calls = {"select_groups": {}, "select_fused": {}}
+    sandbox_phase(dev, counters, plains, tally, describe_calls, scan_calls)
+
     # -- 7. the dense path ---------------------------------------------------
     runs = {}
-    # The group select's calls (default mode; the engine-budget extractor
-    # below) and the fused describe's ('pfused'), recorded where the
-    # describe binds them.
-    describe_calls = {"select_groups": {}, "select_fused": {}}
     for mode, expect in ((None, dict(select_groups=2, dedup_scan=1, select_samples=0)),
                          ("pfused", dict(select_fused=1, dedup_scan=1, select_groups=0)),
                          ("pallas", dict(select_samples=2, dedup_scan=1, select_groups=0))):
@@ -2097,10 +2432,12 @@ def main():
     # bitwise to its plain version and timed on the card.
     for path, want in (("kitti", 2), ("sfm", 2 * SFM_FRAMES)):
         require(len(select_calls[path]) == want, f"select: {len(select_calls[path])} {path} calls recorded")
-    for path, want in (("kitti", 1), ("sfm", SFM_FRAMES), ("merge", len(merge_counts)), ("dense", 4)):
+    for path, want in (("kitti", 1), ("sfm", SFM_FRAMES), ("merge", len(merge_counts)), ("dense", 4),
+                       ("sandbox run1", SANDBOX["run1"]), ("sandbox run2", SANDBOX["run2"])):
         require(len(scan_calls[path]) == want, f"dedup: {len(scan_calls[path])} {path} calls recorded")
     for name, path, want in (("select_groups", "dense", 2), ("select_groups", "engine", 2),
-                             ("select_fused", "pfused", 1)):
+                             ("select_groups", "sandbox run1", 2 * SANDBOX["run1"]),
+                             ("select_groups", "sandbox run2", 2 * SANDBOX["run2"]), ("select_fused", "pfused", 1)):
         got = len(describe_calls[name][path])
         require(got == want, f"{name}: {got} {path} calls recorded")
     select_records["select_samples"]["engine"] = replay_select(select_calls)

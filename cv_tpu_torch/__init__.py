@@ -9,7 +9,9 @@ Ported so far: the two-frame KITTI path — batched AKAZE extraction
 (:mod:`cv_tpu_torch.akaze.fast`), Lowes-ratio Hamming matching
 (:mod:`cv_tpu_torch.matching`), eight-point batched consensus
 (:mod:`cv_tpu_torch.consensus`, :mod:`cv_tpu_torch.solvers`) — and the SfM
-engine's frame-by-frame path (:mod:`cv_tpu_torch.sfm`).  The hand-written
+engine's frame-by-frame path (:mod:`cv_tpu_torch.sfm`) with its checkpoints
+and PLY export, and the ``vslam-sandbox`` app
+(:mod:`cv_tpu_torch.apps.vslam_sandbox`).  The hand-written
 kernels (``csrc/``) are the describe stage's sample select
 (:mod:`cv_tpu_torch.akaze.select`) and the three pose-optimizer loops
 (:mod:`cv_tpu_torch.optimize.resident`).
@@ -18,7 +20,7 @@ kernels (``csrc/``) are the describe stage's sample select
 __version__ = "0.1.0"
 
 # The eager top-level names of cv_tpu/__init__.py.  cv_tpu's lazy
-# ``parallel`` and ``video`` are not ported yet.
+# ``parallel`` is not ported yet.
 from .camera import (  # noqa: E402,F401
     CameraIntrinsics,
     CameraIntrinsicsK1Distortion,
@@ -53,6 +55,7 @@ def __getattr__(name):
         "solvers",
         "triangulate",
         "utils",
+        "video",
     ):
         return importlib.import_module(f".{name}", __name__)
     raise AttributeError(name)

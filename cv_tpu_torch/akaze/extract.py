@@ -29,10 +29,13 @@ def to_gray_f32(image: np.ndarray) -> np.ndarray:
 
 
 def load_gray(path) -> np.ndarray:
-    """Load a PNG file as a grayscale uint8 array.  RGB is reduced with the
-    ITU-R 601 integer luma that the reference loader's ``convert("L")``
-    applies."""
-    image = read_png(path)
+    """Load a PNG file as a grayscale uint8 array (:func:`to_gray_u8`)."""
+    return to_gray_u8(read_png(path))
+
+
+def to_gray_u8(image: np.ndarray) -> np.ndarray:
+    """A decoded uint8 image as grayscale: RGB is reduced with the ITU-R
+    601 integer luma that the reference loader's ``convert("L")`` applies."""
     if image.ndim == 3:
         rgb = image.astype(np.uint32)
         image = (

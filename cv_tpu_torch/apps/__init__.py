@@ -1,1 +1,2 @@
-"""Host-side applications: the synthetic star-field sequence renderer."""
+"""Host-side applications: the vslam-sandbox app and the synthetic
+star-field sequence renderer."""

@@ -75,6 +75,11 @@ class Estimator:
     residual: Callable[..., Any]
 
 
+# The most (model, data row) pairs whose residuals are materialized at once
+# in the scoring stage.
+SCORE_BLOCK = 1 << 22
+
+
 @dataclasses.dataclass(frozen=True)
 class BatchConsensus:
     """Fixed-budget batched consensus on ``device`` (the CUDA card unless
@@ -144,18 +149,31 @@ class BatchConsensus:
         lexicographic best: max inlier count, ties broken by least total
         inlier residual (a true two-stage argmax, never a folded float
         score; see the reference's docstring).  Returns ``(best model,
-        inlier mask, inlier count, total inlier residual)``."""
+        inlier mask, inlier count, total inlier residual)``.
+
+        The residuals are taken over blocks of hypotheses of at most
+        ``SCORE_BLOCK`` (model, row) pairs: a residual materializes its
+        intermediates (the relative-pose residual a 4x4 eigensystem per
+        pair), which at the sandbox's budgets (8,192 hypotheses x 4 models x
+        thousands of matches) would not fit a card's memory.  Each pair's
+        residual, count and total are the same in any block."""
         n = _first_leaf(data).shape[0]
-        res = estimator.residual(models, data)  # (H, M, N)
-        inliers = (res < self.threshold) & valid_row & torch.isfinite(res)
-        flat_counts = inliers.sum(dim=-1).reshape(-1)
-        flat_total = torch.where(inliers, res, torch.zeros_like(res)).sum(dim=-1).reshape(-1)
+        h, m = _first_leaf(models).shape[:2]
+        step = max(1, SCORE_BLOCK // (m * n))
+        masks, counts, totals = [], [], []
+        for h0 in range(0, h, step):
+            res = estimator.residual(_tree_map(lambda x: x[h0 : h0 + step], models), data)  # (h, M, N)
+            inliers = (res < self.threshold) & valid_row & torch.isfinite(res)
+            masks.append(inliers.reshape(-1, n))
+            counts.append(inliers.sum(dim=-1).reshape(-1))
+            totals.append(torch.where(inliers, res, torch.zeros_like(res)).sum(dim=-1).reshape(-1))
+        inliers, flat_counts, flat_total = torch.cat(masks), torch.cat(counts), torch.cat(totals)
         at_max = flat_counts == flat_counts.max()
         # argmin returns the first index among equal totals: exact ties keep
         # the first-drawn model.
         best = torch.argmin(torch.where(at_max, flat_total, torch.inf))
         best_model = _tree_map(lambda x: x.reshape((-1,) + x.shape[2:])[best], models)
-        return best_model, inliers.reshape(-1, n)[best], flat_counts[best], flat_total[best]
+        return best_model, inliers[best], flat_counts[best], flat_total[best]
 
     def _round(self, generator, estimator, data, valid_row, sample_mask, n_hyp, sample_idx):
         """One draw-solve-(prescore)-score round; returns ``(model, mask,

@@ -10,6 +10,10 @@ there is no fallback.  The wrappers take each C function from
 :func:`function`, which resolves and types it once, and the stream to
 launch on from :func:`current_stream`.
 
+``csrc/png_unfilter.cu`` holds host code only (the PNG decoder's
+sequential row filters): ``nvcc`` hands it to its host compiler, and it is
+built and loaded like the kernels.
+
 The pose-optimizer loops, the dedup scan, the fused describe and the
 select probes are built with ``--fmad=false``: no multiply-add is contracted, so each float
 expression rounds as it is written, as the kernels' plain versions round.
@@ -48,7 +52,7 @@ EXTRA_FLAGS = {
 KERNELS = (
     "select_samples", "select_groups", "select_fused", "dedup_scan",
     "single_view_l2", "three_view_l2", "three_view_adaptive",
-    "take_along", "trig_probe", "select_probes",
+    "take_along", "trig_probe", "select_probes", "png_unfilter",
 )
 
 # name -> (ctypes library, build record); filled at first use.

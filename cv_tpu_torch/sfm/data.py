@@ -5,7 +5,8 @@ Port of ``cv_tpu/sfm/data.py`` (reference cv-sfm/src/lib.rs:45-721,
 insert-ordered dicts with increasing integer keys; per-frame feature data
 lives in dense NumPy arrays (descriptors as uint32 words, bearings,
 colors, responses).  Frame sketches come from :mod:`cv_tpu_torch.matching.lsh`.
-Checkpoints (``save``/``load``) are not ported yet.
+Checkpoints (``save``/``load``) are :mod:`cv_tpu_torch.sfm.serialize`'s npz
+format, which ``cv_tpu`` reads and writes too.
 """
 
 from __future__ import annotations
@@ -382,13 +383,46 @@ class VSlamData:
                 free_frames.append(found)
         return reconstruction_frames, free_frames
 
-    def rehash_sketches(self):
-        """Recompute every frame's LSH sketch with the current codebook."""
+    # -- persistence (vslam-sandbox/src/main.rs:81-89, 166-175) -------------
+    def save(self, path):
+        """Write a versioned, schema'd npz checkpoint (no pickled code;
+        see :mod:`cv_tpu_torch.sfm.serialize`)."""
+        from .serialize import save_npz
+
+        save_npz(self, path)
+
+    @staticmethod
+    def load(path, device="cuda") -> "VSlamData":
+        """Load a schema'd npz checkpoint, the feeds' intrinsics on
+        ``device``.
+
+        ``cv_tpu``'s legacy pickle format is refused: unpickling it would
+        build ``cv_tpu``'s classes.  Frame sketches are recomputed from the
+        stored descriptors rather than trusted from the file, as in
+        ``cv_tpu``: a sketch is a function of the descriptors, the codebook
+        and the hashing scheme, and the writer's may differ from this
+        process's."""
+        with open(path, "rb") as f:
+            magic = f.read(2)
+        if magic != b"PK":  # npz = zip container
+            raise ValueError(
+                f"{path}: not an npz checkpoint (format v1 of cv_tpu_torch.sfm.serialize); "
+                "cv_tpu's legacy pickle checkpoints are not read"
+            )
+        from .serialize import load_npz
+
+        data = load_npz(path, device)
+        data.rehash_sketches(device)
+        return data
+
+    def rehash_sketches(self, device="cuda"):
+        """Recompute every frame's LSH sketch with the current codebook, on
+        ``device``."""
         self.frame_sketches = []
         self.sketch_frames = []
         for key, frame in self.frames.items():
             if len(frame.descriptors):
-                sketch = _hash_bag(frame.descriptors)
+                sketch = _hash_bag(frame.descriptors, device)
             else:
                 sketch = np.zeros(lsh.SKETCH_WORDS, np.uint32)
             frame.sketch = sketch
@@ -396,7 +430,8 @@ class VSlamData:
             self.sketch_frames.append(key)
 
 
-def _hash_bag(descriptors) -> np.ndarray:
-    """Host (16,) uint32 sketch of (N, 16) uint32 descriptor words."""
-    words = torch.as_tensor(np.ascontiguousarray(descriptors, np.uint32).view(np.int32))
-    return lsh.hash_bag(words).numpy().view(np.uint32)
+def _hash_bag(descriptors, device="cpu") -> np.ndarray:
+    """Host (16,) uint32 sketch of (N, 16) uint32 descriptor words, hashed
+    on ``device``."""
+    words = torch.as_tensor(np.ascontiguousarray(descriptors, np.uint32).view(np.int32), device=device)
+    return lsh.hash_bag(words).cpu().numpy().view(np.uint32)

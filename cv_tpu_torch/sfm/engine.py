@@ -17,8 +17,8 @@ generation, rollback on failure — is host Python over the NumPy data model
   (:func:`cv_tpu_torch.sfm.device_refine.ba_filter`).
 
 The reference's injected generics (Consensus/Estimator/Triangulator) are
-constructor arguments with the same roles.  Not ported yet: export,
-landmark merge/split helpers, normalization and the exact host extractor.
+constructor arguments with the same roles.  Not ported yet: the exact
+host extractor.
 """
 
 from __future__ import annotations
@@ -208,6 +208,8 @@ class VSlam:
         # engine entry point finalizes it via _flush_pending before touching
         # reconstruction state.
         self._pending_opt = None
+        for feed in self.data.feeds.values():
+            self._check_device(feed.intrinsics)
 
     def _tensor(self, a, dtype=None):
         a = np.asarray(a)
@@ -225,7 +227,24 @@ class VSlam:
         return cls(rotation=self._tensor(p[0]), translation=self._tensor(p[1]))
 
     # -- feeds / frames ------------------------------------------------------
+    def _check_device(self, intrinsics):
+        """Raise unless a feed's camera model lives on the engine's device
+        (a loaded checkpoint's models are built on the device its caller
+        names): a model elsewhere would take the calibration off the card
+        unnoticed.  Models without ``focals`` are not checked."""
+        si = getattr(intrinsics, "simple_intrinsics", intrinsics)
+        focals = getattr(si, "focals", None)
+        if not isinstance(focals, torch.Tensor):
+            return
+        dev = focals.device
+        if dev.type != self.device.type or (self.device.index is not None and dev.index != self.device.index):
+            raise ValueError(
+                f"camera intrinsics on {dev}, the engine on {self.device}: build or load them on the "
+                "engine's device (VSlamData.load(path, device=...))"
+            )
+
     def add_feed(self, intrinsics: CameraIntrinsicsK1Distortion) -> int:
+        self._check_device(intrinsics)
         return self.data.feeds.insert(Feed(intrinsics=intrinsics, frames=[]))
 
     def prefetch_extract(self, feed: int, image: np.ndarray):
@@ -696,6 +715,76 @@ class VSlam:
         if not self.is_merged_landmark_robust(reconstruction, landmarks):
             return None
         pb = [x for lm in landmarks for x in self.data.landmark_pose_bearings(reconstruction, lm)]
+        return self.triangulator([p for p, _ in pb], [b for _, b in pb])
+
+    def observation_loss(self, reconstruction, view, feature):
+        """Cosine-distance loss of one observation against its landmark
+        (lib.rs:2570-2620): 2.0 for singleton landmarks, epipolar sine
+        converted to cosine distance for 2-observation landmarks, and the
+        triangulated-point cosine distance (2.0 on failure) otherwise."""
+        self._flush_pending()
+        landmark = self.data.observation_landmark(reconstruction, view, feature)
+        pose = self.data.pose(reconstruction, view)
+        bearing = self.data.observation_bearing(reconstruction, view, feature)
+        observations = self.data.landmark_observations(reconstruction, landmark)
+        if len(observations) == 0:
+            raise AssertionError("landmark with 0 observations shouldnt exist ever")
+        if len(observations) == 1:
+            return 2.0
+        if len(observations) == 2:
+            (fv, ff), (sv, sf) = observations
+            first_pose = self.data.pose(reconstruction, fv)
+            first_bearing = self.data.observation_bearing(reconstruction, fv, ff)
+            second_pose = self.data.pose(reconstruction, sv)
+            second_bearing = self.data.observation_bearing(reconstruction, sv, sf)
+            total = se3.compose(second_pose, se3.inverse(first_pose))
+            first_in_b = total[0] @ first_bearing
+            sine = host_geom.epipolar_loss(total[1], first_in_b, second_bearing)
+            return 1.0 - float(np.cos(np.arcsin(min(sine, 1.0))))
+        point = self.triangulate_landmark(reconstruction, landmark)
+        if point is None:
+            return 2.0
+        return 1.0 - float(host_geom.transform_bearing(pose, point) @ bearing)
+
+    def merge_landmarks_dedup(self, reconstruction, landmark_a, landmark_b):
+        """Merge two landmarks that may share views (lib.rs:2818-2872):
+        for every shared view, split off the observation with the worse
+        ``observation_loss``; abort (returning None) if any split would
+        empty a landmark, else merge unconditionally."""
+        self._flush_pending()
+        obs_a = self.data.landmark(reconstruction, landmark_a).observations
+        obs_b = self.data.landmark(reconstruction, landmark_b).observations
+        dups = [(v, (fa, obs_b[v])) for v, fa in obs_a.items() if v in obs_b]
+        success = True
+        for view, observations in dups:
+            # The reference's max_by_key keeps the last maximum on ties.
+            loss0 = self.observation_loss(reconstruction, view, observations[0])
+            loss1 = self.observation_loss(reconstruction, view, observations[1])
+            worst = observations[1] if loss1 >= loss0 else observations[0]
+            if not self.data.split_observation(reconstruction, view, worst):
+                # Splitting would empty the landmark: keep splitting the
+                # remaining dups for consistency but abort the merge.
+                success = False
+        if success:
+            return self.data.merge_landmarks(reconstruction, landmark_a, landmark_b)
+        return None
+
+    def is_landmark_robust_without_view(self, reconstruction, landmark, without_view):
+        """Robustness predicate ignoring one view (lib.rs:3003-3027): any
+        pair of remaining observations with incidence cosine distance above
+        the minimum."""
+        self._flush_pending()
+        obs = [o for o in self.data.landmark_observations(reconstruction, landmark) if o[0] != without_view]
+        return self._any_incident_pair(
+            self._world_bearings(reconstruction, obs),
+            self.settings.robust_observation_incidence_minimum_cosine_distance,
+        )
+
+    def triangulate_landmark_robust_without_view(self, reconstruction, landmark, without_view):
+        """(lib.rs:3029-3044)"""
+        if not self.is_landmark_robust_without_view(reconstruction, landmark, without_view):
+            return None
+        pb = self.data.landmark_pose_bearings_without_view(reconstruction, landmark, without_view)
         return self.triangulator([p for p, _ in pb], [b for _, b in pb])
 
     def is_observation_consistent(self, pose, bearing, others):
@@ -1530,6 +1619,17 @@ class VSlam:
         for view, feature in obs[1:]:
             self.data.split_observation(reconstruction, view, feature)
 
+    def regenerate_reconstruction(self, reconstruction):
+        """Clear and regenerate every view's constraints, then re-optimize
+        (lib.rs:2417-2435).  The pending BA pass is finished first, so the
+        constraints are generated from its poses."""
+        self._flush_pending()
+        rec = self.data.reconstructions[reconstruction]
+        rec.constraints.clear()
+        for view in list(rec.views):
+            self.record_view_constraints(reconstruction, view)
+        return self.optimize_reconstruction(reconstruction)
+
     # -- sanity check (lib.rs:3060-3094) -----------------------------------------------
     def sanity_check(self, reconstruction) -> list:
         """Invariant audit of view<->landmark backreferences; returns the
@@ -1566,3 +1666,63 @@ class VSlam:
         for p in problems:
             log.error("sanity: %s", p)
         return problems
+
+    # -- normalization + export (lib.rs:2241-2340) ----------------------------------------
+    def normalize_reconstruction(self, reconstruction):
+        """Move the first view to the origin and scale the reconstruction
+        so that the first view's robust landmarks lie at a mean distance of
+        1."""
+        self._flush_pending()
+        rec = self.data.reconstructions[reconstruction]
+        if not rec.views:
+            return
+        first_view = next(iter(rec.views.values()))
+        distances = []
+        for landmark in first_view.landmarks:
+            point = self.triangulate_landmark_robust(reconstruction, landmark)
+            p = host_geom.point_of(point) if point is not None else None
+            if p is None:
+                continue
+            cam = se3.apply(first_view.pose, p)
+            distances.append(float(np.linalg.norm(cam)))
+        if not distances:
+            return
+        mean_distance = float(np.mean(distances))
+        if not np.isfinite(mean_distance) or mean_distance <= 0:
+            return
+        rescale = 1.0 / mean_distance
+        transform = se3.inverse(first_view.pose)
+        for view in rec.views.values():
+            r, t = se3.compose(view.pose, transform)
+            view.pose = (r, t * rescale)
+        for constraint in rec.constraints.values():
+            constraint.poses = tuple((r, t * rescale) for r, t in constraint.poses)
+
+    def export_reconstruction(self, reconstruction, path, camera_faces: bool = True):
+        """Write the reconstruction's robust landmarks (colored by their
+        first observation) and its cameras as an ASCII PLY file."""
+        from .export import export_ply
+
+        self._flush_pending()
+        rec = self.data.reconstructions[reconstruction]
+        points, colors = [], []
+        for landmark in rec.landmarks:
+            hp = self.triangulate_landmark_robust(reconstruction, landmark)
+            p = host_geom.point_of(hp) if hp is not None else None
+            if p is None:
+                continue
+            view, feature = next(iter(self.data.landmark(reconstruction, landmark).observations.items()))
+            points.append(p)
+            colors.append(self.data.observation_color(reconstruction, view, feature))
+        cameras = []
+        for view in rec.views.values():
+            c2w = se3.inverse(view.pose)
+            cameras.append(
+                dict(
+                    optical_center=se3.apply(c2w, np.zeros(3)),
+                    up_direction=se3.rotate(c2w, np.array([0.0, -1.0, 0.0])),
+                    forward_direction=se3.rotate(c2w, np.array([0.0, 0.0, 1.0])),
+                    focal_length=0.05,
+                )
+            )
+        export_ply(path, points, colors, cameras, camera_faces)

@@ -3,7 +3,7 @@ them, and the entry points' device default, against cv_tpu.
 
 * The eager top-level names (public attributes that are not modules) equal
   cv_tpu's; every cv_tpu subpackage and top-level module resolves lazily on
-  the port except ``parallel`` and ``video``, which are still to port.
+  the port except ``parallel``, which is still to port.
 * ``CameraSpecification`` and ``WorldToWorld.from_camera_poses`` on seeded
   float64 inputs, within 1e-12 of cv_tpu's.
 * ``DeviceExtractor``, ``FastAkazeExtractor``, ``BatchConsensus`` and
@@ -29,7 +29,7 @@ from cv_tpu_torch.akaze import DeviceExtractor, FastAkazeExtractor
 from cv_tpu_torch.consensus import BatchConsensus
 from cv_tpu_torch.sfm import VSlam
 
-NOT_PORTED = {"parallel", "video"}
+NOT_PORTED = {"parallel"}
 
 
 def _eager_names(pkg):
