@@ -8,10 +8,15 @@ Drives the port's main paths:
   256, 512).extract`` -> Lowes-ratio 0.5 Hamming matching of consecutive
   frames -> eight-point ``BatchConsensus(threshold=0.1, hypotheses=512)``
   on pair 0 in float64;
+* the exact extractor ``AkazeExtractor`` (the engine's default, as in
+  cv_tpu) on the KITTI pair at full resolution, at ``Akaze.sparse()`` and
+  ``Akaze()``, with ``match_descriptors``; the apps ``kpdraw`` and the
+  tutorials' chapters 2-5 on it;
 * the SfM engine, frame by frame through ``VSlam.add_frame``, on the
   repo's "vslam-sandbox end-to-end SfM" configuration (bench.py:569-643):
   12 rendered 512x640 star-field frames, ``FastAkazeExtractor`` at 1024
-  features, the settings below, nothing cut;
+  features (passed as ``extractor_cls``, as bench.py does), the settings
+  below, nothing cut;
 * the dense, engine-budget AKAZE configuration: bench.py's ``dense_anchor``
   (``DeviceExtractor(Akaze(), 2048, 4096, dedup_scan_cap=8192)`` on the
   KITTI pair, B=2, default threshold 0.001), which takes the group
@@ -20,12 +25,13 @@ Drives the port's main paths:
   as the engine builds it at its default ``tracking_features``;
 * the SfM engine on bench.py's loop-closure scenario (bench.py:646-698):
   23 rendered 512x640 frames, two segments that form two reconstructions
-  and three bridge frames that merge them;
+  and three bridge frames that merge them (``FastAkazeExtractor`` too);
 * the vslam-sandbox app (``cv_tpu_torch.apps.vslam_sandbox.main``, the
   counterpart of the Rust reference's ``vslam-sandbox``) at its own
-  defaults: ``VSlamSettings()`` with no settings file (8192 features, 1024
-  graph-BA iterations, patience 100,000 / 65,536) and the app's consensus
-  budgets (16,384 / 8,192 hypotheses, two refit rounds of 1,024), on
+  defaults: the exact extractor, ``VSlamSettings()`` with no settings file
+  (8192 features, 1024 graph-BA iterations, patience 100,000 / 65,536) and
+  the app's consensus budgets (16,384 / 8,192 hypotheses, two refit rounds
+  of 1,024), on
   ``SANDBOX``'s rendered 1080x1920 frames written as PNGs; run 1 maps the
   first frames and saves vslam.cvr, run 2 resumes from it;
 * the retired describe modes ``'pepatch'`` and ``'ptiles'`` (registered by
@@ -40,9 +46,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      nvcc per source, all started together;
   3. hold each kernel against its plain PyTorch version at the main paths'
      shapes and time both: the select kernel, its patch form, the group
-     select (zero rows included), the dedup scan (on the dense candidates
-     and on ``dedup_adversarial``'s set, the cache in shared and in global
-     memory, and at a cap above the shared limit) and the fused describe
+     select (zero rows included), the dedup scan (its keep mask and its
+     slot output, on the dense candidates and on ``dedup_adversarial``'s
+     set, the cache in shared and in global memory, and at a cap above the
+     shared limit) and the fused describe
      bitwise (the fused describe also within its stated gates: ok flags
      equal, angles within 1e-5 rad, >= 99% of word rows bitwise equal, no
      row more than 16 of 486 bits off); the pose kernels' branch-free
@@ -81,6 +88,18 @@ Phases, in order; any failed check raises and the script exits non-zero:
   4. drive the KITTI path once with the launch counters at zero: gates
      [399, 343] keypoints, 11 matches, 11 inliers, the select kernel
      launched twice and the dedup kernel once per extract;
+  4b. the exact extractor on the KITTI pair at full size, each threshold
+     with the counters at zero: [399, 343] keypoints and 11
+     ``match_descriptors`` matches at ``Akaze.sparse()``, [3425, 2908] at
+     ``Akaze()`` (its word checksums printed beside cv_tpu's pinned
+     31033516 / 113943370), the dedup kernel once an extract and no describe
+     kernel, the extract ms a frame; the scan's calls recorded for phase 7;
+  4c. the apps with the counters at zero: ``kpdraw.main`` at threshold 0.01
+     on frame 0 (399 keypoints; the PNG decodes to the crosses at the
+     extractor's points), tutorial chapters 2-5 (chapter 2's PNG decodes to
+     its canvas, chapter 3 finds 3425 keypoints, chapters 4 and 5 the same
+     symmetric matches, chapter 5 prints its inliers among them), one scan
+     an extract;
   5. drive the SfM engine: one warm pass, then one timed pass with the
      counters at zero, each with a fresh engine: one reconstruction of all
      12 frames, ATE / trajectory extent < 0.02 after Umeyama alignment,
@@ -111,22 +130,25 @@ Phases, in order; any failed check raises and the script exits non-zero:
      is its robust landmarks plus 5 a camera, each new reconstruction's
      first view at identity after its normalize, ``vslam.cvr`` equal to a
      save of the live state; run 2 loads run 1's checkpoint, whose arrays equal a save
-     of run 1's live state, with its intrinsics on the card; the launches of
-     #4, the scan, A, B and C, the phase times (extract, init,
-     registration, BA+filter, normalize, export, save, load, PNG decode a
-     frame), and A's, B's and C's calls replayed and held to plain as the
-     SfM path's are; the #4 and scan calls are replayed with phase 7's;
+     of run 1's live state, with its intrinsics on the card; the exact
+     extractor's launches (the scan once a frame over every candidate, its
+     steps printed; no describe kernel), A's, B's and C's, the phase times
+     (extract, init, registration, BA+filter, normalize, export, save,
+     load, PNG decode a frame), and A's, B's and C's calls replayed and held
+     to plain as the SfM path's are; the scan calls are replayed with phase
+     7's;
   7. drive the dense path, each run with the counters at zero: keypoint
      counts within bench.py's tolerance of [3425, 2908], the group select
      launched twice and the dedup kernel once; the ``'pfused'`` and
      ``'pallas'`` runs give the same counts and words within the fused
      gates; ``FastAkazeExtractor`` at 8192 features takes the group path
      and finds frame 0's count; then every select call of the KITTI path
-     and of the SfM warm pass, every dedup call of the KITTI, SfM warm,
-     merge, sandbox and dense runs, every group-select call of the
-     sandbox, dense and engine-budget runs and the fused describe's call of the ``'pfused'``
-     run (recorded where the extractor binds the wrappers, the counts
-     handed on), replayed: bitwise to the plain version, summed device time
+     and of the SfM warm pass, every dedup call of the KITTI, exact, SfM
+     warm, merge, sandbox and dense runs (keep mask and slot output), every
+     group-select call of the dense and engine-budget runs and the fused
+     describe's call of the ``'pfused'`` run (recorded where the extractor
+     binds the wrappers, the counts handed on), replayed: bitwise to the
+     plain version, summed device time
      per path, the selects' byte bounds (the group select's and the fused
      describe's also at 32 bytes a distinct plane sector), the scan's us a
      step and its chain floor;
@@ -139,7 +161,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      run (``runs.py``) with the counters at zero, each of its kernels
      launched;
   9. hold the card's output against the port's CPU path on small inputs:
-     every word row equal;
+     every word row equal (the fast path), at least 99% (the group
+     describe, and the exact extractor on a KITTI crop, row for row); print
+     the exact extract ms a frame;
   10. time warm extract+match, each stage, the dedup scan and consensus.
 No main-path run may call a kernel's plain version.  The line before the
 last is the per-kernel JSON record; the last line is ``{"ok": true,
@@ -1308,6 +1332,31 @@ def dedup_adversarial(seed=0, c=192):
     return [x, y, x + shift, y + shift, cols["r"], cols["cls"], size2, valid, n_steps]
 
 
+def scan_steps(args):
+    """A dedup call's steps per frame: its ``n_steps``, or the cap ``C``
+    when the call passes none (the exact extractor scans every candidate)."""
+    import torch
+
+    if len(args) > 8 and args[8] is not None:
+        return args[8].to(torch.int32)
+    b, c = args[0].shape
+    return torch.full((b,), c, dtype=torch.int32, device=args[0].device)
+
+
+def scan_both(args, kw=None, **extra):
+    """A dedup call's keep mask and slot output from the kernel and from the
+    plain version on the same inputs, and whether both are bitwise equal."""
+    import torch
+
+    from cv_tpu_torch.akaze import extrema
+
+    kw = {**(kw or {}), **extra, "with_slots": True}
+    got = extrema.dedup_scan_device(*args, **kw)
+    ref = extrema.dedup_scan_plain(*args[:8], scan_steps(args), with_slots=True)
+    torch.cuda.synchronize()
+    return got, ref, all(torch.equal(g, r) for g, r in zip(got, ref))
+
+
 def dedup_floor(args):
     """Launch the dedup scan's chain floor (``cv_dedup_scan_floor``: the
     kernel's steps without the cache work) on a call's arguments, prepared
@@ -1320,7 +1369,7 @@ def dedup_floor(args):
 
     floats = [t.contiguous() for t in args[:5]]
     cls, s2, ok = args[5].to(torch.int32).contiguous(), args[6].contiguous(), args[7].contiguous()
-    steps = args[8].to(torch.int32).contiguous()
+    steps = scan_steps(args).contiguous()
     b, c = floats[0].shape
     out = torch.empty((b, c), dtype=torch.bool, device=floats[0].device)
     err = kernels.function("dedup_scan", "cv_dedup_scan_floor", extrema._DEDUP_ARGS)(
@@ -1330,12 +1379,43 @@ def dedup_floor(args):
     return out
 
 
+def plain_in_batches(calls, batch=4):
+    """The plain scan's keep mask and slot output for each recorded dedup
+    call, ``batch`` calls at a time as one batch of frames: the plain loop
+    costs the same a step for one frame as for several, and frames are
+    independent, so each call's candidates are padded with invalid ones to
+    the group's longest cap (changing nothing) and its rows cut back."""
+    import torch
+
+    from cv_tpu_torch.akaze import extrema
+
+    out = []
+    for start in range(0, len(calls), batch):
+        group = [args for args, _ in calls[start:start + batch]]
+        cap = max(a[0].shape[1] for a in group)
+
+        def stacked(i):
+            return torch.cat([torch.nn.functional.pad(a[i], (0, cap - a[i].shape[1])) for a in group])
+
+        mask, slots = extrema.dedup_scan_plain(*(stacked(i) for i in range(8)),
+                                               torch.cat([scan_steps(a) for a in group]), with_slots=True)
+        row = 0
+        for a in group:
+            b, c = a[0].shape
+            out.append((mask[row:row + b, :c], slots[row:row + b, :c]))
+            row += b
+    return out
+
+
 def replay_dedup(paths):
     """Each recorded dedup call (``paths``: path -> [(args, kwargs)]) held
-    bitwise to the plain version, then timed in a CUDA graph (``device_ms``)
-    with its chain floor beside it.  Per path: calls, the steps of the chain
-    (the frame batch's longest prefix, summed over calls), the summed device
-    ms and us a step of the kernel and of its floor."""
+    bitwise to the plain version, its keep mask and its slot output (the
+    plain version run on a path's calls four at a time,
+    ``plain_in_batches``), then timed as it was called in a CUDA graph
+    (``device_ms``) with its chain floor beside it.  Per path: calls, the
+    steps of the chain (the frame batch's longest prefix, summed over
+    calls), the summed device ms and us a step of the kernel and of its
+    floor."""
     import torch
 
     from cv_tpu_torch.akaze import extrema
@@ -1343,17 +1423,18 @@ def replay_dedup(paths):
     out = {}
     for path, calls in paths.items():
         rec = dict(calls=len(calls), steps=0, ms=0.0, floor_ms=0.0)
-        for j, (args, kw) in enumerate(calls):
-            got, ref = extrema.dedup_scan_device(*args, **kw), extrema.dedup_scan_plain(*args)
+        for j, ((args, kw), ref) in enumerate(zip(calls, plain_in_batches(calls))):
+            got = extrema.dedup_scan_device(*args, **{**kw, "with_slots": True})
             torch.cuda.synchronize()
-            require(torch.equal(got, ref), f"dedup {path} call {j}: bitwise equal to the plain version")
-            rec["steps"] += int(args[8].max())
+            require(all(torch.equal(g, r) for g, r in zip(got, ref)),
+                    f"dedup {path} call {j}: mask and slots bitwise equal to the plain version")
+            rec["steps"] += int(scan_steps(args).max())
             rec["ms"] += device_ms(lambda a=args, kw=kw: extrema.dedup_scan_device(*a, **kw), iters=3)
             rec["floor_ms"] += device_ms(lambda a=args: dedup_floor(a), iters=3)
         steps = max(rec["steps"], 1)
         rec.update(us_per_step=rec["ms"] * 1e3 / steps, floor_us_per_step=rec["floor_ms"] * 1e3 / steps)
         out[path] = rec
-        print(f"engine-call replay dedup_scan {path}: {rec['calls']} calls bitwise equal to plain, "
+        print(f"engine-call replay dedup_scan {path}: {rec['calls']} calls bitwise equal to plain (mask and slots), "
               f"{rec['steps']} steps, summed device {rec['ms']:.4f} ms ({rec['us_per_step']:.4f} us a step); "
               f"chain floor {rec['floor_ms']:.4f} ms ({rec['floor_us_per_step']:.4f} us a step)")
     return out
@@ -1443,8 +1524,13 @@ def check_dedup_kernel(dev, seed, dense_args):
     forced = extrema.dedup_scan_device(*dense_args, max_shared_slots=0)
     torch.cuda.synchronize()
     require(torch.equal(forced, ref), "dedup kernel with its cache forced to global memory bitwise equal to plain")
+    for slots in (None, 0):
+        both = scan_both(dense_args, max_shared_slots=slots)
+        require(both[2] and torch.equal(both[0][0], ref),
+                f"dedup kernel's mask and slot output bitwise equal to plain on the dense candidates "
+                f"(max_shared_slots={slots})")
     print(f"dedup dense candidates: B={len(steps)} cap {cap} steps {steps}: bitwise equal with the cache "
-          f"in shared and in global memory, {got.sum(dim=1).tolist()} survivors")
+          f"in shared and in global memory, the slot output too, {got.sum(dim=1).tolist()} survivors")
     kms, pms = alternate(run_k, run_p, lambda fn: wall_ms(fn, reps=1)[0])
     print(f"dedup dense: kernel {kms:.3f} ms, plain {pms:.3f} ms (host clock, plain-kernel-kernel-plain)")
 
@@ -1457,8 +1543,10 @@ def check_dedup_kernel(dev, seed, dense_args):
         torch.cuda.synchronize()
         require(torch.equal(got_adv, ref), f"dedup kernel bitwise equal to plain on the adversarial set "
                                            f"(max_shared_slots={slots})")
+        require(scan_both(adv, max_shared_slots=slots)[2], f"dedup kernel's mask and slot output bitwise equal to "
+                                                          f"plain on the adversarial set (max_shared_slots={slots})")
     print(f"dedup adversarial set B=3 cap {adv[0].shape[1]}: bitwise equal with the cache in shared and in global "
-          f"memory, {ref.sum(dim=1).tolist()} survivors")
+          f"memory, the slot output too, {ref.sum(dim=1).tolist()} survivors")
 
     rng = np.random.default_rng(seed + 11)
     b, c = 2, DEDUP_GLOBAL_CAP
@@ -1473,7 +1561,9 @@ def check_dedup_kernel(dev, seed, dense_args):
     got2, ref = extrema.dedup_scan_device(*args), extrema.dedup_scan_plain(*args)
     torch.cuda.synchronize()
     require(torch.equal(got2, ref), f"dedup kernel bitwise equal to plain at cap {c} (global-memory cache)")
-    print(f"dedup random B={b} cap {c} (global-memory cache): bitwise equal, {got2.sum(dim=1).tolist()} survivors")
+    require(scan_both(args)[2], f"dedup kernel's mask and slot output bitwise equal to plain at cap {c}")
+    print(f"dedup random B={b} cap {c} (global-memory cache): bitwise equal, the slot output too, "
+          f"{got2.sum(dim=1).tolist()} survivors")
     # Bound: every input read once and the mask written; operations, at
     # least ~8 a step for each cache slot, the cache growing to the
     # survivors (half of them on average over the steps).
@@ -1814,18 +1904,18 @@ def sandbox_hooks(dev):
             setattr(owner, attr, raw)
 
 
-def sandbox_phase(dev, counters, plains, tally, describe_calls, scan_calls):
+def sandbox_phase(dev, counters, plains, tally, scan_calls):
     """Phase 6b: the vslam-sandbox app through ``main`` at its defaults,
     run 1 then run 2 resuming from run 1's checkpoint, each with the
-    counters at zero; the gates of the module docstring.  Records the group
-    select's and the dedup scan's calls into ``describe_calls`` and
+    counters at zero; the gates of the module docstring.  The engine takes
+    its default, the exact extractor: one dedup scan a frame over every
+    candidate, no describe kernel.  Records the dedup scan's calls into
     ``scan_calls`` (replayed in phase 7) and replays A's, B's and C's calls
     on their own.  Returns per run: seconds, launches, phase ms, the median
     PNG decode ms."""
     import numpy as np
     import torch
 
-    from cv_tpu_torch.akaze import descriptors as desc_mod
     from cv_tpu_torch.akaze import extrema
     from cv_tpu_torch.akaze.extract import load_gray
     from cv_tpu_torch.apps import vslam_sandbox as sandbox_app
@@ -1861,7 +1951,6 @@ def sandbox_phase(dev, counters, plains, tally, describe_calls, scan_calls):
         out_dir, argv = sandbox_argv(work, run, sb_intr, frames)
         png_mod.unfilter.calls = 0
         with sandbox_hooks(dev) as hooks, main_path(counters, plains + [(png_mod, "unfilter_plain")]) as sb_run, \
-                recording(desc_mod, "select_groups", keep_planes) as describe_calls["select_groups"][f"sandbox {run}"], \
                 recording(extrema, "dedup_scan_device") as scan_calls[f"sandbox {run}"], \
                 record_pose_calls() as sb_pose:
             t0 = time.perf_counter()
@@ -1880,7 +1969,9 @@ def sandbox_phase(dev, counters, plains, tally, describe_calls, scan_calls):
               f"{launches['select_samples']}, select_fused {launches['select_fused']}; compiled unfilter calls "
               f"{png_mod.unfilter.calls}; plain-version calls {sb_run['plain']}")
         require(png_mod.unfilter.calls == len(frames), f"sandbox {run}: {png_mod.unfilter.calls} compiled decodes")
-        expect = dict(select_groups=2 * len(frames), dedup_scan=len(frames))
+        scan_steps_run = [int(scan_steps(args).max()) for args, _ in scan_calls[f"sandbox {run}"]]
+        print(f"sandbox {run}: the exact extractor's dedup scan, steps a frame (every candidate) {scan_steps_run}")
+        expect = dict(select_groups=0, select_samples=0, select_fused=0, dedup_scan=len(frames))
         if run == "run1":
             expect.update(single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,))
         tally(sb_run, **expect)
@@ -1964,6 +2055,7 @@ def run_sfm(dev, n_frames=SFM_FRAMES, timed_phases=False):
     engine phase when ``timed_phases``."""
     import torch
 
+    from cv_tpu_torch.akaze import FastAkazeExtractor
     from cv_tpu_torch.apps.synth import render_sequence
     from cv_tpu_torch.camera import CameraIntrinsics, CameraIntrinsicsK1Distortion
     from cv_tpu_torch.sfm import VSlam, VSlamSettings
@@ -1971,7 +2063,7 @@ def run_sfm(dev, n_frames=SFM_FRAMES, timed_phases=False):
     images, (fx, fy, cx, cy), true_poses = render_sequence(
         n_frames=n_frames, height=512, width=640, n_points=900, seed=0
     )
-    engine = VSlam(settings=VSlamSettings(**SFM_SETTINGS), seed=0, device=dev)
+    engine = VSlam(settings=VSlamSettings(**SFM_SETTINGS), seed=0, extractor_cls=FastAkazeExtractor, device=dev)
     intr = CameraIntrinsicsK1Distortion.new(CameraIntrinsics.from_values(fx, fy, cx, cy, device=dev), 0.0)
     phase_ms = {"extract": 0.0, "init": 0.0, "registration": 0.0, "ba+filter": 0.0}
     if timed_phases:
@@ -2017,6 +2109,7 @@ def run_merge(dev, n_seg=MERGE_SEGMENT, seed=MERGE_SEED):
     ``(engine, reconstructions after each frame, merges, seconds)``."""
     import torch
 
+    from cv_tpu_torch.akaze import FastAkazeExtractor
     from cv_tpu_torch.apps.synth import render_sequence
     from cv_tpu_torch.camera import CameraIntrinsics, CameraIntrinsicsK1Distortion
     from cv_tpu_torch.sfm import VSlam, VSlamSettings
@@ -2026,7 +2119,7 @@ def run_merge(dev, n_seg=MERGE_SEGMENT, seed=MERGE_SEED):
     images, (fx, fy, cx, cy), _ = render_sequence(n_frames=n_total, height=512, width=640, n_points=1200, seed=seed)
     mid = n_seg + gap // 2
     order = list(range(n_seg)) + list(range(n_seg + gap, n_total)) + [mid - 1, mid, mid + 1]
-    engine = VSlam(settings=VSlamSettings(**MERGE_SETTINGS), seed=0, device=dev)
+    engine = VSlam(settings=VSlamSettings(**MERGE_SETTINGS), seed=0, extractor_cls=FastAkazeExtractor, device=dev)
     intr = CameraIntrinsicsK1Distortion.new(CameraIntrinsics.from_values(fx, fy, cx, cy, device=dev), 0.0)
     merges = []
     real_merge = engine.try_merge_reconstructions
@@ -2139,34 +2232,103 @@ def staged(extractor, images, mode, reps):
     return fs, {n: statistics.median(v) for n, v in stage_ms.items()}, scan
 
 
-def main():
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--seed", type=int, default=0)
-    args = parser.parse_args()
-
+def exact_path(dev, counters, plains, tally, scan_calls):
+    """Phase 4b: ``AkazeExtractor`` on the KITTI pair at full size, at
+    ``Akaze.sparse()`` (the Rust reference's goldens [399, 343] keypoints and
+    11 ``match_descriptors`` matches) and at ``Akaze()`` (cv_tpu's pinned
+    [3425, 2908]; the word checksums printed beside its 31033516 /
+    113943370), each pair with the counters at zero: the dedup scan once an
+    extract and no describe kernel.  Records the scan's calls as path
+    ``exact`` (replayed in phase 7: keep mask and slot output bitwise to the
+    plain version).  Returns the warm extract ms a frame."""
     import numpy as np
-    import torch
 
-    if not torch.cuda.is_available():
-        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this runs only on a CUDA card")
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from cv_tpu_torch import kernels
-    from cv_tpu_torch.akaze import Akaze, DeviceExtractor, FastAkazeExtractor, extrema, load_gray, to_gray_f32
-    from cv_tpu_torch.akaze import descriptors as desc_mod
+    from cv_tpu_torch.akaze import Akaze, AkazeExtractor, extrema, load_gray
+    from cv_tpu_torch.matching import match_descriptors
+    from cv_tpu_torch.utils import kitti_pair
+
+    frames = [load_gray(p) for p in kitti_pair()]
+    exact_ms = {}
+    for label, cfg, want in (("sparse", Akaze.sparse(), KITTI_KEYPOINTS), ("default", Akaze(), DENSE_KEYPOINTS)):
+        ex = AkazeExtractor(cfg, device=dev)
+        with main_path(counters, plains) as run, recording(extrema, "dedup_scan_device") as calls:
+            out = [ex.extract(img) for img in frames]
+        scan_calls.setdefault("exact", []).extend(calls)
+        counts = [len(kp["response"]) for kp, _ in out]
+        sums = [int(np.asarray(w, np.uint64).sum() % 2**31) for _, w in out]
+        cands = [int(args[0].shape[1]) for args, _ in calls]
+        exact_ms[label] = [round(statistics.median(wall_ms(lambda img=img: ex.extract(img), reps=3)), 3)
+                           for img in frames]
+        line = (f"exact {label} (threshold {cfg.detector_threshold}): keypoints {counts} (goldens {want}), candidates "
+                f"scanned {cands}, word checksums {sums}")
+        if label == "sparse":
+            ia, _ = match_descriptors(out[0][1], out[1][1], device=dev)
+            line += f", match_descriptors {len(ia)} matches (golden {KITTI_MATCHES})"
+        else:
+            line += " (cv_tpu's pinned [31033516, 113943370])"
+        print(line + f"; extract ms a frame {exact_ms[label]}; launches {run['launches']}")
+        tally(run, dedup_scan=len(frames), select_samples=0, select_groups=0, select_fused=0)
+        require(counts == want, f"exact {label}: keypoints {counts}, goldens {want}")
+        if label == "sparse":
+            require(len(ia) == KITTI_MATCHES, f"exact sparse: {len(ia)} matches")
+        for kp, words in out:
+            require(words.shape == (len(kp["response"]), 16) and words.dtype == np.uint32, "exact words")
+            require(np.isfinite(kp["point"]).all() and np.isfinite(kp["angle"]).all(), "exact finite keypoints")
+            require(bool(np.all(np.diff(kp["response"]) <= 0)), "exact keypoints sorted by response")
+    return exact_ms
+
+
+def apps_phase(dev, counters, plains, tally):
+    """Phase 4c: ``kpdraw.main`` at threshold 0.01 on KITTI frame 0 (its PNG
+    decodes to the crosses at the exact extractor's points, 399 of them) and
+    tutorial chapters 2-5 (chapter 2's PNG decodes to its canvas, chapter 3
+    finds 3425 keypoints, chapters 4 and 5 the same symmetric matches,
+    chapter 5 its inliers among them), with the counters at zero: one scan
+    an extract, no describe kernel."""
+    import numpy as np
+
+    from cv_tpu_torch.akaze import load_gray
+    from cv_tpu_torch.apps import kpdraw, tutorials
+    from cv_tpu_torch.utils import kitti_pair, read_png
+
+    work = os.path.join(os.path.dirname(os.path.abspath(__file__)), "_apps_run")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    frame0 = kitti_pair()[0]
+    t0 = time.perf_counter()
+    with main_path(counters, plains) as run:
+        kp = kpdraw.main(["--threshold", "0.01", frame0, os.path.join(work, "kpdraw.png")], device=dev)
+        canvas2 = tutorials.chapter2_random_draw(os.path.join(work, "chapter2.png"))
+        kp3 = tutorials.chapter3_akaze_extraction(os.path.join(work, "chapter3.png"), device=dev)
+        matches4 = tutorials.chapter4_feature_matching(os.path.join(work, "chapter4.png"), device=dev)
+        _, inliers5, matches5 = tutorials.chapter5_geometric_verification(device=dev)
+    seconds = time.perf_counter() - t0
+    print(f"apps: kpdraw {len(kp['response'])} keypoints; chapter 3 {len(kp3['response'])} keypoints; chapter 4 "
+          f"{len(matches4)} symmetric matches; chapter 5 {inliers5} inliers of {matches5} matches; {seconds:.3f} s; "
+          f"launches {run['launches']}")
+    tally(run, dedup_scan=6, select_samples=0, select_groups=0, select_fused=0)
+    require(len(kp["response"]) == KITTI_KEYPOINTS[0], f"kpdraw: {len(kp['response'])} keypoints")
+    drawn = read_png(os.path.join(work, "kpdraw.png"))
+    require(np.array_equal(drawn, kpdraw.render_crosses(load_gray(frame0), kp["point"])),
+            "kpdraw: the PNG decodes to the crosses at the extractor's points")
+    require(np.array_equal(read_png(os.path.join(work, "chapter2.png")), canvas2), "chapter 2: the PNG decodes")
+    require(len(kp3["response"]) == DENSE_KEYPOINTS[0], f"chapter 3: {len(kp3['response'])} keypoints")
+    require(read_png(os.path.join(work, "chapter4.png")).shape == (1024, 1392, 3), "chapter 4: the PNG decodes")
+    require(len(matches4) == matches5 > 0 and 8 <= inliers5 <= matches5,
+            f"chapters 4 and 5: {len(matches4)} / {matches5} matches, {inliers5} inliers")
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def kernel_counters():
+    """Every kernel wrapper's launch counter (row name -> wrapper), and
+    every plain version the wrappers call ((module, name) pairs, counted in
+    the main-path runs, where none may run)."""
+    from cv_tpu_torch.akaze import extrema
     from cv_tpu_torch.akaze import fused as fused_mod
     from cv_tpu_torch.akaze import select as select_mod
-    from cv_tpu_torch.camera import CameraIntrinsics
-    from cv_tpu_torch.consensus import BatchConsensus, Estimator
-    from cv_tpu_torch.core import Isometry3, camera_to_camera_residual
     from cv_tpu_torch.experiments import mldb_losers, probes
-    from cv_tpu_torch.experiments import runs as exp_runs
-    from cv_tpu_torch.matching import PAD_DISTANCE, distance_matrix, knn2
     from cv_tpu_torch.optimize import optimizers, resident
-    from cv_tpu_torch.solvers import eight_point
-    from cv_tpu_torch.utils import KITTI_INTRINSICS, kitti_pair
 
-    # Every kernel wrapper's launch counter, and every plain version the
-    # wrappers call (counted in the main-path runs, where none may run).
     counters = {
         "select_samples": select_mod.select_samples,
         "select_groups": select_mod.select_groups,
@@ -2191,6 +2353,40 @@ def main():
         (optimizers, "three_view_adaptive_optimize_l2"), (probes, "select_window_plain"),
         (probes, "take_along_plain"), (probes, "trig_probe_plain"), (probes, "bisect_plain"), (probes, "mxu_plain"),
     ]
+    return counters, plains
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this runs only on a CUDA card")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cv_tpu_torch import kernels
+    from cv_tpu_torch.akaze import (Akaze, AkazeExtractor, DeviceExtractor, FastAkazeExtractor, extrema, load_gray,
+                                    to_gray_f32)
+    from cv_tpu_torch.akaze import descriptors as desc_mod
+    from cv_tpu_torch.akaze import fused as fused_mod
+    from cv_tpu_torch.camera import CameraIntrinsics
+    from cv_tpu_torch.consensus import BatchConsensus, Estimator
+    from cv_tpu_torch.core import Isometry3, camera_to_camera_residual
+    from cv_tpu_torch.experiments import probes
+    from cv_tpu_torch.experiments import runs as exp_runs
+    from cv_tpu_torch.matching import PAD_DISTANCE, distance_matrix, knn2
+    from cv_tpu_torch.solvers import eight_point
+    from cv_tpu_torch.utils import KITTI_INTRINSICS, kitti_pair
+
+    counters, plains = kernel_counters()
+    t_start = time.perf_counter()
+
+    def clock(done):
+        """Print the script's elapsed seconds after phase ``done``."""
+        print(f"phase clock: {done} done at {time.perf_counter() - t_start:.1f} s")
     # Launches per kernel row: the main paths' (KITTI, SfM, dense) for rows
     # 1-8 and the dedup scan; the retired modes' and the experiments' runs
     # for the rest.  Rows that map to the select kernel count its launches
@@ -2230,6 +2426,7 @@ def main():
                 print(f"  ptxas: {line.strip()}")
     print(f"build all kernels: {time.perf_counter() - t_build:.2f} s wall")
 
+    clock("2 (build)")
     # -- 3. kernel against its plain version at the main paths' shapes ------
     select_records = check_select_kernels(dev, args.seed)
     pose_records = check_pose_kernels(dev, args.seed)
@@ -2244,6 +2441,7 @@ def main():
     del recorded
     exp_records = check_experiment_kernels(dev, args.seed)
 
+    clock("3")
     # -- 4. the KITTI path, once, with the counters at zero ------------------
     imgs = np.stack([to_gray_f32(load_gray(p)) for p in kitti_pair()] * (BATCH // 2))
     images = torch.as_tensor(imgs, device=dev)
@@ -2303,6 +2501,15 @@ def main():
         "pose rotation orthonormal",
     )
 
+    clock("4")
+    # -- 4b. the exact extractor on the KITTI pair, with the counters at zero
+    exact_ms = exact_path(dev, counters, plains, tally, scan_calls)
+    clock("4b")
+
+    # -- 4c. the apps: kpdraw and the tutorials, with the counters at zero --
+    apps_phase(dev, counters, plains, tally)
+    clock("4c")
+
     # -- 5. the SfM engine: a warm pass, then the timed main-path pass -------
     # The warm pass records the select's, the dedup scan's and A's, B's and
     # C's calls, so the timed pass runs as it would without them.
@@ -2336,6 +2543,7 @@ def main():
     for name, rec in engine_records.items():
         pose_records[name]["engine"] = rec
 
+    clock("5")
     # -- 6. the loop-closure merge, once, with the counters at zero ---------
     with main_path(counters, plains) as merge_run, \
             recording(extrema, "dedup_scan_device") as scan_calls["merge"]:
@@ -2358,13 +2566,15 @@ def main():
           select_samples=(2 * len(merge_counts),), dedup_scan=(len(merge_counts),))
     del merge_engine
 
+    clock("6")
     # -- 6b. the vslam-sandbox app at its own defaults ----------------------
     # The group select's calls (the sandbox; the dense path's default mode
     # and engine-budget extractor below) and the fused describe's
     # ('pfused'), recorded where the describe binds them.
     describe_calls = {"select_groups": {}, "select_fused": {}}
-    sandbox_phase(dev, counters, plains, tally, describe_calls, scan_calls)
+    sandbox_phase(dev, counters, plains, tally, scan_calls)
 
+    clock("6b")
     # -- 7. the dense path ---------------------------------------------------
     runs = {}
     for mode, expect in ((None, dict(select_groups=2, dedup_scan=1, select_samples=0)),
@@ -2432,12 +2642,11 @@ def main():
     # bitwise to its plain version and timed on the card.
     for path, want in (("kitti", 2), ("sfm", 2 * SFM_FRAMES)):
         require(len(select_calls[path]) == want, f"select: {len(select_calls[path])} {path} calls recorded")
-    for path, want in (("kitti", 1), ("sfm", SFM_FRAMES), ("merge", len(merge_counts)), ("dense", 4),
+    for path, want in (("kitti", 1), ("exact", 4), ("sfm", SFM_FRAMES), ("merge", len(merge_counts)), ("dense", 4),
                        ("sandbox run1", SANDBOX["run1"]), ("sandbox run2", SANDBOX["run2"])):
         require(len(scan_calls[path]) == want, f"dedup: {len(scan_calls[path])} {path} calls recorded")
     for name, path, want in (("select_groups", "dense", 2), ("select_groups", "engine", 2),
-                             ("select_groups", "sandbox run1", 2 * SANDBOX["run1"]),
-                             ("select_groups", "sandbox run2", 2 * SANDBOX["run2"]), ("select_fused", "pfused", 1)):
+                             ("select_fused", "pfused", 1)):
         got = len(describe_calls[name][path])
         require(got == want, f"{name}: {got} {path} calls recorded")
     select_records["select_samples"]["engine"] = replay_select(select_calls)
@@ -2446,6 +2655,7 @@ def main():
         select_records[name]["engine"] = rec
     del select_calls, scan_calls, describe_calls
 
+    clock("7")
     # -- 8. the retired describe modes and the experiments' runs ------------
     # 'pepatch' and 'ptiles' (registered by importing mldb_losers) at the
     # KITTI batch, against phase 4's 'pgather'; 'ptiles' on the dense pair,
@@ -2530,6 +2740,7 @@ def main():
     require(res["finite"], "exp_r3_mxu_probe: finite outputs")
     experiment("exp_r5_pfused trig", lambda: exp_runs.trig_run(dev, args.seed), {"trig_probe": "trig_probe"})
 
+    clock("8")
     # -- 9. the card against the port's CPU path on small inputs ------------
     rng = np.random.default_rng(args.seed + 3)
     crop = imgs[0, 128:384, 400:784]
@@ -2553,7 +2764,19 @@ def main():
         require(rows >= share, f"{name}: {rows:.4f} of word rows equal")
         print(f"cpu reference {name}: {int(vg.sum())} keypoints, max point diff "
               f"{dist.min(1).max():.2e} px, word rows equal {rows:.4f}")
+    # The exact extractor, row for row (its order is the reference's).
+    crop_u8 = np.ascontiguousarray(load_gray(kitti_pair()[0])[128:384, 400:784])
+    (kg, wg), (kr, wr) = (AkazeExtractor(Akaze(), device=d).extract(crop_u8) for d in (dev, "cpu"))
+    require(len(kg["response"]) == len(kr["response"]) > 10, f"exact crop: counts {len(kg['response'])} vs "
+                                                             f"{len(kr['response'])}")
+    diff = float(np.abs(kg["point"] - kr["point"]).max())
+    rows = float((wg == wr).all(1).mean())
+    require(diff < 1e-3 and rows >= 0.99, f"exact crop: point diff {diff}, word rows equal {rows}")
+    print(f"cpu reference exact KITTI crop 256x384: {len(kg['response'])} keypoints, max point diff {diff:.2e} px, "
+          f"word rows equal {rows:.4f}")
+    print("exact extract ms a frame (card, warm; median of 3): " + ", ".join(f"{k} {v}" for k, v in exact_ms.items()))
 
+    clock("9")
     # -- 10. timings -------------------------------------------------------
     for _ in range(2):
         extract_and_match(images)
@@ -2603,6 +2826,7 @@ def main():
         records.append(row(name, name, spec["replaces"], main_launches[name], pose_records[name]))
     for name, (source, replaces) in EXPERIMENT_KERNELS.items():
         records.append(row(name, source, replaces, main_launches[name], exp_records[name]))
+    clock("10")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -8,12 +8,14 @@ imports ``torch`` and never ``jax`` or ``cv_tpu``.
 Ported so far: the two-frame KITTI path — batched AKAZE extraction
 (:mod:`cv_tpu_torch.akaze.fast`), Lowes-ratio Hamming matching
 (:mod:`cv_tpu_torch.matching`), eight-point batched consensus
-(:mod:`cv_tpu_torch.consensus`, :mod:`cv_tpu_torch.solvers`) — and the SfM
-engine's frame-by-frame path (:mod:`cv_tpu_torch.sfm`) with its checkpoints
-and PLY export, and the ``vslam-sandbox`` app
-(:mod:`cv_tpu_torch.apps.vslam_sandbox`).  The hand-written
-kernels (``csrc/``) are the describe stage's sample select
-(:mod:`cv_tpu_torch.akaze.select`) and the three pose-optimizer loops
+(:mod:`cv_tpu_torch.consensus`, :mod:`cv_tpu_torch.solvers`) — the exact
+AKAZE extractor (:mod:`cv_tpu_torch.akaze.extract`, the engine's default),
+the SfM engine's frame-by-frame path (:mod:`cv_tpu_torch.sfm`) with its
+checkpoints and PLY export, and the apps ``vslam-sandbox``, ``kpdraw`` and
+the tutorials (:mod:`cv_tpu_torch.apps`).  The hand-written kernels
+(``csrc/``) are the describe stage's selects (:mod:`cv_tpu_torch.akaze.select`,
+:mod:`cv_tpu_torch.akaze.fused`), the dedup scan
+(:mod:`cv_tpu_torch.akaze.extrema`) and the three pose-optimizer loops
 (:mod:`cv_tpu_torch.optimize.resident`).
 """
 

@@ -2,11 +2,16 @@
 
 Port of ``cv_tpu/akaze/descriptors.py`` (reference
 scale_space_extrema.rs:157-288 and descriptors.rs).  The static tables are
-copies of the reference's NumPy host code.  The describe path is the
+copies of the reference's NumPy host code.  The batched describe path is the
 ``pgather``, ``pallas`` and ``pepatch`` branches of ``orient_mldb_onehot``
 and the group describe ``orient_mldb_groups``: both sample passes
 (orientation, then M-LDB) go through the hand-written select kernels of
-:mod:`.select`.
+:mod:`.select`.  ``orient_mldb_onehot``'s ``'highest'`` branch (a one-hot
+product in float32, exact with TF32 off) and the gather forms
+(``compute_orientations``/``compute_mldb_descriptors`` of the exact
+extractor, ``orientation_flat``/``orientation_padded``/``mldb_flat`` of the
+fast path's ``'gather'`` sampler) are plain tensor ops, as they are XLA ops
+in ``cv_tpu``.
 """
 
 from __future__ import annotations
@@ -289,15 +294,29 @@ def patch_anchor(xf, yf, hmax: int, wmax: int):
     return y0, x0
 
 
+def _upper(limit):
+    """A per-keypoint bound ``(K,)`` as a column, or a plane's as it is."""
+    return limit[:, None] if isinstance(limit, torch.Tensor) else limit
+
+
+def orientation_positions(xf, yf, scale, width, height):
+    """The 109-disc orientation sample positions ``(ix, iy)`` int32 (K,
+    109), rounded half away from zero and clamped to the plane (``width`` /
+    ``height``: ints or per-keypoint tensors): Rust's ``as usize`` saturates
+    negatives, and the border guard keeps the top in range."""
+    t = _orientation_device_tables(xf.device)
+    ox = round_half_away(xf[:, None] + t["di"][None, :] * scale[:, None]).to(torch.int32)
+    oy = round_half_away(yf[:, None] + t["dj"][None, :] * scale[:, None]).to(torch.int32)
+    ox = torch.minimum(ox.clamp(min=0), torch.as_tensor(_upper(width), device=xf.device) - 1)
+    oy = torch.minimum(oy.clamp(min=0), torch.as_tensor(_upper(height), device=xf.device) - 1)
+    return ox.to(torch.int32), oy.to(torch.int32)
+
+
 def orientation_offsets(xf, yf, scale, width, height, x0, y0, span: int):
     """The 109-disc orientation sample positions, clamped to the plane and
     then made relative to the window origin ``(y0, x0)`` of side ``span``:
     ``(rel_x, rel_y)`` int32 (K, 109)."""
-    t = _orientation_device_tables(xf.device)
-    ox = round_half_away(xf[:, None] + t["di"][None, :] * scale[:, None]).to(torch.int32)
-    oy = round_half_away(yf[:, None] + t["dj"][None, :] * scale[:, None]).to(torch.int32)
-    ox = torch.minimum(ox.clamp(min=0), (width - 1)[:, None])
-    oy = torch.minimum(oy.clamp(min=0), (height - 1)[:, None])
+    ox, oy = orientation_positions(xf, yf, scale, width, height)
     rel_x = torch.clamp(ox - x0[:, None], 0, span - 1).to(torch.int32)
     rel_y = torch.clamp(oy - y0[:, None], 0, span - 1).to(torch.int32)
     return rel_x, rel_y
@@ -309,11 +328,9 @@ def orientation_from_values(vo: torch.Tensor) -> torch.Tensor:
     return _orientation_from_samples(wt * vo[:, 0], wt * vo[:, 1])
 
 
-def mldb_offsets(xf, yf, scale, angle, width, height, x0, y0, span: int, pattern_size: int = 10):
-    """The rotated M-LDB sample positions for the unique offsets: ``(rel_x,
-    rel_y, ok, co, si)`` with positions rounded half away from zero,
-    ``ok`` = every sample inside the plane, then clamped to the plane and
-    made relative to the window origin ``(y0, x0)`` of side ``span``."""
+def _mldb_sample_positions(xf, yf, scale, angle, pattern_size):
+    """Rotated grid sample coords for the unique offsets: ``(x1, y1)`` int32
+    (K, U) rounded half away from zero, and ``co``/``si`` (K, 1)."""
     t = _mldb_device_tables(pattern_size, xf.device)
     co = torch.cos(angle)[:, None]
     si = torch.sin(angle)[:, None]
@@ -321,14 +338,30 @@ def mldb_offsets(xf, yf, scale, angle, width, height, x0, y0, span: int, pattern
     ks, ls = t["ks"][None, :], t["ls"][None, :]
     sy = yf[:, None] + (ls * co + ks * si) * sc
     sx = xf[:, None] + (-ls * si + ks * co) * sc
-    x1 = round_half_away(sx).to(torch.int32)
-    y1 = round_half_away(sy).to(torch.int32)
-    w_hi = (width - 1)[:, None]
-    h_hi = (height - 1)[:, None]
+    return round_half_away(sx).to(torch.int32), round_half_away(sy).to(torch.int32), co, si
+
+
+def mldb_positions(xf, yf, scale, angle, width, height, pattern_size: int = 10):
+    """``(x1, y1, ok, co, si)``: the M-LDB sample positions clamped to the
+    plane (``width`` / ``height``: ints or per-keypoint tensors), and ``ok``
+    = every sample inside it before the clamp (the reference drops a
+    keypoint with an out-of-bounds sample, descriptors.rs:131-140)."""
+    x1, y1, co, si = _mldb_sample_positions(xf, yf, scale, angle, pattern_size)
+    w_hi = torch.as_tensor(_upper(width), device=xf.device) - 1
+    h_hi = torch.as_tensor(_upper(height), device=xf.device) - 1
     oob = (x1 < 0) | (x1 > w_hi) | (y1 < 0) | (y1 > h_hi)
     ok = ~oob.any(dim=-1)
-    x1 = torch.minimum(x1.clamp(min=0), w_hi)
-    y1 = torch.minimum(y1.clamp(min=0), h_hi)
+    x1 = torch.minimum(x1.clamp(min=0), w_hi).to(torch.int32)
+    y1 = torch.minimum(y1.clamp(min=0), h_hi).to(torch.int32)
+    return x1, y1, ok, co, si
+
+
+def mldb_offsets(xf, yf, scale, angle, width, height, x0, y0, span: int, pattern_size: int = 10):
+    """The rotated M-LDB sample positions for the unique offsets: ``(rel_x,
+    rel_y, ok, co, si)`` with positions rounded half away from zero,
+    ``ok`` = every sample inside the plane, then clamped to the plane and
+    made relative to the window origin ``(y0, x0)`` of side ``span``."""
+    x1, y1, ok, co, si = mldb_positions(xf, yf, scale, angle, width, height, pattern_size)
     rel_x = torch.clamp(x1 - x0[:, None], 0, span - 1).to(torch.int32)
     rel_y = torch.clamp(y1 - y0[:, None], 0, span - 1).to(torch.int32)
     return rel_x, rel_y, ok, co, si
@@ -532,3 +565,134 @@ def orient_mldb_groups(planes, lvl, width, height, xf, yf, scale, valid, pattern
     words_p = _mldb_pack(vals[:, 0], vals[:, 1], vals[:, 2], co, si, pattern_size)
     back = p_of[inv]  # padded slot of each original keypoint
     return words_p[back][:k_in], ok_p[back][:k_in], angle_p[back][:k_in]
+
+
+# ---------------------------------------------------------------------------
+# The one-hot describe ('highest'): a float32 one-hot product per patch
+# ---------------------------------------------------------------------------
+
+
+def cut_patches_interleaved(stack, lvl, y0, x0, side: int = PATCH) -> torch.Tensor:
+    """``(K, 3, side, side)`` windows of a pixel-interleaved ``(L, Hp,
+    3 * Wp)`` stack (lane ``3 * x + channel``): one ``(side, 3 * side)`` slice
+    a keypoint, de-interleaved (a relayout; the values are the channel-major
+    cut's)."""
+    yy = (y0.long()[:, None] + torch.arange(side, device=stack.device))[:, :, None]
+    xx = (3 * x0.long()[:, None] + torch.arange(3 * side, device=stack.device))[:, None, :]
+    raw = stack[lvl.long()[:, None, None], yy, xx]  # (K, side, 3 * side)
+    return raw.reshape(raw.shape[0], side, side, 3).permute(0, 3, 1, 2)
+
+
+def _onehot_select(patch: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor) -> torch.Tensor:
+    """``vals[k, c, n] = patch[k, c, rel_y[k, n], rel_x[k, n]]`` as two
+    float32 one-hot contractions (column select, then row select).  Each sum
+    has one nonzero term, so the product is exact with TF32 off."""
+    side = patch.shape[-1]
+    iota = torch.arange(side, device=patch.device)
+    oh_col = (iota == rel_x[:, :, None].long()).to(patch.dtype)
+    oh_row = (iota == rel_y[:, :, None].long()).to(patch.dtype)
+    t = torch.einsum("knw,kchw->knch", oh_col, patch)
+    return torch.einsum("knh,knch->kcn", oh_row, t)
+
+
+def orient_mldb_onehot(planes, lvl, width, height, xf, yf, scale, pattern_size: int = 10, chunk: int = 128,
+                       interleaved: bool = False):
+    """Orientation then M-LDB words through one patch cut per keypoint and a
+    float32 one-hot product (``cv_tpu``'s ``orient_mldb_onehot`` in mode
+    ``'highest'``; ``interleaved``: ``'highest+inter'``, which cuts each
+    patch from the pixel-interleaved stack).  ``chunk`` keypoints at a time
+    bound the products' intermediates; the bits do not depend on it.
+    Returns ``(words (K, 16) int32, ok (K,), angle (K,))``."""
+    p = PATCH
+    if interleaved:
+        hmax, wmax = planes.shape[1], planes.shape[2] // 3
+    else:
+        hmax, wmax = planes.shape[2], planes.shape[3]
+    y0, x0 = patch_anchor(xf, yf, hmax, wmax)
+    words, oks, angles = [], [], []
+    for a in range(0, xf.shape[0], chunk):
+        c = slice(a, a + chunk)
+        if interleaved:
+            patch = cut_patches_interleaved(planes, lvl[c], y0[c], x0[c], p)
+        else:
+            patch = cut_patches(planes, lvl[c], y0[c], x0[c], p)
+        orel_x, orel_y = orientation_offsets(xf[c], yf[c], scale[c], width[c], height[c], x0[c], y0[c], p)
+        angle = orientation_from_values(_onehot_select(patch[:, 1:], orel_x, orel_y))
+        rel_x, rel_y, ok, co, si = mldb_offsets(xf[c], yf[c], scale[c], angle, width[c], height[c], x0[c], y0[c],
+                                                p, pattern_size)
+        vals = _onehot_select(patch, rel_x, rel_y)
+        words.append(_mldb_pack(vals[:, 0], vals[:, 1], vals[:, 2], co, si, pattern_size))
+        oks.append(ok)
+        angles.append(angle)
+    if not words:
+        k = xf.new_zeros((0, 16), dtype=torch.int32)
+        return k, xf.new_zeros((0,), dtype=torch.bool), xf.new_zeros((0,))
+    return torch.cat(words), torch.cat(oks), torch.cat(angles)
+
+
+# ---------------------------------------------------------------------------
+# Gather forms: the exact extractor's per-group planes and the fast path's
+# flat buffers
+# ---------------------------------------------------------------------------
+
+
+def orientation_samples(lx, ly, sub, xf, yf, s):
+    """The weighted orientation samples ``(res_x, res_y)`` (K, 109) of
+    :func:`compute_orientations`."""
+    ix, iy = orientation_positions(xf, yf, s, lx.shape[-1], lx.shape[-2])
+    sub_b, ix, iy = sub.long()[:, None], ix.long(), iy.long()
+    wt = _orientation_device_tables(lx.device)["wt"][None, :]
+    return wt * lx[sub_b, iy, ix], wt * ly[sub_b, iy, ix]
+
+
+def compute_orientations(lx, ly, sub, xf, yf, s) -> torch.Tensor:
+    """Dominant orientation per keypoint (scale_space_extrema.rs:229-288)
+    from one octave group's stacked ``(S, H, W)`` derivative planes:
+    ``sub`` (K,) sublevel, ``xf``/``yf`` octave coords, ``s`` the rounded
+    sampling scale."""
+    return _orientation_from_samples(*orientation_samples(lx, ly, sub, xf, yf, s))
+
+
+def mldb_samples(lt, lx, ly, sub, xf, yf, scale, angle, pattern_size: int = 10):
+    """The sampled ``(ri, rx, ry)`` (K, U), ``ok``, ``co`` and ``si`` of
+    :func:`compute_mldb_descriptors`."""
+    x1, y1, ok, co, si = mldb_positions(xf, yf, scale, angle, lt.shape[-1], lt.shape[-2], pattern_size)
+    sub_b, x1, y1 = sub.long()[:, None], x1.long(), y1.long()
+    return lt[sub_b, y1, x1], lx[sub_b, y1, x1], ly[sub_b, y1, x1], ok, co, si
+
+
+def compute_mldb_descriptors(lt, lx, ly, sub, xf, yf, scale, angle, pattern_size: int = 10):
+    """486-bit M-LDB descriptors (descriptors.rs:55-202) from one octave
+    group's stacked planes: ``(words (K, 16) int32, ok (K,))``, ``ok`` False
+    when a sample falls out of the plane."""
+    ri, rx, ry, ok, co, si = mldb_samples(lt, lx, ly, sub, xf, yf, scale, angle, pattern_size)
+    return _mldb_pack(ri, rx, ry, co, si, pattern_size), ok
+
+
+def orientation_flat(flat_pack, base, width, height, xf, yf, s) -> torch.Tensor:
+    """:func:`compute_orientations` from one flat ``(P, 3)`` (Lt, Lx, Ly)
+    buffer of every evolution: keypoint ``k`` reads pixel ``(x, y)`` of its
+    plane at ``base[k] + y * width[k] + x``."""
+    ix, iy = orientation_positions(xf, yf, s, width, height)
+    idx = base.long()[:, None] + iy.long() * width.long()[:, None] + ix.long()
+    vals = flat_pack[idx, 1:]  # (K, 109, 2)
+    wt = _orientation_device_tables(xf.device)["wt"][None, :]
+    return _orientation_from_samples(wt * vals[..., 0], wt * vals[..., 1])
+
+
+def orientation_padded(planes, lvl, width, height, xf, yf, s) -> torch.Tensor:
+    """:func:`compute_orientations` from the channel-major padded ``(L, 3,
+    Hp, Wp)`` stack, keypoint ``k`` on plane ``lvl[k]``."""
+    ix, iy = orientation_positions(xf, yf, s, width, height)
+    lv, ix, iy = lvl.long()[:, None], ix.long(), iy.long()
+    wt = _orientation_device_tables(xf.device)["wt"][None, :]
+    return _orientation_from_samples(wt * planes[lv, 1, iy, ix], wt * planes[lv, 2, iy, ix])
+
+
+def mldb_flat(flat_pack, base, width, height, xf, yf, scale, angle, pattern_size: int = 10):
+    """:func:`compute_mldb_descriptors` from the flat ``(P, 3)`` buffer:
+    ``(words (K, 16) int32, ok (K,))``."""
+    x1, y1, ok, co, si = mldb_positions(xf, yf, scale, angle, width, height, pattern_size)
+    idx = base.long()[:, None] + y1.long() * width.long()[:, None] + x1.long()
+    vals = flat_pack[idx]  # (K, U, 3)
+    return _mldb_pack(vals[..., 0], vals[..., 1], vals[..., 2], co, si, pattern_size), ok

@@ -1,22 +1,28 @@
 """Scale-space extrema detection, sequential dedup, and sub-pixel refinement.
 
-Port of the device half of ``cv_tpu/akaze/extrema.py`` (reference
-scale_space_extrema.rs):
+Port of ``cv_tpu/akaze/extrema.py`` (reference scale_space_extrema.rs):
 
 * ``candidate_mask``: thresholded strict 3x3 maxima as shifted-tensor
   comparisons over the whole Ldet plane.
-* ``dedup_scan_device``: the reference's order-dependent dedup with in-place
-  replacement and the upper-scale suppression pass.  The JAX package runs
-  it as a vmapped ``lax.while_loop``; on a CUDA tensor the wrapper launches
-  the hand-written kernel ``csrc/dedup_scan.cu`` (one block per frame), on
-  a CPU tensor it runs ``dedup_scan_plain``, a Python loop over candidates
-  whose every step is vectorized over the frame batch.
+* ``extract_candidates`` / ``dedup_keypoints_exact``: the host form of the
+  reference's dedup, a NumPy loop in float32 over each evolution's
+  candidates in row-major order (cv_tpu's own, kept as the function the
+  rest is held to).
+* ``dedup_scan_device``: the same dedup with in-place replacement and the
+  upper-scale suppression pass over a batch of candidate lists.  The JAX
+  package runs it as a vmapped ``lax.while_loop``; on a CUDA tensor the
+  wrapper launches the hand-written kernel ``csrc/dedup_scan.cu`` (one
+  block per frame), on a CPU tensor it runs ``dedup_scan_plain``, a Python
+  loop over candidates whose every step is vectorized over the frame batch.
+  With ``with_slots`` both also give each survivor's cache slot, the
+  keypoint order of ``dedup_keypoints_exact``.
 * ``subpixel_refine_batch``: the 2x2 Newton step on the Ldet Hessian.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -47,6 +53,144 @@ def candidate_mask(ldet: torch.Tensor, threshold: float) -> torch.Tensor:
     return m
 
 
+@dataclasses.dataclass
+class Candidates:
+    """Host-side raw candidates of one evolution, row-major order."""
+
+    e_id: int
+    octave: int
+    esigma: float
+    width: int
+    height: int
+    xs: np.ndarray  # int32
+    ys: np.ndarray  # int32
+    responses: np.ndarray  # float32
+
+
+def _host(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def extract_candidates(specs, masks, responses) -> list[Candidates]:
+    """Candidate masks and Ldet planes (tensors or arrays, one per
+    evolution) -> host candidate lists in row-major order."""
+    out = []
+    for spec, m, r in zip(specs, masks, responses):
+        ys, xs = np.nonzero(_host(m))
+        out.append(
+            Candidates(
+                e_id=spec.index,
+                octave=spec.octave,
+                esigma=spec.esigma,
+                width=spec.width,
+                height=spec.height,
+                xs=xs.astype(np.int32),
+                ys=ys.astype(np.int32),
+                responses=_host(r)[ys, xs].astype(np.float32),
+            )
+        )
+    return out
+
+
+def dedup_keypoints_exact(candidates: list[Candidates], derivative_factor: float) -> dict[str, np.ndarray]:
+    """The reference's sequential dedup (scale_space_extrema.rs:60-143), on
+    the host.
+
+    All arithmetic in f32 to mirror the reference. Returns keypoint arrays
+    in cache order: ``point`` (octave-0 coords, pre-subpixel),
+    ``response``, ``size`` (esigma * derivative_factor, pre-doubling),
+    ``octave``, ``class_id``, and the integer octave coords ``ixy`` for the
+    refinement gather.
+    """
+    cache_pt = np.zeros((0, 2), np.float32)
+    cache_resp = np.zeros((0,), np.float32)
+    cache_class = np.zeros((0,), np.int64)
+    cache_size = np.zeros((0,), np.float32)
+    cache_ixy = np.zeros((0, 2), np.int32)
+    cache_octave = np.zeros((0,), np.int64)
+
+    for cand in candidates:
+        if len(cand.xs) == 0:
+            continue
+        ratio = np.float32(2.0) ** np.float32(cand.octave)
+        size = np.float32(cand.esigma * derivative_factor)
+        size2 = size * size
+        sigma_size = np.float32(np.round(size / ratio))
+        w, h = np.float32(cand.width), np.float32(cand.height)
+        off = np.float32(0.5) * (ratio - np.float32(1.0))
+        for x, y, resp in zip(cand.xs, cand.ys, cand.responses):
+            px = np.float32(x) * ratio  # no +off during dedup (":81-83")
+            py = np.float32(y) * ratio
+            # Compare with cached keypoints of same or lower-adjacent class.
+            cls_ok = (cache_class == cand.e_id) | (cache_class == cand.e_id - 1)
+            is_repeated = False
+            is_extremum = True
+            id_repeated = -1
+            if cls_ok.any():
+                idxs = np.nonzero(cls_ok)[0]
+                dx = px - cache_pt[idxs, 0]
+                dy = py - cache_pt[idxs, 1]
+                dist = dx * dx + dy * dy
+                close = dist <= size2
+                if close.any():
+                    k = idxs[np.argmax(close)]  # first close one (break)
+                    if resp > cache_resp[k]:
+                        is_repeated = True
+                        id_repeated = k
+                    else:
+                        is_extremum = False
+            if not is_extremum:
+                continue
+            # Border check in this evolution's coords (":96-104").
+            left = np.float32(np.round(np.float32(x) - SMAX * sigma_size)) - 1.0
+            right = np.float32(np.round(np.float32(x) + SMAX * sigma_size)) + 1.0
+            up = np.float32(np.round(np.float32(y) - SMAX * sigma_size)) - 1.0
+            down = np.float32(np.round(np.float32(y) + SMAX * sigma_size)) + 1.0
+            if left < 0 or right >= w or up < 0 or down >= h:
+                continue
+            pt = np.array([np.float32(x) * ratio + off, np.float32(y) * ratio + off], np.float32)
+            if is_repeated:
+                cache_pt[id_repeated] = pt
+                cache_resp[id_repeated] = resp
+                cache_class[id_repeated] = cand.e_id
+                cache_size[id_repeated] = size
+                cache_ixy[id_repeated] = (x, y)
+                cache_octave[id_repeated] = cand.octave
+            else:
+                cache_pt = np.concatenate([cache_pt, pt[None]], axis=0)
+                cache_resp = np.append(cache_resp, resp)
+                cache_class = np.append(cache_class, cand.e_id)
+                cache_size = np.append(cache_size, size)
+                cache_ixy = np.concatenate([cache_ixy, np.array([[x, y]], np.int32)], axis=0)
+                cache_octave = np.append(cache_octave, cand.octave)
+
+    # Upper-scale suppression (":120-140").
+    n = len(cache_resp)
+    keep = np.ones(n, bool)
+    for i in range(n):
+        js = np.arange(i + 1, n)
+        if len(js) == 0:
+            break
+        upper = cache_class[js] == cache_class[i] + 1
+        if not upper.any():
+            continue
+        js = js[upper]
+        d = cache_pt[js] - cache_pt[i]
+        dist = d[:, 0] ** 2 + d[:, 1] ** 2
+        hit = (dist <= cache_size[i] * cache_size[i]) & (cache_resp[i] <= cache_resp[js])
+        if hit.any():
+            keep[i] = False
+
+    return {
+        "point": cache_pt[keep],
+        "response": cache_resp[keep],
+        "size": cache_size[keep],
+        "class_id": cache_class[keep],
+        "octave": cache_octave[keep],
+        "ixy": cache_ixy[keep],
+    }
+
+
 def dedup_scan_plain(
     px_cmp: torch.Tensor,  # (B, C) unshifted octave-0 x = x * ratio
     py_cmp: torch.Tensor,
@@ -57,7 +201,8 @@ def dedup_scan_plain(
     size2: torch.Tensor,  # (B, C) f32 squared dedup radius of the candidate
     valid: torch.Tensor,  # (B, C) bool (threshold/extremum/border applied)
     n_steps: torch.Tensor | None = None,  # (B,): only the first n need scanning
-) -> torch.Tensor:
+    with_slots: bool = False,
+):
     """Exact replica of the sequential dedup + upper-scale filter for a
     batch of frames.
 
@@ -65,10 +210,14 @@ def dedup_scan_plain(
     exactly as the reference's iteration (scale_space_extrema.rs:17-117).
     The keypoint cache lives in fixed-size tensors; the loop runs to the
     batch maximum of ``n_steps`` (one host read), and frames that finished
-    earlier see invalid candidates, which change nothing.
+    earlier see invalid candidates, which change nothing (a step whose
+    candidate is invalid in every frame is skipped).
 
     Returns a (B, C) bool mask over the *input candidate order*: True for
-    candidates that survive as output keypoints.
+    candidates that survive as output keypoints.  With ``with_slots``,
+    ``(mask, slots)``: ``slots`` (B, C) int32 holds each survivor's cache
+    slot at its candidate's place and -1 elsewhere, so ordering the
+    survivors by slot gives the cache order of ``dedup_keypoints_exact``.
     """
     b, c = px_cmp.shape
     dev = px_cmp.device
@@ -92,7 +241,8 @@ def dedup_scan_plain(
     count = torch.zeros((b,), dtype=torch.int64, device=dev)
     cls_all = class_id.to(torch.int64)
 
-    for j in range(steps):
+    # A candidate invalid in every frame changes nothing: skip its step.
+    for j in torch.nonzero(ok_all.any(dim=0))[:, 0].tolist():
         cls = cls_all[:, j : j + 1]
         cls_ok = (ccls == cls) | (ccls == cls - 1)
         dx = px_cmp[:, j : j + 1] - cpx
@@ -115,7 +265,9 @@ def dedup_scan_plain(
 
     # Upper-scale suppression over the final cache (":120-140"): entry i is
     # dropped when a *later slot* j of class_id+1 within radius size_i has
-    # response >= resp_i.
+    # response >= resp_i.  Slots past the largest count are unused.
+    used = max(int(count.max()) if b else 0, 1)
+    cpx, cpy, cresp, ccls, csrc, rows = (t[..., :used] for t in (cpx, cpy, cresp, ccls, csrc, rows))
     slot_used = rows[None, :] < count[:, None]
     size2_cache = size2.gather(1, csrc)
     dx = cpx[:, :, None] - cpx[:, None, :]
@@ -134,14 +286,19 @@ def dedup_scan_plain(
     # a max-scatter keeps them from clobbering candidate 0.
     out = torch.zeros((b, c), dtype=torch.int64, device=dev)
     out.scatter_reduce_(1, csrc, keep.to(torch.int64), reduce="amax")
-    return out > 0
+    if not with_slots:
+        return out > 0
+    slots = torch.full((b, c), -1, dtype=torch.int64, device=dev)
+    slots.scatter_reduce_(1, csrc, torch.where(keep, rows[None, :], -1), reduce="amax")
+    return out > 0, slots.to(torch.int32)
 
 
 _DEDUP_ARGS = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+_DEDUP_SLOTS_ARGS = _DEDUP_ARGS + [ctypes.c_void_p]
 
 
 def dedup_scan_device(px_cmp, py_cmp, px_store, py_store, resp, class_id, size2, valid,
-                      n_steps=None, max_shared_slots: int | None = None) -> torch.Tensor:
+                      n_steps=None, max_shared_slots: int | None = None, with_slots: bool = False):
     """The sequential dedup of :func:`dedup_scan_plain` (same arguments and
     result).  On a CPU tensor it runs the plain version; on a CUDA tensor it
     launches ``csrc/dedup_scan.cu`` or raises.  The kernel reads ``n_steps``
@@ -150,14 +307,15 @@ def dedup_scan_device(px_cmp, py_cmp, px_store, py_store, resp, class_id, size2,
     The kernel keeps its cache in shared memory when the cap ``C`` fits
     there (up to ~10,800 slots on an H100), else in global memory.
     ``max_shared_slots`` lowers that bound; ``0`` forces the global-memory
-    cache, which is how the tests reach it at small caps."""
+    cache, which is how the tests reach it at small caps.  ``with_slots``
+    adds the survivors' cache slots (``cv_dedup_scan_slots``)."""
     args = (px_cmp, py_cmp, px_store, py_store, resp, class_id, size2, valid)
     devices = {t.device for t in args} | ({n_steps.device} if n_steps is not None else set())
     if len(devices) != 1:
         raise ValueError(f"dedup_scan_device: tensors on several devices {devices}")
     dev = px_cmp.device
     if dev.type == "cpu":
-        return dedup_scan_plain(*args, n_steps)
+        return dedup_scan_plain(*args, n_steps, with_slots=with_slots)
     if dev.type != "cuda":
         raise ValueError(f"dedup_scan_device: unsupported device {dev}")
     b, c = px_cmp.shape
@@ -177,17 +335,22 @@ def dedup_scan_device(px_cmp, py_cmp, px_store, py_store, resp, class_id, size2,
     ok = valid.contiguous()
     steps = n_steps.to(torch.int32).contiguous()
     out = torch.empty((b, c), dtype=torch.bool, device=dev)
+    slots = torch.empty((b, c), dtype=torch.int32, device=dev) if with_slots else None
     if b == 0 or c == 0:
-        return out
-    err = kernels.function("dedup_scan", "cv_dedup_scan", _DEDUP_ARGS)(
+        return (out, slots) if with_slots else out
+    launch_args = (
         *(t.data_ptr() for t in floats), cls.data_ptr(), s2.data_ptr(), ok.data_ptr(),
         steps.data_ptr(), out.data_ptr(), b, c, -1 if max_shared_slots is None else max_shared_slots,
         kernels.current_stream(dev),
     )
+    if with_slots:
+        err = kernels.function("dedup_scan", "cv_dedup_scan_slots", _DEDUP_SLOTS_ARGS)(*launch_args, slots.data_ptr())
+    else:
+        err = kernels.function("dedup_scan", "cv_dedup_scan", _DEDUP_ARGS)(*launch_args)
     if err != 0:
         raise RuntimeError(f"dedup_scan kernel launch failed: cudaError {err}")
     dedup_scan_device.launches += 1
-    return out
+    return (out, slots) if with_slots else out
 
 
 dedup_scan_device.launches = 0  # kernel launches so far (CPU calls do not count)

@@ -1,11 +1,13 @@
 """Batched AKAZE extraction on one device (the throughput path).
 
 Port of ``cv_tpu/akaze/fast.py``.  The pipeline keeps static per-frame
-budgets: per-evolution candidates by exact pixel-order compaction, the
-reference's sequential dedup (a conflict prefilter plus an exact scan over
-the conflicted candidates), sub-pixel refinement of a preselection, the
-global top-M, then orientation and M-LDB words through the select kernels
-(the describe mode picks which; see :func:`check_describe_mode`).
+budgets: per-evolution candidates (by exact pixel-order compaction, or the
+strongest by a sort: ``topk_method``), the reference's sequential dedup (a
+conflict prefilter plus an exact scan over the conflicted candidates),
+sub-pixel refinement of a preselection, the global top-M, then orientation
+and M-LDB words through the select kernels (the describe mode picks which;
+see :func:`check_describe_mode`), a float32 one-hot product (``'highest'``)
+or plain gathers from one flat buffer (``sampler='gather'``).
 
 Output is a fixed-budget :class:`FeatureSet` with validity masks.  Static
 per-shape tables (border masks, slot tables, dedup radii) are built once
@@ -116,15 +118,33 @@ def _border_mask(specs: tuple, derivative_factor: float, h: int, w: int, device)
 # ---------------------------------------------------------------------------
 
 
-def stage_candidates(cfg, specs, planes, k):
-    """Masked per-evolution candidates, the first ``k`` in pixel order.
+TOPK_METHODS = ("compact", "block", "raw", "approx")
 
-    Port of ``stage_candidates`` with ``topk_method="compact"``: the
-    reference iterates candidates in pixel order with no budget, so keeping
-    the first ``k`` is the faithful overflow policy.  Border rejection is
-    folded into the mask (the reference rejects border keypoints before they
-    enter the dedup cache, so they can neither survive nor suppress others).
+
+def stage_candidates(cfg, specs, planes, k, topk_method: str = "compact"):
+    """Masked per-evolution candidates, pixel-order sorted.
+
+    ``topk_method`` fills the per-evolution budget of ``k``:
+
+    * ``"compact"``: the first ``k`` in pixel order (the reference iterates
+      candidates in pixel order with no budget, so this is the faithful
+      overflow policy);
+    * ``"block"``: the strongest ``k``, ranked over 2x2 block maxima (a
+      strict 3x3 maximum excludes its 8 neighbours, so a block holds at most
+      one candidate);
+    * ``"raw"``: the strongest ``k`` of the whole plane;
+    * ``"approx"``: ``cv_tpu``'s ``jax.lax.approx_max_k`` (recall target
+      0.99), which is an approximation on a TPU only; elsewhere it returns
+      the exact top-k, ties included, so the port's ``"approx"`` is
+      ``"raw"``.
+
+    The strongest-``k`` methods then re-sort each evolution's slots by pixel
+    index.  Border rejection is folded into the mask (the reference rejects
+    border keypoints before they enter the dedup cache, so they can neither
+    survive nor suppress others).
     """
+    if topk_method not in TOPK_METHODS:
+        raise ValueError(f"topk_method {topk_method!r}: use one of {TOPK_METHODS}")
     b = planes[0].ldet.shape[0]
     dev = planes[0].ldet.device
     resp_list = [None] * len(planes)
@@ -138,7 +158,12 @@ def stage_candidates(cfg, specs, planes, k):
         )
         mask &= border[None]
         masked = torch.where(mask, stacked, -torch.inf)
-        resp_g, idx_g = _compact_candidates(masked.reshape(b * s_count, -1), k)
+        if topk_method == "compact":
+            resp_g, idx_g = _compact_candidates(masked.reshape(b * s_count, -1), k)
+        elif topk_method == "block":
+            resp_g, idx_g = _block_top_k(masked.reshape((b * s_count,) + masked.shape[-2:]), k)
+        else:
+            resp_g, idx_g = _top_k(masked.reshape(b * s_count, -1), k)
         resp_g = resp_g.reshape(b, s_count, k)
         idx_g = idx_g.reshape(b, s_count, k)
         for j, i in enumerate(idxs_g):
@@ -176,7 +201,45 @@ def stage_candidates(cfg, specs, planes, k):
                 size=size,
             )
         )
+    if topk_method == "compact":
+        # Compaction emits pixel order with the empty slots last.
+        return cand
+    # The strongest k come in response order: re-sort each evolution's
+    # slots by pixel index, invalid slots last (the dedup's order).
+    fields = ("x", "y", "px", "py", "resp", "idx", "valid")
+    stacked_f = {f: torch.stack([c[f] for c in cand], dim=1) for f in fields}
+    sort_key = torch.where(stacked_f["valid"], stacked_f["idx"], torch.iinfo(torch.int32).max)
+    order = torch.argsort(sort_key, dim=-1, stable=True)
+    for f in fields:
+        taken = stacked_f[f].gather(-1, order)
+        for e, c in enumerate(cand):
+            c[f] = taken[:, e]
     return cand
+
+
+def _block_top_k(masked: torch.Tensor, k: int):
+    """The strongest ``k`` of a (N, H, W) masked extrema plane through 2x2
+    block maxima: each block's maximum and its flat pixel index (the first
+    of equal values in block order), then :func:`_top_k` over the blocks.
+    Returns responses and flat pixel indices, as a top-k of the raw plane."""
+    n, h, w = masked.shape
+    masked = torch.nn.functional.pad(masked, (0, w % 2, 0, h % 2), value=-torch.inf)
+    hb, wb = masked.shape[1] // 2, masked.shape[2] // 2
+    blocks = masked.reshape(n, hb, 2, wb, 2)
+    rows = torch.arange(hb, device=masked.device)[None, :, None] * 2
+    cols = torch.arange(wb, device=masked.device)[None, None, :] * 2
+    best_v, best_i = None, None
+    for dy in (0, 1):
+        for dx in (0, 1):
+            v = blocks[:, :, dy, :, dx]
+            i = ((rows + dy) * w + (cols + dx)).expand(v.shape)
+            if best_v is None:
+                best_v, best_i = v, i
+            else:
+                take = v > best_v
+                best_v, best_i = torch.where(take, v, best_v), torch.where(take, i, best_i)
+    r, pos = _top_k(best_v.reshape(n, -1), k)
+    return r, best_i.reshape(n, -1).gather(1, pos)
 
 
 def _compact_candidates(masked: torch.Tensor, k: int):
@@ -322,6 +385,15 @@ def padded_shape(h: int, w: int):
     return -(-max(128, h) // 128) * 128, -(-max(128, w) // 128) * 128
 
 
+def flat_pack_buffer(planes):
+    """(B, P, 3) packed (Lt, Lx, Ly) buffer of every evolution's pixels, for
+    the ``'gather'`` sampler: keypoint ``k`` of evolution ``e`` reads pixel
+    ``(x, y)`` at ``base[e] + y * width[e] + x``."""
+    b = planes[0].ldet.shape[0]
+    return torch.cat([torch.stack([p.lt.reshape(b, -1), p.lx.reshape(b, -1), p.ly.reshape(b, -1)], dim=-1)
+                      for p in planes], dim=1)
+
+
 def padded_plane_stack(planes):
     """(B*n_evo, 3, Hp, Wp) zero-padded (Lt, Lx, Ly) stack: the sampling
     source for orientation and M-LDB, padded to multiples of 128 (and at
@@ -335,6 +407,21 @@ def padded_plane_stack(planes):
         for ch, arr in enumerate((p.lt, p.lx, p.ly)):
             out[:, e, ch, :ho, :wo] = arr
     return out.reshape(b * n_evo, 3, hp, wp)
+
+
+def padded_plane_stack_interleaved(planes):
+    """(B*n_evo, Hp, 3*Wp) pixel-interleaved (Lt, Lx, Ly) stack, lane ``3 *
+    x + channel``: the layout of ``'highest+inter'``, whose patch cut is one
+    (128, 384) slice a keypoint.  Zero-padded as :func:`padded_plane_stack`."""
+    b = planes[0].ldet.shape[0]
+    n_evo = len(planes)
+    hp, wp = padded_shape(planes[0].lt.shape[-2], planes[0].lt.shape[-1])
+    out = torch.zeros((b, n_evo, hp, wp, 3), dtype=planes[0].lt.dtype, device=planes[0].lt.device)
+    for e, p in enumerate(planes):
+        ho, wo = p.lt.shape[-2], p.lt.shape[-1]
+        for ch, arr in enumerate((p.lt, p.lx, p.ly)):
+            out[:, e, :ho, :wo, ch] = arr
+    return out.reshape(b * n_evo, hp, 3 * wp)
 
 
 def slot_tables(cfg, specs, k):
@@ -443,6 +530,7 @@ def stage_refine_select(cfg, specs, cand, planes, k, max_features, slack=128):
     return dict(
         resp=top_resp,
         cls=sel_cls,
+        base=t["base"][sel_cls],
         w=t["width"][sel_cls],
         h=t["height"][sel_cls],
         pw=t["power"][sel_cls],
@@ -460,32 +548,42 @@ def stage_refine_select(cfg, specs, cand, planes, k, max_features, slack=128):
 # ---------------------------------------------------------------------------
 
 
-# Describe modes with a kernel (cv_tpu's names), and cv_tpu's XLA-only ones.
+# Describe modes with a kernel (cv_tpu's names), the one-hot product, and
+# cv_tpu's TPU matrix-unit workarounds, which the port does not have.
 KERNEL_MODES = ("pgather", "pgroups", "pfused", "pallas", "pepatch", "ptiles")
-XLA_MODES = ("highest", "bf16x3", "bf16x3k", "+inter", "+fused")
+ONEHOT_MODES = ("highest", "highest+inter")
+TPU_MODES = ("bf16x3", "bf16x3k", "+fused")
 
 
 def check_describe_mode(mode: str | None) -> None:
     """Raise ``ValueError`` unless ``mode`` is None (the default rule) or a
-    describe mode of ``cv_tpu`` that reaches a TPU kernel: ``'pgather'``
-    (the select kernel), ``'pgroups'``/``'pgroupsN'`` (the group select, N
-    groups per TPU grid step; a table layout only here), ``'pfused'`` (the
-    fused describe), ``'pallas'`` (the patch-form select), or the retired
-    ``'pepatch'``/``'ptiles'``, which run once
-    ``cv_tpu_torch.experiments.mldb_losers`` is imported (an extract raises
-    ``KeyError`` before)."""
-    if mode is None or mode in KERNEL_MODES:
+    describe mode of ``cv_tpu`` that the port has: ``'pgather'`` (the select
+    kernel), ``'pgroups'``/``'pgroupsN'`` (the group select, N groups per TPU
+    grid step; a table layout only here), ``'pfused'`` (the fused describe),
+    ``'pallas'`` (the patch-form select), the retired ``'pepatch'`` /
+    ``'ptiles'``, which run once ``cv_tpu_torch.experiments.mldb_losers`` is
+    imported (an extract raises ``KeyError`` before), or ``'highest'`` /
+    ``'highest+inter'`` (cv_tpu's default off the TPU: a float32 one-hot
+    product, exact with TF32 off, from the channel-major or the
+    pixel-interleaved stack)."""
+    if mode is None or mode in KERNEL_MODES or mode in ONEHOT_MODES:
         return
     if mode.startswith("pgroups") and mode[7:].isdigit() and int(mode[7:]) > 0:
         return
-    base, plus, _ = mode.partition("+")
-    if plus or base in XLA_MODES:
+    known = ", ".join(map(repr, KERNEL_MODES + ONEHOT_MODES))
+    base, plus, suffix = mode.partition("+")
+    if base in TPU_MODES or suffix.startswith("fused"):
         raise ValueError(
-            f"describe mode {mode!r}: {', '.join(map(repr, XLA_MODES))} are cv_tpu's XLA-only "
-            "selection engines; they give the same bits as the kernel modes and run no kernel, "
-            f"so the port has none of them.  Use one of {', '.join(map(repr, KERNEL_MODES))}"
+            f"describe mode {mode!r}: {', '.join(map(repr, TPU_MODES))} are cv_tpu's workarounds for its TPU "
+            "matrix unit (exact bf16 splits of the one-hot product, XLA's fused row reduce); they give "
+            f"'highest''s bits and are not ported.  Use one of {known}"
         )
-    raise ValueError(f"unknown describe mode {mode!r}; use one of {', '.join(map(repr, KERNEL_MODES))}")
+    if plus:
+        raise ValueError(
+            f"describe mode {mode!r}: '+inter' (the pixel-interleaved stack) is ported for 'highest' only; "
+            f"the kernel modes read the channel-major stack, so {mode!r} is not ported.  Use one of {known}"
+        )
+    raise ValueError(f"unknown describe mode {mode!r}; use one of {known}")
 
 
 def default_describe_mode(max_features: int, height: int, width: int) -> str:
@@ -497,18 +595,35 @@ def default_describe_mode(max_features: int, height: int, width: int) -> str:
     return "pgroups" if max_features >= 2048 and hp >= 256 and wp >= 256 else "pgather"
 
 
-def stage_describe(cfg, planes, sel, mode: str = "pgather") -> FeatureSet:
+def stage_describe(cfg, planes, sel, mode: str = "pgather", sampler: str = "onehot") -> FeatureSet:
     """Dominant orientation then M-LDB words for the selected keypoints,
-    through describe ``mode`` (see :func:`check_describe_mode`)."""
+    through describe ``mode`` (see :func:`check_describe_mode`), or with
+    ``sampler='gather'`` through plain gathers from :func:`flat_pack_buffer`
+    (``cv_tpu``'s ``orientation_flat`` / ``mldb_flat``; the mode is unused)."""
+    if sampler not in ("onehot", "gather"):
+        raise ValueError(f"sampler {sampler!r}: use 'onehot' or 'gather'")
     check_describe_mode(mode)
     b, m = sel["resp"].shape
     n_evo = len(planes)
     xf = (sel["px"] / sel["pw"]).reshape(-1)
     yf = (sel["py"] / sel["pw"]).reshape(-1)
-    stack = padded_plane_stack(planes)
+    if sampler == "gather":
+        flat = flat_pack_buffer(planes)
+        total = flat.shape[1]
+        base = (torch.arange(b, device=flat.device)[:, None] * total + sel["base"]).reshape(-1)
+        flat = flat.reshape(-1, 3)
+        kp = (base, sel["w"].reshape(-1), sel["h"].reshape(-1), xf, yf, sel["ssamp"].reshape(-1))
+        angle = desc.orientation_flat(flat, *kp)
+        words, w_ok = desc.mldb_flat(flat, *kp, angle, pattern_size=cfg.descriptor_pattern_size)
+        return _feature_set(sel, words, w_ok, angle)
+    interleaved = mode == "highest+inter"
+    stack = padded_plane_stack_interleaved(planes) if interleaved else padded_plane_stack(planes)
     lvl = (torch.arange(b, device=sel["cls"].device)[:, None] * n_evo + sel["cls"]).reshape(-1)
     kp = (lvl, sel["w"].reshape(-1), sel["h"].reshape(-1), xf, yf, sel["ssamp"].reshape(-1))
-    if mode.startswith("pgroups"):
+    if mode in ONEHOT_MODES:
+        words, w_ok, angle = desc.orient_mldb_onehot(stack, *kp, pattern_size=cfg.descriptor_pattern_size,
+                                                     interleaved=interleaved)
+    elif mode.startswith("pgroups"):
         # The static group bound: one group per 8 slots plus one per window
         # the extract can occupy (cv_tpu/akaze/fast.py:711-713).
         hp, wp = stack.shape[-2], stack.shape[-1]
@@ -523,6 +638,12 @@ def stage_describe(cfg, planes, sel, mode: str = "pgather") -> FeatureSet:
         words, w_ok, angle = desc.external_mode("ptiles")(stack, *kp, cfg.descriptor_pattern_size)
     else:
         words, w_ok, angle = desc.orient_mldb(stack, *kp, pattern_size=cfg.descriptor_pattern_size, mode=mode)
+    return _feature_set(sel, words, w_ok, angle)
+
+
+def _feature_set(sel, words, w_ok, angle) -> FeatureSet:
+    """The selection's FeatureSet with its (B*M,) describe outputs."""
+    b, m = sel["resp"].shape
     return FeatureSet(
         point=torch.stack([sel["px"], sel["py"]], dim=-1),
         response=sel["resp"],
@@ -546,6 +667,9 @@ class DeviceExtractor:
     :func:`check_describe_mode`); None takes :func:`default_describe_mode`.
     The modes give the same keypoints and words (on the CPU, where each
     runs its kernels' plain versions, up to one-ulp angle differences).
+    ``sampler``: ``'onehot'`` (the describe mode) or ``'gather'`` (plain
+    gathers from one flat buffer, the same bits).  ``topk_method``: how the
+    per-evolution budget is filled (:func:`stage_candidates`).
     """
 
     def __init__(
@@ -556,14 +680,20 @@ class DeviceExtractor:
         dedup_scan_cap: int = 1024,
         device="cuda",
         onehot_mode: str | None = None,
+        sampler: str = "onehot",
+        topk_method: str = "compact",
     ):
         check_describe_mode(onehot_mode)
+        if sampler not in ("onehot", "gather") or topk_method not in TOPK_METHODS:
+            raise ValueError(f"sampler {sampler!r} / topk_method {topk_method!r}")
         self.config = config or Akaze()
         self.candidate_budget = candidate_budget
         self.max_features = max_features
         self.dedup_scan_cap = dedup_scan_cap
         self.device = torch.device(device)
         self.onehot_mode = onehot_mode
+        self.sampler = sampler
+        self.topk_method = topk_method
         self._specs: dict = {}
 
     def describe_mode(self, height: int, width: int) -> str:
@@ -587,10 +717,10 @@ class DeviceExtractor:
         specs = self.specs(h, w)
         k = self.candidate_budget
         planes = build_scale_space(cfg, specs, images)
-        cand = stage_candidates(cfg, specs, planes, k)
+        cand = stage_candidates(cfg, specs, planes, k, self.topk_method)
         cand = stage_dedup(cand, k, self.dedup_scan_cap)
         sel = stage_refine_select(cfg, specs, cand, planes, k, self.max_features)
-        return stage_describe(cfg, planes, sel, self.describe_mode(h, w))
+        return stage_describe(cfg, planes, sel, self.describe_mode(h, w), self.sampler)
 
 
 class FastAkazeExtractor:

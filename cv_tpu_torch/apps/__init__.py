@@ -1,2 +1,2 @@
-"""Host-side applications: the vslam-sandbox app and the synthetic
-star-field sequence renderer."""
+"""Host-side applications: the vslam-sandbox app, kpdraw, the tutorial
+programs and the synthetic star-field sequence renderer."""

@@ -1,4 +1,4 @@
-"""Essential matrix: the four-fold pose decomposition.
+"""Essential matrix: reconditioning and the pose decompositions.
 
 Port of ``cv_tpu/camera/essential.py`` (reference
 cv-pinhole/src/essential.rs) over batched ``(..., 3, 3)`` essential
@@ -17,6 +17,15 @@ def _det3(m: torch.Tensor) -> torch.Tensor:
     """Determinant of ``(..., 3, 3)`` by the triple product (only its sign
     is read below)."""
     return (torch.linalg.cross(m[..., 0, :], m[..., 1, :]) * m[..., 2, :]).sum(dim=-1)
+
+
+def recondition(e: torch.Tensor) -> torch.Tensor:
+    """Closest true essential matrix: average the two large singular values,
+    zero the third (essential.rs:64-77)."""
+    u, s, vt = svd3(e)
+    avg = 0.5 * (s[..., 0] + s[..., 1])
+    s_new = torch.stack([avg, avg, torch.zeros_like(avg)], dim=-1)
+    return (u * s_new[..., None, :]) @ vt
 
 
 def possible_rotations_unscaled_translation(e: torch.Tensor):
@@ -48,3 +57,10 @@ def possible_unscaled_poses(e: torch.Tensor) -> CameraToCamera:
     rots = torch.stack([rot_a, rot_b, rot_a, rot_b], dim=-3)
     ts = torch.stack([t, t, -t, -t], dim=-2)
     return CameraToCamera(rotation=rots, translation=ts)
+
+
+def possible_unscaled_poses_bearing(e: torch.Tensor) -> CameraToCamera:
+    """The 2-fold variant that ignores the translation's sign
+    (essential.rs:237-249): (t, Ra), (t, Rb)."""
+    rot_a, rot_b, t = possible_rotations_unscaled_translation(e)
+    return CameraToCamera(rotation=torch.stack([rot_a, rot_b], dim=-3), translation=torch.stack([t, t], dim=-2))

@@ -1,6 +1,8 @@
 """Pinhole camera intrinsics (port of ``cv_tpu/camera/pinhole.py``):
 ``calibrate`` maps pixel keypoints ``(..., 2)`` to unit bearings ``(..., 3)``
-(reference cv-pinhole/src/lib.rs:108-116).
+(reference cv-pinhole/src/lib.rs:108-116), ``uncalibrate`` maps bearings
+back to pixels, and ``pose_reprojection_error`` scores a match under a
+relative pose.
 """
 
 from __future__ import annotations
@@ -53,6 +55,16 @@ class CameraIntrinsics:
         x = (centered[..., 0] - self.skew * y) / self.focals[..., 0]
         return _normalize(torch.stack([x, y, torch.ones_like(x)], dim=-1))
 
+    def uncalibrate(self, bearing: torch.Tensor):
+        """Bearing -> (pixel ``(..., 2)``, valid mask) (lib.rs:134-141)."""
+        valid = bearing[..., 2] > 0
+        z = torch.where(bearing[..., 2] == 0, torch.ones_like(bearing[..., 2]), bearing[..., 2])
+        px = bearing[..., 0] / z
+        py = bearing[..., 1] / z
+        y = py * self.focals[..., 1]
+        x = px * self.focals[..., 0] + self.skew * py
+        return torch.stack([x, y], dim=-1) + self.principal_point, valid
+
 
 @dataclasses.dataclass(frozen=True)
 class CameraIntrinsicsK1Distortion:
@@ -78,6 +90,51 @@ class CameraIntrinsicsK1Distortion:
         x = (centered[..., 0] - si.skew * y) / si.focals[..., 0]
         f = 1.0 + self.k1 * (x * x + y * y)
         return _normalize(torch.stack([x / f, y / f, torch.ones_like(x)], dim=-1))
+
+    def uncalibrate(self, bearing: torch.Tensor):
+        """Closed-form quadratic re-distortion (lib.rs:224-239): (pixel
+        ``(..., 2)``, valid mask)."""
+        si = self.simple_intrinsics
+        valid = bearing[..., 2] > 0
+        z = torch.where(bearing[..., 2] == 0, torch.ones_like(bearing[..., 2]), bearing[..., 2])
+        ux = bearing[..., 0] / z
+        uy = bearing[..., 1] / z
+        u2 = ux * ux + uy * uy
+        k1 = self.k1
+        denom = 2.0 * k1 * u2
+        denom = torch.where(denom == 0, torch.ones_like(denom), denom)
+        r2_mul_k1 = -(2.0 * k1 * u2 + torch.sqrt(1.0 - 4.0 * k1 * u2) - 1.0) / denom
+        r2_mul_k1 = torch.where(k1 * u2 == 0, torch.zeros_like(r2_mul_k1), r2_mul_k1)
+        scale = 1.0 + r2_mul_k1
+        dx, dy = ux * scale, uy * scale
+        y = dy * si.focals[..., 1]
+        x = dx * si.focals[..., 0] + si.skew * dy
+        return torch.stack([x, y], dim=-1) + si.principal_point, valid
+
+
+def pose_reprojection_error(pose, a: torch.Tensor, b: torch.Tensor):
+    """Reprojection error (in focal lengths) of a match under a relative pose
+    (cv-pinhole/src/lib.rs:314-346).
+
+    ``pose``: CameraToCamera A->B (Isometry3); ``a``/``b``: unit bearings.
+    Triangulates with Linear-Eigen and returns ``(errors (..., 2, 2), ok)``:
+    ``errors[..., 0, :]`` / ``[..., 1, :]`` are the residuals in cameras A
+    and B, and ``ok`` masks cheirality and triangulation failures.
+    """
+    from ..triangulate import triangulate_relative
+
+    point, ok = triangulate_relative(pose, a, b)
+    a_norm = a[..., :2] / a[..., 2:3]
+    b_norm = b[..., :2] / b[..., 2:3]
+    bearing_a = point[..., :3]
+    ok = ok & (bearing_a[..., 2] > 0)
+    za = torch.where(bearing_a[..., 2] == 0, torch.ones_like(bearing_a[..., 2]), bearing_a[..., 2])
+    reproject_a = bearing_a[..., :2] / za[..., None]
+    bearing_b = pose.transform(point)[..., :3]
+    ok = ok & (bearing_b[..., 2] > 0)
+    zb = torch.where(bearing_b[..., 2] == 0, torch.ones_like(bearing_b[..., 2]), bearing_b[..., 2])
+    reproject_b = bearing_b[..., :2] / zb[..., None]
+    return torch.stack([a_norm - reproject_a, b_norm - reproject_b], dim=-2), ok
 
 
 @dataclasses.dataclass(frozen=True)

@@ -55,6 +55,12 @@ def so3_hat2(w: torch.Tensor) -> torch.Tensor:
     )
 
 
+def so3_bracket(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Lie bracket ``[a, b] = vee(hat(a) hat(b) - hat(b) hat(a))``."""
+    ha, hb = so3_hat(a), so3_hat(b)
+    return so3_vee(ha @ hb - hb @ ha)
+
+
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rotation matrix from a scaled axis (Rodrigues), with the Taylor
     coefficients at ``theta^2 <= eps`` (so3.rs:243-256)."""

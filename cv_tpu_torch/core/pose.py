@@ -16,7 +16,7 @@ import numpy as np
 import torch
 
 from . import projective
-from .lie import so3_exp
+from .lie import so3_exp, so3_hat, so3_log
 
 
 def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -91,6 +91,15 @@ class Isometry3:
     def matrix3x4(self) -> torch.Tensor:
         return torch.cat([self.rotation, self.translation[..., :, None]], dim=-1)
 
+    def homogeneous(self) -> torch.Tensor:
+        """4x4 homogeneous matrix (pose.rs:50-52)."""
+        bottom = torch.cat([torch.zeros_like(self.translation), torch.ones_like(self.translation[..., :1])], dim=-1)
+        return torch.cat([self.matrix3x4(), bottom[..., None, :]], dim=-2)
+
+    def se3(self) -> torch.Tensor:
+        """The reference's se(3) vector ``[t, log R]`` (pose.rs:55-60)."""
+        return torch.cat([self.translation, so3_log(self.rotation)], dim=-1)
+
     def transform(self, hp: torch.Tensor) -> torch.Tensor:
         """Transform projective points ``(..., 4)``, renormalized
         (pose.rs:120-122)."""
@@ -100,6 +109,29 @@ class Isometry3:
         xyz = _mv(self.rotation, hp[..., :3]) + self.translation * hp[..., 3:4]
         w = hp[..., 3:4].expand(xyz.shape[:-1] + (1,))
         return torch.cat([xyz, w], dim=-1)
+
+    def transform_jacobians(self, hp: torch.Tensor):
+        """Transform + Jacobians w.r.t. the input point and the pose
+        (pose.rs:70-90): ``(output, d_output/d_input (..., 4, 4),
+        d_output/d_[t, w] (..., 4, 6))``, the output renormalized and the
+        Jacobians of the raw homogeneous product (pose.rs:131-174), the pose
+        block a right-perturbation of translation and rotation output."""
+        output = self.transform_unnormalized(hp)
+        jac_input = self.homogeneous()
+        w = hp[..., 3:4]
+        eye4 = torch.eye(4, dtype=hp.dtype, device=hp.device).expand(output.shape[:-1] + (4, 4))
+        dp_dt = eye4 * w[..., None]
+        eye3 = torch.eye(3, dtype=hp.dtype, device=hp.device).expand(self.rotation.shape)
+        t_h = Isometry3(rotation=eye3, translation=self.translation).homogeneous()
+        hat_rot = so3_hat(_mv(self.rotation, hp[..., :3]))  # (..., 3, 3)
+        hat_h = torch.zeros(hat_rot.shape[:-2] + (4, 4), dtype=hp.dtype, device=hp.device)
+        hat_h[..., :3, :3] = hat_rot
+        hat_h[..., 3, 3] = 1.0
+        dp_ds = t_h @ hat_h
+        # The reference packs [dp_dt rows 0..3; dp_ds rows 0..3] as a 6x4
+        # and transposes it (pose.rs:157-173).
+        stacked = torch.cat([dp_dt[..., :3, :], dp_ds[..., :3, :]], dim=-2)
+        return projective.from_homogeneous(output), jac_input, stacked.transpose(-1, -2)
 
 
 @dataclasses.dataclass(frozen=True)

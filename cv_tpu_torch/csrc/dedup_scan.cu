@@ -8,10 +8,15 @@
 // it replaces that entry in place.  Otherwise it is dropped.  Then the
 // upper-scale pass drops entry i when a later entry of evolution
 // class(i) + 1 lies within size2 of i's candidate and responds at least as
-// strongly.  out[b, src_i] = 1 for the entries that remain, 0 elsewhere.
+// strongly.  out[b, src_i] = 1 for the entries that remain, 0 elsewhere;
+// slot_out[b, src_i] = i (the entry's cache slot) for the entries that
+// remain, -1 elsewhere, when the caller asks for it: the reference's
+// keypoint order is the cache's slot order, which a later candidate that
+// replaces an earlier one takes over.
 //
 // Inputs are (B, C) rows: px_cmp, py_cmp, px_store, py_store, resp, size2
-// f32; class_id i32; valid u8; n_steps (B,) i32; out (B, C) u8.
+// f32; class_id i32; valid u8; n_steps (B,) i32; out (B, C) u8; slot_out
+// (B, C) i32 or null.
 //
 // Replaces cv_tpu/akaze/extrema.py::dedup_scan_device, a vmapped
 // lax.while_loop (not a Pallas kernel).
@@ -167,7 +172,7 @@ struct __align__(16) Slot {
 template <bool kFloor>
 __global__ void __launch_bounds__(kThreads) dedup_scan_kernel(
     Inputs in, const int* __restrict__ n_steps, float* __restrict__ scratch,
-    uint8_t* __restrict__ out, int c, int use_shared) {
+    uint8_t* __restrict__ out, int* __restrict__ slot_out, int c, int use_shared) {
   extern __shared__ float4 smem[];
   __shared__ Stage stage[2];
   __shared__ int s_first[2][kWarps];
@@ -183,7 +188,10 @@ __global__ void __launch_bounds__(kThreads) dedup_scan_kernel(
   Slot* slots = reinterpret_cast<Slot*>(base);
   int* csrc = reinterpret_cast<int*>(base + c);
 
-  for (int i = tid; i < c; i += kThreads) out[row + i] = 0;
+  for (int i = tid; i < c; i += kThreads) {
+    out[row + i] = 0;
+    if (slot_out != nullptr) slot_out[row + i] = -1;
+  }
   for (int i = tid; i < kClassTable; i += kThreads) {
     s_cls_lo[i] = INT_MAX;
     s_cls_hi[i] = -1;
@@ -268,6 +276,7 @@ __global__ void __launch_bounds__(kThreads) dedup_scan_kernel(
       hit = sq.cls == up && dx * dx + dy * dy <= s2i && si.resp <= sq.resp;
     }
     out[row + src] = hit ? 0 : 1;  // used slots hold distinct candidates
+    if (slot_out != nullptr) slot_out[row + src] = hit ? -1 : i;
   }
 }
 
@@ -302,7 +311,8 @@ cudaError_t dyn_shared_limit(size_t* limit) {
 }
 
 template <bool kFloor>
-int launch(const Inputs& in, const int* n_steps, uint8_t* out, int b, int c, int max_shared_slots, void* stream) {
+int launch(const Inputs& in, const int* n_steps, uint8_t* out, int* slot_out, int b, int c, int max_shared_slots,
+           void* stream) {
   if (b <= 0 || c <= 0) return 0;
   size_t limit = 0;
   cudaError_t err = dyn_shared_limit<kFloor>(&limit);
@@ -315,8 +325,8 @@ int launch(const Inputs& in, const int* n_steps, uint8_t* out, int b, int c, int
     err = cudaMallocAsync(reinterpret_cast<void**>(&scratch), cache_bytes * b, s);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  dedup_scan_kernel<kFloor><<<b, kThreads, use_shared ? cache_bytes : 0, s>>>(in, n_steps, scratch, out, c,
-                                                                             use_shared);
+  dedup_scan_kernel<kFloor><<<b, kThreads, use_shared ? cache_bytes : 0, s>>>(in, n_steps, scratch, out, slot_out,
+                                                                             c, use_shared);
   err = cudaGetLastError();
   if (scratch != nullptr) {
     const cudaError_t free_err = cudaFreeAsync(scratch, s);
@@ -339,7 +349,19 @@ extern "C" int cv_dedup_scan(const float* px_cmp, const float* py_cmp,
                              const int* n_steps, uint8_t* out, int b, int c,
                              int max_shared_slots, void* stream) {
   const Inputs in{px_cmp, py_cmp, px_store, py_store, resp, class_id, size2, valid};
-  return launch<false>(in, n_steps, out, b, c, max_shared_slots, stream);
+  return launch<false>(in, n_steps, out, nullptr, b, c, max_shared_slots, stream);
+}
+
+// cv_dedup_scan with the slot output: slot_out (B, C) i32 receives each
+// remaining entry's cache slot at its candidate's place, -1 elsewhere.
+extern "C" int cv_dedup_scan_slots(const float* px_cmp, const float* py_cmp,
+                                   const float* px_store, const float* py_store,
+                                   const float* resp, const int* class_id,
+                                   const float* size2, const uint8_t* valid,
+                                   const int* n_steps, uint8_t* out, int b, int c,
+                                   int max_shared_slots, void* stream, int* slot_out) {
+  const Inputs in{px_cmp, py_cmp, px_store, py_store, resp, class_id, size2, valid};
+  return launch<false>(in, n_steps, out, slot_out, b, c, max_shared_slots, stream);
 }
 
 // The chain floor: the same launch with the cache work taken out (no scan,
@@ -352,5 +374,5 @@ extern "C" int cv_dedup_scan_floor(const float* px_cmp, const float* py_cmp,
                                    const int* n_steps, uint8_t* out, int b, int c,
                                    int max_shared_slots, void* stream) {
   const Inputs in{px_cmp, py_cmp, px_store, py_store, resp, class_id, size2, valid};
-  return launch<true>(in, n_steps, out, b, c, max_shared_slots, stream);
+  return launch<true>(in, n_steps, out, nullptr, b, c, max_shared_slots, stream);
 }

@@ -5,10 +5,14 @@ akaze/tests/estimate_pose.rs:78-97).  Descriptor words are 16 x 32-bit
 words carried as int32 bit patterns (torch has few ``uint32`` ops); torch
 has no popcount, so each word's XOR is counted with a SWAR bit count on
 int64.  All integer arithmetic, so the results equal the reference's.
+``distance_matrix_mxu`` is the reference's other form, ``w(a) + w(b) -
+2 a.b`` over unpacked {0,1} bits (an int8 matrix-unit product on the TPU),
+here a plain tensor product.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 DESCRIPTOR_BITS = 486
@@ -38,6 +42,28 @@ def distance_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         t = popcount32(a[..., :, None, w] ^ b[..., None, :, w])
         acc = t if acc is None else acc + t
     return acc.to(torch.int32)
+
+
+def unpack_bits(words: torch.Tensor, n_bits: int = DESCRIPTOR_BITS) -> torch.Tensor:
+    """(N, W) int32 words -> (N, n_bits) int8 of {0,1} (little-endian bit
+    order)."""
+    shifts = torch.arange(32, device=words.device, dtype=torch.int64)
+    bits = (words.to(torch.int64)[..., :, None] >> shifts) & 1
+    return bits.reshape(words.shape[0], -1)[:, :n_bits].to(torch.int8)
+
+
+def distance_matrix_mxu(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamming distances as ``w(a) + w(b) - 2 a.b`` over the unpacked bits:
+    (N, W) x (M, W) int32 words -> (N, M) int32, equal to
+    :func:`distance_matrix`.  The product runs in float32 (CUDA has no
+    integer matmul): the factors are 0 and 1 and every partial sum an
+    integer of at most 486, so it is exact, TF32 or not."""
+    ab = unpack_bits(a).to(torch.float32)
+    bb = unpack_bits(b).to(torch.float32)
+    dots = (ab @ bb.T).to(torch.int32)
+    wa = ab.sum(dim=-1).to(torch.int32)
+    wb = bb.sum(dim=-1).to(torch.int32)
+    return wa[:, None] + wb[None, :] - 2 * dots
 
 
 def knn2(dist: torch.Tensor):
@@ -95,3 +121,14 @@ def symmetric_matches(a_words, b_words, better_by: int = 24, n_valid_a=None, n_v
     rev_idx, rev_ok = _best2_margin(dist.T, better_by)
     mutual = rev_idx[fwd_idx] == torch.arange(a_words.shape[0], device=dist.device)
     return fwd_idx, fwd_ok & rev_ok[fwd_idx] & mutual
+
+
+def match_descriptors(a_words: np.ndarray, b_words: np.ndarray, ratio: float = 0.5, device="cuda"):
+    """Host convenience: ``(ix_a, ix_b)`` arrays of the Lowes-ratio matches of
+    (N, 16) and (M, 16) uint32 words, computed on ``device``."""
+    a = torch.as_tensor(np.ascontiguousarray(a_words, np.uint32).view(np.int32), device=device)
+    b = torch.as_tensor(np.ascontiguousarray(b_words, np.uint32).view(np.int32), device=device)
+    idx, keep = lowes_ratio_matches(a, b, ratio)
+    keep = keep.cpu().numpy()
+    ix_a = np.nonzero(keep)[0]
+    return ix_a, idx.cpu().numpy()[ix_a]

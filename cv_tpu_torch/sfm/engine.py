@@ -6,7 +6,9 @@ generation, rollback on failure — is host Python over the NumPy data model
 (:mod:`cv_tpu_torch.sfm.data`); the dense work runs on the engine's device
 (``device``, the CPU or a CUDA card) as tensors in float64:
 
-* feature extraction: :class:`cv_tpu_torch.akaze.FastAkazeExtractor`
+* feature extraction: :class:`cv_tpu_torch.akaze.AkazeExtractor` (the
+  exact extractor, as in cv_tpu) unless another is injected, e.g.
+  :class:`cv_tpu_torch.akaze.FastAkazeExtractor`
 * descriptor matching: Hamming distances (:mod:`cv_tpu_torch.matching`)
 * pose estimation: batched consensus with eight-point / Lambda-Twist
 * pose refinement: the three optimizer loops of
@@ -17,19 +19,19 @@ generation, rollback on failure — is host Python over the NumPy data model
   (:func:`cv_tpu_torch.sfm.device_refine.ba_filter`).
 
 The reference's injected generics (Consensus/Estimator/Triangulator) are
-constructor arguments with the same roles.  Not ported yet: the exact
-host extractor.
+constructor arguments with the same roles.
 """
 
 from __future__ import annotations
 
+import inspect
 import itertools
 import logging
 
 import numpy as np
 import torch
 
-from ..akaze import Akaze, FastAkazeExtractor
+from ..akaze import Akaze, AkazeExtractor
 from ..camera import CameraIntrinsics, CameraIntrinsicsK1Distortion
 from ..consensus import BatchConsensus, Estimator
 from ..core import CameraToCamera, Isometry3, camera_to_camera_residual, world_to_camera_residual
@@ -38,7 +40,7 @@ from ..optimize import single_view_l2, three_view_adaptive, three_view_l2
 from ..solvers import eight_point, lambda_twist
 from . import batch_geom, device_refine, host_geom, se3
 from .bicubic import bicubic_colors
-from .data import Feed, ThreeViewConstraint, View, VSlamData, canonical_view_order
+from .data import Feed, ThreeViewConstraint, View, VSlamData, _hash_bag, canonical_view_order
 from .settings import VSlamSettings
 
 log = logging.getLogger("cv_tpu_torch.sfm")
@@ -140,6 +142,15 @@ DEFAULT_POSE_ESTIMATOR = Estimator(
 )
 
 
+def _takes_device(cls) -> bool:
+    """Whether an extractor class (or factory) takes a ``device`` keyword."""
+    try:
+        params = inspect.signature(cls).parameters
+    except (TypeError, ValueError):
+        return False
+    return "device" in params or any(p.kind is p.VAR_KEYWORD for p in params.values())
+
+
 class VSlam:
     """The reconstruction engine (lib.rs:724-790) on ``device``: the CUDA
     card unless the caller asks for the CPU."""
@@ -151,7 +162,7 @@ class VSlam:
         seed: int = 0,
         single_view_hypotheses: int = 1024,
         two_view_hypotheses: int = 2048,
-        extractor_cls=None,
+        extractor_cls=AkazeExtractor,
         pose_estimator: Estimator | None = None,
         essential_estimator: Estimator | None = None,
         triangulator=None,
@@ -165,8 +176,9 @@ class VSlam:
         ``essential_estimator`` (EE, default eight-point), ``triangulator``
         (T, ``(pose_list, bearing_list) -> homogeneous point | None``,
         default Linear-Eigen); the seeded NumPy RNG and ``torch.Generator``
-        play R.  ``extractor_cls(config)`` builds the extractor (default:
-        :class:`FastAkazeExtractor` on ``device``)."""
+        play R.  ``extractor_cls`` builds the extractor from the AKAZE
+        config (default: :class:`AkazeExtractor`, as in cv_tpu), on the
+        engine's device when it takes ``device``."""
         self.device = torch.device(device)
         self.dtype = torch.float64
         self.data = data or VSlamData()
@@ -198,8 +210,8 @@ class VSlam:
             detector_threshold=self.settings.akaze_threshold,
             maximum_features=self.settings.tracking_features,
         )
-        if extractor_cls is None:
-            self._extractor = FastAkazeExtractor(config, device=self.device)
+        if _takes_device(extractor_cls):
+            self._extractor = extractor_cls(config, device=self.device)
         else:
             self._extractor = extractor_cls(config)
         self.essential_estimator = essential_estimator or DEFAULT_ESSENTIAL_ESTIMATOR
@@ -293,6 +305,10 @@ class VSlam:
         else:
             kp, words = self._extractor.extract(image)
             sketch = None
+        if sketch is None:
+            # The frame's LSH sketch on the engine's device, as cv_tpu's
+            # add_frame_features hashes it on its default device.
+            sketch = _hash_bag(words, self.device)
         pts = kp["point"]
         colors = bicubic_colors(image, pts)
         bearings = _calibrate_host(intrinsics, pts)

@@ -6,11 +6,17 @@ them, and the entry points' device default, against cv_tpu.
   the port except ``parallel``, which is still to port.
 * ``CameraSpecification`` and ``WorldToWorld.from_camera_poses`` on seeded
   float64 inputs, within 1e-12 of cv_tpu's.
-* ``DeviceExtractor``, ``FastAkazeExtractor``, ``BatchConsensus`` and
-  ``VSlam`` run on the CUDA card unless the caller asks for the CPU: built
-  without ``device`` the first three hold ``torch.device("cuda")`` (their
-  construction allocates nothing, so this runs without a card), and
-  ``VSlam()`` without a card raises instead of running on the CPU.
+* ``DeviceExtractor``, ``FastAkazeExtractor``, ``AkazeExtractor``,
+  ``BatchConsensus`` and ``VSlam`` run on the CUDA card unless the caller
+  asks for the CPU: built without ``device`` the extractors and the
+  consensus hold ``torch.device("cuda")`` (their construction allocates
+  nothing, so this runs without a card), and ``VSlam()`` and an
+  ``AkazeExtractor()`` extract without a card raise instead of running on
+  the CPU.
+* ``VSlam``'s extractor is cv_tpu's default, the exact ``AkazeExtractor``,
+  on the engine's device; an ``extractor_cls`` that takes ``device`` is
+  built there too, one that does not (a factory) is called with the config.
+* ``cv_tpu_torch.akaze`` exports every name of ``cv_tpu.akaze``.
 """
 
 import inspect
@@ -25,7 +31,7 @@ import torch
 import cv_tpu
 import cv_tpu_torch
 from cv_tpu.core.lie import so3_exp as ref_so3_exp
-from cv_tpu_torch.akaze import DeviceExtractor, FastAkazeExtractor
+from cv_tpu_torch.akaze import AkazeExtractor, DeviceExtractor, FastAkazeExtractor
 from cv_tpu_torch.consensus import BatchConsensus
 from cv_tpu_torch.sfm import VSlam
 
@@ -90,8 +96,9 @@ def test_world_to_world_from_camera_poses_matches_cv_tpu():
 @pytest.mark.parametrize("build", [
     lambda: DeviceExtractor(),
     lambda: FastAkazeExtractor(),
+    lambda: AkazeExtractor(),
     lambda: BatchConsensus(threshold=0.1),
-], ids=["DeviceExtractor", "FastAkazeExtractor", "BatchConsensus"])
+], ids=["DeviceExtractor", "FastAkazeExtractor", "AkazeExtractor", "BatchConsensus"])
 def test_entry_points_default_to_the_card(build):
     assert torch.device(build().device) == torch.device("cuda")
 
@@ -102,3 +109,40 @@ def test_vslam_defaults_to_the_card():
         pytest.skip("a card is present: VSlam() would run on it")
     with pytest.raises(RuntimeError):
         VSlam()
+
+
+def test_akaze_names_include_cv_tpu_s():
+    import cv_tpu.akaze
+    import cv_tpu_torch.akaze
+
+    assert "AkazeExtractor" in cv_tpu_torch.akaze.__all__
+    assert set(cv_tpu.akaze.__all__) <= set(cv_tpu_torch.akaze.__all__)
+    assert cv_tpu_torch.akaze.AkazeExtractor.__name__ == cv_tpu.akaze.AkazeExtractor.__name__
+
+
+def test_akaze_extractor_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the extract would run on it")
+    with pytest.raises((RuntimeError, AssertionError)):
+        AkazeExtractor().extract(np.zeros((64, 96), np.uint8))
+
+
+def test_vslam_default_extractor_is_the_exact_one_on_its_device():
+    engine = VSlam(device="cpu")
+    assert type(engine._extractor) is AkazeExtractor
+    assert engine._extractor.device == torch.device("cpu")
+    assert inspect.signature(VSlam.__init__).parameters["extractor_cls"].default is AkazeExtractor
+
+
+def test_vslam_builds_an_injected_extractor_on_its_device():
+    engine = VSlam(extractor_cls=FastAkazeExtractor, device="cpu")
+    assert type(engine._extractor) is FastAkazeExtractor and engine._extractor.device == torch.device("cpu")
+    assert engine._extractor._dev.max_features == engine.settings.tracking_features
+    built = []
+
+    def factory(config):  # bench.py's form: a callable of the config alone
+        built.append(config)
+        return FastAkazeExtractor(config, max_features=512, device="cpu")
+
+    engine = VSlam(extractor_cls=factory, device="cpu")
+    assert len(built) == 1 and engine._extractor._dev.max_features == 512

@@ -14,6 +14,13 @@ equal (185 and 362), points within 1.5e-5 and 7.6e-5 px, angles within
 
 The dedup scan and the compaction are comparisons on identical inputs, so
 they are held bitwise.
+
+The fast path's other options on the random image, against cv_tpu's with the
+same option: the strongest-k candidate methods ``'block'``, ``'raw'`` and
+``'approx'`` (cv_tpu's ``jax.lax.approx_max_k``, exact off the TPU, so the
+port's is ``'raw'``), the ``'gather'`` sampler and the one-hot describe
+modes ``'highest'`` / ``'highest+inter'``: the same valid slots, points
+within 1e-3 px, at least 99% of word rows bitwise equal.
 """
 
 import jax
@@ -351,3 +358,37 @@ def test_cell_means_fixed_order_bitwise():
             acc = acc + values[..., j]
         want[..., c] = acc * inv[0, c]
     np.testing.assert_array_equal(got, want)
+
+
+FAST_OPTIONS = {
+    "topk_block": dict(topk_method="block"),
+    "topk_raw": dict(topk_method="raw"),
+    "topk_approx": dict(topk_method="approx"),
+    "sampler_gather": dict(sampler="gather"),
+    "onehot_highest": dict(onehot_mode="highest"),
+    "onehot_highest_inter": dict(onehot_mode="highest+inter"),
+}
+
+
+@pytest.mark.parametrize("option", sorted(FAST_OPTIONS))
+def test_fast_path_options(option):
+    kw = FAST_OPTIONS[option]
+    img = j_to_gray(_random_image())
+    jcfg = JAkaze(detector_threshold=0.001)
+    ref = jfast.DeviceExtractor(jcfg, candidate_budget=128, max_features=256, **{"onehot_mode": "highest", **kw}
+                                ).extract(jnp.asarray(img)[None])
+    port = DeviceExtractor(from_numpy_config(jcfg), candidate_budget=128, max_features=256, device="cpu",
+                           **kw).extract(img[None]).to_numpy()
+    vr = np.asarray(ref.valid)
+    np.testing.assert_array_equal(port["valid"], vr)
+    assert vr.sum() > 100
+    assert np.abs(port["point"][vr] - np.asarray(ref.point)[vr]).max() < 1e-3
+    wp, wr = port["words"][vr], np.asarray(ref.words)[vr]
+    assert (wp == wr).all(axis=1).mean() >= 0.99
+    assert np.unpackbits((wp ^ wr).view(np.uint8), axis=1).sum(axis=1).max() <= 16
+
+
+def test_tpu_describe_modes_raise():
+    for mode in ("bf16x3", "bf16x3k", "highest+fused"):
+        with pytest.raises(ValueError, match="TPU matrix unit"):
+            DeviceExtractor(onehot_mode=mode, device="cpu")

@@ -28,6 +28,7 @@ from cv_tpu_torch.consensus import BatchConsensus as TConsensus
 from cv_tpu_torch.consensus import Estimator as TEstimator
 from cv_tpu_torch.core import Isometry3 as TIso
 from cv_tpu_torch.core import camera_to_camera_residual as t_residual
+from cv_tpu_torch.core import lie as tlie
 from cv_tpu_torch.ops import eigen as teig
 from cv_tpu_torch.solvers import eight_point as t8
 
@@ -230,3 +231,90 @@ def test_model_inliers_recovers_motion():
         jax.random.key(0), je, (jnp.asarray(a), jnp.asarray(b))
     )
     assert int(count_j) == int(count)
+
+
+LEFTOVER_TOL = 1e-12
+
+
+def _poses(seed, n=10):
+    rng = np.random.default_rng(seed)
+    rot = np.asarray(jlie.so3_exp(jnp.asarray(rng.normal(scale=0.5, size=(n, 3)))))
+    tr = rng.normal(size=(n, 3))
+    return rng, rot, tr
+
+
+def test_so3_bracket_se3_homogeneous():
+    rng, rot, tr = _poses(11)
+    a, b = rng.normal(size=(2, 10, 3))
+    np.testing.assert_allclose(tlie.so3_bracket(torch.tensor(a), torch.tensor(b)).numpy(),
+                               np.asarray(jlie.so3_bracket(jnp.asarray(a), jnp.asarray(b))), atol=LEFTOVER_TOL, rtol=0)
+    ji, ti = JIso(rotation=jnp.asarray(rot), translation=jnp.asarray(tr)), TIso.from_numpy(rot, tr)
+    np.testing.assert_allclose(ti.se3().numpy(), np.asarray(ji.se3()), atol=LEFTOVER_TOL, rtol=0)
+    np.testing.assert_allclose(ti.homogeneous().numpy(), np.asarray(ji.homogeneous()), atol=LEFTOVER_TOL, rtol=0)
+
+
+def test_transform_jacobians():
+    rng, rot, tr = _poses(12)
+    hp = rng.normal(size=(10, 4))
+    ji, ti = JIso(rotation=jnp.asarray(rot), translation=jnp.asarray(tr)), TIso.from_numpy(rot, tr)
+    got = ti.transform_jacobians(torch.tensor(hp))
+    want = ji.transform_jacobians(jnp.asarray(hp))
+    assert [tuple(g.shape) for g in got] == [(10, 4), (10, 4, 4), (10, 4, 6)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=LEFTOVER_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("k1", [0.0, -0.28052513, 0.1])
+def test_uncalibrate_round_trip(k1):
+    """Both intrinsics' ``uncalibrate`` on the bearings of pixels (and on
+    bearings behind the camera and at z = 0), against cv_tpu's."""
+    from cv_tpu.camera import CameraIntrinsicsK1Distortion as JK1
+    from cv_tpu_torch.camera import CameraIntrinsicsK1Distortion as TK1
+
+    vals = (893.39010814, 898.32648616, 951.1310043, 555.13350077, 0.5)
+    ji, ti = JIntrinsics.from_values(*vals), TIntrinsics.from_values(*vals)
+    px = np.random.default_rng(13).uniform([0, 0], [1920, 1080], (40, 2))
+    models = ((ji, ti), (JK1.new(ji, k1), TK1.new(ti, k1)))
+    for jm, tm in models:
+        bearing = np.array(jm.calibrate(jnp.asarray(px)))
+        bearing[:3, 2] *= -1.0
+        bearing[3, 2] = 0.0
+        pj, vj = jm.uncalibrate(jnp.asarray(bearing))
+        pt, vt = tm.uncalibrate(torch.tensor(bearing))
+        np.testing.assert_array_equal(vt.numpy(), np.asarray(vj))
+        np.testing.assert_allclose(pt.numpy(), np.asarray(pj), atol=LEFTOVER_TOL, rtol=0)
+        if k1 == 0.0 or tm is ti:
+            np.testing.assert_allclose(pt.numpy()[4:], px[4:], atol=1e-9)
+
+
+def test_pose_reprojection_error():
+    from cv_tpu.camera.pinhole import pose_reprojection_error as j_error
+    from cv_tpu_torch.camera.pinhole import pose_reprojection_error as t_error
+
+    rng, rot, tr = _poses(14, n=1)
+    rot, tr = np.asarray(jlie.so3_exp(jnp.asarray([0.02, -0.05, 0.01]))), np.array([-0.6, 0.05, 0.1])
+    pts = rng.uniform([-2, -2, 4], [2, 2, 10], (30, 3))
+    pts[:4, 2] *= -1.0  # behind camera A
+    a = pts / np.linalg.norm(pts, axis=1, keepdims=True)
+    pb = pts @ rot.T + tr + rng.normal(scale=1e-3, size=pts.shape)
+    b = pb / np.linalg.norm(pb, axis=1, keepdims=True)
+    pose_j = JIso(rotation=jnp.asarray(rot), translation=jnp.asarray(tr))
+    pose_t = TIso.from_numpy(rot, tr)
+    ej, okj = j_error(pose_j, jnp.asarray(a), jnp.asarray(b))
+    et, okt = t_error(pose_t, torch.tensor(a), torch.tensor(b))
+    np.testing.assert_array_equal(okt.numpy(), np.asarray(okj))
+    assert 0 < np.asarray(okj).sum() < len(a)
+    np.testing.assert_allclose(et.numpy(), np.asarray(ej), atol=LEFTOVER_TOL, rtol=0)
+
+
+def test_recondition_and_bearing_poses():
+    a, b = _scene(15, noise=1e-2)
+    e = np.asarray(j8.essential_from_matches(jnp.asarray(a[:12]), jnp.asarray(b[:12])))
+    e = e + np.random.default_rng(15).normal(scale=1e-2, size=e.shape)
+    np.testing.assert_allclose(tess.recondition(torch.tensor(e)).numpy(), np.asarray(jess.recondition(jnp.asarray(e))),
+                               atol=LEFTOVER_TOL, rtol=0)
+    pj = jess.possible_unscaled_poses_bearing(jnp.asarray(e))
+    pt = tess.possible_unscaled_poses_bearing(torch.tensor(e))
+    assert tuple(pt.rotation.shape) == tuple(pj.rotation.shape)
+    np.testing.assert_allclose(pt.rotation.numpy(), np.asarray(pj.rotation), atol=LEFTOVER_TOL, rtol=0)
+    np.testing.assert_allclose(pt.translation.numpy(), np.asarray(pj.translation), atol=LEFTOVER_TOL, rtol=0)

@@ -71,3 +71,33 @@ def test_lowes_ratio_matches_exact(seed):
     assert np.asarray(keep_j).sum() > 5
     np.testing.assert_array_equal(keep_t.numpy(), np.asarray(keep_j))
     np.testing.assert_array_equal(idx_t.numpy(), np.asarray(idx_j))
+
+
+@pytest.mark.parametrize("n,m", [(7, 9), (64, 50)])
+def test_unpack_bits_and_distance_matrix_mxu(n, m):
+    """The bit unpacking equals cv_tpu's; the product form equals the
+    popcount form and cv_tpu's product form on descriptor words (486 bits:
+    the last word's top 26 bits clear), an all-ones descriptor among them."""
+    rng = np.random.default_rng(n + 100)
+    a, b = _words(rng, n), _words(rng, m)
+    a[0] = 2**32 - 1
+    for w in (a, b):
+        w[:, -1] &= np.uint32((1 << (486 - 15 * 32)) - 1)
+    np.testing.assert_array_equal(tham.unpack_bits(_t(a)).numpy(), np.asarray(jham.unpack_bits(jnp.asarray(a))))
+    got = tham.distance_matrix_mxu(_t(a), _t(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), tham.distance_matrix(_t(a), _t(b)).numpy())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(jham.distance_matrix_mxu(jnp.asarray(a), jnp.asarray(b))))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_match_descriptors_exact(seed):
+    rng = np.random.default_rng(seed + 30)
+    a = _words(rng, 50)
+    b = _words(rng, 70)
+    b[:25] = a[:25] ^ (rng.uniform(size=(25, 16)) < 0.03).astype(np.uint32)
+    ia, ib = tham.match_descriptors(a, b, device="cpu")
+    ja, jb = jham.match_descriptors(a, b)
+    assert len(ja) > 10
+    np.testing.assert_array_equal(ia, ja)
+    np.testing.assert_array_equal(ib, jb)

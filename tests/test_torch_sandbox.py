@@ -17,8 +17,9 @@ writer, the prefetch loader and the app, against cv_tpu where it has one.
   every array equal; run 2 resumes from the checkpoint and keeps run 1's
   frames and reconstructions.
 * ``pose_spread`` (not a test; run the file as a script): the app's engine
-  set-up in both packages against the rendered poses over three seeds, on
-  which chip_smoke's ``SANDBOX_POSE_GATES`` rest.
+  set-up in both packages, each with its default (exact) extractor, against
+  the rendered poses over three seeds, on which chip_smoke's
+  ``SANDBOX_POSE_GATES`` rest.
 """
 
 import json
@@ -316,12 +317,10 @@ def pose_spread(seeds=(0, 1, 2), n_frames=8):
     """Not a test: the poses of the app's engine set-up against the rendered
     ones in both packages, per engine seed.  ``n_frames`` ``APP_RENDER``
     frames, ``APP_SETTINGS``, the app's consensus budgets divided by
-    ``CONSENSUS_CUT``; cv_tpu's engine takes its ``FastAkazeExtractor``, the
-    port's default extractor (cv_tpu's default is the exact host one).
-    Returns ``{(package, seed): (views, landmarks, ATE / extent, worst
+    ``CONSENSUS_CUT``; each engine takes its package's default extractor,
+    the exact ``AkazeExtractor``.  Returns ``{(package, seed): (views, landmarks, ATE / extent, worst
     consecutive rotation in degrees)}`` of the reconstruction.  Run
     ``PYTHONPATH=. python tests/test_torch_sandbox.py`` (CPU, ~20 min)."""
-    from cv_tpu.akaze.fast import FastAkazeExtractor as RefFastExtractor
     from cv_tpu.camera import CameraIntrinsics as RefIntrinsics
     from cv_tpu.camera import CameraIntrinsicsK1Distortion as RefK1
     from cv_tpu.consensus import BatchConsensus as RefConsensus
@@ -341,14 +340,13 @@ def pose_spread(seeds=(0, 1, 2), n_frames=8):
     out = {}
     for name, (engine_cls, settings_cls, consensus_cls, dev, intrinsics) in packages.items():
         settings = settings_cls(**APP_SETTINGS)
-        extra = dict(extractor_cls=RefFastExtractor) if name == "cv_tpu" else {}
         for seed in seeds:
             consensus = {
                 f"{kind}_consensus": consensus_cls(threshold=getattr(settings, f"{kind}_consensus_threshold"),
                                                    hypotheses=budget // CONSENSUS_CUT, refit_rounds=2,
                                                    refit_hypotheses=1024 // CONSENSUS_CUT, **dev)
                 for kind, budget in (("single_view", 16384), ("two_view", 8192))}
-            engine = engine_cls(settings=settings, seed=seed, **consensus, **extra, **dev)
+            engine = engine_cls(settings=settings, seed=seed, **consensus, **dev)
             feed = engine.add_feed(intrinsics)
             for image in images:
                 engine.add_frame(feed, image)
