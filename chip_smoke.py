@@ -94,6 +94,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
      ``Akaze()`` (its word checksums printed beside cv_tpu's pinned
      31033516 / 113943370), the dedup kernel once an extract and no describe
      kernel, the extract ms a frame; the scan's calls recorded for phase 7;
+     each frame at ``Akaze()`` then compared with the port's CPU run stage
+     by stage (scale-space planes, keypoints, angles, word rows), each
+     differing row printed with its bits, its angle on both sides, the
+     M-LDB sample positions that round differently and the compared cell
+     values;
   4c. the apps with the counters at zero: ``kpdraw.main`` at threshold 0.01
      on frame 0 (399 keypoints; the PNG decodes to the crosses at the
      extractor's points), tutorial chapters 2-5 (chapter 2's PNG decodes to
@@ -162,9 +167,27 @@ Phases, in order; any failed check raises and the script exits non-zero:
      launched;
   9. hold the card's output against the port's CPU path on small inputs:
      every word row equal (the fast path), at least 99% (the group
-     describe, and the exact extractor on a KITTI crop, row for row); print
-     the exact extract ms a frame;
-  10. time warm extract+match, each stage, the dedup scan and consensus.
+     describe, and the exact extractor on a KITTI crop, row for row); the
+     exact extractor's whole KITTI frames at ``Akaze()`` (phase 4b): scale
+     space, counts and points bitwise, at most ``EXACT_UNEQUAL_ROWS`` of the
+     word rows unequal, each one a sample position moved by a last-ulp
+     angle; print the exact extract ms a frame;
+  10. time warm extract+match, each stage, the dedup scan and consensus;
+  11. the library modules, which have no kernel, on the card against the
+     port's CPU path (``library_modules``): five-point at bench.py's 64 sets
+     (float64, timed warm), its recovery on 64 exact sets (at least 0.9)
+     and the four near-degenerate scenarios at cv_tpu's float64 floors
+     0.55 / 0.55 / 0.30 / 0.80; the L1 optimizers and Levenberg-Marquardt
+     on the reference tests' problems (objective reduced, within 1e-9 of
+     the CPU; LM's batch within 1e-12 of the problems one at a time); the
+     five triangulators within 1e-9 of the CPU; ``sharded_extract`` and
+     ``sharded_consensus`` over the visible devices and over ``(cuda:0,
+     cuda:0)`` bitwise to the unsharded runs; ``train_codebook`` bitwise to
+     its CPU run; the SfM warm pass's largest graph-BA call replayed twice
+     (equal bits) and on the CPU (difference printed); then the TF32 check
+     (``tf32_invariance``): the KITTI describes and a pose pipeline give
+     the same bits with ``allow_tf32`` and ``"high"`` matmul precision
+     turned on, and the setting is restored.
 No main-path run may call a kernel's plain version.  The line before the
 last is the per-kernel JSON record; the last line is ``{"ok": true,
 "device": {...}}``.
@@ -238,6 +261,13 @@ POSE_KERNELS = {
 # within tens of steps, in float64 too; a quarter of the rows and 10 steps
 # keep it well posed.
 TRANSLATING = {"three_view_l2": dict(every=1, steps=2000), "three_view_adaptive": dict(every=4, steps=10)}
+# The most word rows of a whole KITTI frame of the exact extractor at
+# Akaze() that may differ card to CPU, as a share of the rows: the card's
+# atan2 rounds some orientation angles one ulp off the CPU's (349 of 3425 on
+# frame 0), and where that moves a rounded M-LDB sample position the row's
+# cell means change (1 of 3425 rows on frame 0, 0 of 2908 on frame 14, with
+# the scale space and the points bitwise equal; NVIDIA H100 80GB HBM3).
+EXACT_UNEQUAL_ROWS = 0.001
 # The pose kernels that report their steps (steps_out), and each kernel's
 # plain version in cv_tpu_torch.optimize.optimizers.
 STEPPED = ("single_view_l2", "three_view_l2")
@@ -798,15 +828,16 @@ def recording(mod, attr, keep=_clone):
     ``[(keep(args), kwargs clone), ...]``.  The recorder passes each call on
     and stays out of the launch counts: a wrapper counts its launches on the
     name it is bound to (here the recorder), so the recorder hands them on
-    to the real function."""
+    to the real function (a plain function has no count)."""
     calls = []
     real = getattr(mod, attr)
 
     def recorded(*a, **kw):
         calls.append((keep(a), _clone(kw)))
         out = real(*a, **kw)
-        real.launches += recorded.launches
-        recorded.launches = 0
+        if hasattr(real, "launches"):
+            real.launches += recorded.launches
+            recorded.launches = 0
         return out
 
     recorded.launches = 0
@@ -2240,7 +2271,10 @@ def exact_path(dev, counters, plains, tally, scan_calls):
     113943370), each pair with the counters at zero: the dedup scan once an
     extract and no describe kernel.  Records the scan's calls as path
     ``exact`` (replayed in phase 7: keep mask and slot output bitwise to the
-    plain version).  Returns the warm extract ms a frame."""
+    plain version).  Then each frame at ``Akaze()`` against the port's CPU
+    run, stage by stage, with the differing word rows printed
+    (:func:`word_rows`; gated in phase 9).  Returns the warm extract ms a
+    frame, the word rows' reports and the ``Akaze()`` words of the pair."""
     import numpy as np
 
     from cv_tpu_torch.akaze import Akaze, AkazeExtractor, extrema, load_gray
@@ -2275,7 +2309,505 @@ def exact_path(dev, counters, plains, tally, scan_calls):
             require(words.shape == (len(kp["response"]), 16) and words.dtype == np.uint32, "exact words")
             require(np.isfinite(kp["point"]).all() and np.isfinite(kp["angle"]).all(), "exact finite keypoints")
             require(bool(np.all(np.diff(kp["response"]) <= 0)), "exact keypoints sorted by response")
-    return exact_ms
+    reports = [word_rows(dev, Akaze(), img, f"exact frame {i} Akaze(), card against CPU") for i, img in enumerate(frames)]
+    return exact_ms, reports, np.concatenate([words for _, words in out])
+
+
+def _ulps(a, b):
+    """Distance in float32 units in the last place (same sign)."""
+    import numpy as np
+
+    return int(abs(int(np.float32(a).view(np.int32)) - int(np.float32(b).view(np.int32))))
+
+
+def word_rows(dev, cfg, img, label, limit=8):
+    """The exact extractor on frame ``img`` at ``cfg``, on the card and on
+    the port's CPU path, compared stage by stage: the scale-space planes
+    (evolutions bitwise equal, the most pixels that differ in one, the
+    largest difference), the keypoints (count, points, angles bitwise) and
+    the word rows.  For each differing row (the first ``limit`` printed): its
+    index, evolution, the differing bit positions, the angle on each device
+    and their distance in ulps, the M-LDB sample positions that round
+    differently, and for each differing bit the two compared cell values on
+    each device.  Returns a dict: ``rows``, ``unequal`` (word rows),
+    ``angles`` (unequal angles), ``moved`` (differing rows with a sample
+    position that moved), ``planes_equal``, ``counts`` (card, CPU)."""
+    import numpy as np
+    import torch
+
+    from cv_tpu_torch.akaze import AkazeExtractor
+    from cv_tpu_torch.akaze import descriptors as desc
+    from cv_tpu_torch.akaze.extract import _evolution_tables, to_gray_f32
+    from cv_tpu_torch.akaze.scale_space import build_scale_space
+
+    cpu = torch.device("cpu")
+    runs = []
+    for d in (dev, cpu):
+        ex = AkazeExtractor(cfg, device=d)
+        kp, words = ex.extract(img)
+        gray = torch.as_tensor(to_gray_f32(img), device=d)
+        specs = ex.specs(*gray.shape)
+        runs.append(dict(kp=kp, words=words, device=d, planes=build_scale_space(cfg, specs, gray[None]),
+                         tables=_evolution_tables(tuple(specs), cfg.derivative_factor, d)))
+    card, host = runs
+    worst_px, worst_diff, planes_equal = 0, 0.0, 0
+    for pg, pc in zip(card["planes"], host["planes"]):
+        same = True
+        for name in ("lt", "lx", "ly", "ldet"):
+            a, b = getattr(pg, name).cpu().numpy(), getattr(pc, name).numpy()
+            n = int((a.view(np.int32) != b.view(np.int32)).sum())
+            same &= n == 0
+            worst_px = max(worst_px, n)
+            worst_diff = max(worst_diff, float(np.abs(a - b).max()))
+        planes_equal += same
+    kg, kc = card["kp"], host["kp"]
+    out = dict(counts=(len(kg["response"]), len(kc["response"])), planes_equal=planes_equal,
+               rows=len(kc["response"]), unequal=0, angles=0, moved=0, points_equal=False, evolutions=0)
+    print(f"{label}: scale space {planes_equal} of {len(card['planes'])} evolutions bitwise equal card to CPU "
+          f"(most differing pixels in one plane {worst_px}, largest difference {worst_diff:.3e}); keypoints "
+          f"{out['counts']}")
+    if out["counts"][0] != out["counts"][1]:
+        return out
+    same_point = (kg["point"].view(np.int32) == kc["point"].view(np.int32)).all(axis=1)
+    same_angle = kg["angle"].view(np.int32) == kc["angle"].view(np.int32)
+    diff_rows = np.nonzero((card["words"] != host["words"]).any(axis=1))[0]
+    out.update(unequal=len(diff_rows), angles=int((~same_angle).sum()), points_equal=bool(same_point.all()),
+               evolutions=len(card["planes"]))
+    ps = cfg.descriptor_pattern_size
+    for shown, k in enumerate(diff_rows):
+        e = int(kc["class_id"][k])
+        p = float(2.0 ** int(kc["octave"][k]))
+        per = {}
+        for name, run in (("card", card), ("cpu", host)):
+            d = run["device"]
+            pt = torch.as_tensor(run["kp"]["point"][k:k + 1], device=d)
+            ang = torch.as_tensor(run["kp"]["angle"][k:k + 1], device=d)
+            scale = run["tables"]["ssamp"][e:e + 1]
+            x1, y1, co, si = desc._mldb_sample_positions(pt[:, 0] / p, pt[:, 1] / p, scale, ang, ps)
+            pl = run["planes"][e]
+            h, w = pl.lt.shape[-2:]
+            xs, ys = x1[0].long().clamp(0, w - 1), y1[0].long().clamp(0, h - 1)
+            vals = torch.stack([pl.lt[0][ys, xs], pl.lx[0][ys, xs], pl.ly[0][ys, xs]])[None]  # (1, 3, U)
+            t = desc._mldb_device_tables(ps, d)
+            means = desc.cell_means(vals, t["cell_members"], t["inv_counts"])[0]  # (3, 29)
+            di, sx, sy = means[0], means[1], means[2]
+            cells = torch.stack([di, -sx * si[0] + sy * co[0], sx * co[0] + sy * si[0]], dim=-1)  # (29, 3)
+            per[name] = dict(x=x1[0].cpu().numpy(), y=y1[0].cpu().numpy(), cells=cells.cpu().numpy(),
+                             ci=t["ci"].cpu().numpy(), cj=t["cj"].cpu().numpy(), ch=t["ch"].cpu().numpy())
+        g, c = per["card"], per["cpu"]
+        moved = np.nonzero((g["x"] != c["x"]) | (g["y"] != c["y"]))[0]
+        out["moved"] += int(len(moved) > 0)
+        if shown >= limit:
+            continue
+        xor = (card["words"][k] ^ host["words"][k]).astype(np.uint32)
+        bits = [32 * wi + b for wi in range(16) for b in range(32) if (int(xor[wi]) >> b) & 1]
+        ag, ac = float(kg["angle"][k]), float(kc["angle"][k])
+        cmp = []
+        for b in bits[:4]:
+            i, j, ch = int(c["ci"][b]), int(c["cj"][b]), int(c["ch"][b])
+            cmp.append(f"bit {b} (cell {i} vs {j}, channel {ch}): card {g['cells'][i, ch]:.9e} vs "
+                       f"{g['cells'][j, ch]:.9e}, cpu {c['cells'][i, ch]:.9e} vs {c['cells'][j, ch]:.9e}")
+        pos = ", ".join(f"sample {u}: card ({g['x'][u]}, {g['y'][u]}) cpu ({c['x'][u]}, {c['y'][u]})"
+                        for u in moved[:3])
+        print(f"{label} row {k}: evolution {e}, point bitwise equal {bool(same_point[k])}, bits {bits}, angle "
+              f"card {ag!r} cpu {ac!r} ({_ulps(ag, ac)} ulp), {len(moved)} sample positions moved"
+              + (f" ({pos})" if pos else "") + "; " + "; ".join(cmp))
+    print(f"{label}: {out['unequal']} of {out['rows']} word rows differ card to CPU ({out['moved']} of them with a "
+          f"sample position that moved), {out['angles']} angles differ, points bitwise equal "
+          f"{bool(same_point.all())}")
+    return out
+
+
+def tf32_invariance(dev, seed):
+    """Each product the port takes gives the same bits whatever the caller's
+    TF32 setting: the KITTI pair's describe (the exact extractor at
+    ``Akaze.sparse()``, ``DeviceExtractor`` in its default mode and in
+    ``'highest'``) and a pose pipeline (eight-point consensus on seeded
+    float32 and float64 bearings, Lambda-Twist and five-point on float32
+    sets, the L2 and L1 single-view refinements in float32) run twice: as
+    set (TF32 off), then with ``allow_tf32 = True`` and
+    ``set_float32_matmul_precision("high")``; words and poses must be equal,
+    and the settings are restored.  Returns the number of outputs held."""
+    import numpy as np
+    import torch
+
+    from cv_tpu_torch.akaze import Akaze, AkazeExtractor, DeviceExtractor, load_gray, to_gray_f32
+    from cv_tpu_torch.consensus import BatchConsensus, Estimator
+    from cv_tpu_torch.core import Isometry3, WorldToCamera, camera_to_camera_residual, lie, projective
+    from cv_tpu_torch.optimize import single_view_simple_optimize_l1, single_view_simple_optimize_l2
+    from cv_tpu_torch.solvers import eight_point, lambda_twist, nister_stewenius
+    from cv_tpu_torch.utils import kitti_pair
+
+    frames = [load_gray(p) for p in kitti_pair()]
+    batch = torch.as_tensor(np.stack([to_gray_f32(f) for f in frames]), device=dev)
+    rng = np.random.default_rng(seed + 11)
+    pose = Isometry3(rotation=lie.so3_exp(torch.tensor([0.05, -0.1, 0.04], dtype=torch.float64)),
+                     translation=torch.tensor([0.3, -0.1, 0.05], dtype=torch.float64))
+    pts = torch.as_tensor(rng.uniform([-2, -2, 4], [2, 2, 10], (256, 3)))
+    a_h = projective.from_point(pts)
+    bear_a, bear_b = projective.bearing(a_h), projective.bearing(pose.transform(a_h))
+    bear_b = bear_b + torch.as_tensor(rng.normal(0.0, 1e-3, bear_b.shape))
+    estimator = Estimator(8, 4, lambda s: eight_point.estimate(s[0], s[1]), lambda m, d: camera_to_camera_residual(
+        Isometry3(m.rotation[..., None, :, :], m.translation[..., None, :]), d[0], d[1]))
+    consensus = BatchConsensus(threshold=1e-3, hypotheses=256, refit_rounds=1, refit_hypotheses=64, device=dev)
+    w2c = WorldToCamera(rotation=pose.rotation.float().to(dev), translation=pose.translation.float().to(dev))
+    start = WorldToCamera(rotation=lie.so3_exp(torch.tensor([0.06, -0.09, 0.03], device=dev)) , translation=
+                          torch.tensor([0.25, -0.05, 0.1], device=dev))
+    world = projective.from_point(pts.float().to(dev))
+    cam_bear = projective.bearing(w2c.transform(world))
+    valid = torch.ones(256, dtype=torch.bool, device=dev)
+
+    def run():
+        out = {}
+        out["exact"] = np.concatenate([AkazeExtractor(Akaze.sparse(), device=dev).extract(f)[1] for f in frames])
+        for mode in (None, "highest"):
+            fs = DeviceExtractor(Akaze.sparse(), 256, 512, device=dev, onehot_mode=mode).extract(batch)
+            out[f"device {mode or 'default'}"] = fs.words.cpu().numpy()
+        for dtype in (torch.float32, torch.float64):
+            g = torch.Generator(device=dev).manual_seed(seed)
+            model, mask, _ = consensus.model_inliers(g, estimator, (bear_a.to(dev, dtype), bear_b.to(dev, dtype)))
+            out[f"consensus {dtype}"] = torch.cat([model.rotation.reshape(-1), model.translation,
+                                                   mask.to(model.rotation.dtype)]).cpu().numpy()
+        p3p, _ = lambda_twist.estimate(cam_bear[:24].reshape(8, 3, 3), world[:24].reshape(8, 3, 4))
+        out["lambda_twist f32"] = p3p.rotation.cpu().numpy()
+        five, _ = nister_stewenius.estimate(bear_a[:20].reshape(4, 5, 3).float().to(dev),
+                                            bear_b[:20].reshape(4, 5, 3).float().to(dev))
+        out["five_point f32"] = five.rotation.cpu().numpy()
+        for name, fn in (("single_view_l2 f32", lambda: single_view_simple_optimize_l2(
+                start, cam_bear, world, valid, 0.5, 200)), ("single_view_l1 f32", lambda: single_view_simple_optimize_l1(
+                start, cam_bear, world, valid, 1e-6, 0.5, 200))):
+            p = fn()
+            out[name] = torch.cat([p.rotation.reshape(-1), p.translation]).cpu().numpy()
+        return out
+
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.get_float32_matmul_precision())
+    base = run()
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.set_float32_matmul_precision("high")
+        on = run()
+        require(torch.get_float32_matmul_precision() == "high", "the caller's TF32 setting restored")
+    finally:
+        torch.set_float32_matmul_precision(prev[1])
+        torch.backends.cuda.matmul.allow_tf32 = prev[0]
+    unequal = [k for k in base if not np.array_equal(base[k].view(np.uint8), on[k].view(np.uint8))]
+    print(f"TF32 on against off: {len(base) - len(unequal)} of {len(base)} outputs bitwise equal "
+          f"({', '.join(base)}); unequal {unequal}")
+    require(not unequal, f"TF32 changes {unequal}")
+    return len(base)
+
+
+def five_point_sets(rng, n, scenario="general"):
+    """``n`` seeded five-point problems as float64 CPU tensors ``(a, b,
+    rotation, translation)``: ``'general'`` is tests/test_solvers_p3p_5pt.py's
+    exact data, the others its near-degenerate scenarios."""
+    import numpy as np
+    import torch
+
+    from cv_tpu_torch.core import CameraToCamera, lie, projective
+
+    out = [[], [], [], []]
+    for _ in range(n):
+        rot = lie.so3_exp(torch.tensor(rng.normal(size=3) * (0.2 if scenario == "general" else 0.1)))
+        if scenario in ("general", "tiny_baseline", "forward"):
+            pts = rng.uniform([-2, -2, 3], [2, 2, 8], (5, 3))
+        if scenario == "general":
+            t = torch.tensor(rng.normal(size=3))
+        elif scenario == "coplanar":
+            xy = rng.uniform(-2, 2, (5, 2))
+            normal = rng.normal(size=3)
+            normal /= np.linalg.norm(normal)
+            normal = normal * np.sign(normal[2]) if normal[2] != 0 else normal
+            d0 = rng.uniform(4, 7)
+            pts = d0 * normal + xy @ np.linalg.svd(normal[None])[2][1:]
+            t = torch.tensor(rng.normal(size=3))
+        elif scenario == "near_coplanar":
+            xy = rng.uniform(-2, 2, (5, 2))
+            pts = np.stack([xy[:, 0], xy[:, 1], 5.0 + rng.normal(0, 0.02, 5)], axis=-1)
+            t = torch.tensor(rng.normal(size=3))
+        elif scenario == "tiny_baseline":
+            t = torch.tensor(rng.normal(size=3)) * 1e-3
+        else:  # forward
+            t = torch.tensor([0.0, 0.0, 1.0], dtype=torch.float64) * rng.uniform(0.3, 1.0)
+        pose = CameraToCamera(rotation=rot, translation=t)
+        a_h = projective.from_point(torch.as_tensor(np.asarray(pts)))
+        for lst, x in zip(out, (projective.bearing(a_h), projective.bearing(pose.transform(a_h)), rot, t)):
+            lst.append(x)
+    return tuple(torch.stack(x) for x in out)
+
+
+def five_point_recovery(poses, valid, rt, tt, tol, rotation_only=False, sign_free=False):
+    """Share of sets whose true pose is among the valid candidates: the
+    largest rotation-entry error (``so3_log``'s for ``rotation_only``, as
+    the reference's envelope test) plus the translation-direction error
+    below ``tol``."""
+    import torch
+
+    from cv_tpu_torch.core import lie
+
+    rot, trans, valid = poses.rotation.cpu(), poses.translation.cpu(), valid.cpu()
+    tn = tt / torch.linalg.vector_norm(tt, dim=-1, keepdim=True)
+    te = trans / torch.linalg.vector_norm(trans, dim=-1, keepdim=True)
+    t_err = torch.linalg.vector_norm(te - tn[:, None], dim=-1)
+    if sign_free:
+        t_err = torch.minimum(t_err, torch.linalg.vector_norm(te + tn[:, None], dim=-1))
+    if rotation_only or sign_free:
+        r_err = torch.linalg.vector_norm(lie.so3_log(rot.transpose(-1, -2) @ rt[:, None]), dim=-1)
+    else:
+        r_err = (rot - rt[:, None]).abs().amax(dim=(-1, -2))
+    err = r_err if rotation_only else r_err + t_err
+    return float((torch.where(valid, err, torch.inf).min(dim=-1).values < tol).double().mean())
+
+
+def _max_diff(a, b):
+    """Largest absolute difference of two tensors or tuples of tensors (on
+    the CPU)."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return float((a.cpu().double() - b.cpu().double()).abs().max()) if a.numel() else 0.0
+    return max(_max_diff(x, y) for x, y in zip(a, b))
+
+
+def _same_bits(a, b):
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if hasattr(a, "__dataclass_fields__"):
+        return all(_same_bits(getattr(a, f), getattr(b, f)) for f in a.__dataclass_fields__)
+    return all(_same_bits(x, y) for x, y in zip(a, b))
+
+
+# cv_tpu's float64 recovery floors of the five-point envelope
+# (tests/test_solvers_p3p_5pt.py:281-300): scenario -> (tolerance, floor,
+# rotation only).
+FIVE_POINT_FLOORS = {"coplanar": (1e-3, 0.55, False), "near_coplanar": (1e-3, 0.55, False),
+                     "tiny_baseline": (1e-2, 0.30, True), "forward": (1e-3, 0.80, False)}
+# Phase 11 trains the codebook on the first words of the KITTI pair's exact
+# extract (its CPU run takes ~14 s on all 6,333).
+CODEBOOK_WORDS = 2048
+
+
+def library_modules(dev, seed, exact_words, ba_calls):
+    """Phase 11: the modules without a kernel, on the card against the
+    port's CPU path on the same inputs.  Five-point at bench.py's 64 noisy
+    sets (float64, warm, timed), its recovery on 64 exact sets and the four
+    near-degenerate scenarios against cv_tpu's floors; the L1 optimizers
+    and Levenberg-Marquardt on the reference tests' problems; the five
+    triangulators; ``sharded_extract`` and ``sharded_consensus`` over the
+    visible devices and over ``(dev, dev)``, bitwise to the unsharded run;
+    ``train_codebook`` on the exact extractor's KITTI words, bitwise to its
+    CPU run; one recorded graph-BA call of the SfM pass replayed twice
+    (equal bits) and on the CPU.  Returns the times (ms)."""
+    import numpy as np
+    import torch
+
+    from cv_tpu_torch.akaze import Akaze, DeviceExtractor, load_gray, to_gray_f32
+    from cv_tpu_torch.consensus import BatchConsensus, Estimator
+    from cv_tpu_torch.core import (CameraToCamera, Isometry3, WorldToCamera, camera_to_camera_residual, lie,
+                                   projective, world_to_camera_residual)
+    from cv_tpu_torch.geom import epipolar
+    from cv_tpu_torch.matching import codebook
+    from cv_tpu_torch.optimize import (levenberg_marquardt, single_view_simple_optimize_l1,
+                                       three_view_simple_optimize_l1)
+    from cv_tpu_torch.parallel import make_mesh, sharded_consensus, sharded_extract
+    from cv_tpu_torch.sfm import device_refine
+    from cv_tpu_torch.solvers import eight_point, nister_stewenius
+    from cv_tpu_torch import triangulate
+    from cv_tpu_torch.utils import kitti_pair
+
+    cpu = torch.device("cpu")
+    times = {}
+
+    def on(d, x):
+        if isinstance(x, torch.Tensor):
+            return x.to(d)
+        return type(x)(rotation=x.rotation.to(d), translation=x.translation.to(d))
+
+    # -- five-point ----------------------------------------------------------
+    rng = np.random.default_rng(0)
+    pts5 = rng.uniform([-2, -2, 4], [2, 2, 10], (64, 5, 3))  # bench.py:841-845
+    a5 = pts5 / np.linalg.norm(pts5, axis=-1, keepdims=True)
+    b5 = a5 + rng.normal(scale=1e-2, size=a5.shape)
+    b5 /= np.linalg.norm(b5, axis=-1, keepdims=True)
+    a5, b5 = torch.as_tensor(a5, device=dev), torch.as_tensor(b5, device=dev)
+    nister_stewenius.estimate(a5, b5)
+    times["five_point (64 sets, f64)"] = statistics.median(wall_ms(lambda: nister_stewenius.estimate(a5, b5), reps=5))
+    t0 = time.perf_counter()
+    nister_stewenius.estimate(a5.cpu(), b5.cpu())
+    times["five_point (64 sets, f64) on the CPU"] = (time.perf_counter() - t0) * 1e3
+    a, b, rt, tt = five_point_sets(np.random.default_rng(seed + 20), 64)
+    rates = {d.type: five_point_recovery(*nister_stewenius.estimate(a.to(d), b.to(d)), rt, tt, 1e-6)
+             for d in (dev, cpu)}
+    line = [f"five-point: bench.py's 64 sets {times['five_point (64 sets, f64)']:.3f} ms (f64, warm, median of 5; "
+            f"CPU {times['five_point (64 sets, f64) on the CPU']:.1f} ms); exact data, true pose within 1e-6 in "
+            f"{rates[dev.type]:.4f} of 64 sets (CPU {rates['cpu']:.4f}; cv_tpu's test asks > 0.9 at 1e-4)"]
+    require(rates[dev.type] >= 0.9, f"five-point exact data: {rates[dev.type]} of sets recovered")
+    for scenario, (tol, floor, rot_only) in FIVE_POINT_FLOORS.items():
+        a, b, rt, tt = five_point_sets(np.random.default_rng(0), 100, scenario)
+        rate = five_point_recovery(*nister_stewenius.estimate(a.to(dev), b.to(dev)), rt, tt, tol, rot_only,
+                                   sign_free=True)
+        line.append(f"{scenario} {rate:.2f} (floor {floor})")
+        require(rate >= floor, f"five-point {scenario}: recovery {rate} below cv_tpu's f64 floor {floor}")
+    print("; ".join(line))
+
+    # -- the L1 optimizers and Levenberg-Marquardt ---------------------------
+    rng = np.random.default_rng(0)
+    true = WorldToCamera(rotation=lie.so3_exp(torch.tensor([0.1, -0.2, 0.15], dtype=torch.float64)),
+                         translation=torch.tensor([0.2, -0.1, 0.4], dtype=torch.float64))
+    wps = projective.from_point(torch.as_tensor(rng.uniform([-2, -2, 2], [2, 2, 8], (64, 3))))
+    bearings = projective.bearing(true.transform(wps))
+    init = WorldToCamera(rotation=lie.so3_exp(torch.tensor([0.02, 0.01, -0.02], dtype=torch.float64)) @ true.rotation,
+                         translation=true.translation + torch.tensor([0.05, -0.03, 0.04], dtype=torch.float64))
+    valid = torch.ones(64, dtype=torch.bool)
+    runs = {}
+    for d in (dev, cpu):
+        t0 = time.perf_counter()
+        runs[d.type] = single_view_simple_optimize_l1(on(d, init), bearings.to(d), wps.to(d), valid.to(d), 1e-9, 1e-2,
+                                                      1000)
+        torch.cuda.synchronize()
+        times[f"single_view_simple_optimize_l1 (64 landmarks) on {d.type}"] = (time.perf_counter() - t0) * 1e3
+    obj = lambda p: float(world_to_camera_residual(on(cpu, p), bearings, wps).mean())  # noqa: E731
+    diff_sv = _max_diff((runs[dev.type].rotation, runs[dev.type].translation), (runs["cpu"].rotation,
+                                                                                 runs["cpu"].translation))
+    require(obj(runs[dev.type]) < 0.1 * obj(init), "single-view L1 reduces the objective tenfold")
+    require(diff_sv < 1e-9, f"single-view L1: card and CPU poses {diff_sv:.3e} apart")
+
+    p1 = CameraToCamera(rotation=lie.so3_exp(torch.tensor([0.02, 0.1, 0.0], dtype=torch.float64)),
+                        translation=torch.tensor([0.5, 0.05, 0.1], dtype=torch.float64))
+    p2 = CameraToCamera(rotation=lie.so3_exp(torch.tensor([-0.05, 0.03, 0.08], dtype=torch.float64)),
+                        translation=torch.tensor([-0.3, 0.4, 0.05], dtype=torch.float64))
+    pts = projective.from_point(torch.as_tensor(rng.uniform([-2, -2, 3], [2, 2, 9], (128, 3))))
+    obs = torch.stack([projective.bearing(pts), projective.bearing(p1.transform(pts)),
+                       projective.bearing(p2.transform(pts))], dim=1)
+    n1 = CameraToCamera(rotation=lie.so3_exp(torch.tensor([0.01, -0.008, 0.012], dtype=torch.float64)) @ p1.rotation,
+                        translation=p1.translation + torch.tensor([0.02, -0.01, 0.015], dtype=torch.float64))
+    n2 = CameraToCamera(rotation=lie.so3_exp(torch.tensor([-0.01, 0.006, 0.009], dtype=torch.float64)) @ p2.rotation,
+                        translation=p2.translation + torch.tensor([-0.015, 0.02, -0.01], dtype=torch.float64))
+
+    def epipolar_loss(q1, q2):
+        i1, i2 = on(cpu, q1).inverse(), on(cpu, q2).inverse()
+        l1 = epipolar.loss(i1.translation.expand(128, 3), obs[:, 0], i1.rotate(obs[:, 1]))
+        l2 = epipolar.loss(i2.translation.expand(128, 3), obs[:, 0], i2.rotate(obs[:, 2]))
+        return float(l1.mean() + l2.mean())
+
+    tv = {}
+    for d in (dev, cpu):
+        t0 = time.perf_counter()
+        tv[d.type] = three_view_simple_optimize_l1((on(d, n1), on(d, n2)), obs.to(d), torch.ones(128, dtype=torch.bool,
+                                                   device=d), 1e-9, 1e-2, 500)
+        torch.cuda.synchronize()
+        times[f"three_view_simple_optimize_l1 (128 landmarks) on {d.type}"] = (time.perf_counter() - t0) * 1e3
+    before, after = epipolar_loss(n1, n2), epipolar_loss(*tv[dev.type])
+    diff_tv = _max_diff(tuple(x for q in tv[dev.type] for x in (q.rotation, q.translation)),
+                        tuple(x for q in tv["cpu"] for x in (q.rotation, q.translation)))
+    require(after < before, f"three-view L1: epipolar loss {before:.3e} -> {after:.3e}")
+    require(diff_tv < 1e-9, f"three-view L1: card and CPU poses {diff_tv:.3e} apart")
+
+    def exp_fit(p, y):
+        t = torch.linspace(0.0, 2.0, 32, dtype=p.dtype, device=p.device)
+        return p[0] * torch.exp(p[1] * t) - y
+
+    lm = {}
+    for d in (dev, cpu):
+        t = torch.linspace(0.0, 2.0, 32, dtype=torch.float64, device=d)
+        ys = torch.stack([amp * torch.exp(rate * t) for amp, rate in ((1.7, -0.9), (0.5, 0.3), (2.5, -2.0))])
+        x0 = torch.tensor([1.0, 0.0], dtype=torch.float64, device=d)
+        one = [levenberg_marquardt(exp_fit, x0, args=(y,)) for y in ys]
+        t0 = time.perf_counter()
+        batch = levenberg_marquardt(exp_fit, x0.expand(3, 2), args=(ys,))
+        torch.cuda.synchronize()
+        times[f"levenberg_marquardt (3 problems) on {d.type}"] = (time.perf_counter() - t0) * 1e3
+        apart = max(_max_diff(o.x, batch.x[i]) for i, o in enumerate(one))
+        require(apart < 1e-12 and [int(o.iterations) for o in one] == batch.iterations.tolist(),
+                f"LM on {d.type}: the batch {apart:.3e} from the problems one at a time")
+        lm[d.type] = (batch, apart)
+    (batch, apart), (batch_cpu, _) = lm[dev.type], lm["cpu"]
+    require(bool(batch.converged.all()) and _max_diff(batch.x[0], torch.tensor([1.7, -0.9])) < 1e-5,
+            "LM: the exponential fit converges")
+    diff_lm = _max_diff(batch.x, batch_cpu.x)
+    require(diff_lm < 1e-12, f"LM: card and CPU {diff_lm:.3e} apart")
+    print(f"L1 and LM: single-view L1 objective {obj(init):.3e} -> {obj(runs[dev.type]):.3e} (card - CPU "
+          f"{diff_sv:.3e}); three-view L1 epipolar loss {before:.3e} -> {after:.3e} (card - CPU {diff_tv:.3e}); LM "
+          f"{batch.iterations.tolist()} iterations, card - CPU {diff_lm:.3e}, batch - one at a time on the card "
+          f"{apart:.3e}; " + ", ".join(
+              f"{k} {v:.1f} ms" for k, v in times.items() if "optimize" in k or "marquardt" in k))
+
+    # -- the five triangulators ----------------------------------------------
+    pose = CameraToCamera(rotation=lie.so3_exp(torch.tensor([0.1, 0.1, 0.1], dtype=torch.float64)),
+                          translation=torch.tensor([0.1, 0.1, 0.1], dtype=torch.float64))
+    hp = projective.from_point(torch.as_tensor(rng.uniform([-1, -1, 1.5], [1, 1, 6], (256, 3))))
+    ta, tb = projective.bearing(hp), projective.bearing(pose.transform(hp))
+    eye = Isometry3.identity(batch_shape=(256,), dtype=torch.float64)
+    views = Isometry3(rotation=torch.stack([eye.rotation, pose.rotation.expand(256, 3, 3)], dim=-3),
+                      translation=torch.stack([eye.translation, pose.translation.expand(256, 3)], dim=-2))
+    bear2 = torch.stack([ta, tb], dim=-2)
+    worst = 0.0
+    for name, fn in (("sine_l1", lambda d: triangulate.sine_l1(on(d, views), bear2.to(d))),
+                     ("relative_dlt", lambda d: triangulate.relative_dlt(on(d, pose), ta.to(d), tb.to(d))),
+                     ("mean_mean", lambda d: triangulate.mean_mean(on(d, views), bear2.to(d))),
+                     ("angular_l1", lambda d: triangulate.angular_l1(on(d, pose), ta.to(d), tb.to(d))),
+                     ("angular_linf", lambda d: triangulate.angular_linf(on(d, pose), ta.to(d), tb.to(d)))):
+        (pg, okg), (pc, okc) = fn(dev), fn(cpu)
+        diff = _max_diff(pg, pc)
+        worst = max(worst, diff)
+        require(torch.equal(okg.cpu(), okc) and bool(okc.all()), f"{name}: ok masks")
+        require(diff < 1e-9, f"{name}: card and CPU points {diff:.3e} apart")
+    print(f"triangulators (256 points): card within {worst:.3e} of the CPU, every ok mask equal")
+
+    # -- sharded extraction and consensus -------------------------------------
+    frames = np.stack([to_gray_f32(load_gray(p)) for p in kitti_pair()] * 2)
+    images = torch.as_tensor(frames, device=dev)
+    ex = DeviceExtractor(Akaze.sparse(), 256, 512, device=dev)
+    whole = ex.extract(images)
+    meshes = {"visible devices": make_mesh(), "(dev, dev)": (dev, dev)}
+    for label, mesh in meshes.items():
+        require(_same_bits(sharded_extract(ex, images, mesh), whole), f"sharded_extract over {label}")
+    pose = Isometry3(rotation=lie.so3_exp(torch.tensor([0.05, -0.1, 0.04], dtype=torch.float64)),
+                     translation=torch.tensor([0.3, -0.1, 0.05], dtype=torch.float64))
+    pts = projective.from_point(torch.as_tensor(rng.uniform([-2, -2, 4], [2, 2, 10], (512, 3))))
+    data = (projective.bearing(pts).to(dev), projective.bearing(pose.transform(pts)).to(dev))
+    est = Estimator(8, 4, lambda smp: eight_point.estimate(smp[0], smp[1]), lambda m, dd: camera_to_camera_residual(
+        Isometry3(m.rotation[..., None, :, :], m.translation[..., None, :]), dd[0], dd[1]))
+    cons = BatchConsensus(threshold=1e-4, hypotheses=1024, refit_rounds=1, refit_hypotheses=256, device=dev)
+    ref = cons.model_inliers(torch.Generator(device=dev).manual_seed(seed), est, data)
+    for label, mesh in meshes.items():
+        got = sharded_consensus(cons, mesh).model_inliers(torch.Generator(device=dev).manual_seed(seed), est, data)
+        require(_same_bits((got[0].rotation, got[0].translation, got[1], got[2]),
+                           (ref[0].rotation, ref[0].translation, ref[1], ref[2])), f"sharded_consensus over {label}")
+    print(f"parallel: sharded_extract (B=4) and sharded_consensus (1024 + 256 hypotheses) over "
+          f"{', '.join(f'{k} {tuple(str(d) for d in v)}' for k, v in meshes.items())} bitwise to the unsharded runs "
+          f"({int(ref[2])} inliers)")
+
+    # -- codebook training -----------------------------------------------------
+    books = {}
+    for d in (dev, cpu):
+        t0 = time.perf_counter()
+        books[d.type] = codebook.train_codebook(exact_words[:CODEBOOK_WORDS], device=d)
+        times[f"train_codebook ({CODEBOOK_WORDS} words) on {d.type}"] = (time.perf_counter() - t0) * 1e3
+    require(np.array_equal(books[dev.type], books["cpu"]), "train_codebook: card and CPU tables differ")
+    print(f"train_codebook (512 codewords, 25 rounds) on the first {CODEBOOK_WORDS} of the exact extractor's "
+          f"{len(exact_words)} KITTI words: card table bitwise equal to the CPU's; card "
+          f"{times[f'train_codebook ({CODEBOOK_WORDS} words) on {dev.type}']:.1f} ms, CPU "
+          f"{times[f'train_codebook ({CODEBOOK_WORDS} words) on cpu']:.1f} ms")
+
+    # -- graph BA: one recorded call of the SfM pass, replayed ----------------
+    require(len(ba_calls) >= 1, "graph BA: no call recorded in the SfM pass")
+    args, kw = max(ba_calls, key=lambda c: int(c[0][2].shape[0]))
+    first = device_refine.graph_ba_core(*args, **kw)
+    second = device_refine.graph_ba_core(*args, **kw)
+    host = device_refine.graph_ba_core(*(_clone(x).cpu() if isinstance(x, torch.Tensor) else x for x in args), **kw)
+    t0 = time.perf_counter()
+    device_refine.graph_ba_core(*args, **kw)
+    torch.cuda.synchronize()
+    times["graph_ba_core replay"] = (time.perf_counter() - t0) * 1e3
+    require(_same_bits(first, second), "graph BA: two replays of one call give other bits")
+    print(f"graph BA: the SfM pass's largest call ({int(args[0].shape[0])} views, {int(args[2].shape[0])} edges, "
+          f"{kw.get('iterations', args[7] if len(args) > 7 else '?')} rounds) replayed twice on the card: equal bits; "
+          f"card - CPU {_max_diff(first[:2], host[:2]):.3e}, removed masks equal "
+          f"{bool(torch.equal(first[2].cpu(), host[2]))}; {times['graph_ba_core replay']:.1f} ms")
+    return times
 
 
 def apps_phase(dev, counters, plains, tally):
@@ -2378,6 +2910,7 @@ def main():
     from cv_tpu_torch.experiments import probes
     from cv_tpu_torch.experiments import runs as exp_runs
     from cv_tpu_torch.matching import PAD_DISTANCE, distance_matrix, knn2
+    from cv_tpu_torch.sfm import device_refine
     from cv_tpu_torch.solvers import eight_point
     from cv_tpu_torch.utils import KITTI_INTRINSICS, kitti_pair
 
@@ -2503,7 +3036,7 @@ def main():
 
     clock("4")
     # -- 4b. the exact extractor on the KITTI pair, with the counters at zero
-    exact_ms = exact_path(dev, counters, plains, tally, scan_calls)
+    exact_ms, exact_rows, exact_words = exact_path(dev, counters, plains, tally, scan_calls)
     clock("4b")
 
     # -- 4c. the apps: kpdraw and the tutorials, with the counters at zero --
@@ -2515,7 +3048,8 @@ def main():
     # C's calls, so the timed pass runs as it would without them.
     with record_pose_calls() as pose_calls, \
             recording(desc_mod, "select_samples", keep_planes) as select_calls["sfm"], \
-            recording(extrema, "dedup_scan_device") as scan_calls["sfm"]:
+            recording(extrema, "dedup_scan_device") as scan_calls["sfm"], \
+            recording(device_refine, "graph_ba_core") as ba_calls:
         warm_engine, warm_s, _, _ = run_sfm(dev)
     print(f"sfm warm pass: {SFM_FRAMES / warm_s:.3f} fps ({warm_s:.3f} s)")
     del warm_engine
@@ -2774,6 +3308,17 @@ def main():
     require(diff < 1e-3 and rows >= 0.99, f"exact crop: point diff {diff}, word rows equal {rows}")
     print(f"cpu reference exact KITTI crop 256x384: {len(kg['response'])} keypoints, max point diff {diff:.2e} px, "
           f"word rows equal {rows:.4f}")
+    # The exact extractor's whole KITTI frames at Akaze() (phase 4b's
+    # reports): scale space, counts and points bitwise; each differing word
+    # row a rounded sample position moved by a last-ulp angle.
+    for i, rep in enumerate(exact_rows):
+        require(rep["planes_equal"] == rep["evolutions"] > 0, f"exact frame {i}: scale space differs card to CPU")
+        require(rep["counts"][0] == rep["counts"][1] and rep["points_equal"], f"exact frame {i}: keypoints differ")
+        require(rep["unequal"] <= EXACT_UNEQUAL_ROWS * rep["rows"] and rep["moved"] == rep["unequal"],
+                f"exact frame {i}: {rep['unequal']} of {rep['rows']} word rows differ ({rep['moved']} moved a sample)")
+    print("cpu reference exact KITTI frames at Akaze(): word rows unequal "
+          + ", ".join(f"{r['unequal']} of {r['rows']}" for r in exact_rows)
+          + f" (bound {EXACT_UNEQUAL_ROWS} of the rows), each a moved sample position; scale space and points bitwise")
     print("exact extract ms a frame (card, warm; median of 3): " + ", ".join(f"{k} {v}" for k, v in exact_ms.items()))
 
     clock("9")
@@ -2827,6 +3372,11 @@ def main():
     for name, (source, replaces) in EXPERIMENT_KERNELS.items():
         records.append(row(name, source, replaces, main_launches[name], exp_records[name]))
     clock("10")
+    # -- 11. the library modules and the TF32 setting, on the card ------------
+    library_ms = library_modules(dev, args.seed, exact_words, ba_calls)
+    print("library modules ms: " + json.dumps({k: round(v, 3) for k, v in library_ms.items()}))
+    tf32_invariance(dev, args.seed)
+    clock("11")
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,14 +5,17 @@ The package mirrors ``cv_tpu``'s layout and names module by module
 ``cv_tpu/akaze/fast.py``), so a reader finds each piece's reference.  It
 imports ``torch`` and never ``jax`` or ``cv_tpu``.
 
-Ported so far: the two-frame KITTI path — batched AKAZE extraction
+Every module of ``cv_tpu`` has its counterpart: the two-frame KITTI
+path — batched AKAZE extraction
 (:mod:`cv_tpu_torch.akaze.fast`), Lowes-ratio Hamming matching
 (:mod:`cv_tpu_torch.matching`), eight-point batched consensus
 (:mod:`cv_tpu_torch.consensus`, :mod:`cv_tpu_torch.solvers`) — the exact
 AKAZE extractor (:mod:`cv_tpu_torch.akaze.extract`, the engine's default),
 the SfM engine's frame-by-frame path (:mod:`cv_tpu_torch.sfm`) with its
-checkpoints and PLY export, and the apps ``vslam-sandbox``, ``kpdraw`` and
-the tutorials (:mod:`cv_tpu_torch.apps`).  The hand-written kernels
+checkpoints and PLY export, the apps ``vslam-sandbox``, ``kpdraw`` and
+the tutorials (:mod:`cv_tpu_torch.apps`), the five-point solver, the L1
+and Levenberg-Marquardt optimizers, the remaining triangulators, codebook
+training and the multi-device helpers (:mod:`cv_tpu_torch.parallel`).  The hand-written kernels
 (``csrc/``) are the describe stage's selects (:mod:`cv_tpu_torch.akaze.select`,
 :mod:`cv_tpu_torch.akaze.fused`), the dedup scan
 (:mod:`cv_tpu_torch.akaze.extrema`) and the three pose-optimizer loops
@@ -21,8 +24,7 @@ the tutorials (:mod:`cv_tpu_torch.apps`).  The hand-written kernels
 
 __version__ = "0.1.0"
 
-# The eager top-level names of cv_tpu/__init__.py.  cv_tpu's lazy
-# ``parallel`` is not ported yet.
+# The eager top-level names of cv_tpu/__init__.py.
 from .camera import (  # noqa: E402,F401
     CameraIntrinsics,
     CameraIntrinsicsK1Distortion,
@@ -53,6 +55,7 @@ def __getattr__(name):
         "matching",
         "ops",
         "optimize",
+        "parallel",
         "sfm",
         "solvers",
         "triangulate",

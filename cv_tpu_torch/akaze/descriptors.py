@@ -7,7 +7,7 @@ copies of the reference's NumPy host code.  The batched describe path is the
 and the group describe ``orient_mldb_groups``: both sample passes
 (orientation, then M-LDB) go through the hand-written select kernels of
 :mod:`.select`.  ``orient_mldb_onehot``'s ``'highest'`` branch (a one-hot
-product in float32, exact with TF32 off) and the gather forms
+product in ``cv_tpu``, an exact index gather here) and the gather forms
 (``compute_orientations``/``compute_mldb_descriptors`` of the exact
 extractor, ``orientation_flat``/``orientation_padded``/``mldb_flat`` of the
 fast path's ``'gather'`` sampler) are plain tensor ops, as they are XLA ops
@@ -583,25 +583,30 @@ def cut_patches_interleaved(stack, lvl, y0, x0, side: int = PATCH) -> torch.Tens
     return raw.reshape(raw.shape[0], side, side, 3).permute(0, 3, 1, 2)
 
 
-def _onehot_select(patch: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor) -> torch.Tensor:
-    """``vals[k, c, n] = patch[k, c, rel_y[k, n], rel_x[k, n]]`` as two
-    float32 one-hot contractions (column select, then row select).  Each sum
-    has one nonzero term, so the product is exact with TF32 off."""
-    side = patch.shape[-1]
-    iota = torch.arange(side, device=patch.device)
-    oh_col = (iota == rel_x[:, :, None].long()).to(patch.dtype)
-    oh_row = (iota == rel_y[:, :, None].long()).to(patch.dtype)
-    t = torch.einsum("knw,kchw->knch", oh_col, patch)
-    return torch.einsum("knh,knch->kcn", oh_row, t)
+def patch_select(patch: torch.Tensor, rel_x: torch.Tensor, rel_y: torch.Tensor) -> torch.Tensor:
+    """``vals[k, c, n] = patch[k, c, rel_y[k, n], rel_x[k, n]]`` (0 where an
+    index falls outside the patch) as an exact index gather: the bits of
+    ``cv_tpu``'s one-hot product at ``Precision.HIGHEST`` (each of its sums
+    has one nonzero term; a zero sample comes out +0 as the product's does),
+    with no library product, so the caller's TF32 setting does not enter."""
+    side_y, side_x = patch.shape[-2:]
+    rx, ry = rel_x.long(), rel_y.long()
+    inside = ((rx >= 0) & (rx < side_x) & (ry >= 0) & (ry < side_y))[:, None, :]
+    k = torch.arange(patch.shape[0], device=patch.device)[:, None, None]
+    c = torch.arange(patch.shape[1], device=patch.device)[None, :, None]
+    vals = patch[k, c, ry.clamp(0, side_y - 1)[:, None, :], rx.clamp(0, side_x - 1)[:, None, :]]
+    zero = torch.zeros((), dtype=patch.dtype, device=patch.device)
+    return torch.where(inside, vals, zero) + zero
 
 
 def orient_mldb_onehot(planes, lvl, width, height, xf, yf, scale, pattern_size: int = 10, chunk: int = 128,
                        interleaved: bool = False):
-    """Orientation then M-LDB words through one patch cut per keypoint and a
-    float32 one-hot product (``cv_tpu``'s ``orient_mldb_onehot`` in mode
-    ``'highest'``; ``interleaved``: ``'highest+inter'``, which cuts each
-    patch from the pixel-interleaved stack).  ``chunk`` keypoints at a time
-    bound the products' intermediates; the bits do not depend on it.
+    """Orientation then M-LDB words through one patch cut per keypoint and
+    the exact select of :func:`patch_select` (``cv_tpu``'s
+    ``orient_mldb_onehot`` in mode ``'highest'``, a float32 one-hot product;
+    ``interleaved``: ``'highest+inter'``, which cuts each patch from the
+    pixel-interleaved stack).  ``chunk`` keypoints at a time bound the
+    patches; the bits do not depend on it.
     Returns ``(words (K, 16) int32, ok (K,), angle (K,))``."""
     p = PATCH
     if interleaved:
@@ -617,10 +622,10 @@ def orient_mldb_onehot(planes, lvl, width, height, xf, yf, scale, pattern_size: 
         else:
             patch = cut_patches(planes, lvl[c], y0[c], x0[c], p)
         orel_x, orel_y = orientation_offsets(xf[c], yf[c], scale[c], width[c], height[c], x0[c], y0[c], p)
-        angle = orientation_from_values(_onehot_select(patch[:, 1:], orel_x, orel_y))
+        angle = orientation_from_values(patch_select(patch[:, 1:], orel_x, orel_y))
         rel_x, rel_y, ok, co, si = mldb_offsets(xf[c], yf[c], scale[c], angle, width[c], height[c], x0[c], y0[c],
                                                 p, pattern_size)
-        vals = _onehot_select(patch, rel_x, rel_y)
+        vals = patch_select(patch, rel_x, rel_y)
         words.append(_mldb_pack(vals[:, 0], vals[:, 1], vals[:, 2], co, si, pattern_size))
         oks.append(ok)
         angles.append(angle)
@@ -696,3 +701,23 @@ def mldb_flat(flat_pack, base, width, height, xf, yf, scale, angle, pattern_size
     idx = base.long()[:, None] + y1.long() * width.long()[:, None] + x1.long()
     vals = flat_pack[idx]  # (K, U, 3)
     return _mldb_pack(vals[..., 0], vals[..., 1], vals[..., 2], co, si, pattern_size), ok
+
+
+def mldb_flat_onehot(planes, lvl, width, height, xf, yf, scale, angle, pattern_size: int = 10, chunk: int = 128):
+    """:func:`mldb_flat` from the channel-major padded ``(L, 3, Hp, Wp)``
+    stack: one 128 x 128 patch cut a keypoint (anchored at ``(int(yf) - 64,
+    int(xf) - 64)`` clamped to the stack) and the exact select of
+    :func:`patch_select` (``cv_tpu``'s one-hot product), ``chunk`` keypoints
+    at a time.  Returns ``(words (K, 16) int32, ok (K,))``, the bits of
+    :func:`mldb_flat`."""
+    x1, y1, ok, co, si = mldb_positions(xf, yf, scale, angle, width, height, pattern_size)
+    p = PATCH
+    hmax, wmax = planes.shape[2], planes.shape[3]
+    y0 = torch.clamp(yf.to(torch.int32) - p // 2, 0, hmax - p)
+    x0 = torch.clamp(xf.to(torch.int32) - p // 2, 0, wmax - p)
+    rel_y = torch.clamp(y1 - y0[:, None], 0, p - 1)
+    rel_x = torch.clamp(x1 - x0[:, None], 0, p - 1)
+    vals = [patch_select(cut_patches(planes, lvl[c], y0[c], x0[c], p), rel_x[c], rel_y[c])
+            for c in (slice(a, a + chunk) for a in range(0, xf.shape[0], chunk))]
+    vals = torch.cat(vals) if vals else planes.new_zeros((0, 3, x1.shape[1]))
+    return _mldb_pack(vals[:, 0], vals[:, 1], vals[:, 2], co, si, pattern_size), ok

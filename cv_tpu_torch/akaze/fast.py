@@ -385,6 +385,14 @@ def padded_shape(h: int, w: int):
     return -(-max(128, h) // 128) * 128, -(-max(128, w) // 128) * 128
 
 
+def flat_ldet_buffer(planes):
+    """One ``(B, P)`` Ldet buffer spanning every evolution (``cv_tpu``'s
+    subpixel gather layout): evolution ``e``'s pixel ``(x, y)`` sits at
+    ``base[e] + y * width[e] + x``."""
+    b = planes[0].ldet.shape[0]
+    return torch.cat([p.ldet.reshape(b, -1) for p in planes], dim=1)
+
+
 def flat_pack_buffer(planes):
     """(B, P, 3) packed (Lt, Lx, Ly) buffer of every evolution's pixels, for
     the ``'gather'`` sampler: keypoint ``k`` of evolution ``e`` reads pixel
@@ -564,8 +572,8 @@ def check_describe_mode(mode: str | None) -> None:
     ``'ptiles'``, which run once ``cv_tpu_torch.experiments.mldb_losers`` is
     imported (an extract raises ``KeyError`` before), or ``'highest'`` /
     ``'highest+inter'`` (cv_tpu's default off the TPU: a float32 one-hot
-    product, exact with TF32 off, from the channel-major or the
-    pixel-interleaved stack)."""
+    product there, the exact index gather of ``descriptors.patch_select``
+    here, from the channel-major or the pixel-interleaved stack)."""
     if mode is None or mode in KERNEL_MODES or mode in ONEHOT_MODES:
         return
     if mode.startswith("pgroups") and mode[7:].isdigit() and int(mode[7:]) > 0:

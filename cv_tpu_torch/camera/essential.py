@@ -1,4 +1,5 @@
-"""Essential matrix: reconditioning and the pose decompositions.
+"""Essential matrix: from a pose, the epipolar residual, reconditioning and
+the pose decompositions.
 
 Port of ``cv_tpu/camera/essential.py`` (reference
 cv-pinhole/src/essential.rs) over batched ``(..., 3, 3)`` essential
@@ -9,8 +10,26 @@ from __future__ import annotations
 
 import torch
 
-from ..core.pose import CameraToCamera
+from ..core.lie import so3_hat
+from ..core.pose import CameraToCamera, Isometry3
 from ..ops.eigen import svd3
+from ..ops.precision import full_f32
+
+
+@full_f32
+def essential_from_pose(pose: Isometry3) -> torch.Tensor:
+    """E = [t]x R (essential.rs:260-264)."""
+    return so3_hat(pose.translation) @ pose.rotation
+
+
+def residual(e: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """|b'^T E a'| on z-normalized coordinates (essential.rs:266-275).
+
+    ``e``: (..., 3, 3); ``a``/``b``: (..., 3) unit bearings. Broadcasts.
+    """
+    ap = a / a[..., 2:3]
+    bp = b / b[..., 2:3]
+    return (bp[..., :, None] * e * ap[..., None, :]).sum(dim=(-2, -1)).abs()
 
 
 def _det3(m: torch.Tensor) -> torch.Tensor:
@@ -19,6 +38,7 @@ def _det3(m: torch.Tensor) -> torch.Tensor:
     return (torch.linalg.cross(m[..., 0, :], m[..., 1, :]) * m[..., 2, :]).sum(dim=-1)
 
 
+@full_f32
 def recondition(e: torch.Tensor) -> torch.Tensor:
     """Closest true essential matrix: average the two large singular values,
     zero the third (essential.rs:64-77)."""
@@ -28,6 +48,7 @@ def recondition(e: torch.Tensor) -> torch.Tensor:
     return (u * s_new[..., None, :]) @ vt
 
 
+@full_f32
 def possible_rotations_unscaled_translation(e: torch.Tensor):
     """Two candidate rotations + unscaled translation (essential.rs:114-162).
 

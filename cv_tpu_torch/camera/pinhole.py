@@ -137,6 +137,13 @@ def pose_reprojection_error(pose, a: torch.Tensor, b: torch.Tensor):
     return torch.stack([a_norm - reproject_a, b_norm - reproject_b], dim=-2), ok
 
 
+def average_pose_reprojection_error(pose, a: torch.Tensor, b: torch.Tensor):
+    """Mean of the two reprojection error norms (lib.rs:348-372): ``(avg
+    (...,), ok)``."""
+    errors, ok = pose_reprojection_error(pose, a, b)
+    return 0.5 * torch.linalg.vector_norm(errors, dim=-1).sum(dim=-1), ok
+
+
 @dataclasses.dataclass(frozen=True)
 class CameraSpecification:
     """Manufacturer-style sensor spec -> intrinsics helper (lib.rs:250-284)."""

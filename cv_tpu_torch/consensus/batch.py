@@ -44,6 +44,16 @@ def _tree_where(cond: torch.Tensor, new, old):
     )
 
 
+def _tree_cat(trees):
+    """Concatenate same-structured trees along their leading axis."""
+    first = trees[0]
+    if isinstance(first, torch.Tensor):
+        return torch.cat(trees)
+    if isinstance(first, (tuple, list)):
+        return type(first)(_tree_cat(list(parts)) for parts in zip(*trees))
+    return type(first)(**{f.name: _tree_cat([getattr(t, f.name) for t in trees]) for f in dataclasses.fields(first)})
+
+
 def _first_leaf(tree) -> torch.Tensor:
     while not isinstance(tree, torch.Tensor):
         tree = tree[0] if isinstance(tree, (tuple, list)) else getattr(
@@ -78,6 +88,13 @@ class Estimator:
 # The most (model, data row) pairs whose residuals are materialized at once
 # in the scoring stage.
 SCORE_BLOCK = 1 << 22
+# Hypothesis shares start at multiples of this many hypotheses.  On a CPU
+# the vectorized transcendental functions (the Jacobi sweeps' atan2, cos and
+# sin) round the vector body and the scalar tail of a loop differently, so
+# an element's bits depend on its offset modulo the vector width; a share
+# that starts at a multiple of 64 keeps every element's offset, and with it
+# the unsharded run's bits.
+SHARD_ALIGN = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,7 +109,12 @@ class BatchConsensus:
     analog of ARRSAC's refinement; the engine runs one round of 256).
     ``prescore_matches`` > 0 turns on ARRSAC-style preemption: every model
     is first scored on a random block of that many rows and only the best
-    ``prescore_keep`` graduate to full scoring.
+    ``prescore_keep`` graduate to full scoring.  ``hypothesis_sharding``: a
+    mesh (a tuple of devices, :func:`cv_tpu_torch.parallel.make_mesh`) over
+    which the hypotheses are split: each device solves and scores its
+    contiguous share, and the shares' counts and totals come back to
+    ``device`` for the selection.  The draws stay on ``device``, so the
+    answers equal the unsharded run's.
     """
 
     threshold: float
@@ -102,6 +124,21 @@ class BatchConsensus:
     prescore_matches: int = 0
     prescore_keep: int = 256
     device: Any = torch.device("cuda")
+    hypothesis_sharding: Any = None
+
+    def _sharded(self, n: int, fn):
+        """``fn(rows, device)`` on each mesh device's share ``rows`` (a slice)
+        of ``n`` hypotheses, or once on the whole on ``device`` when
+        unsharded; the results' tensors on ``device``, in order.  Shares
+        are whole multiples of ``SHARD_ALIGN`` hypotheses (the last takes the
+        rest), so trailing devices may get none."""
+        mesh = self.hypothesis_sharding
+        if not mesh:
+            return [fn(slice(0, n), torch.device(self.device))]
+        step = -(-n // len(mesh))
+        step = -(-step // SHARD_ALIGN) * SHARD_ALIGN
+        return [_tree_map(lambda x: x.to(self.device), fn(slice(a, a + step), torch.device(d)))
+                for a, d in zip(range(0, n, step), mesh)]
 
     def sample_indices(self, generator, sample_mask, n_hyp: int, m: int):
         """``(n_hyp, m)`` minimal-set row indices by masked Gumbel top-k:
@@ -119,7 +156,9 @@ class BatchConsensus:
     def _estimate_stage(self, estimator, data, idx):
         """Solve the minimal sets ``idx`` ``(H, m)``: returns the candidate
         models with batch shape ``(H, models_per_sample)``."""
-        return estimator.estimate(_tree_map(lambda x: x[idx], data))
+        parts = self._sharded(idx.shape[0], lambda rows, d: estimator.estimate(
+            _tree_map(lambda x: x.to(d)[idx[rows].to(d)], data)))
+        return parts[0] if len(parts) == 1 else _tree_cat(parts)
 
     def prescore_block(self, generator, valid_row):
         """The random block of rows the prescore stage scores on; valid rows
@@ -134,13 +173,18 @@ class BatchConsensus:
         the rows ``block``, ties toward the lower block residual.  Returns a
         models tree with batch shape ``(prescore_keep, 1)``."""
         sub = _tree_map(lambda x: x[block], data)
-        res = estimator.residual(models, sub)  # (H, M, P)
-        inliers = (res < self.threshold) & valid_row[block] & torch.isfinite(res)
-        counts = inliers.sum(dim=-1).reshape(-1)
-        total = torch.where(inliers, res, torch.zeros_like(res)).sum(dim=-1).reshape(-1)
-        # Composite preemption key: counts are small ints, and the tie-break
-        # term lives in (0, 1], so it can never reorder counts.
-        key = counts.to(torch.float32) * 2.0 + 1.0 / (1.0 + total)
+
+        def keys(rows, d):
+            res = estimator.residual(_tree_map(lambda x: x[rows].to(d), models),
+                                     _tree_map(lambda x: x.to(d), sub))  # (h, M, P)
+            inliers = (res < self.threshold) & valid_row[block].to(d) & torch.isfinite(res)
+            counts = inliers.sum(dim=-1).reshape(-1)
+            total = torch.where(inliers, res, torch.zeros_like(res)).sum(dim=-1).reshape(-1)
+            # Composite preemption key: counts are small ints, and the
+            # tie-break term lives in (0, 1], so it can never reorder counts.
+            return counts.to(torch.float32) * 2.0 + 1.0 / (1.0 + total)
+
+        key = torch.cat(self._sharded(_first_leaf(models).shape[0], keys))
         kidx = _top_indices(key, min(self.prescore_keep, key.shape[0]))
         return _tree_map(lambda x: x.reshape((-1,) + x.shape[2:])[kidx][:, None], models)
 
@@ -160,14 +204,20 @@ class BatchConsensus:
         n = _first_leaf(data).shape[0]
         h, m = _first_leaf(models).shape[:2]
         step = max(1, SCORE_BLOCK // (m * n))
-        masks, counts, totals = [], [], []
-        for h0 in range(0, h, step):
-            res = estimator.residual(_tree_map(lambda x: x[h0 : h0 + step], models), data)  # (h, M, N)
-            inliers = (res < self.threshold) & valid_row & torch.isfinite(res)
-            masks.append(inliers.reshape(-1, n))
-            counts.append(inliers.sum(dim=-1).reshape(-1))
-            totals.append(torch.where(inliers, res, torch.zeros_like(res)).sum(dim=-1).reshape(-1))
-        inliers, flat_counts, flat_total = torch.cat(masks), torch.cat(counts), torch.cat(totals)
+
+        def score(rows, d):
+            share = _tree_map(lambda x: x[rows].to(d), models)
+            data_d, valid_d = _tree_map(lambda x: x.to(d), data), valid_row.to(d)
+            masks, counts, totals = [], [], []
+            for h0 in range(0, _first_leaf(share).shape[0], step):
+                res = estimator.residual(_tree_map(lambda x: x[h0 : h0 + step], share), data_d)  # (h, M, N)
+                inliers = (res < self.threshold) & valid_d & torch.isfinite(res)
+                masks.append(inliers.reshape(-1, n))
+                counts.append(inliers.sum(dim=-1).reshape(-1))
+                totals.append(torch.where(inliers, res, torch.zeros_like(res)).sum(dim=-1).reshape(-1))
+            return torch.cat(masks), torch.cat(counts), torch.cat(totals)
+
+        inliers, flat_counts, flat_total = (torch.cat(parts) for parts in zip(*self._sharded(h, score)))
         at_max = flat_counts == flat_counts.max()
         # argmin returns the first index among equal totals: exact ties keep
         # the first-drawn model.

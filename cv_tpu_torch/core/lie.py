@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops.precision import full_f32
+
 
 def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return (m * v[..., None, :]).sum(dim=-1)
@@ -55,6 +57,7 @@ def so3_hat2(w: torch.Tensor) -> torch.Tensor:
     )
 
 
+@full_f32
 def so3_bracket(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Lie bracket ``[a, b] = vee(hat(a) hat(b) - hat(b) hat(a))``."""
     ha, hb = so3_hat(a), so3_hat(b)

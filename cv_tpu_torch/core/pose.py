@@ -4,8 +4,9 @@ Port of ``cv_tpu/core/pose.py`` (reference cv-core/src/pose.rs): one
 :class:`Isometry3` holds a batch of rigid transforms as ``rotation
 (..., 3, 3)`` + ``translation (..., 3)``; the subclasses keep the
 reference's frame vocabulary (:class:`WorldToCamera`,
-:class:`CameraToWorld`, :class:`CameraToCamera`, :class:`WorldToWorld`).  Small products are plain float matmuls: with
-TF32 off they run in full precision on the card.
+:class:`CameraToWorld`, :class:`CameraToCamera`, :class:`WorldToWorld`).  Small products are plain float matmuls, run
+in full precision on the card whatever the TF32 setting
+(:func:`~cv_tpu_torch.ops.precision.full_f32`).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from . import projective
 from .lie import so3_exp, so3_hat, so3_log
+from ..ops.precision import full_f32
 
 
 def _mv(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -69,6 +71,7 @@ class Isometry3:
         rt = self.rotation.transpose(-1, -2)
         return type(self)(rotation=rt, translation=-_mv(rt, self.translation))
 
+    @full_f32
     def compose(self, other: "Isometry3") -> "Isometry3":
         """self after other: (self @ other)(x) = self(other(x))."""
         return Isometry3(
@@ -110,6 +113,7 @@ class Isometry3:
         w = hp[..., 3:4].expand(xyz.shape[:-1] + (1,))
         return torch.cat([xyz, w], dim=-1)
 
+    @full_f32
     def transform_jacobians(self, hp: torch.Tensor):
         """Transform + Jacobians w.r.t. the input point and the pose
         (pose.rs:70-90): ``(output, d_output/d_input (..., 4, 4),

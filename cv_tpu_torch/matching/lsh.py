@@ -6,10 +6,11 @@ sketches.  Sketch bit ``i`` records whether some descriptor of the frame
 lies unusually close to codeword ``i``: the per-codeword min-distance
 profile binarized at its own 0.4-quantile.
 
-The 512 codewords are read from the repository's trained codebook,
-``cv_tpu/matching/codebook.npy`` (the same file the JAX package loads; it is
-data, not code), with the same seeded fallback when it is absent.  Words
-are int32 bit patterns on the device, as in :mod:`.hamming`.
+The 512 codewords are read from the package's trained codebook,
+``cv_tpu_torch/matching/codebook.npy`` (byte-equal to the JAX package's
+table; :mod:`.codebook` trains it), with the same seeded fallback when it
+is absent.  Words are int32 bit patterns on the device, as in
+:mod:`.hamming`.
 """
 
 from __future__ import annotations
@@ -26,9 +27,7 @@ SKETCH_BITS = 512
 SKETCH_WORDS = SKETCH_BITS // 32
 # Bits set in a sketch: the 0.4 quantile of 512 profile entries.
 QUANTILE_INDEX = 204
-CODEBOOK_PATH = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "..", "..", "cv_tpu", "matching", "codebook.npy"
-)
+CODEBOOK_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "codebook.npy")
 
 
 @lru_cache(maxsize=None)

@@ -9,6 +9,7 @@ eight-point solver reads the nullspace vector's sign into the pose.
 from __future__ import annotations
 
 import torch
+from .precision import full_f32
 
 
 def eigh_small(a: torch.Tensor, sweeps: int = 6):
@@ -62,6 +63,7 @@ def eigh4(a: torch.Tensor, sweeps: int = 6):
     return eigh_small(a, sweeps=sweeps)
 
 
+@full_f32
 def svd3(e: torch.Tensor, sweeps: int = 8):
     """SVD of ``(..., 3, 3)`` batches via Jacobi on E^T E.
 

@@ -127,12 +127,16 @@ def scharr_vertical(img: torch.Tensor, sigma_size: int = 1) -> torch.Tensor:
 
 def half_size(img: torch.Tensor) -> torch.Tensor:
     """2x2 box downsample with the reference's odd-edge overwrites
-    (image.rs:154-199)."""
+    (image.rs:154-199).  Each 2x2 block is summed as ``(top-left +
+    top-right) + (bottom-left + bottom-right)``, then quartered: elementwise
+    adds, so every device rounds alike (``Tensor.mean``'s order depends on
+    the device; this is its order on the CPU)."""
     h, w = img.shape[-2], img.shape[-1]
     hh, hw = h // 2, w // 2
     lead = img.shape[:-2]
     core = img[..., : hh * 2, : hw * 2].reshape(lead + (hh, 2, hw, 2))
-    out = core.mean(dim=(-3, -1))
+    top, bottom = core[..., 0, :, :], core[..., 1, :, :]
+    out = ((top[..., 0] + top[..., 1]) + (bottom[..., 0] + bottom[..., 1])) / 4.0
     if h % 2 == 1:
         last = img[..., -1, : hw * 2].reshape(lead + (hw, 2))
         out[..., -1, :] = 0.5 * last.sum(dim=-1)

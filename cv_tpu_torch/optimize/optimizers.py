@@ -1,9 +1,10 @@
 """Pose optimizers: single-view (PnP refine) and three-view gradient descent.
 
 Port of ``cv_tpu/optimize/optimizers.py`` (reference cv-optimize/src/).
-These are the plain PyTorch versions of the three hand-written kernels in
-:mod:`cv_tpu_torch.optimize.resident`: Python loops over tensor ops, in the
-dtype they are given.  The per-landmark tangents are masked tensors; the
+The L2 and adaptive loops are the plain PyTorch versions of the three
+hand-written kernels in :mod:`cv_tpu_torch.optimize.resident`; the L1
+(Weiszfeld) loops have no kernel, as in ``cv_tpu``.  All are Python loops
+over tensor ops, in the dtype they are given.  The per-landmark tangents are masked tensors; the
 patience rule is the reference's (stop after ``PATIENCE`` steps in which no
 sum norm improved; the stabilizing step is not applied, every other step
 is).  A patience loop reads one flag per step back to the host.
@@ -21,6 +22,7 @@ import torch
 from ..core import projective
 from ..core.pose import Isometry3
 from ..geom import epipolar
+from ..ops.precision import full_f32
 
 PATIENCE = 50  # single_view_optimizer.rs:116
 
@@ -60,6 +62,53 @@ def landmark_deltas(pose: Isometry3, bearings, world_points, valid):
     return torch.where(contrib[..., None], t, zero), torch.where(contrib[..., None], r, zero), contrib
 
 
+def _l1_sums(t, r, weight, tscale, epsilon: float):
+    """The Weiszfeld step's pieces over masked tangents ``t``/``r`` (N, 3):
+    the unit tangents' sums (``tangent_new`` of the normalized rows, rows
+    where ``weight`` is False zero) and the harmonic weights
+    ``sum 1 / (|t| + tscale * epsilon)`` and ``sum 1 / (|r| + epsilon)``."""
+    zero = torch.zeros((), dtype=t.dtype, device=t.device)
+    tn, rn = _norm(t), _norm(r)
+    ts = _landmark_sum(torch.where(weight, 1.0 / (tn + tscale * epsilon), zero)[..., None])[..., 0]
+    rs = _landmark_sum(torch.where(weight, 1.0 / (rn + epsilon), zero)[..., None])[..., 0]
+    one = torch.ones((), dtype=t.dtype, device=t.device)
+    t_l1, r_l1 = epipolar.tangent_new(t / torch.where(tn == 0, one, tn)[..., None],
+                                      r / torch.where(rn == 0, one, rn)[..., None])
+    t_l1, r_l1 = _masked(weight, t_l1, r_l1)
+    return _landmark_sum(t_l1), _landmark_sum(r_l1), ts, rs
+
+
+@full_f32
+def single_view_simple_optimize_l1(
+    pose: Isometry3, bearings, world_points, valid, epsilon: float, optimization_rate: float, iterations: int
+) -> Isometry3:
+    """Weiszfeld-style harmonic-mean IRLS (single_view_optimizer.rs:16-78):
+    each step moves by the sum of the landmarks' unit tangents over the sum
+    of their inverse lengths, with the patience rule of
+    :func:`single_view_simple_optimize_l2` on the unit sums' norms.
+
+    ``bearings``: (N, 3); ``world_points``: (N, 4) homogeneous; ``valid``:
+    (N,) bool.  Returns the pose in its own type and dtype.
+    """
+    # Invalid rows never contribute: drop them once (same sums, same bits).
+    bearings, world_points, valid = bearings[valid], world_points[valid], valid[valid]
+    best_t = best_r = float("inf")
+    stale = 0
+    it = 0
+    while it < iterations and stale < PATIENCE:
+        tscale = _norm(pose.translation)
+        t, r, contrib = landmark_deltas(pose, bearings, world_points, valid)
+        l1_t, l1_r, ts, rs = _l1_sums(t, r, contrib, tscale, epsilon)
+        nt, nr = (float(x) for x in torch.stack([_norm(l1_t), _norm(l1_r)]).tolist())
+        stale = 0 if (best_t > nt or best_r > nr) else stale + 1
+        best_t, best_r = min(best_t, nt), min(best_r, nr)
+        if stale < PATIENCE:  # the stabilizing step is not applied
+            pose = _apply_tangent(l1_t * optimization_rate / ts, l1_r * optimization_rate / rs, pose)
+        it += 1
+    return pose
+
+
+@full_f32
 def single_view_simple_optimize_l2(
     pose: Isometry3, bearings, world_points, valid, optimization_rate: float, iterations: int, steps_out=None
 ) -> Isometry3:
@@ -107,6 +156,40 @@ def _masked(valid, *vs):
     return tuple(torch.where(valid[..., None], v, zero) for v in vs)
 
 
+@full_f32
+def three_view_simple_optimize_l1(poses: tuple, observations, valid, epsilon: float, optimization_rate: float,
+                                  iterations: int):
+    """Weiszfeld L1 three-view optimization (three_view_optimizer.rs:23-124):
+    per pose, the unit tangents' sums over the harmonic weights (the
+    translation weight's scale is the two camera-to-center translations'
+    norms summed), with the patience rule over the four unit sums' norms.
+
+    ``poses``: (center->first, center->second) camera-to-camera isometries;
+    ``observations``: (N, 3, 3); ``valid``: (N,).  Returns the pose pair.
+    """
+    ftoc, stoc = poses[0].inverse(), poses[1].inverse()
+    # Invalid rows never contribute: drop them once (same sums, same bits).
+    observations, valid = observations[valid], valid[valid]
+    bests = [float("inf")] * 4
+    stale = 0
+    it = 0
+    while it < iterations and stale < PATIENCE:
+        (t1, r1), (t2, r2) = _three_view_landmark_gradients(ftoc, stoc, observations)
+        t1, r1, t2, r2 = _masked(valid, t1, r1, t2, r2)
+        tscale = _norm(ftoc.translation) + _norm(stoc.translation)
+        st1, sr1, ts1, rs1 = _l1_sums(t1, r1, valid, tscale, epsilon)
+        st2, sr2, ts2, rs2 = _l1_sums(t2, r2, valid, tscale, epsilon)
+        norms = torch.stack([_norm(x) for x in (st1, sr1, st2, sr2)]).tolist()
+        stale = 0 if any(b > n for b, n in zip(bests, norms)) else stale + 1
+        bests = [min(b, n) for b, n in zip(bests, norms)]
+        if stale < PATIENCE:  # the stabilizing step is not applied
+            ftoc = _apply_tangent(st1 * optimization_rate / ts1, sr1 * optimization_rate / rs1, ftoc)
+            stoc = _apply_tangent(st2 * optimization_rate / ts2, sr2 * optimization_rate / rs2, stoc)
+        it += 1
+    return ftoc.inverse(), stoc.inverse()
+
+
+@full_f32
 def three_view_simple_optimize_l2(
     poses: tuple, observations, valid, optimization_rate: float, iterations: int, steps_out=None
 ):
@@ -142,6 +225,7 @@ def three_view_simple_optimize_l2(
     return ftoc.inverse(), stoc.inverse()
 
 
+@full_f32
 def three_view_adaptive_optimize_l2(poses: tuple, observations, valid, iterations: int):
     """L2 with the adaptive signal-to-noise rate |mean| / mean norm, for a
     fixed number of iterations (three_view_optimizer.rs:203-272).

@@ -21,6 +21,7 @@ from ..core.lie import so3_exp, so3_log
 from ..core.pose import Isometry3
 from ..geom import epipolar
 from ..optimize import single_view_l2
+from ..ops.precision import full_f32
 from ..triangulate import linear_eigen
 
 
@@ -33,6 +34,42 @@ def _mtv(m, v):
     return (m * v[..., :, None]).sum(dim=-2)
 
 
+def incoming_edges(edge_to: torch.Tensor, edge_valid: torch.Tensor, v_count: int) -> torch.Tensor:
+    """``(V, D)`` int64 table of each view's valid incoming edges in edge
+    order, D the largest such in-degree; a view's unused slots hold ``E``
+    (the index of an appended zero row).  An invalid edge only ever adds an
+    exact zero, so leaving it out changes no bit.  One host read (D)."""
+    e = edge_to.shape[0]
+    to = torch.where(edge_valid, edge_to, v_count)  # invalid edges to a dropped extra row
+    counts = torch.bincount(to, minlength=v_count + 1)
+    depth = int(counts[:v_count].max()) if e else 0
+    order = torch.argsort(to, stable=True)
+    to_sorted = to[order]
+    rank = torch.arange(e, device=edge_to.device) - (torch.cumsum(counts, 0) - counts)[to_sorted]
+    table = torch.full((v_count + 1, max(depth, 1)), e, dtype=torch.int64, device=edge_to.device)
+    keep = rank < table.shape[1]
+    table[to_sorted[keep], rank[keep]] = order[keep]
+    return table[:v_count, :depth]
+
+
+def per_view_sum(rows: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``out[v] = 0 + rows[table[v, 0]] + rows[table[v, 1]] + ...``, left to
+    right: ``cv_tpu``'s ``.at[edge_to].add`` order, the same on every
+    device (``Tensor.index_add_`` adds with atomics on CUDA).  One
+    ``cumsum`` along the slots: a scan over a dimension that is not the
+    last runs each column sequentially from 0 on the CPU and on CUDA, so in
+    float64 (the engine's dtype) it rounds as the elementwise adds would (a
+    CPU accumulates float32 in float64).  Padding slots add an exact
+    zero."""
+    flat = rows.reshape(rows.shape[0], -1)
+    if table.shape[1] == 0:
+        return rows.new_zeros((table.shape[0],) + rows.shape[1:])
+    padded = torch.cat([flat, flat.new_zeros((1, flat.shape[1]))])
+    total = torch.cumsum(padded[table], dim=1)[:, -1]  # (V, C): the scan runs along the slots
+    return total.reshape((table.shape[0],) + rows.shape[1:])
+
+
+@full_f32
 def graph_ba_core(rot, trans, edge_to, edge_from, edge_rot, edge_t, edge_valid, iterations: int, rate: float):
     """Graph bundle adjustment (lib.rs:1892-1936, 2382-2414, 2543-2567).
 
@@ -40,13 +77,15 @@ def graph_ba_core(rot, trans, edge_to, edge_from, edge_rot, edge_t, edge_valid, 
     (E,) directed constraints with the expected other->view isometries.
     Each of ``iterations`` rounds sums, per view, the se(3) logs of
     ``expected_other_to_view . world_to_other . view_to_world^-1`` over its
-    incident edges, scales by ``rate`` and left-applies the result.  Views
-    whose delta goes non-finite are removed (a sticky mask) with their
-    edges.  Returns ``(rot, trans, removed)``.
+    incident edges in edge order (:func:`per_view_sum`, so the card gives
+    the same bits from run to run), scales by ``rate`` and left-applies the
+    result.  Views whose delta goes non-finite are removed (a sticky mask)
+    with their edges.  Returns ``(rot, trans, removed)``.
     """
     v_count = rot.shape[0]
     edge_to = edge_to.long()
     edge_from = edge_from.long()
+    incoming = incoming_edges(edge_to, edge_valid, v_count)
     has_edge = torch.zeros(v_count, dtype=torch.int32, device=rot.device).scatter_reduce(
         0, edge_to, edge_valid.to(torch.int32), reduce="amax"
     ) > 0
@@ -63,7 +102,7 @@ def graph_ba_core(rot, trans, edge_to, edge_from, edge_rot, edge_t, edge_valid, 
         se3_log = torch.cat([t_d, so3_log(r_d)], dim=-1)  # (E, 6)
         ok_edge = edge_valid & ~removed[edge_from] & ~removed[edge_to]
         se3_log = torch.where(ok_edge[:, None], se3_log, zero)
-        net = torch.zeros((v_count, 6), dtype=rot.dtype, device=rot.device).index_add_(0, edge_to, se3_log) * rate
+        net = per_view_sum(se3_log, incoming) * rate
         finite = torch.isfinite(net).all(dim=-1) & has_edge & ~removed
         dr = so3_exp(net[:, 3:6])
         new_rot = dr @ rot
@@ -74,6 +113,7 @@ def graph_ba_core(rot, trans, edge_to, edge_from, edge_rot, edge_t, edge_valid, 
     return rot, trans, removed
 
 
+@full_f32
 def ba_filter(
     rot, trans, edge_to, edge_from, edge_rot, edge_t, edge_valid,
     lm_view,  # (L, O) int indices into the view arrays
@@ -137,6 +177,7 @@ def _optimize_l2(pose, bearings, points, active, rate, patience):
     return single_view_l2(pose, bearings, points, active, rate, patience)
 
 
+@full_f32
 def _consistency_mask(pose: Isometry3, bearings, n_others, obs_rot, obs_trans, all_bear, all_mask,
                       max_sine, max_cos):
     """``is_observation_consistent`` (lib.rs:2937-2967) for every match."""

@@ -100,6 +100,15 @@ class _PrefetchedFrame:
         self.handle = handle
 
 
+def graph_ba_device(rot, trans, edge_to, edge_from, edge_rot, edge_t, edge_valid, iterations, rate):
+    """Graph bundle adjustment on the tensors' device (lib.rs:1892-1936,
+    2382-2414, 2543-2567): ``iterations`` rounds of
+    :func:`device_refine.graph_ba_core` over ``(V, 3, 3)``/``(V, 3)``
+    world-to-view poses and ``(E,)`` directed edges.  Returns device
+    tensors ``(rot, trans, removed)``."""
+    return device_refine.graph_ba_core(rot, trans, edge_to, edge_from, edge_rot, edge_t, edge_valid, iterations, rate)
+
+
 def _essential_estimate(s):
     return eight_point.estimate(s[0], s[1])
 
@@ -1408,7 +1417,7 @@ class VSlam:
     def graph_ba_device(self, arrays):
         """Graph bundle adjustment over ``_build_ba_arrays`` output on the
         engine's device; returns host ``(rot, trans, removed)``."""
-        rot, trans, removed = device_refine.graph_ba_core(
+        rot, trans, removed = graph_ba_device(
             *(self._tensor(a) for a in arrays),
             iterations=self.settings.optimization_iterations,
             rate=self.settings.graph_optimization_rate,

@@ -1,5 +1,5 @@
-"""Minimal solvers: eight-point and Lambda-Twist P3P."""
+"""Minimal solvers: eight-point, Nister-Stewenius five-point, Lambda-Twist P3P."""
 
-from . import eight_point, lambda_twist
+from . import eight_point, lambda_twist, nister_stewenius
 
-__all__ = ["eight_point", "lambda_twist"]
+__all__ = ["eight_point", "lambda_twist", "nister_stewenius"]

@@ -12,6 +12,7 @@ import torch
 from ..camera import essential
 from ..core.pose import CameraToCamera
 from ..ops.eigen import eigh_small
+from ..ops.precision import full_f32
 
 MIN_SAMPLES = 8
 MODELS_PER_SAMPLE = 4
@@ -30,6 +31,7 @@ def encode_epipolar_equation(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ap[..., :, None] * bp[..., None, :]).reshape(a.shape[:-1] + (9,))
 
 
+@full_f32
 def essential_from_matches(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Least-squares essential matrix from >= 8 matches ``(..., K, 3)``:
     the smallest eigenvector of the 9x9 normal matrix (lib.rs:44-60)."""

@@ -18,6 +18,7 @@ from ..core import projective
 from ..core.pose import WorldToCamera
 from ..geom.epipolar import cross
 from ..ops.eigen import svd3
+from ..ops.precision import full_f32
 
 MIN_SAMPLES = 3
 MODELS_PER_SAMPLE = 4
@@ -153,6 +154,7 @@ def _inv3(m):
     return torch.stack([c0, c1, c2], dim=-2) / _det3(m)[..., None, None]
 
 
+@full_f32
 def _closest_rotation(m):
     """Nearest proper rotation (SVD polar factor; the reference iterates
     ``Rotation3::from_matrix_eps`` to the same point, lib.rs:307-315)."""
@@ -162,6 +164,7 @@ def _closest_rotation(m):
     return (u * fix[..., None, :]) @ vt
 
 
+@full_f32
 def estimate(bearings: torch.Tensor, world_points: torch.Tensor):
     """Solve P3P for batches of 3-point samples.
 

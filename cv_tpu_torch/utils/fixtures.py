@@ -15,6 +15,7 @@ _REPO_FIXTURES = os.path.join(
 
 KITTI_FRAME_0 = "0000000000.png"
 KITTI_FRAME_14 = "0000000014.png"
+KITTI_CALIB = "calib_cam_to_cam.txt"
 
 # KITTI cam 00 intrinsics (fx, fy, cx, cy): the K_00 line of
 # calib_cam_to_cam.txt, as the reference's chapter-5 tutorial uses them.

@@ -3,7 +3,11 @@ them, and the entry points' device default, against cv_tpu.
 
 * The eager top-level names (public attributes that are not modules) equal
   cv_tpu's; every cv_tpu subpackage and top-level module resolves lazily on
-  the port except ``parallel``, which is still to port.
+  the port (``NOT_PORTED`` is empty).
+* Every public name that a cv_tpu module defines (its functions, classes
+  and constants, not what it imports; loggers aside) resolves on the port's
+  counterpart module, except in the modules of ``TPU_WORKAROUNDS``, each
+  named with its reason.
 * ``CameraSpecification`` and ``WorldToWorld.from_camera_poses`` on seeded
   float64 inputs, within 1e-12 of cv_tpu's.
 * ``DeviceExtractor``, ``FastAkazeExtractor``, ``AkazeExtractor``,
@@ -19,8 +23,11 @@ them, and the entry points' device default, against cv_tpu.
 * ``cv_tpu_torch.akaze`` exports every name of ``cv_tpu.akaze``.
 """
 
+import importlib
 import inspect
+import logging
 import pathlib
+import pkgutil
 import types
 
 import jax.numpy as jnp
@@ -35,7 +42,19 @@ from cv_tpu_torch.akaze import AkazeExtractor, DeviceExtractor, FastAkazeExtract
 from cv_tpu_torch.consensus import BatchConsensus
 from cv_tpu_torch.sfm import VSlam
 
-NOT_PORTED = {"parallel"}
+NOT_PORTED = set()
+# cv_tpu modules with no counterpart module of the same name in the port.
+TPU_WORKAROUNDS = {
+    "cv_tpu.akaze.pallas_mldb": "its Pallas kernels are ported under other names: akaze/select.py, akaze/fused.py "
+                                "and csrc/select_*.cu",
+    "cv_tpu.optimize.pallas_loop": "its Pallas kernels are ported as optimize/resident.py and csrc/single_view_l2.cu, "
+                                   "three_view_l2.cu and three_view_adaptive.cu",
+    "cv_tpu.core.smallmat": "elementwise contractions that keep float32 products off the TPU's bf16 matrix unit; "
+                            "the port's products run at full precision (ops/precision.py)",
+    "cv_tpu.ops.dw": "double-word arithmetic for the TPU's slow float64; the card computes in native float64",
+    "cv_tpu.utils.pytree": "registers JAX pytrees; the port's types are plain dataclasses",
+    "cv_tpu.utils.native_loader": "replaced by utils/loader.py's thread pool",
+}
 
 
 def _eager_names(pkg):
@@ -58,6 +77,40 @@ def test_lazy_subpackages_resolve_except_the_unported():
     for name in sorted(NOT_PORTED):
         with pytest.raises(AttributeError):
             getattr(cv_tpu_torch, name)
+
+
+def _defined_names(mod):
+    """Public names that ``mod`` defines: functions and classes whose
+    ``__module__`` is ``mod``, and other non-module values (constants);
+    loggers are not API."""
+    out = set()
+    for name, value in vars(mod).items():
+        if name.startswith("_") or isinstance(value, (types.ModuleType, logging.Logger)):
+            continue
+        if (callable(value) or isinstance(value, type)) and getattr(value, "__module__", None) != mod.__name__:
+            continue
+        out.add(name)
+    return out
+
+
+def _cv_tpu_modules():
+    return sorted(info.name for info in pkgutil.walk_packages(cv_tpu.__path__, "cv_tpu."))
+
+
+def test_workaround_exceptions_are_cv_tpu_modules_without_a_counterpart():
+    modules = set(_cv_tpu_modules())
+    for name in TPU_WORKAROUNDS:
+        assert name in modules, name
+        with pytest.raises(ModuleNotFoundError):
+            importlib.import_module("cv_tpu_torch" + name[len("cv_tpu"):])
+
+
+@pytest.mark.parametrize("name", [n for n in _cv_tpu_modules() if n not in TPU_WORKAROUNDS])
+def test_every_public_name_resolves_on_the_port(name):
+    ref = importlib.import_module(name)
+    port = importlib.import_module("cv_tpu_torch" + name[len("cv_tpu"):])
+    missing = sorted(n for n in _defined_names(ref) if not hasattr(port, n))
+    assert not missing, f"{port.__name__} lacks {missing}"
 
 
 def test_camera_specification_matches_cv_tpu():

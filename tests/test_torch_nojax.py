@@ -1,5 +1,7 @@
 """cv_tpu_torch stands alone: importing it (every module) pulls in neither
-JAX nor cv_tpu, and no source file of it names them."""
+JAX nor cv_tpu, no source file of it names them, and none builds a path
+into the cv_tpu package (its data files, the LSH codebook included, are
+the port's own copies)."""
 
 import os
 import pathlib
@@ -39,6 +41,12 @@ def test_import_leaves_jax_out():
 def test_source_names_no_jax(path):
     text = (PKG / path).read_text()
     assert not re.search(r"^\s*(import|from)\s+(jax|jaxlib|cv_tpu)\b", text, re.M), path
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(PKG)) for p in PKG.rglob("*.py")))
+def test_source_opens_no_path_under_cv_tpu(path):
+    text = (PKG / path).read_text()
+    assert not re.search(r"""(["'])cv_tpu(\1|/)""", text), path
 
 
 @pytest.mark.parametrize("script", ["chip_smoke.py", "scripts/sweep_pose_blocks.py", "scripts/time_engine_calls.py"])
