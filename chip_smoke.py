@@ -1606,6 +1606,58 @@ def check_dedup_kernel(dev, seed, dense_args):
     return rec
 
 
+def bisect_work(body, k, ns):
+    """``(bytes, float32 operations)`` that ``exp_bisect.py``'s body
+    ``body`` must move and do for ``k`` keypoints of ``ns`` samples: the
+    per-keypoint words, each 3x136x128 window read once (one row of each
+    for ``'vpu_rowstage'``, which reads a sample a row), ``rel_x`` for the
+    dynamic one-hot, and the (K, 3 NS) output."""
+    from cv_tpu_torch.experiments import probes
+
+    window = 3 * probes.PH * probes.PW
+    if body == "vpu_rowstage":
+        return k * 12 + k * ns * 4 + 2 * k * 3 * ns * 4, 0
+    nbytes = k * (12 + window * 4) + k * 3 * ns * 4 + (k * ns * 4 if body == "matmul_dyn_oh" else 0)
+    flops = {"dma_only": k * window, "split_nomm": 8 * k * window}.get(body, k * ns * 9 * probes.PH)
+    return nbytes, flops
+
+
+def hold_column_sums(body, fn, args, aligned):
+    """A column-sum body's kernel against its order mirror: bitwise on
+    ``args`` (x0 unaligned), on ``aligned`` (x0 128-aligned) and on a small
+    draw whose windows leave the stack and whose dynamic columns leave the
+    window (NaN at the same places, the same quiet NaN); on ``aligned`` also
+    within ``SUM_ATOL`` of ``bisect_plain``.  Returns the aligned draw's
+    times (kernel and plain, alternated)."""
+    import torch
+
+    from cv_tpu_torch.experiments import probes
+
+    planes = args[0]
+    n_levels, _, height, width = planes.shape
+    leaving = [t[:16].clone() for t in args[1:]]
+    lvl, y0, x0, _, rel_x = leaving
+    x0[0], y0[1], lvl[2], x0[3], y0[4] = width - probes.PW + 1, -1, n_levels, -3, height - probes.PH + 1
+    rel_x[5, :3] = torch.tensor([-1, probes.PW, 10_000], dtype=torch.int32, device=rel_x.device)
+    for label, draw in (("x0 unaligned", args), ("x0 aligned", aligned), ("leaving", (planes, *leaving))):
+        got, ref = fn(*draw), probes.bisect_matmul_ordered(body, *draw)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+                f"bisect {body} ({label}): bitwise equal to its order mirror "
+                f"({int((got.view(torch.int32) != ref.view(torch.int32)).sum())} words differ)")
+    nan = int(torch.isnan(got).sum())
+    require(nan == 5 * got.shape[1] + (9 if body == "matmul_dyn_oh" else 0),
+            f"bisect {body}: {nan} NaN outputs where windows and columns leave")
+    got, plain = fn(*aligned), probes.bisect_plain(body, *aligned)
+    err = float((got - plain).abs().max())
+    require(err <= probes.SUM_ATOL[body], f"bisect {body} (x0 aligned) within {probes.SUM_ATOL[body]} of its plain "
+                                          f"version (max |err| {err})")
+    kms, pms = alternate(lambda: fn(*aligned), lambda: probes.bisect_plain(body, *aligned), cuda_ms)
+    print(f"bisect {body}: bitwise equal to its order mirror (x0 unaligned, aligned, leaving: {nan} NaN); "
+          f"x0 aligned: max |err| {err:.3e} to plain, kernel {kms:.4f} ms, plain {pms:.4f} ms")
+    return dict(aligned_ms=kms, aligned_plain_ms=pms, aligned_max_abs_err=err)
+
+
 def check_experiment_kernels(dev, seed):
     """Phase 3 for the experiments' kernels, at their scripts' shapes: the
     retired selects (the select kernel at the KITTI batch's shapes), the
@@ -1705,20 +1757,24 @@ def check_experiment_kernels(dev, seed):
     k = sh["bisect_k"]
     args = window_inputs(k, ns)
     _, bl, by, bx, bry, brx = args
-    window_bytes = k * (12 + 3 * probes.PH * probes.PW * 4) + k * 3 * ns * 4
+    # exp_bisect.py's second run: x0 128-aligned (make_inputs(align_x=True)).
+    aligned = window_inputs(k, ns)
+    aligned = (*aligned[:3], aligned[3] & ~127, *aligned[4:])
     for body, fn in probes.BISECT.items():
-        flops = {"dma_only": k * 3 * probes.PH * probes.PW, "split_nomm": 8 * k * 3 * probes.PH * probes.PW,
-                 "matmul_static": k * ns * 9 * probes.PH, "matmul_dyn_oh": k * ns * 9 * probes.PH}.get(body, 0)
-        nbytes = window_bytes + (k * ns * 4 if body == "matmul_dyn_oh" else 0)
+        nbytes, flops = bisect_work(body, k, ns)
         lib = None
         if body == "vpu_rowstage":
-            nbytes = k * 12 + k * ns * 4 + 2 * k * 3 * ns * 4
             f = index_call(planes, bl, by[:, None] + bry, bx[:, None].expand(k, ns))
             lib = lambda f=f: f().reshape(k, -1)  # noqa: E731
-        out[f"bisect_{body}"] = hold(f"bisect {body} (K={k}, NS={ns})", lambda fn=fn: fn(*args),
-                                     lambda body=body: probes.bisect_plain(body, *args), nbytes, flops, lib,
-                                     probes.SUM_ATOL.get(body))
-    del planes, args
+        name = f"bisect {body} (K={k}, NS={ns})"
+        rec = out[f"bisect_{body}"] = hold(name, lambda fn=fn: fn(*args),
+                                           lambda body=body: probes.bisect_plain(body, *args), nbytes, flops, lib,
+                                           probes.SUM_ATOL.get(body))
+        if body in probes.MATMUL_BODIES:
+            rec.update(hold_column_sums(body, fn, args, aligned))
+            print(f"{name}: {100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound unaligned, "
+                  f"{100 * rec['bound_ms'] / rec['aligned_ms']:.1f}% aligned")
+    del planes, args, aligned
 
     # exp_r3_gather_probe.py and exp_r3_mxu_probe.py: patches (4096, 3, 128,
     # 128), NS=512 ('split' at NS=128, where its TPU body traces).
@@ -3346,7 +3402,8 @@ def main():
 
     def row(name, source, replaces, launches, rec):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        measured = ("device_ms", "library_device_ms", "steps", "us_per_step", "engine")
+        measured = ("device_ms", "library_device_ms", "steps", "us_per_step", "engine", "aligned_ms",
+                    "aligned_plain_ms")
         return {"name": name, "route": "cuda", "source": f"cv_tpu_torch/csrc/{source}.cu", "replaces": replaces,
                 "launches": launches, **{k: rec[k] for k in keys}, **{k: rec[k] for k in measured if k in rec}}
 

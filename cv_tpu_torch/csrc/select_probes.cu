@@ -32,16 +32,25 @@
 // bf16 rounding is __float2bfloat16_rn (round to nearest even, as XLA's
 // astype).  Built with --fmad=false.  Sums run in another order than
 // XLA's (block trees, sequential loops); chip_smoke.py holds them to their
-// plain versions within a stated tolerance and the selects bitwise.
+// plain versions within a stated tolerance and the selects bitwise, and
+// the two column sums bitwise to their order mirror as well.
 //
 // What bounds them: bytes.  The window probes read a 209 KB window per
 // keypoint; the patch probes one channel row or a few words.  Design: one
 // block per keypoint; threads stride over samples (or the window, for the
-// sums, which end in a warp-shuffle and shared-memory tree).
+// sums, which end in a warp-shuffle and shared-memory tree).  The two
+// one-hot column sums have a design of their own (below): the window once
+// through shared memory by TMA, one thread a column.  Their host code
+// encodes a TMA tensor map with libcuda's cuTensorMapEncodeTiled, which it
+// obtains through cudaGetDriverEntryPoint (no -lcuda at build time).
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
@@ -116,30 +125,246 @@ __global__ void __launch_bounds__(kThreads) bisect_dma_only_kernel(BISECT_ARGS) 
   for (int j = threadIdx.x; j < 3 * ns; j += blockDim.x) o[j] = w.base != nullptr ? s : qnan();
 }
 
-template <bool kDynamic>
-__device__ __forceinline__ void bisect_matmul(BISECT_ARGS) {
-  const Window w = BISECT_WINDOW;
-  const int k = blockIdx.x;
-  float* o = out + static_cast<size_t>(k) * 3 * ns;
-  for (int s = threadIdx.x; s < ns; s += blockDim.x) {
-    const int col = kDynamic ? rel_x[static_cast<size_t>(k) * ns + s] : s % pw;
-    float acc = qnan();
-    if (w.base != nullptr && col >= 0 && col < pw) {
-      acc = 0.0f;
-      for (int rep = 0; rep < 3; ++rep)
-        for (int c = 0; c < channels; ++c)
-          for (int y = 0; y < ph; ++y) acc += bf16r(at(w, c, y, col));
-    }
-    for (int r = 0; r < 3; ++r) o[3 * s + r] = acc;
+// ---------------------------------------------------------------------------
+// The one-hot column sums: bisect_matmul_static and bisect_matmul_dyn_oh.
+//
+// out[k, 3 s + r] = sum over rep < 3, c < 3, y < 136 of bf16(win_k[c, y,
+// col]), col = s % 128 (static) or rel_x[k, s] (dynamic); NaN where the
+// window leaves the stack or the column leaves [0, 128).  The TPU body's
+// one-hot product has one nonzero term a column, so only the window's 128
+// column sums are distinct.
+//
+// What bounds it: bytes, one read of each 209 KB window (0.034 ms at
+// exp_bisect.py's K=512).  Design: one block a keypoint, one thread a
+// column.
+// * The window arrives once, by TMA: chunks of kColRows rows (a box of a
+//   rank-4 tensor map over the stack) on a ring of kStages slots, each with
+//   a full and an empty mbarrier (no block barrier a chunk).  exp_bisect.py
+//   also runs with x0 unaligned, and on the H100 a TMA box whose first
+//   column is not 16-byte aligned faults (an illegal instruction,
+//   measured), so a chunk's box starts at the aligned column x0 & ~3 and
+//   is kBoxCols = 132 columns wide; the window is its columns x0 & 3 ..
+//   (x0 & 3) + 127 (at most one 32-byte sector a row more than the
+//   window's own 16 or 17).
+// * As a chunk lands each thread rounds its column's rows to bf16 (exact:
+//   the summed value is the rounding) and adds them.  Reps 1 and 2 re-read
+//   the window: the first kChunks - kStages chunks from registers, packed
+//   two bf16 rows to a word (108 a thread at kStages = 24), the last
+//   kStages from their ring slots, which no later chunk overwrites.  So
+//   shared memory holds only the ring (24 slots, 101 KB, two blocks an SM)
+//   and the bytes in flight.  Each thread adds its column rep -> c -> y in
+//   one serial chain of 1,224 float32 adds, the order of the earlier
+//   one-thread-a-sample kernel: the output is the same bits
+//   (probes.bisect_matmul_ordered).
+// * The column sums go to shared memory; the block gathers them into the
+//   output row with 16-byte stores (the dynamic body reads its rel_x row
+//   once, coalesced).
+// kTmaStaging = 0 (the ablation of scripts/time_engine_calls.py) loads each
+// chunk with plain coalesced loads, a thread its column, and keeps all 204
+// words in registers.  On the H100 it is the faster of the two (the
+// compiler hoists the loads across the unrolled chunks; PERF.md §6); TMA
+// stays the design, the card's counterpart of the TPU body's window DMA.
+
+constexpr int kColPH = 136, kColPW = 128, kColChannels = 3;  // the window; kColPW threads
+constexpr int kWinRows = kColChannels * kColPH;               // 408 rows, channel-major
+constexpr int kColRows = 8;                                   // rows a chunk (a TMA box)
+constexpr int kStages = 24;                                   // chunks in flight into shared memory
+constexpr int kTmaStaging = 1;                                // 0: plain loads (the ablation)
+constexpr int kBoxCols = kColPW + 4;                          // a box: from the 16-byte aligned column at or before x0
+constexpr int kChunks = kWinRows / kColRows;
+constexpr int kChunkFloats = kColRows * kBoxCols;
+constexpr int kSlotFloats = (kChunkFloats + 31) / 32 * 32;    // slots start 128-byte aligned (TMA destinations)
+// Chunks kept in registers, 4 words each: with TMA the last kStages stay
+// in their ring slots (no chunk follows to overwrite them).
+constexpr int kRegChunks = kTmaStaging ? kChunks - kStages : kChunks;
+constexpr size_t kRingBytes = kTmaStaging ? static_cast<size_t>(kStages) * kSlotFloats * sizeof(float) : 0;
+// 128 bytes of slack to align the ring (a TMA destination), the ring, the
+// column sums and two mbarriers a slot (full, empty).
+constexpr size_t kColSmemBytes = 128 + kRingBytes + kColPW * sizeof(float) + 2 * kStages * 8;
+static_assert(kColPH % kColRows == 0 && kColRows % 2 == 0, "a chunk is whole row pairs of one channel");
+static_assert(kStages > 0 && kStages < kChunks, "the ring holds part of the window");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes)
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` to complete.  A completion that
+// never comes (a lost copy) traps, failing the launch, after 2^24 polls
+// (seconds; a chunk takes microseconds) rather than hang the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0, polls = 0;
+  do {
+    if (++polls > (1u << 24)) __trap();
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// Chunk j of keypoint (l, yb, xb): kColRows rows of the window from row
+// kColRows j, all in one channel; its box starts at the 16-byte aligned
+// column.
+__device__ __forceinline__ void tma_load_chunk(float* dst, const CUtensorMap* map, uint64_t* bar, int j, int l,
+                                               int yb, int xb) {
+  const int row0 = j * kColRows;
+  mbar_expect_tx(bar, kChunkFloats * sizeof(float));
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(xb & ~3), "r"(yb + row0 % kColPH), "r"(row0 / kColPH), "r"(l),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Round this thread's column of a chunk to bf16, add it to acc in row
+// order, and pack it two rows to a word (the lower row in the low half).
+__device__ __forceinline__ float take_rows(const float (&v)[kColRows], uint32_t (&w)[kColRows / 2], float acc) {
+#pragma unroll
+  for (int r = 0; r < kColRows; r += 2) {
+    const __nv_bfloat16 lo = __float2bfloat16_rn(v[r]), hi = __float2bfloat16_rn(v[r + 1]);
+    acc += __bfloat162float(lo);
+    acc += __bfloat162float(hi);
+    w[r / 2] = static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+               (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
   }
+  return acc;
 }
 
-__global__ void __launch_bounds__(kThreads) bisect_matmul_static_kernel(BISECT_ARGS) {
-  bisect_matmul<false>(planes, lvl, y0, x0, rel_y, rel_x, out, n_levels, channels, height, width, ph, pw, ns);
+// Add a packed pair of bf16 rows, the lower row first.
+__device__ __forceinline__ float add_pair(uint32_t w, float acc) {
+  acc += __uint_as_float(w << 16);
+  acc += __uint_as_float(w & 0xffff0000u);
+  return acc;
 }
 
-__global__ void __launch_bounds__(kThreads) bisect_matmul_dyn_oh_kernel(BISECT_ARGS) {
-  bisect_matmul<true>(planes, lvl, y0, x0, rel_y, rel_x, out, n_levels, channels, height, width, ph, pw, ns);
+template <bool kDynamic>
+__global__ void __launch_bounds__(kColPW, 2)
+    column_sums_kernel(const __grid_constant__ CUtensorMap map, const float* __restrict__ planes,
+                       const int* __restrict__ lvl, const int* __restrict__ y0, const int* __restrict__ x0,
+                       const int* __restrict__ rel_x, float* __restrict__ out, int n_levels, int height, int width,
+                       int ns) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((128u - (smem_u32(smem_raw) & 127u)) & 127u);
+  float* ring = reinterpret_cast<float*>(smem);
+  const int t = threadIdx.x, k = blockIdx.x;
+  float* colsum = reinterpret_cast<float*>(smem + kRingBytes);
+  // A slot's full barrier completes when its chunk has landed; its empty
+  // barrier when every warp has read it.
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kRingBytes + kColPW * sizeof(float));
+  uint64_t* empty = full + kStages;
+
+  const int l = lvl[k], yb = y0[k], xb = x0[k];
+  const bool ok = l >= 0 && l < n_levels && yb >= 0 && yb + kColPH <= height && xb >= 0 && xb + kColPW <= width;
+  if (ok) {  // the same for every thread of the block
+    float acc = 0.0f;
+    uint32_t win[kRegChunks * kColRows / 2];  // indexed by fully unrolled loops only: registers
+    if constexpr (kTmaStaging) {
+      if (t == 0) {
+        for (int s = 0; s < kStages; ++s) {
+          mbar_init(&full[s], 1);
+          mbar_init(&empty[s], kColPW / 32);
+        }
+        asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+        for (int j = 0; j < kStages && j < kChunks; ++j) {
+          tma_load_chunk(ring + j * kSlotFloats, &map, &full[j], j, l, yb, xb);
+        }
+      }
+      __syncthreads();
+    }
+    const float* column = planes + (static_cast<size_t>(l) * kColChannels * height + yb) * width + xb + t;
+#pragma unroll
+    for (int i = 0; i < kChunks; ++i) {
+      float v[kColRows];
+      if constexpr (kTmaStaging) {
+        const int slot = i % kStages;
+        mbar_wait(&full[slot], static_cast<uint32_t>((i / kStages) & 1));
+#pragma unroll
+        for (int r = 0; r < kColRows; ++r) v[r] = ring[slot * kSlotFloats + r * kBoxCols + (xb & 3) + t];
+        __syncwarp();
+        if ((t & 31) == 0) mbar_arrive(&empty[slot]);
+        // Thread 0 refills the slot read one chunk before, which the other
+        // warps have most likely left by now.
+        const int prev = i - 1, next = prev + kStages;
+        if (t == 0 && prev >= 0 && next < kChunks) {
+          mbar_wait(&empty[prev % kStages], static_cast<uint32_t>((prev / kStages) & 1));
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          tma_load_chunk(ring + (prev % kStages) * kSlotFloats, &map, &full[prev % kStages], next, l, yb, xb);
+        }
+      } else {
+        const int row0 = i * kColRows;
+        const float* src = column + (static_cast<size_t>(row0 / kColPH) * height + row0 % kColPH) * width;
+#pragma unroll
+        for (int r = 0; r < kColRows; ++r) v[r] = __ldg(src + static_cast<size_t>(r) * width);
+      }
+      uint32_t w[kColRows / 2];
+      acc = take_rows(v, w, acc);
+      if (i < kRegChunks) {
+#pragma unroll
+        for (int q = 0; q < kColRows / 2; ++q) win[i * (kColRows / 2) + q] = w[q];
+      }
+    }
+    for (int rep = 1; rep < 3; ++rep) {
+#pragma unroll
+      for (int q = 0; q < kRegChunks * kColRows / 2; ++q) {
+        uint32_t w = win[q];
+        // Opaque to the compiler: otherwise it keeps rep 0's unpacked
+        // floats alive in place of the packed words, and spills.
+        asm volatile("" : "+r"(w));
+        acc = add_pair(w, acc);
+      }
+#pragma unroll
+      for (int i = kRegChunks; i < kChunks; ++i) {
+#pragma unroll
+        for (int r = 0; r < kColRows; ++r) {
+          acc += bf16r(ring[(i % kStages) * kSlotFloats + r * kBoxCols + (xb & 3) + t]);
+        }
+      }
+    }
+    colsum[t] = acc;
+  }
+  __syncthreads();
+
+  // The gather: sample s is column col(s)'s sum, written 3 times.
+  const float nan = qnan();
+  const int* rx = rel_x + static_cast<size_t>(k) * ns;
+  auto value = [&](int s) -> float {
+    if (!ok) return nan;
+    const int c = kDynamic ? rx[s] : (s & (kColPW - 1));
+    return c >= 0 && c < kColPW ? colsum[c] : nan;
+  };
+  const int n = 3 * ns;
+  float* o = out + static_cast<size_t>(k) * n;
+  int tail = 0;
+  if ((reinterpret_cast<uintptr_t>(o) & 15u) == 0) {
+    // Outputs 4 q .. 4 q + 3 belong to samples s = 4 q / 3 and, from
+    // 4 q + e = 3 (s + 1) on, s + 1.
+    for (int q = t; q < n / 4; q += kColPW) {
+      const int j = 4 * q, s = j / 3, next = 3 * (s + 1) - j;  // the first e of sample s + 1 (1, 2 or 3)
+      const float a = value(s), b = value((j + 3) / 3);
+      reinterpret_cast<float4*>(o)[q] = make_float4(a, next > 1 ? a : b, next > 2 ? a : b, b);
+    }
+    tail = n / 4 * 4;
+  }
+  for (int j = tail + t; j < n; j += kColPW) o[j] = value(j / 3);
 }
 
 __global__ void __launch_bounds__(kThreads) bisect_split_nomm_kernel(BISECT_ARGS) {
@@ -279,10 +504,103 @@ __global__ void __launch_bounds__(kThreads) mxu_dma_kernel(MXU_ARGS) {
   }
 
 BISECT_EXPORT(bisect_dma_only)
-BISECT_EXPORT(bisect_matmul_static)
-BISECT_EXPORT(bisect_matmul_dyn_oh)
 BISECT_EXPORT(bisect_split_nomm)
 BISECT_EXPORT(bisect_vpu_rowstage)
+
+namespace {
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*, const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, through the runtime; nullptr when
+// libcuda has none.
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err =
+        cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<EncodeTiled>(p) : nullptr;
+  }();
+  return fn;
+}
+
+constexpr int kMaxDevices = 64;
+std::atomic<bool> g_smem_opted_in[2][kMaxDevices];
+
+// Opt the kernel in to kColSmemBytes of dynamic shared memory, once per
+// device.
+template <bool kDynamic>
+cudaError_t opt_in_smem() {
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!g_smem_opted_in[kDynamic][device].load(std::memory_order_relaxed)) {
+    err = cudaFuncSetAttribute(column_sums_kernel<kDynamic>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kColSmemBytes));
+    if (err != cudaSuccess) return err;
+    g_smem_opted_in[kDynamic][device].store(true, std::memory_order_relaxed);
+  }
+  return cudaSuccess;
+}
+
+// Returns 0 or a cudaError_t, or: -1 when the window is not 3 x 136 x 128,
+// -2 when libcuda has no cuTensorMapEncodeTiled, -3 when it refuses the
+// stack (its rows must be a multiple of 16 bytes, its base 16-byte aligned).
+template <bool kDynamic>
+int launch_column_sums(const float* planes, const int* lvl, const int* y0, const int* x0, const int* rel_x,
+                       float* out, int n_levels, int channels, int height, int width, int ph, int pw, int k, int ns,
+                       void* stream) {
+  if (k <= 0 || ns <= 0) return 0;
+  if (channels != kColChannels || ph != kColPH || pw != kColPW) return -1;
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return -2;
+  // Rank 4, innermost first: (W, H, C, L); one box is kColRows rows of
+  // kBoxCols columns.  L2 promotion 64 B: 256 B fetched whole segments
+  // around each 528-byte box row and took 7% longer (measured).
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(width), static_cast<cuuint64_t>(height),
+                              static_cast<cuuint64_t>(channels), static_cast<cuuint64_t>(n_levels)};
+  const cuuint64_t row = static_cast<cuuint64_t>(width) * sizeof(float);
+  const cuuint64_t strides[3] = {row, row * height, row * height * channels};
+  const cuuint32_t box[4] = {kBoxCols, kColRows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  CUtensorMap map;
+  if (encode(&map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, const_cast<float*>(planes), dims, strides, box, unit,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_64B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS) {
+    return -3;
+  }
+  const cudaError_t err = opt_in_smem<kDynamic>();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  column_sums_kernel<kDynamic><<<k, kColPW, kColSmemBytes, static_cast<cudaStream_t>(stream)>>>(
+      map, planes, lvl, y0, x0, rel_x, out, n_levels, height, width, ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The BISECT_EXPORT signature (rel_y unused, as in the TPU bodies).
+extern "C" int cv_bisect_matmul_static(const float* planes, const int* lvl, const int* y0, const int* x0,
+                                       const int* rel_y, const int* rel_x, float* out, int n_levels, int channels,
+                                       int height, int width, int ph, int pw, int k, int ns, void* stream) {
+  (void)rel_y;
+  return launch_column_sums<false>(planes, lvl, y0, x0, rel_x, out, n_levels, channels, height, width, ph, pw, k,
+                                   ns, stream);
+}
+
+extern "C" int cv_bisect_matmul_dyn_oh(const float* planes, const int* lvl, const int* y0, const int* x0,
+                                       const int* rel_y, const int* rel_x, float* out, int n_levels, int channels,
+                                       int height, int width, int ph, int pw, int k, int ns, void* stream) {
+  (void)rel_y;
+  return launch_column_sums<true>(planes, lvl, y0, x0, rel_x, out, n_levels, channels, height, width, ph, pw, k,
+                                  ns, stream);
+}
 
 #define MXU_EXPORT(name)                                                                          \
   extern "C" int cv_##name(const int* rel_x, const int* rel_y, const float* patches, float* out,  \

@@ -16,7 +16,9 @@ Ports of the Pallas kernels of the probe scripts in ``experiments/``:
 * ``exp_bisect.py`` bodies and ``exp_r3_mxu_probe.py`` bodies: the
   functions their stage-isolating bodies compute (``csrc/select_probes.cu``,
   one ``__global__`` per body): :data:`BISECT` and :data:`MXU`, keyed by
-  body name.
+  body name.  The two one-hot column sums of ``exp_bisect.py`` also have
+  :func:`bisect_matmul_ordered`, a mirror of their kernel's summation
+  order, which the kernels equal bit for bit.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.  Each wrapper counts its launches on
@@ -210,31 +212,87 @@ trig_probe.launches = 0
 # ---------------------------------------------------------------------------
 
 
+MATMUL_BODIES = ("matmul_static", "matmul_dyn_oh")
+
+
+def _windows(planes, lvl, y0, x0):
+    """``(win, ok)``: the keypoints' ``(K, C, PH, PW)`` windows and which of
+    them lie in the stack; a window that leaves it is cut at the origin of
+    level 0 in its place (the bodies write NaN there)."""
+    n_levels, _, height, width = planes.shape
+    ok = (lvl >= 0) & (lvl < n_levels) & (y0 >= 0) & (y0 + PH <= height) & (x0 >= 0) & (x0 + PW <= width)
+    at = [torch.where(ok, t, 0) for t in (lvl, y0, x0)]
+    return cut_patches(planes, *at, PH, PW), ok
+
+
+def _nan_where(bad, x):
+    return torch.where(bad, torch.full((), float("nan"), dtype=x.dtype, device=x.device), x)
+
+
+def _columns(body, rel_x, k, ns, device):
+    """``(cols, bad)``: each sample's window column (clamped into the
+    window) and whether it lies outside ``[0, PW)``."""
+    if body == "matmul_static":
+        cols = (torch.arange(ns, device=device) % PW).expand(k, ns)
+        return cols, torch.zeros((k, ns), dtype=torch.bool, device=device)
+    cols = rel_x.long()
+    return cols.clamp(0, PW - 1), (cols < 0) | (cols >= PW)
+
+
 def bisect_plain(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
     """The ``(K, 3 NS)`` output of ``exp_bisect.py``'s body ``body`` (see
-    ``csrc/select_probes.cu``) on the 3x136x128 windows."""
+    ``csrc/select_probes.cu``) on the 3x136x128 windows: NaN rows where a
+    window leaves the stack, NaN samples where a row (``'vpu_rowstage'``)
+    or column (``'matmul_dyn_oh'``) leaves the window."""
     k, ns = rel_y.shape
-    win = cut_patches(planes, lvl, y0, x0, PH, PW)
+    win, ok = _windows(planes, lvl, y0, x0)
     if body in ("dma_only", "split_nomm"):
         if body == "dma_only":
             s = win.sum(dim=(1, 2, 3))
         else:
             p1, p2, p3 = _split3(win)
             s = p1.sum(dim=(1, 2, 3)) + p2.sum(dim=(1, 2, 3)) + p3.sum(dim=(1, 2, 3))
-        return s[:, None].expand(k, 3 * ns).contiguous()
+        return _nan_where(~ok[:, None], s[:, None].expand(k, 3 * ns))
     if body == "vpu_rowstage":
-        rows = rel_y.long()[:, None, :].expand(k, win.shape[1], ns)
-        return win[..., 0].gather(2, rows).reshape(k, -1)
-    if body in ("matmul_static", "matmul_dyn_oh"):
-        if body == "matmul_static":
-            cols = (torch.arange(ns, device=planes.device) % PW).expand(k, ns)
-        else:
-            cols = rel_x.long()
+        ry = rel_y.long()
+        rows = ry.clamp(0, PH - 1)[:, None, :].expand(k, win.shape[1], ns)
+        bad = (~ok[:, None]) | (ry < 0) | (ry >= PH)
+        return _nan_where(bad[:, None, :], win[..., 0].gather(2, rows)).reshape(k, -1)
+    if body in MATMUL_BODIES:
+        cols, bad = _columns(body, rel_x, k, ns, planes.device)
         g = _bf16(win).gather(3, cols[:, None, None, :].expand(k, win.shape[1], PH, ns))
         # Three stacked copies of the channels, summed over rows: the one-hot
         # product's column sum, then repeat(3).
-        return torch.cat([g] * 3, dim=1).sum(dim=(1, 2)).repeat_interleave(3, dim=1)
+        s = _nan_where(bad | ~ok[:, None], torch.cat([g] * 3, dim=1).sum(dim=(1, 2)))
+        return s.repeat_interleave(3, dim=1)
     raise ValueError(f"unknown exp_bisect body {body!r}")
+
+
+def bisect_matmul_ordered(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
+    """:func:`bisect_plain` of a column-sum body (``'matmul_static'``,
+    ``'matmul_dyn_oh'``) summed in its kernel's order: a ``(K, PW)``
+    float32 accumulator adds ``bf16(win[:, c, y, :])`` for rep 0..2, then
+    c, then y, one IEEE add at a time; then the gather, with NaN where
+    :func:`bisect_plain` has it.  The kernel's output equals it bit for bit
+    on any device."""
+    if body not in MATMUL_BODIES:
+        raise ValueError(f"not a column-sum body of exp_bisect: {body!r}")
+    k, ns = rel_y.shape
+    win, ok = _windows(planes, lvl, y0, x0)
+    b = _bf16(win)
+    acc = torch.zeros((k, PW), dtype=torch.float32, device=planes.device)
+    for _ in range(3):
+        for c in range(b.shape[1]):
+            for y in range(PH):
+                acc = acc + b[:, c, y]
+    cols, bad = _columns(body, rel_x, k, ns, planes.device)
+    return _nan_where(bad | ~ok[:, None], acc.gather(1, cols)).repeat_interleave(3, dim=1)
+
+
+_BISECT_ARGS = [_VOID] * 7 + [_INT] * 8 + [_VOID]
+# The column-sum kernels' own failures (csrc/select_probes.cu).
+_TMA_ERRORS = {-1: "the window is not 3x136x128", -2: "libcuda has no cuTensorMapEncodeTiled",
+               -3: "cuTensorMapEncodeTiled refused the plane stack"}
 
 
 def _bisect_wrapper(body: str):
@@ -254,10 +312,15 @@ def _bisect_wrapper(body: str):
             _require(name, t, torch.int32, 2)
         if {tuple(lvl.shape), tuple(y0.shape), tuple(x0.shape)} != {(k,)} or rel_x.shape != rel_y.shape:
             raise ValueError(f"{symbol}: lvl/y0/x0 must be ({k},) and rel_x {tuple(rel_y.shape)}")
+        if body in MATMUL_BODIES and (planes.shape[3] % 4 or planes.data_ptr() % 16):
+            raise ValueError(f"{symbol}: its TMA tensor map needs rows of a multiple of 4 floats and a "
+                             f"16-byte aligned stack, got {tuple(planes.shape)} at {planes.data_ptr():#x}")
         out = torch.empty((k, 3 * ns), dtype=torch.float32, device=dev)
-        _launch("select_probes", symbol, [_VOID] * 7 + [_INT] * 8 + [_VOID],
-                planes.data_ptr(), lvl.data_ptr(), y0.data_ptr(), x0.data_ptr(), rel_y.data_ptr(),
-                rel_x.data_ptr(), out.data_ptr(), *planes.shape, PH, PW, k, ns, _stream(dev))
+        err = kernels.function("select_probes", symbol, _BISECT_ARGS)(
+            planes.data_ptr(), lvl.data_ptr(), y0.data_ptr(), x0.data_ptr(), rel_y.data_ptr(), rel_x.data_ptr(),
+            out.data_ptr(), *planes.shape, PH, PW, k, ns, _stream(dev))
+        if err != 0:
+            raise RuntimeError(f"{symbol} kernel launch failed: {_TMA_ERRORS.get(err, f'cudaError {err}')}")
         run.launches += 1
         return out
 

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """The dedup scan, the sample select, the group select and the fused
-describe at the engine's own calls, for several builds of each, on one
-CUDA card.
+describe at the engine's own calls, and the one-hot column sums of
+``exp_bisect.py`` at that script's shapes, for several builds of each, on
+one CUDA card.
 
 Builds, with each source's own flags (one nvcc per build, all started
 together), into the git-ignored ``cv_tpu_torch/_build/variants/``:
@@ -21,22 +22,30 @@ the SfM warm pass (12 frames: 24 select calls, 12 dedup calls), the dense
 extract (B=2: two group-select calls, one dedup call), the same pair in
 describe mode ``'pfused'`` (one fused-describe call) and
 ``FastAkazeExtractor`` at 8192 features on frame 0 (path ``engine``: two
-group-select calls; its dedup call counts to ``dense``).  For each kernel
+group-select calls; its dedup call counts to ``dense``).  For
+``select_probes`` (the two column-sum kernels of ``csrc/select_probes.cu``)
+the calls are ``exp_bisect.py``'s: K=512, NS=1280 on its (16, 3, 544, 1408)
+stack, x0 unaligned and 128-aligned, one path a body and alignment, and a
+path a body of 16 windows that leave the stack or the window's columns
+(their NaN outputs compared by their bits).  For each kernel
 of ``--kernels`` the builds take turns behind the wrapper (its C function
 swapped), in the order of the builds and then reversed, so that with a
 parent the order is parent, this tree, ..., this tree, parent; each turn
 holds every recorded call bitwise to this tree's build in the checkout
 (itself held bitwise to the plain version for the group select and the
-fused describe) and sums the calls' device times (a CUDA graph each) per
-path.  A build's time is the mean of its two turns.  For the group select
-and the fused describe each path also gets its byte bound at 4 bytes a
+fused describe, and to ``probes.bisect_matmul_ordered`` for the column
+sums) and sums the calls' device times (a CUDA graph each) per path.  A
+build's time is the mean of its two turns.  For the group select and the
+fused describe each path also gets its byte bound at 4 bytes a
 sample and at 32 bytes a distinct plane sector that the recorded offsets
-touch (``chip_smoke.describe_call_bounds``).
+touch (``chip_smoke.describe_call_bounds``); the column sums get the byte
+bound of ``chip_smoke.bisect_work``.
 
 Prints one line per build and path, and last one JSON object with every
 number.
 Usage: python3 scripts/time_engine_calls.py [--kernels select_groups select_fused]
        [--variants select_groups:kPer=2 dedup_scan:kThreads=256] [--ablations upper-all] [--parent _parent]
+       python3 scripts/time_engine_calls.py --kernels select_probes --ablations tma-off --parent _parent
 """
 
 from __future__ import annotations
@@ -50,13 +59,19 @@ import re
 import subprocess
 import sys
 
-SYMBOLS = {"dedup_scan": "cv_dedup_scan", "select_samples": "cv_select_samples",
-           "select_groups": "cv_select_groups", "select_fused": "cv_select_fused"}
+# Kernel -> the C functions a build of it swaps in.
+SYMBOLS = {"dedup_scan": ("cv_dedup_scan",), "select_samples": ("cv_select_samples",),
+           "select_groups": ("cv_select_groups",), "select_fused": ("cv_select_fused",),
+           "select_probes": ("cv_bisect_matmul_static", "cv_bisect_matmul_dyn_oh")}
+DEFAULT_KERNELS = ("dedup_scan", "select_samples", "select_groups", "select_fused")
 # Design points taken out one at a time, each by replacing one line of a
 # kernel's source: the scan's upper-scale class ranges (every slot walks
-# every later slot).
+# every later slot); the column sums' TMA staging (each thread loads its
+# column of a chunk with plain coalesced loads into the same resident
+# window).
 ABLATIONS = {
     "upper-all": ("dedup_scan", re.escape("if (up >= 0 && up < kClassTable) {"), "if (false) {"),
+    "tma-off": ("select_probes", re.escape("constexpr int kTmaStaging = 1;"), "constexpr int kTmaStaging = 0;"),
 }
 
 
@@ -146,6 +161,44 @@ def group_footprints(args, kw):
     return (box.numel(), int(box.median()), int((box <= 1536).sum()), int((box < 8 * ns).sum()))
 
 
+def probe_calls(dev, seed=0):
+    """``{path: [(args, {})]}``, ``args`` the body and its inputs: the
+    column sums at ``exp_bisect.py``'s shapes, per body x0 unaligned and
+    128-aligned (its ``make_inputs(align_x=...)``), and 16 windows of which
+    three leave the stack and, for the dynamic body, one has columns outside
+    the window."""
+    import torch
+
+    from cv_tpu_torch.experiments import probes, runs
+
+    calls = {}
+    for align in (False, True):
+        inputs = runs._window_inputs(dev, seed, 16, 544, 1408, 512, 1280, align_x=align)
+        for body in probes.MATMUL_BODIES:
+            calls[f"{body} x0 {'aligned' if align else 'unaligned'}"] = [((body, *inputs), {})]
+    planes = inputs[0]
+    lvl, y0, x0, rel_y, rel_x = (t[:16].clone() for t in inputs[1:])
+    x0[0], y0[1], lvl[2] = planes.shape[3] - probes.PW + 1, -1, planes.shape[0]
+    rel_x[3, :3] = torch.tensor([-1, probes.PW, 10_000], dtype=torch.int32, device=dev)
+    for body in probes.MATMUL_BODIES:
+        calls[f"{body} leaving"] = [((body, planes, lvl, y0, x0, rel_y, rel_x), {})]
+    return calls
+
+
+def bisect_call(body, *args):
+    """``exp_bisect.py``'s body ``body`` through its wrapper."""
+    from cv_tpu_torch.experiments import probes
+
+    return probes.BISECT[body](*args)
+
+
+def same_bits(a, b):
+    """Bitwise equality of two float32 tensors, NaN by its bits."""
+    import torch
+
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
 def record_paths(dev, names):
     """``{kernel: {path: [(args, kwargs)]}}`` for the kernels of ``names``:
     their calls in chip_smoke.py's KITTI, SfM warm-pass, dense, 'pfused'
@@ -160,6 +213,8 @@ def record_paths(dev, names):
     from cv_tpu_torch.utils import kitti_pair
 
     calls = {name: {} for name in names}
+    if "select_probes" in names:
+        calls["select_probes"] = probe_calls(dev)
     where = {"select_samples": (descriptors, "select_samples", cs.keep_planes),
              "dedup_scan": (extrema, "dedup_scan_device", cs._clone),
              "select_groups": (descriptors, "select_groups", cs.keep_planes),
@@ -198,7 +253,7 @@ def record_paths(dev, names):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--kernels", nargs="*", default=list(SYMBOLS), choices=list(SYMBOLS),
+    parser.add_argument("--kernels", nargs="*", default=list(DEFAULT_KERNELS), choices=list(SYMBOLS),
                         help="the kernels to time")
     parser.add_argument("--variants", nargs="*", default=[],
                         help="copies to build, each KERNEL:NAME=VALUE[,NAME=VALUE...] "
@@ -217,6 +272,7 @@ def main():
     import chip_smoke as cs
     from cv_tpu_torch import kernels
     from cv_tpu_torch.akaze import extrema, fused, select
+    from cv_tpu_torch.experiments import probes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -233,12 +289,14 @@ def main():
     wrappers = {"dedup_scan": (extrema.dedup_scan_device, None, 3),
                 "select_samples": (select.select_samples, None, 10),
                 "select_groups": (select.select_groups, select.select_groups_plain, 10),
-                "select_fused": (fused.select_fused, fused.select_fused_plain, 10)}
+                "select_fused": (fused.select_fused, fused.select_fused_plain, 10),
+                "select_probes": (bisect_call, probes.bisect_matmul_ordered, 10)}
 
     source_function = kernels.function
     results = {}
     for name in names:
         wrapper, plain, iters = wrappers[name]
+        equal = same_bits if name == "select_probes" else cs.same
         paths = recorded[name]
         reference = {p: [wrapper(*a, **kw) for a, kw in calls] for p, calls in paths.items()}
         bounds = {}
@@ -246,11 +304,16 @@ def main():
             for p, calls in paths.items():
                 b4 = bs = sectors = 0
                 for j, (a, kw) in enumerate(calls):
-                    cs.require(cs.same(reference[p][j], plain(*a, **kw)),
+                    cs.require(equal(reference[p][j], plain(*a, **kw)),
                                f"{name} (this tree) {p} call {j}: bitwise equal to the plain version")
+                    if name == "select_probes":
+                        b4 += cs.bound(*cs.bisect_work(a[0], a[2].shape[0], a[5].shape[1]))[0]
+                        continue
                     b, s, n = cs.describe_call_bounds(name, a, kw, reference[p][j])
                     b4, bs, sectors = b4 + cs.bound(b)[0], bs + cs.bound(s)[0], sectors + n
-                bounds[p] = dict(bound_ms=b4, sector_bound_ms=bs, sectors=sectors)
+                bounds[p] = dict(bound_ms=b4)
+                if name != "select_probes":
+                    bounds[p].update(sector_bound_ms=bs, sectors=sectors)
                 if name == "select_groups":
                     for j, (a, kw) in enumerate(calls):
                         n, med, fits, fewer = group_footprints(a, kw)
@@ -264,13 +327,13 @@ def main():
         times = {label: {p: [] for p in paths} for label, _ in builds}
         for label, lib in order:
             if lib is not None:
-                fn = getattr(lib, SYMBOLS[name])
 
-                def swapped(lib_name, sym, argtypes, _fn=fn, _sym=SYMBOLS[name]):
-                    if sym != _sym:
+                def swapped(lib_name, sym, argtypes, _lib=lib, _syms=SYMBOLS[name]):
+                    if sym not in _syms:
                         return source_function(lib_name, sym, argtypes)
-                    _fn.argtypes, _fn.restype = list(argtypes), ctypes.c_int
-                    return _fn
+                    fn = getattr(_lib, sym)
+                    fn.argtypes, fn.restype = list(argtypes), ctypes.c_int
+                    return fn
 
                 kernels.function = swapped
             try:
@@ -278,7 +341,7 @@ def main():
                     for j, (a, kw) in enumerate(calls):
                         got = wrapper(*a, **kw)
                         torch.cuda.synchronize()
-                        cs.require(cs.same(got, reference[p][j]),
+                        cs.require(equal(got, reference[p][j]),
                                    f"{name} ({label}) {p} call {j}: bitwise equal to this tree's build")
                     times[label][p].append(sum(cs.device_ms(lambda a=a, kw=kw: wrapper(*a, **kw), iters=iters)
                                                for a, kw in calls))
@@ -296,10 +359,12 @@ def main():
                     line += f", {steps} steps, {ms * 1e3 / steps:.4f} us a step"
                 if p in bounds:
                     b = bounds[p]
-                    rec[p].update(b, bound_share=b["bound_ms"] / ms, sector_bound_share=b["sector_bound_ms"] / ms)
-                    line += (f", byte bound {b['bound_ms']:.4f} ms ({100 * b['bound_ms'] / ms:.1f}%), "
-                             f"{b['sectors']} plane sectors: sector bound {b['sector_bound_ms']:.4f} ms "
-                             f"({100 * b['sector_bound_ms'] / ms:.1f}%)")
+                    rec[p].update(b, bound_share=b["bound_ms"] / ms)
+                    line += f", byte bound {b['bound_ms']:.4f} ms ({100 * b['bound_ms'] / ms:.1f}%)"
+                    if "sectors" in b:
+                        rec[p].update(sector_bound_share=b["sector_bound_ms"] / ms)
+                        line += (f", {b['sectors']} plane sectors: sector bound {b['sector_bound_ms']:.4f} ms "
+                                 f"({100 * b['sector_bound_ms'] / ms:.1f}%)")
                 print(line + f" (turns {', '.join(f'{t:.4f}' for t in times[label][p])})")
             results[f"{name}@{label}"] = rec
     print(json.dumps({"card": smi.stdout.strip(), "builds": results}))

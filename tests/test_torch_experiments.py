@@ -285,6 +285,71 @@ def test_bisect_plain_matches_exp_bisect(exp, body):
         np.testing.assert_array_equal(got, ref)
 
 
+def _np_bf16(x):
+    """float32 rounded to bfloat16 (nearest even) and back, on the bits;
+    finite inputs."""
+    u = x.view(np.uint32).astype(np.uint64)
+    return (((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16).astype(np.uint32).view(np.float32)
+
+
+def _kernel_order_sums(planes, lvl, y0, x0):
+    """The column-sum kernels' (K, 128) sums in their order, in NumPy:
+    for rep, c, y one float32 add of the bf16 row (in-stack windows)."""
+    win = np.stack([planes[lv, :, y:y + 136, x:x + 128] for lv, y, x in zip(lvl, y0, x0)])
+    b = _np_bf16(np.ascontiguousarray(win))
+    acc = np.zeros((len(lvl), 128), np.float32)
+    for _ in range(3):
+        for c in range(3):
+            for y in range(136):
+                acc = acc + b[:, c, y]
+    return acc
+
+
+@pytest.mark.parametrize("seed", [21, 22, 23])
+@pytest.mark.parametrize("align_x", [False, True])
+@pytest.mark.parametrize("body", probes.MATMUL_BODIES)
+def test_bisect_matmul_ordered_matches_exp_bisect(exp, body, align_x, seed):
+    """The kernels' order mirror against the JAX body (x0 unaligned, and
+    128-aligned as ``exp_bisect.make_inputs(align_x=True)`` makes it) and
+    against ``bisect_plain``, within ``SUM_ATOL``; bitwise against the
+    same order written in NumPy."""
+    planes, lvl, y0, x0, rel_y, rel_x = _window_inputs(seed)
+    if align_x:
+        x0 = x0 & ~127
+    args = (planes, lvl, y0, x0, rel_y, rel_x)
+    ref = _window_runner(exp.exp_bisect, getattr(exp.exp_bisect, f"k_{body}"))(*args)
+    targs = [torch.as_tensor(a) for a in args]
+    got = probes.bisect_matmul_ordered(body, *targs).numpy()
+    _close(body, got, ref)
+    _close(body, got, probes.bisect_plain(body, *targs).numpy())
+    cols = np.arange(rel_x.shape[1]) % 128 if body == "matmul_static" else rel_x
+    sums = _kernel_order_sums(planes, lvl, y0, x0)
+    want = np.take_along_axis(sums, np.broadcast_to(cols, rel_x.shape), axis=1).repeat(3, axis=1)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("body", probes.MATMUL_BODIES)
+def test_bisect_matmul_nan_where_windows_or_columns_leave(body):
+    """Windows that leave the stack (past either edge, or an absent level)
+    give NaN rows; dynamic columns outside [0, 128) NaN samples; the rest
+    as ``bisect_plain``.  (The JAX body's DMA cannot take such a window.)"""
+    planes, lvl, y0, x0, rel_y, rel_x = _window_inputs(24, ns=256)
+    x0[0], y0[1], lvl[2], x0[3], y0[4] = 384 - 127, -1, 2, -3, 272 - 135
+    rel_x[5, :4] = [-1, 128, 300, -200]
+    rel_x[6, 100] = 128
+    targs = [torch.as_tensor(a) for a in (planes, lvl, y0, x0, rel_y, rel_x)]
+    got = probes.bisect_matmul_ordered(body, *targs).numpy()
+    plain = probes.bisect_plain(body, *targs).numpy()
+    bad = np.zeros(rel_x.shape, bool)
+    bad[:5] = True
+    if body == "matmul_dyn_oh":
+        bad[5, :4] = bad[6, 100] = True
+    np.testing.assert_array_equal(np.isnan(got), bad.repeat(3, axis=1))
+    np.testing.assert_array_equal(np.isnan(plain), bad.repeat(3, axis=1))
+    assert np.all(got.view(np.int32)[np.isnan(got)] == 0x7FC00000)  # the kernels' quiet NaN
+    _close(body, got[~np.isnan(got)], plain[~np.isnan(plain)])
+
+
 def _mxu_runner(mod, kernel, ns):
     """``mod.run``'s pallas_call at K=16 and ``ns`` samples, in interpret mode."""
     p, c = mod.P, mod.C
@@ -463,6 +528,24 @@ def test_cuda_bisect_matches_plain(body):
         torch.testing.assert_close(got, ref, rtol=0, atol=probes.SUM_ATOL[body])
     else:
         assert torch.equal(got, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unaligned", "aligned", "leaving"])
+@pytest.mark.parametrize("body", probes.MATMUL_BODIES)
+def test_cuda_bisect_matmul_equals_its_order_mirror(body, case):
+    dev = _cuda()
+    planes, lvl, y0, x0, rel_y, rel_x = _window_inputs(25)
+    if case == "aligned":
+        x0 = x0 & ~127
+    elif case == "leaving":
+        x0[0], y0[1], lvl[2] = 384 - 127, -1, 2
+        rel_x[3, :3] = [-1, 128, 500]
+    args = [torch.as_tensor(a, device=dev) for a in (planes, lvl, y0, x0, rel_y, rel_x)]
+    got = probes.BISECT[body](*args)
+    ref = probes.bisect_matmul_ordered(body, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
 @pytest.mark.cuda
