@@ -1658,6 +1658,71 @@ def hold_column_sums(body, fn, args, aligned):
     return dict(aligned_ms=kms, aligned_plain_ms=pms, aligned_max_abs_err=err)
 
 
+def mxu_rows_read(rel_y, p=128, g=8):
+    """The distinct (keypoint, row) pairs that the row sums of
+    ``exp_r3_mxu_probe.py`` must read: the rows in ``[0, p)`` that each
+    keypoint's group leader names."""
+    import torch
+
+    k = rel_y.shape[0]
+    ry = rel_y[torch.arange(k, device=rel_y.device) // g * g].long()
+    ry = torch.where((ry >= 0) & (ry < p), ry, p)  # out of range: the spare column p
+    return int(torch.zeros((k, p + 1), device=rel_y.device).scatter_(1, ry, 1.0)[:, :p].sum())
+
+
+def mxu_work(body, k, c, p, ns, rows_read=0):
+    """``(bytes, float32 operations)`` that ``exp_r3_mxu_probe.py``'s body
+    ``body`` must move and do for ``k`` patches of ``c`` x ``p`` x ``p`` and
+    ``ns`` samples: the row sums (``'dots'``, ``'dotsbig'``) the leaders'
+    indices, the ``rows_read`` rows (``mxu_rows_read``) and the output; the
+    others their indices, the words they read and the output."""
+    if body in ("dots", "dotsbig"):
+        return k // 8 * ns * 4 + rows_read * p * 4 + k * c * ns * 4, k * ns * p * (10 if body == "dots" else 4)
+    if body == "onehot":
+        return k * ns * 8 + k * 4 + k * c * ns * 4, k * ns
+    if body == "split":
+        return k * c * ns * 2 * 4 + k * c * ns * 4, k * c * ns * 2 * 9
+    return 2 * k * c * ns * 4, 0
+
+
+def row_sums_leaving(rel_x, rel_y, patches):
+    """The first 16 keypoints of a row-sum draw with leader rows that leave
+    the patch: keypoint 0's at samples 0-2 and keypoint 8's at 100-102
+    (both groups read 0 there), and keypoint 3's at sample 7 (not a leader,
+    never read).  Returns the draw and the number of zero outputs it must
+    give."""
+    import torch
+
+    from cv_tpu_torch.experiments import probes
+
+    rel_y = rel_y[:16].clone()
+    rel_y[0, :3] = torch.tensor([-1, probes.P, 300], dtype=torch.int32, device=rel_y.device)
+    rel_y[8, 100:103] = torch.tensor([300, -1, probes.P], dtype=torch.int32, device=rel_y.device)
+    rel_y[3, 7] = -5
+    return (rel_x[:16], rel_y, patches[:16]), 2 * 8 * 3 * patches.shape[1]
+
+
+def hold_row_sums(body, fn, args):
+    """A row-sum body's kernel against its order mirror, bitwise: on
+    ``args`` (``exp_r3_mxu_probe.py``'s shapes), on its first 12 keypoints
+    (a last group of four) and on ``row_sums_leaving``'s draw (0 where the
+    leader's rows leave the patch)."""
+    import torch
+
+    from cv_tpu_torch.experiments import probes
+
+    leaving, zeros = row_sums_leaving(*args)
+    for label, draw in (("script's shapes", args), ("K=12", tuple(t[:12] for t in args)), ("leaving", leaving)):
+        got, ref = fn(*draw), probes.mxu_rows_ordered(body, *draw)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+                f"mxu {body} ({label}): bitwise equal to its order mirror "
+                f"({int((got.view(torch.int32) != ref.view(torch.int32)).sum())} words differ)")
+    n_zero = int((got == 0).sum())
+    require(n_zero == zeros, f"mxu {body}: {n_zero} zero outputs where {zeros} must be (leader rows leave the patch)")
+    print(f"mxu {body}: bitwise equal to its order mirror (script's shapes, K=12, leaving: {n_zero} zeros)")
+
+
 def check_experiment_kernels(dev, seed):
     """Phase 3 for the experiments' kernels, at their scripts' shapes: the
     retired selects (the select kernel at the KITTI batch's shapes), the
@@ -1787,26 +1852,23 @@ def check_experiment_kernels(dev, seed):
         lambda: select.select_samples_plain(patches, kk, kk * 0, kk * 0, rx, ry),
         select_bytes(k, ns, c, per_keypoint=0), lib=index_call(patches, kk, ry, rx))
     rx128, ry128 = rand_i32(p, (k, p)), rand_i32(p, (k, p))
-    leaders = ry[torch.arange(k, device=dev) // 8 * 8]
-    rows_read = int(torch.zeros((k, p), device=dev).scatter_(1, leaders.long(), 1.0).sum())
+    rows_read = mxu_rows_read(ry, p)
     for body, fn in probes.MXU.items():
         n = p if body == "split" else ns
         bx, bys = (rx128, ry128) if body == "split" else (rx, ry)
+        nbytes, flops = mxu_work(body, k, c, p, n, rows_read)
         lib = None
-        if body in ("dots", "dotsbig"):
-            nbytes = k // 8 * n * 4 + rows_read * p * 4 + k * c * n * 4
-            flops = k * n * p * (10 if body == "dots" else 4)
-        elif body == "onehot":
-            nbytes, flops = k * n * 8 + k * 4 + k * c * n * 4, k * n
-        elif body == "split":
-            nbytes, flops = k * c * n * 2 * 4 + k * c * n * 4, k * c * n * 2 * 9
-        else:
-            nbytes, flops = 2 * k * c * n * 4, 0
+        if body == "dma":
             sidx = torch.arange(n, device=dev)
             lib = lambda s=sidx: patches[:, :, s // p, s % p]  # noqa: E731
-        out[f"mxu_{body}"] = hold(f"mxu {body} (K={k}, NS={n})", lambda fn=fn, bx=bx, bys=bys: fn(bx, bys, patches),
-                                  lambda body=body, bx=bx, bys=bys: probes.mxu_plain(body, bx, bys, patches),
-                                  nbytes, flops, lib, probes.SUM_ATOL.get(body))
+        rec = out[f"mxu_{body}"] = hold(
+            f"mxu {body} (K={k}, NS={n})", lambda fn=fn, bx=bx, bys=bys: fn(bx, bys, patches),
+            lambda body=body, bx=bx, bys=bys: probes.mxu_plain(body, bx, bys, patches), nbytes, flops, lib,
+            probes.SUM_ATOL.get(body))
+        if body in probes.ROW_SUM_BODIES:
+            hold_row_sums(body, fn, (rx, ry, patches))
+            print(f"mxu {body} (K={k}, NS={n}): {100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound "
+                  f"({rows_read / k:.2f} distinct rows a keypoint)")
     del patches
 
     # exp_r3_gather_probe.py phase_lane / phase_sublane: a (128, 512) tile.

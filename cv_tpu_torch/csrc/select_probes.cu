@@ -19,7 +19,8 @@
 // every channel row the same unless stated):
 //   mxu_dots     :50   sum over x of 9 accumulated bf16(patch[k, 0, ry, x]),
 //                      ry = rel_y[8 (k / 8), s] (the step's first keypoint)
-//   mxu_dotsbig  :67   sum over x of (v + v) + v, v as in mxu_dots
+//   mxu_dotsbig  :67   sum over x of (v + v) + v, v as in mxu_dots; both 0
+//                      where ry leaves [0, P)
 //   mxu_onehot   :87   (rel_x == rel_y) + patch[k, 0, 0, 0]
 //   mxu_split    :99   a0 * 0 + a1, ax = the channel sum of p1 + p2 + p3 at
 //                      patch[k, :, s, x]; needs NS <= P (the TPU body fails
@@ -33,7 +34,8 @@
 // astype).  Built with --fmad=false.  Sums run in another order than
 // XLA's (block trees, sequential loops); chip_smoke.py holds them to their
 // plain versions within a stated tolerance and the selects bitwise, and
-// the two column sums bitwise to their order mirror as well.
+// the two column sums and the two row sums bitwise to their order mirrors
+// as well.
 //
 // What bounds them: bytes.  The window probes read a 209 KB window per
 // keypoint; the patch probes one channel row or a few words.  Design: one
@@ -42,7 +44,9 @@
 // one-hot column sums have a design of their own (below): the window once
 // through shared memory by TMA, one thread a column.  Their host code
 // encodes a TMA tensor map with libcuda's cuTensorMapEncodeTiled, which it
-// obtains through cudaGetDriverEntryPoint (no -lcuda at build time).
+// obtains through cudaGetDriverEntryPoint (no -lcuda at build time).  The two
+// one-hot row sums have one too (P = 128 only): each patch row that a sample
+// names staged once as bf16 in shared memory, one thread a row.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -418,37 +422,155 @@ __device__ __forceinline__ void mxu_store(float* out, int k, int channels, int n
   for (int c = 0; c < channels; ++c) out[(static_cast<size_t>(k) * channels + c) * ns + s] = v;
 }
 
-template <int kRepeats, bool kPairwise>
-__device__ __forceinline__ void mxu_row_sum(MXU_ARGS) {
-  const int k = blockIdx.x;
-  const int first = (k / g) * g;
-  for (int s = threadIdx.x; s < ns; s += blockDim.x) {
-    const int ry = rel_y[static_cast<size_t>(first) * ns + s];
-    float tot = 0.0f;
-    if (ry >= 0 && ry < p) {
-      const float* row = patch_row(patches, k, channels, p, 0, ry);
-      for (int x = 0; x < p; ++x) {
-        const float v = bf16r(row[x]);
-        float acc;
-        if (kPairwise) {
-          acc = (v + v) + v;
-        } else {
-          acc = 0.0f;
-          for (int i = 0; i < kRepeats; ++i) acc += v;
-        }
-        tot += acc;
+// ---------------------------------------------------------------------------
+// The one-hot row sums: mxu_dots and mxu_dotsbig.
+//
+// out[k, c, s] = sum over x < 128 of e(bf16(patch[k, 0, ry, x])), ry =
+// rel_y[g (k / g), s] (the group's first keypoint), for every channel row
+// c; e(v) adds v nine times from 0 (dots) or is (v + v) + v (dotsbig); 0
+// where ry leaves [0, 128).  The TPU body's one-hot product has one nonzero
+// term a dot, so only a keypoint's 128 row sums are distinct.
+//
+// What bounds it: bytes, each row that a sample names read once (0.0865 ms
+// at exp_r3_mxu_probe.py's K=4096, NS=512, ~126 distinct rows of 128 a
+// keypoint).  Design: one block a keypoint (kRowKeypoints a block), one
+// thread a row.
+// * The leader's index row goes to shared memory (coalesced) and marks the
+//   rows it names; rows that no sample names are never read.
+// * One warp stages one row at a time: 32 lanes x 16 bytes, read-only loads
+//   that do not allocate in L1, kRowsInFlight rows loaded before any is
+//   stored.  Each value is rounded to bf16 as it lands (exact: the summed
+//   value is the rounding) and stored two to a word, row-major with a pitch
+//   of kRowPitch = 65 words.  The pad makes both sides conflict-free: a
+//   lane's two words go in an order that puts lanes l and l + 16 on other
+//   banks, and in the sum thread y reads word 65 y + j, bank (y + j) mod 32.
+// * Thread y sums row y once, x = 0 .. 127 in one serial chain of float32
+//   adds of e(v), the parent kernel's order (a thread a sample, each
+//   walking its row): the output is the same bits (probes.mxu_rows_ordered).
+// * The block gathers its samples from the 128 sums with 16-byte stores, the
+//   same value to every channel row.
+// kRowMask = 0 (the ablation of scripts/time_engine_calls.py) stages and
+// sums all 128 rows.
+
+constexpr int kRowP = 128;                          // the patch side: a thread a row
+constexpr int kRowKeypoints = 1;                    // keypoints a block (kRowP threads each)
+constexpr int kRowsInFlight = 16;                   // rows a warp loads before it stores them
+constexpr int kRowMask = 1;                         // 0: stage every row (the ablation)
+constexpr int kRowWarps = kRowP / 32;
+constexpr int kRowPitch = kRowP / 2 + 1;            // words a staged row: 64 bf16 pairs and a pad
+constexpr int kRowFixedWords = kRowP * kRowPitch + 2 * kRowP;  // rows, sums, marks; then the index row
+static_assert(kRowP / kRowWarps % kRowsInFlight == 0, "a warp stages its rows in whole batches");
+static_assert(kRowFixedWords % 4 == 0, "the index row starts 16-byte aligned");
+
+// e(v): nine adds from 0, or (v + v) + v.
+template <bool kPairwise>
+__device__ __forceinline__ float row_term(float v) {
+  if (kPairwise) return (v + v) + v;
+  float acc = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 9; ++i) acc += v;
+  return acc;
+}
+
+// 16 bytes of a patch row: read-only, no L1 allocation (each row is read
+// once).
+__device__ __forceinline__ float4 load_row_quad(const float* p) {
+  float4 v;
+  asm volatile("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+
+// Two floats rounded to bf16, the first in the low half.
+__device__ __forceinline__ uint32_t bf16_pair(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi))) << 16);
+}
+
+template <bool kPairwise>
+__global__ void __launch_bounds__(kRowP* kRowKeypoints)
+    row_sums_kernel(const int* __restrict__ rel_y, const float* __restrict__ patches, float* __restrict__ out,
+                    int k_total, int channels, int ns, int g) {
+  extern __shared__ __align__(16) uint32_t row_smem[];
+  const int t = threadIdx.x % kRowP, lane = t & 31, warp = t >> 5;
+  const int k = blockIdx.x * kRowKeypoints + threadIdx.x / kRowP;
+  const bool live = k < k_total;  // the same for every thread of a keypoint
+  uint32_t* rows = row_smem + (threadIdx.x / kRowP) * (kRowFixedWords + ((ns + 3) & ~3));
+  float* sums = reinterpret_cast<float*>(rows + kRowP * kRowPitch);
+  int* marked = reinterpret_cast<int*>(sums + kRowP);
+  int* idx = marked + kRowP;
+
+  // The leader's indices, and the rows they name.
+  marked[t] = kRowMask ? 0 : 1;
+  __syncthreads();
+  if (live) {
+    const int* src = rel_y + static_cast<size_t>(k / g * g) * ns;
+    for (int s = t; s < ns; s += kRowP) {
+      const int ry = src[s];
+      idx[s] = ry;
+      if (ry >= 0 && ry < kRowP) marked[ry] = 1;
+    }
+  }
+  __syncthreads();
+
+  // Staging: warp w takes rows w, w + 4, ..., kRowsInFlight at a time.
+  if (live) {
+    const float* patch = patches + static_cast<size_t>(k) * channels * kRowP * kRowP + 4 * lane;
+    const int first = lane >> 4;  // which of its two words the lane stores first
+#pragma unroll 1
+    for (int r0 = 0; r0 < kRowP / kRowWarps; r0 += kRowsInFlight) {
+      float4 v[kRowsInFlight];
+      bool m[kRowsInFlight];
+#pragma unroll
+      for (int i = 0; i < kRowsInFlight; ++i) {
+        const int y = (r0 + i) * kRowWarps + warp;
+        m[i] = marked[y] != 0;
+        v[i] = m[i] ? load_row_quad(patch + y * kRowP) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      }
+#pragma unroll
+      for (int i = 0; i < kRowsInFlight; ++i) {
+        if (!m[i]) continue;
+        const uint32_t w0 = bf16_pair(v[i].x, v[i].y), w1 = bf16_pair(v[i].z, v[i].w);
+        uint32_t* dst = rows + ((r0 + i) * kRowWarps + warp) * kRowPitch + 2 * lane;
+        dst[first] = first ? w1 : w0;
+        dst[1 - first] = first ? w0 : w1;
       }
     }
-    mxu_store(out, k, channels, ns, s, tot);
   }
-}
+  __syncthreads();
 
-__global__ void __launch_bounds__(kThreads) mxu_dots_kernel(MXU_ARGS) {
-  mxu_row_sum<9, false>(rel_x, rel_y, patches, out, channels, p, ns, g);
-}
+  // Thread t sums row t, x in order.
+  if (live && marked[t]) {
+    const uint32_t* row = rows + t * kRowPitch;
+    float tot = 0.0f;
+#pragma unroll 8
+    for (int j = 0; j < kRowP / 2; ++j) {
+      const uint32_t w = row[j];
+      tot += row_term<kPairwise>(__uint_as_float(w << 16));
+      tot += row_term<kPairwise>(__uint_as_float(w & 0xffff0000u));
+    }
+    sums[t] = tot;
+  }
+  __syncthreads();
 
-__global__ void __launch_bounds__(kThreads) mxu_dotsbig_kernel(MXU_ARGS) {
-  mxu_row_sum<3, true>(rel_x, rel_y, patches, out, channels, p, ns, g);
+  // The gather: sample s is row idx[s]'s sum (0 outside the patch), written
+  // to every channel row.
+  if (!live) return;
+  auto value = [&](int ry) { return ry >= 0 && ry < kRowP ? sums[ry] : 0.0f; };
+  float* o = out + static_cast<size_t>(k) * channels * ns;
+  if ((ns & 3) == 0 && (reinterpret_cast<uintptr_t>(o) & 15u) == 0) {
+    for (int q = t; q < ns / 4; q += kRowP) {
+      const int4 r = reinterpret_cast<const int4*>(idx)[q];
+      const float4 v = make_float4(value(r.x), value(r.y), value(r.z), value(r.w));
+      for (int c = 0; c < channels; ++c) reinterpret_cast<float4*>(o + static_cast<size_t>(c) * ns)[q] = v;
+    }
+  } else {
+    for (int s = t; s < ns; s += kRowP) {
+      const float v = value(idx[s]);
+      for (int c = 0; c < channels; ++c) o[static_cast<size_t>(c) * ns + s] = v;
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) mxu_onehot_kernel(MXU_ARGS) {
@@ -611,8 +733,40 @@ extern "C" int cv_bisect_matmul_dyn_oh(const float* planes, const int* lvl, cons
     return static_cast<int>(cudaGetLastError());                                                  \
   }
 
-MXU_EXPORT(mxu_dots)
-MXU_EXPORT(mxu_dotsbig)
 MXU_EXPORT(mxu_onehot)
 MXU_EXPORT(mxu_split)
 MXU_EXPORT(mxu_dma)
+
+namespace {
+
+// Returns 0 or a cudaError_t, or -1 when the patch side is not kRowP.
+template <bool kPairwise>
+int launch_row_sums(const int* rel_y, const float* patches, float* out, int channels, int p, int k, int ns, int g,
+                    void* stream) {
+  if (k <= 0 || ns <= 0) return 0;
+  if (p != kRowP) return -1;
+  const size_t bytes = static_cast<size_t>(kRowKeypoints) * (kRowFixedWords + ((ns + 3) & ~3)) * sizeof(uint32_t);
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(row_sums_kernel<kPairwise>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  row_sums_kernel<kPairwise><<<(k + kRowKeypoints - 1) / kRowKeypoints, kRowP * kRowKeypoints, bytes,
+                               static_cast<cudaStream_t>(stream)>>>(rel_y, patches, out, k, channels, ns, g);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The MXU_EXPORT signature (rel_x unused, as in the TPU bodies).
+extern "C" int cv_mxu_dots(const int* rel_x, const int* rel_y, const float* patches, float* out, int channels, int p,
+                           int k, int ns, int g, void* stream) {
+  (void)rel_x;
+  return launch_row_sums<false>(rel_y, patches, out, channels, p, k, ns, g, stream);
+}
+
+extern "C" int cv_mxu_dotsbig(const int* rel_x, const int* rel_y, const float* patches, float* out, int channels,
+                              int p, int k, int ns, int g, void* stream) {
+  (void)rel_x;
+  return launch_row_sums<true>(rel_y, patches, out, channels, p, k, ns, g, stream);
+}

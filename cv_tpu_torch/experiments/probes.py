@@ -18,7 +18,8 @@ Ports of the Pallas kernels of the probe scripts in ``experiments/``:
   one ``__global__`` per body): :data:`BISECT` and :data:`MXU`, keyed by
   body name.  The two one-hot column sums of ``exp_bisect.py`` also have
   :func:`bisect_matmul_ordered`, a mirror of their kernel's summation
-  order, which the kernels equal bit for bit.
+  order, which the kernels equal bit for bit; the two one-hot row sums of
+  ``exp_r3_mxu_probe.py`` have :func:`mxu_rows_ordered`.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.  Each wrapper counts its launches on
@@ -41,6 +42,7 @@ P = 128  # the patch side of exp_r3_mxu_probe.py
 TWO_PI = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))
 BISECT_BODIES = ("dma_only", "matmul_static", "matmul_dyn_oh", "split_nomm", "vpu_rowstage")
 MXU_BODIES = ("dots", "dotsbig", "onehot", "split", "dma")
+ROW_SUM_BODIES = ("dots", "dotsbig")
 # The bodies that sum, and the absolute tolerance that holds each to its
 # plain version (the sums run in other orders).  Largest differences
 # measured: against the JAX bodies on the CPU over six seeds, 6.4e-4 for
@@ -338,24 +340,33 @@ BISECT = {body: _bisect_wrapper(body) for body in BISECT_BODIES}
 # ---------------------------------------------------------------------------
 
 
+def _leader_rows(rel_y, k: int, p: int, g: int):
+    """``(rows, ok)``: each sample's patch row, the index of its group's
+    first keypoint clamped into ``[0, p)``, and whether it lay there."""
+    ry = rel_y[torch.arange(k, device=rel_y.device) // g * g].long()
+    ok = (ry >= 0) & (ry < p)
+    return ry.clamp(0, p - 1), ok
+
+
 def mxu_plain(body: str, rel_x, rel_y, patches, g: int = GROUP) -> torch.Tensor:
     """The ``(K, C, NS)`` output of ``exp_r3_mxu_probe.py``'s body ``body``
-    (see ``csrc/select_probes.cu``) on patches ``(K, C, P, P)``.  ``'split'``
-    needs ``NS <= P`` and ``'dma'`` ``NS <= 4 P``: the TPU bodies do not
-    trace beyond (``exp_r3_mxu_probe.py:108-112`` fails at its own NS=512)."""
+    (see ``csrc/select_probes.cu``) on patches ``(K, C, P, P)``.  ``'dots'``
+    and ``'dotsbig'`` give 0 where the leader's row leaves ``[0, P)`` (no
+    one-hot column matches).  ``'split'`` needs ``NS <= P`` and ``'dma'``
+    ``NS <= 4 P``: the TPU bodies do not trace beyond
+    (``exp_r3_mxu_probe.py:108-112`` fails at its own NS=512)."""
     k, c, p, _ = patches.shape
     ns = rel_x.shape[1]
-    if body in ("dots", "dotsbig"):
-        first = torch.arange(k, device=patches.device) // g * g
-        ry = rel_y[first].long()
-        v = _bf16(patches[:, 0]).gather(1, ry[:, :, None].expand(k, ns, p))  # (K, NS, P)
+    if body in ROW_SUM_BODIES:
+        rows, ok = _leader_rows(rel_y, k, p, g)
+        v = _bf16(patches[:, 0]).gather(1, rows[:, :, None].expand(k, ns, p))  # (K, NS, P)
         if body == "dots":
             acc = v
             for _ in range(8):
                 acc = acc + v
         else:
             acc = (v + v) + v
-        s = acc.sum(dim=-1)
+        s = torch.where(ok, acc.sum(dim=-1), torch.zeros((), device=patches.device))
     elif body == "onehot":
         hit = (rel_x == rel_y).to(torch.float32) + patches[:, 0, 0, 0][:, None]
         s = torch.where((rel_x >= 0) & (rel_x < p), hit, torch.zeros((), device=patches.device))
@@ -377,6 +388,35 @@ def mxu_plain(body: str, rel_x, rel_y, patches, g: int = GROUP) -> torch.Tensor:
     return s[:, None, :].expand(k, c, ns).contiguous()
 
 
+def mxu_rows_ordered(body: str, rel_x, rel_y, patches, g: int = GROUP) -> torch.Tensor:
+    """:func:`mxu_plain` of a row-sum body (``'dots'``, ``'dotsbig'``)
+    summed in its kernel's order: each bf16 value's term (nine adds from 0,
+    or ``(v + v) + v``), then per row a ``(K, P)`` float32 total adding the
+    terms for x = 0 .. P - 1, one IEEE add at a time; then the gather, 0
+    where the leader's row leaves ``[0, P)``.  The kernel's output equals it
+    bit for bit on any device."""
+    if body not in ROW_SUM_BODIES:
+        raise ValueError(f"not a row-sum body of exp_r3_mxu_probe: {body!r}")
+    k, c, p, _ = patches.shape
+    ns = rel_y.shape[1]
+    b = _bf16(patches[:, 0])  # (K, P, P): row y, column x
+    if body == "dots":
+        term = torch.zeros_like(b)
+        for _ in range(9):
+            term = term + b
+    else:
+        term = (b + b) + b
+    tot = torch.zeros((k, p), dtype=torch.float32, device=patches.device)
+    for x in range(p):
+        tot = tot + term[:, :, x]
+    rows, ok = _leader_rows(rel_y, k, p, g)
+    s = torch.where(ok, tot.gather(1, rows), torch.zeros((), device=patches.device))
+    return s[:, None, :].expand(k, c, ns).contiguous()
+
+
+_MXU_ARGS = [_VOID] * 4 + [_INT] * 5 + [_VOID]
+
+
 def _mxu_wrapper(body: str):
     symbol = f"cv_mxu_{body}"
 
@@ -393,10 +433,12 @@ def _mxu_wrapper(body: str):
             raise ValueError(f"{symbol}: patches {tuple(patches.shape)}, rel {tuple(rel_x.shape)}")
         if body == "split" and ns > p or body == "dma" and ns > 4 * p:
             raise ValueError(f"{symbol}: NS={ns} beyond what the TPU body traces (exp_r3_mxu_probe.py)")
+        if body in ROW_SUM_BODIES and (p != P or patches.data_ptr() % 16):
+            raise ValueError(f"{symbol}: its kernel takes {P}x{P} patches at a 16-byte aligned address, got "
+                             f"{tuple(patches.shape)} at {patches.data_ptr():#x}")
         out = torch.empty((k, c, ns), dtype=torch.float32, device=dev)
-        _launch("select_probes", symbol, [_VOID] * 4 + [_INT] * 5 + [_VOID],
-                rel_x.data_ptr(), rel_y.data_ptr(), patches.data_ptr(), out.data_ptr(), c, p, k, ns, g,
-                _stream(dev))
+        _launch("select_probes", symbol, _MXU_ARGS, rel_x.data_ptr(), rel_y.data_ptr(), patches.data_ptr(),
+                out.data_ptr(), c, p, k, ns, g, _stream(dev))
         run.launches += 1
         return out
 

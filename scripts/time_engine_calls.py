@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """The dedup scan, the sample select, the group select and the fused
-describe at the engine's own calls, and the one-hot column sums of
-``exp_bisect.py`` at that script's shapes, for several builds of each, on
-one CUDA card.
+describe at the engine's own calls, the one-hot column sums of
+``exp_bisect.py`` and the one-hot row sums of ``exp_r3_mxu_probe.py`` at
+those scripts' shapes, for several builds of each, on one CUDA card.
 
 Builds, with each source's own flags (one nvcc per build, all started
 together), into the git-ignored ``cv_tpu_torch/_build/variants/``:
 
 * with ``--variants KERNEL:NAME=VALUE[,NAME=VALUE...] ...``, copies of
-  ``csrc/KERNEL.cu`` with each line ``constexpr int NAME = ...;`` named
-  set to its VALUE (a block size, samples a thread);
+  KERNEL's source (``csrc/KERNEL.cu``; ``csrc/select_probes.cu`` for
+  ``mxu_probes``) with each line ``constexpr int NAME = ...;`` named set
+  to its VALUE (a block size, samples a thread);
 * with ``--ablations``, copies of a kernel's source with one design point
   taken out (``ABLATIONS``);
 * with ``--parent DIR`` (the root of another checkout, e.g. the parent
@@ -27,25 +28,32 @@ group-select calls; its dedup call counts to ``dense``).  For
 the calls are ``exp_bisect.py``'s: K=512, NS=1280 on its (16, 3, 544, 1408)
 stack, x0 unaligned and 128-aligned, one path a body and alignment, and a
 path a body of 16 windows that leave the stack or the window's columns
-(their NaN outputs compared by their bits).  For each kernel
+(their NaN outputs compared by their bits).  For ``mxu_probes`` (the two
+row-sum kernels of the same source) they are ``exp_r3_mxu_probe.py``'s:
+K=4096 patches of 3x128x128, NS=512, one path a body, and a path a body of
+16 keypoints whose leader rows leave the patch at a few samples
+(``chip_smoke.row_sums_leaving``).  For each kernel
 of ``--kernels`` the builds take turns behind the wrapper (its C function
 swapped), in the order of the builds and then reversed, so that with a
 parent the order is parent, this tree, ..., this tree, parent; each turn
 holds every recorded call bitwise to this tree's build in the checkout
 (itself held bitwise to the plain version for the group select and the
-fused describe, and to ``probes.bisect_matmul_ordered`` for the column
-sums) and sums the calls' device times (a CUDA graph each) per path.  A
+fused describe, to ``probes.bisect_matmul_ordered`` for the column sums
+and to ``probes.mxu_rows_ordered`` for the row sums) and sums the calls'
+device times (a CUDA graph each) per path.  A
 build's time is the mean of its two turns.  For the group select and the
 fused describe each path also gets its byte bound at 4 bytes a
 sample and at 32 bytes a distinct plane sector that the recorded offsets
 touch (``chip_smoke.describe_call_bounds``); the column sums get the byte
-bound of ``chip_smoke.bisect_work``.
+bound of ``chip_smoke.bisect_work``, the row sums that of
+``chip_smoke.mxu_work``.
 
 Prints one line per build and path, and last one JSON object with every
 number.
 Usage: python3 scripts/time_engine_calls.py [--kernels select_groups select_fused]
        [--variants select_groups:kPer=2 dedup_scan:kThreads=256] [--ablations upper-all] [--parent _parent]
        python3 scripts/time_engine_calls.py --kernels select_probes --ablations tma-off --parent _parent
+       python3 scripts/time_engine_calls.py --kernels mxu_probes --ablations mask-off --parent _parent
 """
 
 from __future__ import annotations
@@ -62,30 +70,39 @@ import sys
 # Kernel -> the C functions a build of it swaps in.
 SYMBOLS = {"dedup_scan": ("cv_dedup_scan",), "select_samples": ("cv_select_samples",),
            "select_groups": ("cv_select_groups",), "select_fused": ("cv_select_fused",),
-           "select_probes": ("cv_bisect_matmul_static", "cv_bisect_matmul_dyn_oh")}
+           "select_probes": ("cv_bisect_matmul_static", "cv_bisect_matmul_dyn_oh"),
+           "mxu_probes": ("cv_mxu_dots", "cv_mxu_dotsbig")}
+# Kernel -> its source in csrc/, where the two differ.
+SOURCES = {"mxu_probes": "select_probes"}
+# The kernels held bitwise (NaN by its bits) to an order mirror, with byte
+# bounds per call from chip_smoke.py.
+PROBES = ("select_probes", "mxu_probes")
 DEFAULT_KERNELS = ("dedup_scan", "select_samples", "select_groups", "select_fused")
 # Design points taken out one at a time, each by replacing one line of a
 # kernel's source: the scan's upper-scale class ranges (every slot walks
 # every later slot); the column sums' TMA staging (each thread loads its
 # column of a chunk with plain coalesced loads into the same resident
-# window).
+# window); the row sums' row marks (every row of a patch staged and summed).
 ABLATIONS = {
     "upper-all": ("dedup_scan", re.escape("if (up >= 0 && up < kClassTable) {"), "if (false) {"),
     "tma-off": ("select_probes", re.escape("constexpr int kTmaStaging = 1;"), "constexpr int kTmaStaging = 0;"),
+    "mask-off": ("mxu_probes", re.escape("constexpr int kRowMask = 1;"), "constexpr int kRowMask = 0;"),
 }
 
 
 def edited(name, *edits):
-    """The text of ``csrc/<name>.cu`` with, for each ``(pattern, new)`` of
-    ``edits``, the one line matching ``pattern`` replaced by ``new``."""
+    """The text of kernel ``name``'s source with, for each ``(pattern,
+    new)`` of ``edits``, the one line matching ``pattern`` replaced by
+    ``new``."""
     from cv_tpu_torch import kernels
 
-    with open(os.path.join(kernels.CSRC, f"{name}.cu")) as f:
+    source = SOURCES.get(name, name)
+    with open(os.path.join(kernels.CSRC, f"{source}.cu")) as f:
         text = f.read()
     for pattern, new in edits:
         text, n = re.subn(pattern, new, text)
         if n != 1:
-            raise RuntimeError(f"csrc/{name}.cu does not hold a line {pattern!r} once")
+            raise RuntimeError(f"csrc/{source}.cu does not hold a line {pattern!r} once")
     return text
 
 
@@ -122,11 +139,12 @@ def build_variants(jobs, parent, names):
         todo.append((name, label, src, kernels.CSRC))
     if parent:
         csrc = os.path.join(parent, "cv_tpu_torch", "csrc")
-        todo += [(name, "parent", os.path.join(csrc, f"{name}.cu"), csrc) for name in names]
+        todo += [(name, "parent", os.path.join(csrc, f"{SOURCES.get(name, name)}.cu"), csrc) for name in names]
     procs = []
     for name, label, src, include in todo:
         lib = os.path.join(out_dir, f"lib{name}-{re.sub(r'[^A-Za-z0-9]', '_', label)}.so")
-        cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, *kernels.EXTRA_FLAGS.get(name, []), "-I", include, "-o", lib, src]
+        flags = kernels.EXTRA_FLAGS.get(SOURCES.get(name, name), [])
+        cmd = [kernels.nvcc(), *kernels.NVCC_FLAGS, *flags, "-I", include, "-o", lib, src]
         procs.append((name, label, lib, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                                          text=True)))
     libs = {name: {} for name in SYMBOLS}
@@ -185,11 +203,50 @@ def probe_calls(dev, seed=0):
     return calls
 
 
+def mxu_calls(dev, seed=0):
+    """``{path: [(args, {})]}``, ``args`` the body and its inputs: each row
+    sum at ``exp_r3_mxu_probe.py``'s shapes (K=4096, NS=512) and on
+    ``chip_smoke.row_sums_leaving``'s 16 keypoints."""
+    import torch
+
+    import chip_smoke as cs
+    from cv_tpu_torch.experiments import probes, runs
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    patches = torch.randn((4096, 3, probes.P, probes.P), generator=gen, device=dev)
+    rel_x, rel_y = (runs._randint(gen, probes.P, (4096, 512), dev) for _ in range(2))
+    leaving, _ = cs.row_sums_leaving(rel_x, rel_y, patches)
+    calls = {}
+    for body in probes.ROW_SUM_BODIES:
+        calls[f"{body} K=4096 NS=512"] = [((body, rel_x, rel_y, patches), {})]
+        calls[f"{body} leaving"] = [((body, *leaving), {})]
+    return calls
+
+
 def bisect_call(body, *args):
     """``exp_bisect.py``'s body ``body`` through its wrapper."""
     from cv_tpu_torch.experiments import probes
 
     return probes.BISECT[body](*args)
+
+
+def mxu_call(body, *args):
+    """``exp_r3_mxu_probe.py``'s body ``body`` through its wrapper."""
+    from cv_tpu_torch.experiments import probes
+
+    return probes.MXU[body](*args)
+
+
+def probe_bound_ms(name, args):
+    """The byte bound of one probe call (``args``: the body and its
+    inputs), from chip_smoke.py's work counts."""
+    import chip_smoke as cs
+
+    if name == "select_probes":
+        return cs.bound(*cs.bisect_work(args[0], args[2].shape[0], args[5].shape[1]))[0]
+    body, _, rel_y, patches = args
+    k, c, p, _ = patches.shape
+    return cs.bound(*cs.mxu_work(body, k, c, p, rel_y.shape[1], cs.mxu_rows_read(rel_y, p)))[0]
 
 
 def same_bits(a, b):
@@ -215,6 +272,8 @@ def record_paths(dev, names):
     calls = {name: {} for name in names}
     if "select_probes" in names:
         calls["select_probes"] = probe_calls(dev)
+    if "mxu_probes" in names:
+        calls["mxu_probes"] = mxu_calls(dev)
     where = {"select_samples": (descriptors, "select_samples", cs.keep_planes),
              "dedup_scan": (extrema, "dedup_scan_device", cs._clone),
              "select_groups": (descriptors, "select_groups", cs.keep_planes),
@@ -290,13 +349,14 @@ def main():
                 "select_samples": (select.select_samples, None, 10),
                 "select_groups": (select.select_groups, select.select_groups_plain, 10),
                 "select_fused": (fused.select_fused, fused.select_fused_plain, 10),
-                "select_probes": (bisect_call, probes.bisect_matmul_ordered, 10)}
+                "select_probes": (bisect_call, probes.bisect_matmul_ordered, 10),
+                "mxu_probes": (mxu_call, probes.mxu_rows_ordered, 10)}
 
     source_function = kernels.function
     results = {}
     for name in names:
         wrapper, plain, iters = wrappers[name]
-        equal = same_bits if name == "select_probes" else cs.same
+        equal = same_bits if name in PROBES else cs.same
         paths = recorded[name]
         reference = {p: [wrapper(*a, **kw) for a, kw in calls] for p, calls in paths.items()}
         bounds = {}
@@ -306,13 +366,13 @@ def main():
                 for j, (a, kw) in enumerate(calls):
                     cs.require(equal(reference[p][j], plain(*a, **kw)),
                                f"{name} (this tree) {p} call {j}: bitwise equal to the plain version")
-                    if name == "select_probes":
-                        b4 += cs.bound(*cs.bisect_work(a[0], a[2].shape[0], a[5].shape[1]))[0]
+                    if name in PROBES:
+                        b4 += probe_bound_ms(name, a)
                         continue
                     b, s, n = cs.describe_call_bounds(name, a, kw, reference[p][j])
                     b4, bs, sectors = b4 + cs.bound(b)[0], bs + cs.bound(s)[0], sectors + n
                 bounds[p] = dict(bound_ms=b4)
-                if name != "select_probes":
+                if name not in PROBES:
                     bounds[p].update(sector_bound_ms=bs, sectors=sectors)
                 if name == "select_groups":
                     for j, (a, kw) in enumerate(calls):

@@ -22,7 +22,10 @@ sample) product over the channel axis (``:121``), so it returns the
 channel sums of the three bf16 splits, not the sample (6.19 off on these
 inputs); it is held bitwise to that function.  ``exp_r3_mxu_probe.py``'s
 ``k_split`` does not trace at its own NS=512 (``:108-112`` adds a (512,
-128) and a (128, 128) array); it is held at NS=128.
+128) and a (128, 128) array); it is held at NS=128.  The column and row
+sums' order mirrors (``probes.bisect_matmul_ordered``,
+``probes.mxu_rows_ordered``), which their kernels equal bit for bit, are
+held bitwise to the same order written in NumPy.
 
 The probe scripts call ``jax.config.update("jax_compilation_cache_dir",
 ...)`` when imported; they are imported with that call stubbed, so this
@@ -394,6 +397,91 @@ def test_mxu_plain_matches_exp_r3_mxu_probe(exp, monkeypatch, body):
         np.testing.assert_array_equal(got, ref)
 
 
+def _row_inputs(seed, k=K, ns=512, p=128):
+    """Row-sum inputs whose leader rows (keypoints 0 and 8) leave the patch
+    at three samples each; keypoint 3's out-of-range value is never read
+    (only a group's first keypoint's rows are)."""
+    rng = np.random.default_rng(seed)
+    patches = rng.normal(size=(k, 3, p, p)).astype(np.float32)
+    rel_x, rel_y = (rng.integers(0, p, (k, ns)).astype(np.int32) for _ in range(2))
+    rel_y[0, :3] = [-1, p, 300]
+    rel_y[8, 100:103] = [300, -1, p]
+    rel_y[3, 7] = -5
+    left = np.zeros((k, ns), bool)
+    left[0:8, :3] = left[8:16, 100:103] = True
+    return rel_x, rel_y, patches, left[:, None, :].repeat(3, axis=1)
+
+
+def _row_sums_in_order(body, rel_y, patches, g=G):
+    """The row-sum kernels' (K, C, NS) output in their order, in NumPy: per
+    bf16 value its term (nine adds from 0, or (v + v) + v), one float32 add
+    a column for x = 0 .. P - 1, then the leader's rows (0 outside)."""
+    k, c, p, _ = patches.shape
+    b = _np_bf16(np.ascontiguousarray(patches[:, 0]))
+    if body == "dots":
+        term = np.zeros_like(b)
+        for _ in range(9):
+            term = term + b
+    else:
+        term = (b + b) + b
+    tot = np.zeros((k, p), np.float32)
+    for x in range(p):
+        tot = tot + term[:, :, x]
+    rows = rel_y[np.arange(k) // g * g]
+    ok = (rows >= 0) & (rows < p)
+    vals = np.where(ok, np.take_along_axis(tot, np.clip(rows, 0, p - 1), axis=1), np.float32(0))
+    return np.repeat(vals[:, None, :], c, axis=1)
+
+
+def _mxu_jax(exp, monkeypatch, body, rel_x, rel_y, patches):
+    """The JAX body at these inputs' NS and patch side, in interpret mode."""
+    mod = exp.exp_r3_mxu_probe
+    ns, p = rel_y.shape[1], patches.shape[2]
+    monkeypatch.setattr(mod, "NS", ns)
+    monkeypatch.setattr(mod, "P", p)
+    return _mxu_runner(mod, getattr(mod, f"k_{body}"), ns)(rel_x, rel_y, patches)
+
+
+@pytest.mark.parametrize("body", probes.ROW_SUM_BODIES)
+def test_mxu_plain_zero_where_rows_leave_the_patch(exp, monkeypatch, body):
+    """A leader's row outside [0, 128) matches no one-hot column: 0, as in
+    the JAX body, bitwise; the other samples within ``SUM_ATOL``; a
+    non-leader's out-of-range row changes nothing."""
+    rel_x, rel_y, patches, left = _row_inputs(35)
+    ref = _mxu_jax(exp, monkeypatch, body, rel_x, rel_y, patches)
+    got = probes.mxu_plain(body, *(torch.as_tensor(a) for a in (rel_x, rel_y, patches))).numpy()
+    np.testing.assert_array_equal(got.view(np.int32)[left], ref.view(np.int32)[left])
+    assert np.all(got[left] == 0)
+    _close(body, got[~left], ref[~left])
+    rel_y[3, 7] = 5
+    again = probes.mxu_plain(body, *(torch.as_tensor(a) for a in (rel_x, rel_y, patches))).numpy()
+    np.testing.assert_array_equal(again.view(np.int32), got.view(np.int32))
+
+
+@pytest.mark.parametrize("seed,p", [(31, 128), (32, 128), (33, 128), (34, 64)])
+@pytest.mark.parametrize("body", probes.ROW_SUM_BODIES)
+def test_mxu_rows_ordered_matches_exp_r3_mxu_probe(exp, monkeypatch, body, seed, p):
+    """The row-sum kernels' order mirror: bitwise against the same order
+    written in NumPy, within ``SUM_ATOL`` of the JAX body and of
+    ``mxu_plain``, 0 where a leader's row leaves the patch.  On the CPU it
+    takes any patch side (the kernels only 128)."""
+    rel_x, rel_y, patches, left = _row_inputs(seed, p=p)
+    targs = [torch.as_tensor(a) for a in (rel_x, rel_y, patches)]
+    got = probes.mxu_rows_ordered(body, *targs).numpy()
+    want = _row_sums_in_order(body, rel_y, patches)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+    assert np.all(got.view(np.int32)[left] == 0)
+    _close(body, got, _mxu_jax(exp, monkeypatch, body, rel_x, rel_y, patches))
+    _close(body, got, probes.mxu_plain(body, *targs).numpy())
+    assert torch.equal(probes.MXU[body](*targs), probes.mxu_plain(body, *targs))
+
+
+def test_mxu_rows_ordered_takes_only_the_row_sums():
+    rel_x, rel_y, patches = (torch.as_tensor(a) for a in _mxu_inputs(36, 16))
+    with pytest.raises(ValueError, match="not a row-sum body"):
+        probes.mxu_rows_ordered("onehot", rel_x, rel_y, patches)
+
+
 def test_mxu_split_fails_at_its_own_shape(exp):
     mod = exp.exp_r3_mxu_probe
     assert mod.NS > mod.P
@@ -560,6 +648,42 @@ def test_cuda_mxu_matches_plain(body):
         torch.testing.assert_close(got, ref, rtol=0, atol=probes.SUM_ATOL[body])
     else:
         assert torch.equal(got, ref)
+
+
+def _cuda_row_inputs(dev, case):
+    """Row-sum inputs on the card: ``exp_r3_mxu_probe.py``'s K=4096, NS=512
+    (``'full'``), K=12 (a last group of four), or K=16 with leader rows that
+    leave the patch (``'leaving'``)."""
+    if case == "leaving":
+        return [torch.as_tensor(a, device=dev) for a in _row_inputs(37)[:3]]
+    k = 4096 if case == "full" else 12
+    gen = torch.Generator(device=dev).manual_seed(38)
+    patches = torch.randn((k, 3, 128, 128), generator=gen, device=dev)
+    rel_x, rel_y = (torch.randint(0, 128, (k, 512), generator=gen, device=dev, dtype=torch.int32) for _ in range(2))
+    return [rel_x, rel_y, patches]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full", "k12", "leaving"])
+@pytest.mark.parametrize("body", probes.ROW_SUM_BODIES)
+def test_cuda_mxu_row_sums_equal_their_order_mirror(body, case):
+    dev = _cuda()
+    args = _cuda_row_inputs(dev, case)
+    before = probes.MXU[body].launches
+    got = probes.MXU[body](*args)
+    ref = probes.mxu_rows_ordered(body, *args)
+    torch.cuda.synchronize()
+    assert probes.MXU[body].launches == before + 1
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("body", probes.ROW_SUM_BODIES)
+def test_cuda_mxu_row_sums_reject_other_patch_sides(body):
+    dev = _cuda()
+    rel_x, rel_y, patches = (torch.as_tensor(a, device=dev) for a in _row_inputs(39, p=64)[:3])
+    with pytest.raises(ValueError, match="128x128 patches"):
+        probes.MXU[body](rel_x, rel_y, patches)
 
 
 @pytest.mark.cuda
