@@ -79,7 +79,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      shapes: the retired selects and the probe selects and gathers
      bitwise, the trigonometry
      probe within 2 ulp of torch's functions (bit-equality printed), the
-     summing probes within ``probes.SUM_ATOL``; beside each kernel's time
+     summing probes within ``probes.SUM_ATOL`` (the window, column and
+     row sums also bitwise to their order mirrors); beside each kernel's time
      and its plain version's, one PyTorch call computing the same function
      where there is one (``library_ms``) and the bound; for the gather
      (``take_along``) call and device times alternated with
@@ -1606,24 +1607,48 @@ def check_dedup_kernel(dev, seed, dense_args):
     return rec
 
 
-def bisect_work(body, k, ns):
+def bisect_windows_read(planes, lvl, y0, x0):
+    """The distinct floats of ``planes`` that ``exp_bisect.py``'s windows at
+    ``(lvl, y0, x0)`` cover: the union of each level's 136x128 windows, in
+    every channel.  Windows overlap on a level, more so with x0 aligned; a
+    window that leaves the stack reads nothing."""
+    import torch
+
+    from cv_tpu_torch.experiments import probes
+
+    n_levels, channels, height, width = planes.shape
+    ok = (lvl >= 0) & (lvl < n_levels) & (y0 >= 0) & (y0 + probes.PH <= height) & (x0 >= 0) & (
+        x0 + probes.PW <= width)
+    lv, ys, xs = lvl[ok].long(), y0[ok].long(), x0[ok].long()
+    # The windows' corners in a difference array; its 2-D prefix sum counts
+    # the windows over each pixel.
+    d = torch.zeros((n_levels, height + 1, width + 1), dtype=torch.int32, device=lvl.device)
+    for dy, dx, sign in ((0, 0, 1), (probes.PH, 0, -1), (0, probes.PW, -1), (probes.PH, probes.PW, 1)):
+        d.index_put_((lv, ys + dy, xs + dx), torch.full_like(lv, sign, dtype=torch.int32), accumulate=True)
+    return channels * int((d.cumsum(1).cumsum(2) > 0).sum())
+
+
+def bisect_work(body, k, ns, floats_read=0):
     """``(bytes, float32 operations)`` that ``exp_bisect.py``'s body
     ``body`` must move and do for ``k`` keypoints of ``ns`` samples: the
-    per-keypoint words, each 3x136x128 window read once (one row of each
-    for ``'vpu_rowstage'``, which reads a sample a row), ``rel_x`` for the
-    dynamic one-hot, and the (K, 3 NS) output."""
+    per-keypoint words, the ``floats_read`` distinct floats that the windows
+    cover (``bisect_windows_read``; one row of each window for
+    ``'vpu_rowstage'``, which reads a sample a row), ``rel_x`` for the
+    dynamic one-hot, and the (K, 3 NS) output.  The operations are counted
+    for every window, as each keypoint sums its own."""
     from cv_tpu_torch.experiments import probes
 
     window = 3 * probes.PH * probes.PW
     if body == "vpu_rowstage":
         return k * 12 + k * ns * 4 + 2 * k * 3 * ns * 4, 0
-    nbytes = k * (12 + window * 4) + k * 3 * ns * 4 + (k * ns * 4 if body == "matmul_dyn_oh" else 0)
+    nbytes = k * 12 + floats_read * 4 + k * 3 * ns * 4 + (k * ns * 4 if body == "matmul_dyn_oh" else 0)
     flops = {"dma_only": k * window, "split_nomm": 8 * k * window}.get(body, k * ns * 9 * probes.PH)
     return nbytes, flops
 
 
-def hold_column_sums(body, fn, args, aligned):
-    """A column-sum body's kernel against its order mirror: bitwise on
+def hold_bisect_sums(body, fn, args, aligned):
+    """A window-sum or column-sum body's kernel against its order mirror
+    (``bisect_window_ordered``, ``bisect_matmul_ordered``): bitwise on
     ``args`` (x0 unaligned), on ``aligned`` (x0 128-aligned) and on a small
     draw whose windows leave the stack and whose dynamic columns leave the
     window (NaN at the same places, the same quiet NaN); on ``aligned`` also
@@ -1633,6 +1658,7 @@ def hold_column_sums(body, fn, args, aligned):
 
     from cv_tpu_torch.experiments import probes
 
+    mirror = probes.bisect_window_ordered if body in probes.WINDOW_SUM_BODIES else probes.bisect_matmul_ordered
     planes = args[0]
     n_levels, _, height, width = planes.shape
     leaving = [t[:16].clone() for t in args[1:]]
@@ -1640,7 +1666,7 @@ def hold_column_sums(body, fn, args, aligned):
     x0[0], y0[1], lvl[2], x0[3], y0[4] = width - probes.PW + 1, -1, n_levels, -3, height - probes.PH + 1
     rel_x[5, :3] = torch.tensor([-1, probes.PW, 10_000], dtype=torch.int32, device=rel_x.device)
     for label, draw in (("x0 unaligned", args), ("x0 aligned", aligned), ("leaving", (planes, *leaving))):
-        got, ref = fn(*draw), probes.bisect_matmul_ordered(body, *draw)
+        got, ref = fn(*draw), mirror(body, *draw)
         torch.cuda.synchronize()
         require(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
                 f"bisect {body} ({label}): bitwise equal to its order mirror "
@@ -1826,7 +1852,7 @@ def check_experiment_kernels(dev, seed):
     aligned = window_inputs(k, ns)
     aligned = (*aligned[:3], aligned[3] & ~127, *aligned[4:])
     for body, fn in probes.BISECT.items():
-        nbytes, flops = bisect_work(body, k, ns)
+        nbytes, flops = bisect_work(body, k, ns, bisect_windows_read(*args[:4]))
         lib = None
         if body == "vpu_rowstage":
             f = index_call(planes, bl, by[:, None] + bry, bx[:, None].expand(k, ns))
@@ -1835,10 +1861,12 @@ def check_experiment_kernels(dev, seed):
         rec = out[f"bisect_{body}"] = hold(name, lambda fn=fn: fn(*args),
                                            lambda body=body: probes.bisect_plain(body, *args), nbytes, flops, lib,
                                            probes.SUM_ATOL.get(body))
-        if body in probes.MATMUL_BODIES:
-            rec.update(hold_column_sums(body, fn, args, aligned))
-            print(f"{name}: {100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound unaligned, "
-                  f"{100 * rec['bound_ms'] / rec['aligned_ms']:.1f}% aligned")
+        if body in probes.WINDOW_SUM_BODIES + probes.MATMUL_BODIES:
+            rec.update(hold_bisect_sums(body, fn, args, aligned))
+            rec["aligned_bound_ms"] = bound(*bisect_work(body, k, ns, bisect_windows_read(*aligned[:4])))[0]
+            print(f"{name}: {100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound {rec['bound_ms']:.4f} ms "
+                  f"unaligned, {100 * rec['aligned_bound_ms'] / rec['aligned_ms']:.1f}% of "
+                  f"{rec['aligned_bound_ms']:.4f} ms aligned (the windows' distinct bytes)")
     del planes, args, aligned
 
     # exp_r3_gather_probe.py and exp_r3_mxu_probe.py: patches (4096, 3, 128,
@@ -3465,7 +3493,7 @@ def main():
     def row(name, source, replaces, launches, rec):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         measured = ("device_ms", "library_device_ms", "steps", "us_per_step", "engine", "aligned_ms",
-                    "aligned_plain_ms")
+                    "aligned_plain_ms", "aligned_bound_ms")
         return {"name": name, "route": "cuda", "source": f"cv_tpu_torch/csrc/{source}.cu", "replaces": replaces,
                 "launches": launches, **{k: rec[k] for k in keys}, **{k: rec[k] for k in measured if k in rec}}
 

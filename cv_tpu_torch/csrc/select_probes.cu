@@ -34,15 +34,16 @@
 // astype).  Built with --fmad=false.  Sums run in another order than
 // XLA's (block trees, sequential loops); chip_smoke.py holds them to their
 // plain versions within a stated tolerance and the selects bitwise, and
-// the two column sums and the two row sums bitwise to their order mirrors
-// as well.
+// the two window sums, the two column sums and the two row sums bitwise to
+// their order mirrors as well.
 //
 // What bounds them: bytes.  The window probes read a 209 KB window per
 // keypoint; the patch probes one channel row or a few words.  Design: one
-// block per keypoint; threads stride over samples (or the window, for the
-// sums, which end in a warp-shuffle and shared-memory tree).  The two
-// one-hot column sums have a design of their own (below): the window once
-// through shared memory by TMA, one thread a column.  Their host code
+// block per keypoint; threads stride over samples.  The two window sums
+// have a design of their own (below): one thread a (column, row parity)
+// chain of the window, plain coalesced loads, then a warp-shuffle and
+// shared-memory tree.  The two one-hot column sums have one too: the
+// window once through shared memory by TMA, one thread a column.  Their host code
 // encodes a TMA tensor map with libcuda's cuTensorMapEncodeTiled, which it
 // obtains through cudaGetDriverEntryPoint (no -lcuda at build time).  The two
 // one-hot row sums have one too (P = 128 only): each patch row that a sample
@@ -112,22 +113,6 @@ __device__ __forceinline__ float at(const Window& w, int c, int y, int x) {
       float *__restrict__ out, int n_levels, int channels, int height, int width, int ph, int pw, int ns
 #define BISECT_WINDOW \
   window(planes, lvl, y0, x0, blockIdx.x, n_levels, channels, height, width, ph, pw)
-
-__global__ void __launch_bounds__(kThreads) bisect_dma_only_kernel(BISECT_ARGS) {
-  __shared__ float red[33];
-  const Window w = BISECT_WINDOW;
-  const int n = channels * ph * pw;
-  float s = 0.0f;
-  if (w.base != nullptr) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int c = i / (ph * pw), r = i % (ph * pw);
-      s += at(w, c, r / pw, r % pw);
-    }
-  }
-  s = block_sum(s, red);
-  float* o = out + static_cast<size_t>(blockIdx.x) * 3 * ns;
-  for (int j = threadIdx.x; j < 3 * ns; j += blockDim.x) o[j] = w.base != nullptr ? s : qnan();
-}
 
 // ---------------------------------------------------------------------------
 // The one-hot column sums: bisect_matmul_static and bisect_matmul_dyn_oh.
@@ -371,30 +356,95 @@ __global__ void __launch_bounds__(kColPW, 2)
   for (int j = tail + t; j < n; j += kColPW) o[j] = value(j / 3);
 }
 
-__global__ void __launch_bounds__(kThreads) bisect_split_nomm_kernel(BISECT_ARGS) {
+// ---------------------------------------------------------------------------
+// The window sums: bisect_dma_only and bisect_split_nomm.
+//
+// out[k, :] = the sum of keypoint k's 3 x 136 x 128 window (dma_only), or
+// sum(p1) + sum(p2) + sum(p3) of its bf16x3 split (split_nomm); the quiet
+// NaN where the window leaves the stack.
+//
+// What bounds it: bytes, one read of each 209 KB window (0.034 ms at
+// exp_bisect.py's K=512).  Design: one block a keypoint (512 blocks, all
+// resident at once), kThreads = 256 threads, one thread a (column, row
+// parity) chain.
+// * A window row is 128 floats, so the flat walk i = t, t + 256, ... of a
+//   thread a strided sample (the earlier kernel) is column t & 127 over the
+//   rows of parity t >> 7, channel by channel.  Thread t adds those 204
+//   values in that order into a float32 from 0 (three sums for split_nomm,
+//   p1, p2 and p3 rounded by __float2bfloat16_rn), then block_sum (the warp
+//   shuffle tree, the warps in order) and (s1 + s2) + s3: the same bits
+//   (probes.bisect_window_ordered).
+// * The window's shape is compile-time: the walk steps a row pointer by two
+//   rows, and by a plane between channels.  No division in the loop.
+// * Plain coalesced read-only loads, a warp 32 consecutive floats of a row,
+//   kWindowRowsInFlight rows loaded before any is added.  No TMA ring: for
+//   this walk plain loads measured 13-15% faster (PERF.md §6, the column
+//   sums' tma-off ablation).
+// * The output row: the one value, with 16-byte stores.
+
+constexpr int kChainRows = kColPH / 2;   // rows of one parity in a channel
+constexpr int kWindowRowsInFlight = 17;  // rows a thread loads before it adds them
+static_assert(kThreads == 2 * kColPW, "a thread a column and row parity");
+static_assert(kChainRows % kWindowRowsInFlight == 0, "a channel's chain is whole batches");
+
+template <bool kSplit>
+__device__ __forceinline__ void add_window_value(float v, float& s1, float& s2, float& s3) {
+  if (kSplit) {
+    const float p1 = bf16r(v);
+    const float r1 = v - p1;
+    const float p2 = bf16r(r1);
+    const float p3 = bf16r(r1 - p2);
+    s1 += p1;
+    s2 += p2;
+    s3 += p3;
+  } else {
+    s1 += v;
+  }
+}
+
+template <bool kSplit>
+__global__ void __launch_bounds__(kThreads, 4)
+    window_sum_kernel(const float* __restrict__ planes, const int* __restrict__ lvl, const int* __restrict__ y0,
+                      const int* __restrict__ x0, float* __restrict__ out, int n_levels, int height, int width,
+                      int ns) {
   __shared__ float red[33];
-  const Window w = BISECT_WINDOW;
-  const int n = channels * ph * pw;
+  const int t = threadIdx.x, k = blockIdx.x;
+  const Window w = window(planes, lvl, y0, x0, k, n_levels, kColChannels, height, width, kColPH, kColPW);
+  const bool ok = w.base != nullptr;
   float s1 = 0.0f, s2 = 0.0f, s3 = 0.0f;
-  if (w.base != nullptr) {
-    for (int i = threadIdx.x; i < n; i += blockDim.x) {
-      const int c = i / (ph * pw), r = i % (ph * pw);
-      const float p = at(w, c, r / pw, r % pw);
-      const float p1 = bf16r(p);
-      const float r1 = p - p1;
-      const float p2 = bf16r(r1);
-      const float p3 = bf16r(r1 - p2);
-      s1 += p1;
-      s2 += p2;
-      s3 += p3;
+  if (ok) {  // the same for every thread of the block
+    const size_t step = 2 * static_cast<size_t>(width);
+    const float* row = w.base + static_cast<size_t>(t >> 7) * width + (t & (kColPW - 1));
+#pragma unroll 1
+    for (int c = 0; c < kColChannels; ++c, row += w.plane) {
+      const float* p = row;
+#pragma unroll 1
+      for (int j = 0; j < kChainRows; j += kWindowRowsInFlight, p += kWindowRowsInFlight * step) {
+        float v[kWindowRowsInFlight];
+#pragma unroll
+        for (int i = 0; i < kWindowRowsInFlight; ++i) v[i] = __ldg(p + i * step);
+#pragma unroll
+        for (int i = 0; i < kWindowRowsInFlight; ++i) add_window_value<kSplit>(v[i], s1, s2, s3);
+      }
     }
   }
-  s1 = block_sum(s1, red);
-  s2 = block_sum(s2, red);
-  s3 = block_sum(s3, red);
-  const float s = (s1 + s2) + s3;
-  float* o = out + static_cast<size_t>(blockIdx.x) * 3 * ns;
-  for (int j = threadIdx.x; j < 3 * ns; j += blockDim.x) o[j] = w.base != nullptr ? s : qnan();
+  float s = block_sum(s1, red);
+  if (kSplit) {
+    const float b2 = block_sum(s2, red);
+    const float b3 = block_sum(s3, red);
+    s = (s + b2) + b3;
+  }
+  const float v = ok ? s : qnan();
+  const int n = 3 * ns;
+  float* o = out + static_cast<size_t>(k) * n;
+  // Up to three floats before the first 16-byte boundary, then quads, then
+  // the tail.
+  const int head = min(n, static_cast<int>(((16u - (reinterpret_cast<uintptr_t>(o) & 15u)) & 15u) / 4));
+  const int quads = (n - head) / 4;
+  if (t < head) o[t] = v;
+  float4* q = reinterpret_cast<float4*>(o + head);
+  for (int i = t; i < quads; i += kThreads) q[i] = make_float4(v, v, v, v);
+  for (int j = head + 4 * quads + t; j < n; j += kThreads) o[j] = v;
 }
 
 __global__ void __launch_bounds__(kThreads) bisect_vpu_rowstage_kernel(BISECT_ARGS) {
@@ -625,9 +675,36 @@ __global__ void __launch_bounds__(kThreads) mxu_dma_kernel(MXU_ARGS) {
     return static_cast<int>(cudaGetLastError());                                                      \
   }
 
-BISECT_EXPORT(bisect_dma_only)
-BISECT_EXPORT(bisect_split_nomm)
 BISECT_EXPORT(bisect_vpu_rowstage)
+
+namespace {
+
+// Returns 0 or a cudaError_t, or -1 when the window is not 3 x 136 x 128.
+template <bool kSplit>
+int launch_window_sum(const float* planes, const int* lvl, const int* y0, const int* x0, float* out, int n_levels,
+                      int channels, int height, int width, int ph, int pw, int k, int ns, void* stream) {
+  if (k <= 0 || ns <= 0) return 0;
+  if (channels != kColChannels || ph != kColPH || pw != kColPW) return -1;
+  window_sum_kernel<kSplit><<<k, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(planes, lvl, y0, x0, out,
+                                                                                    n_levels, height, width, ns);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The BISECT_EXPORT signature (rel_y and rel_x unused, as in the TPU bodies).
+#define WINDOW_SUM_EXPORT(name, split)                                                                \
+  extern "C" int cv_##name(const float* planes, const int* lvl, const int* y0, const int* x0,         \
+                           const int* rel_y, const int* rel_x, float* out, int n_levels, int channels, \
+                           int height, int width, int ph, int pw, int k, int ns, void* stream) {       \
+    (void)rel_y;                                                                                      \
+    (void)rel_x;                                                                                      \
+    return launch_window_sum<split>(planes, lvl, y0, x0, out, n_levels, channels, height, width, ph,  \
+                                    pw, k, ns, stream);                                               \
+  }
+
+WINDOW_SUM_EXPORT(bisect_dma_only, false)
+WINDOW_SUM_EXPORT(bisect_split_nomm, true)
 
 namespace {
 

@@ -16,10 +16,11 @@ Ports of the Pallas kernels of the probe scripts in ``experiments/``:
 * ``exp_bisect.py`` bodies and ``exp_r3_mxu_probe.py`` bodies: the
   functions their stage-isolating bodies compute (``csrc/select_probes.cu``,
   one ``__global__`` per body): :data:`BISECT` and :data:`MXU`, keyed by
-  body name.  The two one-hot column sums of ``exp_bisect.py`` also have
-  :func:`bisect_matmul_ordered`, a mirror of their kernel's summation
-  order, which the kernels equal bit for bit; the two one-hot row sums of
-  ``exp_r3_mxu_probe.py`` have :func:`mxu_rows_ordered`.
+  body name.  The two window sums of ``exp_bisect.py`` also have
+  :func:`bisect_window_ordered`, a mirror of their kernel's summation
+  order, which the kernels equal bit for bit; its two one-hot column sums
+  have :func:`bisect_matmul_ordered`, and the two one-hot row sums of
+  ``exp_r3_mxu_probe.py`` :func:`mxu_rows_ordered`.
 
 On a CPU tensor each wrapper runs its plain version; on a CUDA tensor it
 launches its kernel or raises.  Each wrapper counts its launches on
@@ -214,6 +215,7 @@ trig_probe.launches = 0
 # ---------------------------------------------------------------------------
 
 
+WINDOW_SUM_BODIES = ("dma_only", "split_nomm")
 MATMUL_BODIES = ("matmul_static", "matmul_dyn_oh")
 
 
@@ -248,7 +250,7 @@ def bisect_plain(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
     or column (``'matmul_dyn_oh'``) leaves the window."""
     k, ns = rel_y.shape
     win, ok = _windows(planes, lvl, y0, x0)
-    if body in ("dma_only", "split_nomm"):
+    if body in WINDOW_SUM_BODIES:
         if body == "dma_only":
             s = win.sum(dim=(1, 2, 3))
         else:
@@ -268,6 +270,44 @@ def bisect_plain(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
         s = _nan_where(bad | ~ok[:, None], torch.cat([g] * 3, dim=1).sum(dim=(1, 2)))
         return s.repeat_interleave(3, dim=1)
     raise ValueError(f"unknown exp_bisect body {body!r}")
+
+
+def _block_sum(chains: torch.Tensor) -> torch.Tensor:
+    """``(K,)``: the sum of ``(K, R, 256)`` chains in the window sums'
+    kernel order: chain t adds its R values in order into a float32 from 0,
+    then lanes ``l`` and ``l + off`` of each warp of 32 chains add for
+    ``off`` = 16, 8, 4, 2, 1 (the shuffle tree), then warps 0 .. 7 in order."""
+    acc = torch.zeros((chains.shape[0], chains.shape[2]), dtype=torch.float32, device=chains.device)
+    for r in range(chains.shape[1]):
+        acc = acc + chains[:, r]
+    lanes = acc.reshape(acc.shape[0], -1, 32)
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes[..., :off] + lanes[..., off:2 * off]
+    s = lanes[:, 0, 0]
+    for w in range(1, lanes.shape[1]):
+        s = s + lanes[:, w, 0]
+    return s
+
+
+def bisect_window_ordered(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
+    """:func:`bisect_plain` of a window-sum body (``'dma_only'``,
+    ``'split_nomm'``) summed in its kernel's order: each window's
+    ``(C * PH, PW)`` rows as ``(C * PH / 2, 256)`` chains (chain t = row
+    parity * 128 + column), summed by :func:`_block_sum`; for
+    ``'split_nomm'`` one such sum for each bf16 split, then ``(s1 + s2) +
+    s3``; NaN rows where :func:`bisect_plain` has them.  The kernel's output
+    equals it bit for bit on any device."""
+    if body not in WINDOW_SUM_BODIES:
+        raise ValueError(f"not a window-sum body of exp_bisect: {body!r}")
+    k, ns = rel_y.shape
+    win, ok = _windows(planes, lvl, y0, x0)
+    chains = win.reshape(k, -1, 2 * PW)
+    if body == "dma_only":
+        s = _block_sum(chains)
+    else:
+        s1, s2, s3 = (_block_sum(p) for p in _split3(chains))
+        s = (s1 + s2) + s3
+    return _nan_where(~ok[:, None], s[:, None].expand(k, 3 * ns))
 
 
 def bisect_matmul_ordered(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
@@ -292,9 +332,10 @@ def bisect_matmul_ordered(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch
 
 
 _BISECT_ARGS = [_VOID] * 7 + [_INT] * 8 + [_VOID]
-# The column-sum kernels' own failures (csrc/select_probes.cu).
-_TMA_ERRORS = {-1: "the window is not 3x136x128", -2: "libcuda has no cuTensorMapEncodeTiled",
-               -3: "cuTensorMapEncodeTiled refused the plane stack"}
+# The window-sum and column-sum kernels' own failures (csrc/select_probes.cu;
+# -2 and -3 the column sums' TMA only).
+_BISECT_ERRORS = {-1: "the window is not 3x136x128", -2: "libcuda has no cuTensorMapEncodeTiled",
+                  -3: "cuTensorMapEncodeTiled refused the plane stack"}
 
 
 def _bisect_wrapper(body: str):
@@ -322,7 +363,7 @@ def _bisect_wrapper(body: str):
             planes.data_ptr(), lvl.data_ptr(), y0.data_ptr(), x0.data_ptr(), rel_y.data_ptr(), rel_x.data_ptr(),
             out.data_ptr(), *planes.shape, PH, PW, k, ns, _stream(dev))
         if err != 0:
-            raise RuntimeError(f"{symbol} kernel launch failed: {_TMA_ERRORS.get(err, f'cudaError {err}')}")
+            raise RuntimeError(f"{symbol} kernel launch failed: {_BISECT_ERRORS.get(err, f'cudaError {err}')}")
         run.launches += 1
         return out
 

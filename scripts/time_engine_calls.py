@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
 """The dedup scan, the sample select, the group select and the fused
-describe at the engine's own calls, the one-hot column sums of
-``exp_bisect.py`` and the one-hot row sums of ``exp_r3_mxu_probe.py`` at
-those scripts' shapes, for several builds of each, on one CUDA card.
+describe at the engine's own calls, the window sums and the one-hot column
+sums of ``exp_bisect.py`` and the one-hot row sums of
+``exp_r3_mxu_probe.py`` at those scripts' shapes, for several builds of
+each, on one CUDA card.
 
 Builds, with each source's own flags (one nvcc per build, all started
 together), into the git-ignored ``cv_tpu_torch/_build/variants/``:
 
 * with ``--variants KERNEL:NAME=VALUE[,NAME=VALUE...] ...``, copies of
   KERNEL's source (``csrc/KERNEL.cu``; ``csrc/select_probes.cu`` for
-  ``mxu_probes``) with each line ``constexpr int NAME = ...;`` named set
+  ``window_sums`` and ``mxu_probes``) with each line ``constexpr int NAME = ...;`` named set
   to its VALUE (a block size, samples a thread);
 * with ``--ablations``, copies of a kernel's source with one design point
   taken out (``ABLATIONS``);
@@ -28,7 +29,9 @@ group-select calls; its dedup call counts to ``dense``).  For
 the calls are ``exp_bisect.py``'s: K=512, NS=1280 on its (16, 3, 544, 1408)
 stack, x0 unaligned and 128-aligned, one path a body and alignment, and a
 path a body of 16 windows that leave the stack or the window's columns
-(their NaN outputs compared by their bits).  For ``mxu_probes`` (the two
+(their NaN outputs compared by their bits).  For ``window_sums`` (the two
+window-sum kernels of the same source) they are the same calls of the
+bodies ``dma_only`` and ``split_nomm``.  For ``mxu_probes`` (the two
 row-sum kernels of the same source) they are ``exp_r3_mxu_probe.py``'s:
 K=4096 patches of 3x128x128, NS=512, one path a body, and a path a body of
 16 keypoints whose leader rows leave the patch at a few samples
@@ -38,15 +41,17 @@ swapped), in the order of the builds and then reversed, so that with a
 parent the order is parent, this tree, ..., this tree, parent; each turn
 holds every recorded call bitwise to this tree's build in the checkout
 (itself held bitwise to the plain version for the group select and the
-fused describe, to ``probes.bisect_matmul_ordered`` for the column sums
-and to ``probes.mxu_rows_ordered`` for the row sums) and sums the calls'
+fused describe, to ``probes.bisect_window_ordered`` for the window sums,
+to ``probes.bisect_matmul_ordered`` for the column sums and to
+``probes.mxu_rows_ordered`` for the row sums) and sums the calls'
 device times (a CUDA graph each) per path.  A
 build's time is the mean of its two turns.  For the group select and the
 fused describe each path also gets its byte bound at 4 bytes a
 sample and at 32 bytes a distinct plane sector that the recorded offsets
-touch (``chip_smoke.describe_call_bounds``); the column sums get the byte
-bound of ``chip_smoke.bisect_work``, the row sums that of
-``chip_smoke.mxu_work``.
+touch (``chip_smoke.describe_call_bounds``); the window and column sums
+get the byte bound of ``chip_smoke.bisect_work`` (the distinct bytes the
+recorded windows cover, ``chip_smoke.bisect_windows_read``), the row sums
+that of ``chip_smoke.mxu_work``.
 
 Prints one line per build and path, and last one JSON object with every
 number.
@@ -54,6 +59,8 @@ Usage: python3 scripts/time_engine_calls.py [--kernels select_groups select_fuse
        [--variants select_groups:kPer=2 dedup_scan:kThreads=256] [--ablations upper-all] [--parent _parent]
        python3 scripts/time_engine_calls.py --kernels select_probes --ablations tma-off --parent _parent
        python3 scripts/time_engine_calls.py --kernels mxu_probes --ablations mask-off --parent _parent
+       python3 scripts/time_engine_calls.py --kernels window_sums --parent _parent
+           [--variants window_sums:kWindowRowsInFlight=4 window_sums:kWindowRowsInFlight=34]
 """
 
 from __future__ import annotations
@@ -71,12 +78,13 @@ import sys
 SYMBOLS = {"dedup_scan": ("cv_dedup_scan",), "select_samples": ("cv_select_samples",),
            "select_groups": ("cv_select_groups",), "select_fused": ("cv_select_fused",),
            "select_probes": ("cv_bisect_matmul_static", "cv_bisect_matmul_dyn_oh"),
+           "window_sums": ("cv_bisect_dma_only", "cv_bisect_split_nomm"),
            "mxu_probes": ("cv_mxu_dots", "cv_mxu_dotsbig")}
 # Kernel -> its source in csrc/, where the two differ.
-SOURCES = {"mxu_probes": "select_probes"}
+SOURCES = {"window_sums": "select_probes", "mxu_probes": "select_probes"}
 # The kernels held bitwise (NaN by its bits) to an order mirror, with byte
 # bounds per call from chip_smoke.py.
-PROBES = ("select_probes", "mxu_probes")
+PROBES = ("select_probes", "window_sums", "mxu_probes")
 DEFAULT_KERNELS = ("dedup_scan", "select_samples", "select_groups", "select_fused")
 # Design points taken out one at a time, each by replacing one line of a
 # kernel's source: the scan's upper-scale class ranges (every slot walks
@@ -179,12 +187,13 @@ def group_footprints(args, kw):
     return (box.numel(), int(box.median()), int((box <= 1536).sum()), int((box < 8 * ns).sum()))
 
 
-def probe_calls(dev, seed=0):
+def probe_calls(dev, bodies, seed=0):
     """``{path: [(args, {})]}``, ``args`` the body and its inputs: the
-    column sums at ``exp_bisect.py``'s shapes, per body x0 unaligned and
-    128-aligned (its ``make_inputs(align_x=...)``), and 16 windows of which
-    three leave the stack and, for the dynamic body, one has columns outside
-    the window."""
+    ``exp_bisect.py`` bodies of ``bodies`` (the column sums or the window
+    sums) at that script's shapes, per body x0 unaligned and 128-aligned
+    (its ``make_inputs(align_x=...)``), and 16 windows of which three leave
+    the stack and, for the dynamic column sum, one has columns outside the
+    window."""
     import torch
 
     from cv_tpu_torch.experiments import probes, runs
@@ -192,13 +201,13 @@ def probe_calls(dev, seed=0):
     calls = {}
     for align in (False, True):
         inputs = runs._window_inputs(dev, seed, 16, 544, 1408, 512, 1280, align_x=align)
-        for body in probes.MATMUL_BODIES:
+        for body in bodies:
             calls[f"{body} x0 {'aligned' if align else 'unaligned'}"] = [((body, *inputs), {})]
     planes = inputs[0]
     lvl, y0, x0, rel_y, rel_x = (t[:16].clone() for t in inputs[1:])
     x0[0], y0[1], lvl[2] = planes.shape[3] - probes.PW + 1, -1, planes.shape[0]
     rel_x[3, :3] = torch.tensor([-1, probes.PW, 10_000], dtype=torch.int32, device=dev)
-    for body in probes.MATMUL_BODIES:
+    for body in bodies:
         calls[f"{body} leaving"] = [((body, planes, lvl, y0, x0, rel_y, rel_x), {})]
     return calls
 
@@ -242,8 +251,9 @@ def probe_bound_ms(name, args):
     inputs), from chip_smoke.py's work counts."""
     import chip_smoke as cs
 
-    if name == "select_probes":
-        return cs.bound(*cs.bisect_work(args[0], args[2].shape[0], args[5].shape[1]))[0]
+    if name in ("select_probes", "window_sums"):
+        return cs.bound(*cs.bisect_work(args[0], args[2].shape[0], args[5].shape[1],
+                                        cs.bisect_windows_read(*args[1:5])))[0]
     body, _, rel_y, patches = args
     k, c, p, _ = patches.shape
     return cs.bound(*cs.mxu_work(body, k, c, p, rel_y.shape[1], cs.mxu_rows_read(rel_y, p)))[0]
@@ -267,11 +277,14 @@ def record_paths(dev, names):
     import chip_smoke as cs
     from cv_tpu_torch.akaze import Akaze, DeviceExtractor, FastAkazeExtractor, load_gray, to_gray_f32
     from cv_tpu_torch.akaze import descriptors, extrema, fused
+    from cv_tpu_torch.experiments import probes
     from cv_tpu_torch.utils import kitti_pair
 
     calls = {name: {} for name in names}
     if "select_probes" in names:
-        calls["select_probes"] = probe_calls(dev)
+        calls["select_probes"] = probe_calls(dev, probes.MATMUL_BODIES)
+    if "window_sums" in names:
+        calls["window_sums"] = probe_calls(dev, probes.WINDOW_SUM_BODIES)
     if "mxu_probes" in names:
         calls["mxu_probes"] = mxu_calls(dev)
     where = {"select_samples": (descriptors, "select_samples", cs.keep_planes),
@@ -350,6 +363,7 @@ def main():
                 "select_groups": (select.select_groups, select.select_groups_plain, 10),
                 "select_fused": (fused.select_fused, fused.select_fused_plain, 10),
                 "select_probes": (bisect_call, probes.bisect_matmul_ordered, 10),
+                "window_sums": (bisect_call, probes.bisect_window_ordered, 10),
                 "mxu_probes": (mxu_call, probes.mxu_rows_ordered, 10)}
 
     source_function = kernels.function

@@ -22,10 +22,11 @@ sample) product over the channel axis (``:121``), so it returns the
 channel sums of the three bf16 splits, not the sample (6.19 off on these
 inputs); it is held bitwise to that function.  ``exp_r3_mxu_probe.py``'s
 ``k_split`` does not trace at its own NS=512 (``:108-112`` adds a (512,
-128) and a (128, 128) array); it is held at NS=128.  The column and row
-sums' order mirrors (``probes.bisect_matmul_ordered``,
-``probes.mxu_rows_ordered``), which their kernels equal bit for bit, are
-held bitwise to the same order written in NumPy.
+128) and a (128, 128) array); it is held at NS=128.  The window, column
+and row sums' order mirrors (``probes.bisect_window_ordered``,
+``probes.bisect_matmul_ordered``, ``probes.mxu_rows_ordered``), which their
+kernels equal bit for bit, are held bitwise to the same order written in
+NumPy.
 
 The probe scripts call ``jax.config.update("jax_compilation_cache_dir",
 ...)`` when imported; they are imported with that call stubbed, so this
@@ -353,6 +354,110 @@ def test_bisect_matmul_nan_where_windows_or_columns_leave(body):
     _close(body, got[~np.isnan(got)], plain[~np.isnan(plain)])
 
 
+def _window_order_sums(planes, lvl, y0, x0, body):
+    """The window-sum kernels' (K,) sums in their order, in NumPy, as a
+    thread a strided sample states it: thread t < 256 adds the flat window
+    elements t, t + 256, ... into a float32 from 0; in each warp, lane l
+    adds lane l + off's value (its own past lane 31) for off = 16 .. 1;
+    warps 0 .. 7's lane 0 are added in order.  ``'split_nomm'``: one such
+    sum for each bf16 split, then (s1 + s2) + s3 (in-stack windows)."""
+    win = np.stack([planes[lv, :, y:y + 136, x:x + 128] for lv, y, x in zip(lvl, y0, x0)]).reshape(len(lvl), -1)
+    if body == "dma_only":
+        parts = [win]
+    else:
+        p1 = _np_bf16(win)
+        r1 = win - p1
+        p2 = _np_bf16(r1)
+        parts = [p1, p2, _np_bf16(r1 - p2)]
+    lane = np.arange(32)
+    sums = []
+    for part in parts:
+        v = np.zeros((len(lvl), 256), np.float32)
+        for m in range(part.shape[1] // 256):
+            v = v + part[:, 256 * m:256 * (m + 1)]
+        v = v.reshape(len(lvl), 8, 32)
+        for off in (16, 8, 4, 2, 1):
+            v = v + v[..., np.where(lane + off < 32, lane + off, lane)]
+        s = v[:, 0, 0]
+        for w in range(1, 8):
+            s = s + v[:, w, 0]
+        sums.append(s)
+    return sums[0] if body == "dma_only" else (sums[0] + sums[1]) + sums[2]
+
+
+@pytest.mark.parametrize("align_x", [False, True])
+@pytest.mark.parametrize("body", probes.WINDOW_SUM_BODIES)
+def test_bisect_window_ordered_matches_exp_bisect(exp, body, align_x):
+    """The window sums' order mirror against the JAX body (x0 unaligned,
+    and 128-aligned as ``exp_bisect.make_inputs(align_x=True)`` makes it)
+    and against ``bisect_plain``, within ``SUM_ATOL``; bitwise against the
+    same order written in NumPy."""
+    planes, lvl, y0, x0, rel_y, rel_x = _window_inputs(26)
+    if align_x:
+        x0 = x0 & ~127
+    args = (planes, lvl, y0, x0, rel_y, rel_x)
+    ref = _window_runner(exp.exp_bisect, getattr(exp.exp_bisect, f"k_{body}"))(*args)
+    targs = [torch.as_tensor(a) for a in args]
+    got = probes.bisect_window_ordered(body, *targs).numpy()
+    assert got.shape == ref.shape == (K, 3 * rel_x.shape[1])
+    _close(body, got, ref)
+    _close(body, got, probes.bisect_plain(body, *targs).numpy())
+    want = np.repeat(_window_order_sums(planes, lvl, y0, x0, body)[:, None], got.shape[1], axis=1)
+    np.testing.assert_array_equal(got.view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("body", probes.WINDOW_SUM_BODIES)
+def test_bisect_window_nan_where_windows_leave(body):
+    """Windows that leave the stack (past either edge, or an absent level)
+    give rows of the kernels' quiet NaN; the other rows are bitwise the
+    NumPy order and within ``SUM_ATOL`` of ``bisect_plain``, which has NaN
+    at the same rows.  (The JAX body's DMA cannot take such a window.)"""
+    planes, lvl, y0, x0, rel_y, rel_x = _window_inputs(27, ns=256)
+    x0[0], y0[1], lvl[2], x0[3], y0[4] = 384 - 127, -1, 2, -3, 272 - 135
+    targs = [torch.as_tensor(a) for a in (planes, lvl, y0, x0, rel_y, rel_x)]
+    got = probes.bisect_window_ordered(body, *targs).numpy()
+    plain = probes.bisect_plain(body, *targs).numpy()
+    bad = np.zeros(K, bool)
+    bad[:5] = True
+    np.testing.assert_array_equal(np.isnan(got), np.repeat(bad[:, None], got.shape[1], axis=1))
+    np.testing.assert_array_equal(np.isnan(plain), np.isnan(got))
+    assert np.all(got[bad].view(np.int32) == 0x7FC00000)  # the kernels' quiet NaN
+    _close(body, got[~bad], plain[~bad])
+    want = np.repeat(_window_order_sums(planes, lvl[~bad], y0[~bad], x0[~bad], body)[:, None], got.shape[1], axis=1)
+    np.testing.assert_array_equal(got[~bad].view(np.int32), want.view(np.int32))
+
+
+@pytest.mark.parametrize("case", ["unaligned", "aligned", "leaving"])
+def test_bisect_windows_read_counts_each_float_once(case):
+    """The byte bound of the window and column sums counts the floats the
+    windows cover once each (``chip_smoke.bisect_windows_read``): the union
+    of each level's windows, every channel, as a NumPy mask states it; a
+    window that leaves the stack reads nothing."""
+    import chip_smoke
+
+    planes, lvl, y0, x0, _, _ = _window_inputs(30, ns=8)
+    if case == "aligned":
+        x0 = x0 & ~127
+    elif case == "leaving":
+        x0[0], y0[1], lvl[2], x0[3], y0[4] = 384 - 127, -1, 2, -3, 272 - 135
+    mask = np.zeros(planes.shape[:1] + planes.shape[2:], bool)
+    for lv, y, x in zip(lvl, y0, x0):
+        if 0 <= lv < planes.shape[0] and 0 <= y <= 272 - 136 and 0 <= x <= 384 - 128:
+            mask[lv, y:y + 136, x:x + 128] = True
+    got = chip_smoke.bisect_windows_read(*(torch.as_tensor(a) for a in (planes, lvl, y0, x0)))
+    assert got == 3 * int(mask.sum())
+    assert got < 3 * 136 * 128 * (K - 5 if case == "leaving" else K)  # the windows overlap
+    nbytes, _ = chip_smoke.bisect_work("dma_only", K, 8, got)
+    assert nbytes == K * 12 + 4 * got + K * 3 * 8 * 4
+
+
+def test_bisect_window_ordered_takes_only_the_window_sums():
+    args = [torch.as_tensor(a) for a in _window_inputs(28, ns=8)]
+    for body in set(probes.BISECT_BODIES) - set(probes.WINDOW_SUM_BODIES):
+        with pytest.raises(ValueError, match="not a window-sum body"):
+            probes.bisect_window_ordered(body, *args)
+
+
 def _mxu_runner(mod, kernel, ns):
     """``mod.run``'s pallas_call at K=16 and ``ns`` samples, in interpret mode."""
     p, c = mod.P, mod.C
@@ -633,6 +738,25 @@ def test_cuda_bisect_matmul_equals_its_order_mirror(body, case):
     got = probes.BISECT[body](*args)
     ref = probes.bisect_matmul_ordered(body, *args)
     torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unaligned", "aligned", "leaving"])
+@pytest.mark.parametrize("body", probes.WINDOW_SUM_BODIES)
+def test_cuda_bisect_window_sums_equal_their_order_mirror(body, case):
+    dev = _cuda()
+    planes, lvl, y0, x0, rel_y, rel_x = _window_inputs(29, ns=1279)  # a ragged output row: head, quads, tail
+    if case == "aligned":
+        x0 = x0 & ~127
+    elif case == "leaving":
+        x0[0], y0[1], lvl[2] = 384 - 127, -1, 2
+    args = [torch.as_tensor(a, device=dev) for a in (planes, lvl, y0, x0, rel_y, rel_x)]
+    before = probes.BISECT[body].launches
+    got = probes.BISECT[body](*args)
+    ref = probes.bisect_window_ordered(body, *args)
+    torch.cuda.synchronize()
+    assert probes.BISECT[body].launches == before + 1
     assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
 
 
