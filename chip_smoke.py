@@ -1628,30 +1628,83 @@ def bisect_windows_read(planes, lvl, y0, x0):
     return channels * int((d.cumsum(1).cumsum(2) > 0).sum())
 
 
-def bisect_work(body, k, ns, floats_read=0):
+def rowstage_sectors_read(planes, lvl, y0, x0, rel_y):
+    """The distinct 32-byte sectors of ``planes`` that ``exp_bisect.py``'s
+    row select (``'vpu_rowstage'``) must read: for each sample of a window
+    in the stack whose row lies in ``[0, PH)``, the sector that holds
+    ``planes[lvl, c, y0 + row, x0]`` in every channel c, which is (level,
+    channel, row, x0 >> 3) on a stack whose rows are a multiple of 8 floats.
+    Windows on one level share sectors, more often with x0 aligned."""
+    import torch
+
+    from cv_tpu_torch.experiments import probes
+
+    n_levels, channels, height, width = planes.shape
+    ok = (lvl >= 0) & (lvl < n_levels) & (y0 >= 0) & (y0 + probes.PH <= height) & (x0 >= 0) & (
+        x0 + probes.PW <= width)
+    ry = rel_y.long()
+    named = ok[:, None] & (ry >= 0) & (ry < probes.PH)
+    lv, ys, xs = (t.long()[:, None].expand_as(ry)[named] for t in (lvl, y0, x0))
+    rows = ys + ry[named]
+    flat = torch.cat([((lv * channels + c) * height + rows) * width + xs for c in range(channels)])
+    return int(torch.unique(flat >> 3).numel())
+
+
+def bisect_read(body, planes, lvl, y0, x0, rel_y):
+    """What ``bisect_work`` takes of a draw: the distinct 32-byte sectors
+    for ``'vpu_rowstage'`` (``rowstage_sectors_read``), else the distinct
+    floats the windows cover (``bisect_windows_read``)."""
+    if body == "vpu_rowstage":
+        return rowstage_sectors_read(planes, lvl, y0, x0, rel_y)
+    return bisect_windows_read(planes, lvl, y0, x0)
+
+
+def bisect_work(body, k, ns, read=0, sectors=True):
     """``(bytes, float32 operations)`` that ``exp_bisect.py``'s body
     ``body`` must move and do for ``k`` keypoints of ``ns`` samples: the
-    per-keypoint words, the ``floats_read`` distinct floats that the windows
-    cover (``bisect_windows_read``; one row of each window for
-    ``'vpu_rowstage'``, which reads a sample a row), ``rel_x`` for the
+    per-keypoint words, what the stack gives (``read``: the distinct floats
+    that the windows cover, ``bisect_windows_read``; for ``'vpu_rowstage'``
+    the distinct 32-byte sectors its samples name,
+    ``rowstage_sectors_read``, or with ``sectors=False`` 4 bytes a sample
+    and channel), ``rel_y`` for the row select and ``rel_x`` for the
     dynamic one-hot, and the (K, 3 NS) output.  The operations are counted
     for every window, as each keypoint sums its own."""
     from cv_tpu_torch.experiments import probes
 
     window = 3 * probes.PH * probes.PW
     if body == "vpu_rowstage":
-        return k * 12 + k * ns * 4 + 2 * k * 3 * ns * 4, 0
-    nbytes = k * 12 + floats_read * 4 + k * 3 * ns * 4 + (k * ns * 4 if body == "matmul_dyn_oh" else 0)
+        return k * 12 + (32 * read if sectors else k * 3 * ns * 4) + k * ns * 4 + k * 3 * ns * 4, 0
+    nbytes = k * 12 + read * 4 + k * 3 * ns * 4 + (k * ns * 4 if body == "matmul_dyn_oh" else 0)
     flops = {"dma_only": k * window, "split_nomm": 8 * k * window}.get(body, k * ns * 9 * probes.PH)
     return nbytes, flops
+
+
+def bisect_leaving(planes, lvl, y0, x0, rel_y, rel_x):
+    """The first 16 keypoints of an ``exp_bisect.py`` draw (NS > 100) whose
+    windows 0-4 leave the stack (past either edge, or an absent level): rows
+    of the quiet NaN in every body.  Keypoint 5's columns and rows at
+    samples 0-2 (-1, the window's edge, 10,000) and keypoint 6's row at
+    sample 100 (PH) leave the window: +0 in the body that reads them (the
+    dynamic column sum, 9 outputs; the row select, 12)."""
+    import torch
+
+    from cv_tpu_torch.experiments import probes
+
+    n_levels, _, height, width = planes.shape
+    lvl, y0, x0, rel_y, rel_x = (t[:16].clone() for t in (lvl, y0, x0, rel_y, rel_x))
+    x0[0], y0[1], lvl[2], x0[3], y0[4] = width - probes.PW + 1, -1, n_levels, -3, height - probes.PH + 1
+    rel_x[5, :3] = torch.tensor([-1, probes.PW, 10_000], dtype=torch.int32, device=rel_x.device)
+    rel_y[5, :3] = torch.tensor([-1, probes.PH, 10_000], dtype=torch.int32, device=rel_y.device)
+    rel_y[6, 100] = probes.PH
+    return planes, lvl, y0, x0, rel_y, rel_x
 
 
 def hold_bisect_sums(body, fn, args, aligned):
     """A window-sum or column-sum body's kernel against its order mirror
     (``bisect_window_ordered``, ``bisect_matmul_ordered``): bitwise on
-    ``args`` (x0 unaligned), on ``aligned`` (x0 128-aligned) and on a small
-    draw whose windows leave the stack and whose dynamic columns leave the
-    window (NaN at the same places, the same quiet NaN); on ``aligned`` also
+    ``args`` (x0 unaligned), on ``aligned`` (x0 128-aligned) and on
+    ``bisect_leaving``'s draw (the quiet NaN where windows leave the stack;
+    +0 where the dynamic columns leave the window); on ``aligned`` also
     within ``SUM_ATOL`` of ``bisect_plain``.  Returns the aligned draw's
     times (kernel and plain, alternated)."""
     import torch
@@ -1659,29 +1712,94 @@ def hold_bisect_sums(body, fn, args, aligned):
     from cv_tpu_torch.experiments import probes
 
     mirror = probes.bisect_window_ordered if body in probes.WINDOW_SUM_BODIES else probes.bisect_matmul_ordered
-    planes = args[0]
-    n_levels, _, height, width = planes.shape
-    leaving = [t[:16].clone() for t in args[1:]]
-    lvl, y0, x0, _, rel_x = leaving
-    x0[0], y0[1], lvl[2], x0[3], y0[4] = width - probes.PW + 1, -1, n_levels, -3, height - probes.PH + 1
-    rel_x[5, :3] = torch.tensor([-1, probes.PW, 10_000], dtype=torch.int32, device=rel_x.device)
-    for label, draw in (("x0 unaligned", args), ("x0 aligned", aligned), ("leaving", (planes, *leaving))):
+    for label, draw in (("x0 unaligned", args), ("x0 aligned", aligned), ("leaving", bisect_leaving(*args))):
         got, ref = fn(*draw), mirror(body, *draw)
         torch.cuda.synchronize()
         require(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
                 f"bisect {body} ({label}): bitwise equal to its order mirror "
                 f"({int((got.view(torch.int32) != ref.view(torch.int32)).sum())} words differ)")
     nan = int(torch.isnan(got).sum())
-    require(nan == 5 * got.shape[1] + (9 if body == "matmul_dyn_oh" else 0),
-            f"bisect {body}: {nan} NaN outputs where windows and columns leave")
+    require(nan == 5 * got.shape[1], f"bisect {body}: {nan} NaN outputs where windows leave")
+    if body == "matmul_dyn_oh":
+        require(bool((got[5, :9].view(torch.int32) == 0).all()), f"bisect {body}: +0 where the columns leave")
     got, plain = fn(*aligned), probes.bisect_plain(body, *aligned)
     err = float((got - plain).abs().max())
     require(err <= probes.SUM_ATOL[body], f"bisect {body} (x0 aligned) within {probes.SUM_ATOL[body]} of its plain "
                                           f"version (max |err| {err})")
     kms, pms = alternate(lambda: fn(*aligned), lambda: probes.bisect_plain(body, *aligned), cuda_ms)
-    print(f"bisect {body}: bitwise equal to its order mirror (x0 unaligned, aligned, leaving: {nan} NaN); "
+    zeros = " and 9 +0" if body == "matmul_dyn_oh" else ""
+    print(f"bisect {body}: bitwise equal to its order mirror (x0 unaligned, aligned, leaving: {nan} NaN{zeros}); "
           f"x0 aligned: max |err| {err:.3e} to plain, kernel {kms:.4f} ms, plain {pms:.4f} ms")
     return dict(aligned_ms=kms, aligned_plain_ms=pms, aligned_max_abs_err=err)
+
+
+def hold_rowstage(fn, args, aligned):
+    """The row select's kernel against ``bisect_plain``, bitwise (NaN by its
+    bits): on ``aligned`` (x0 128-aligned), at NS = 1279 (rows that are not
+    16-byte aligned: the scalar head, quads and tail) and on
+    ``bisect_leaving``'s draw (rows of the quiet NaN where windows leave
+    the stack, +0 where rows leave the window).  Returns the aligned draw's
+    times (kernel and plain, alternated)."""
+    import torch
+
+    from cv_tpu_torch.experiments import probes
+
+    planes, lvl, y0, x0, rel_y, rel_x = args
+    ragged = (planes, lvl, y0, x0, rel_y[:, :1279].contiguous(), rel_x[:, :1279].contiguous())
+    leaving = bisect_leaving(*args)
+    n_nan, n_zero = 5 * planes.shape[1] * rel_y.shape[1], 4 * planes.shape[1]
+    for label, draw in (("x0 aligned", aligned), ("NS=1279", ragged), ("leaving", leaving)):
+        got, ref = fn(*draw), probes.bisect_plain("vpu_rowstage", *draw)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+                f"bisect vpu_rowstage ({label}): bitwise equal to its plain version "
+                f"({int((got.view(torch.int32) != ref.view(torch.int32)).sum())} words differ)")
+    bits = got.view(torch.int32)
+    nan, zero = int((bits == 0x7FC00000).sum()), int((bits == 0).sum())
+    require(nan == n_nan and zero == n_zero,
+            f"bisect vpu_rowstage: {nan} quiet NaN and {zero} +0 outputs where {n_nan} and {n_zero} must be")
+    kms, pms = alternate(lambda: fn(*aligned), lambda: probes.bisect_plain("vpu_rowstage", *aligned), cuda_ms)
+    print(f"bisect vpu_rowstage: bitwise equal to its plain version (x0 aligned, NS=1279, leaving: {nan} NaN, "
+          f"{zero} +0); x0 aligned: kernel {kms:.4f} ms, plain {pms:.4f} ms")
+    return dict(aligned_ms=kms, aligned_plain_ms=pms)
+
+
+def split_nonfinite(rel_x, rel_y, patches):
+    """The first 16 keypoints of a split draw with an inf, a -inf or a NaN
+    planted in column 0 or 1 of six rows in several channels.  Each such row
+    gives NaN in every channel row of its sample (the bf16x3 split of an inf
+    is NaN; column 0 passes it on through ``* 0``).  Returns the draw and
+    the NaN outputs it must give."""
+    patches = patches[:16].clone()
+    inf = float("inf")
+    planted = ((0, 0, 3, 0, inf), (1, 1, 5, 1, -inf), (2, 2, 7, 0, float("nan")), (3, 0, 9, 1, float("nan")),
+               (4, 1, 0, 0, -inf), (4, 2, 11, 1, inf))
+    for k, c, y, x, v in planted:
+        patches[k, c, y, x] = v
+    ns = rel_x.shape[1]
+    samples = {(k, y) for k, _, y, _, _ in planted if y < ns}
+    return (rel_x[:16], rel_y[:16], patches), len(samples) * patches.shape[1]
+
+
+def hold_split(fn, args):
+    """The split select's kernel against ``mxu_plain``, bitwise (NaN by its
+    bits): at NS = 100 and on ``split_nonfinite``'s draw."""
+    import torch
+
+    from cv_tpu_torch.experiments import probes
+
+    rel_x, rel_y, patches = args
+    nonfinite, n_nan = split_nonfinite(*args)
+    short = (rel_x[:, :100].contiguous(), rel_y[:, :100].contiguous(), patches)
+    for label, draw in (("NS=100", short), ("non-finite", nonfinite)):
+        got, ref = fn(*draw), probes.mxu_plain("split", *draw)
+        torch.cuda.synchronize()
+        require(torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+                f"mxu split ({label}): bitwise equal to its plain version "
+                f"({int((got.view(torch.int32) != ref.view(torch.int32)).sum())} words differ)")
+    nan = int(torch.isnan(got).sum())
+    require(nan == n_nan, f"mxu split: {nan} NaN outputs where {n_nan} must be (inf or NaN in columns 0 and 1)")
+    print(f"mxu split: bitwise equal to its plain version (NS=100, non-finite: {nan} NaN)")
 
 
 def mxu_rows_read(rel_y, p=128, g=8):
@@ -1696,18 +1814,20 @@ def mxu_rows_read(rel_y, p=128, g=8):
     return int(torch.zeros((k, p + 1), device=rel_y.device).scatter_(1, ry, 1.0)[:, :p].sum())
 
 
-def mxu_work(body, k, c, p, ns, rows_read=0):
+def mxu_work(body, k, c, p, ns, rows_read=0, sectors=True):
     """``(bytes, float32 operations)`` that ``exp_r3_mxu_probe.py``'s body
     ``body`` must move and do for ``k`` patches of ``c`` x ``p`` x ``p`` and
     ``ns`` samples: the row sums (``'dots'``, ``'dotsbig'``) the leaders'
     indices, the ``rows_read`` rows (``mxu_rows_read``) and the output; the
-    others their indices, the words they read and the output."""
+    others their indices, the words they read (``'split'``: the 32-byte sector
+    of each row's two floats, or with ``sectors=False`` the two floats) and
+    the output."""
     if body in ("dots", "dotsbig"):
         return k // 8 * ns * 4 + rows_read * p * 4 + k * c * ns * 4, k * ns * p * (10 if body == "dots" else 4)
     if body == "onehot":
         return k * ns * 8 + k * 4 + k * c * ns * 4, k * ns
-    if body == "split":
-        return k * c * ns * 2 * 4 + k * c * ns * 4, k * c * ns * 2 * 9
+    if body == "split":  # 32 bytes a row: its two floats share a sector, rows lie p floats apart
+        return k * c * ns * (32 if sectors else 8) + k * c * ns * 4, k * c * ns * 2 * 9
     return 2 * k * c * ns * 4, 0
 
 
@@ -1852,7 +1972,7 @@ def check_experiment_kernels(dev, seed):
     aligned = window_inputs(k, ns)
     aligned = (*aligned[:3], aligned[3] & ~127, *aligned[4:])
     for body, fn in probes.BISECT.items():
-        nbytes, flops = bisect_work(body, k, ns, bisect_windows_read(*args[:4]))
+        nbytes, flops = bisect_work(body, k, ns, bisect_read(body, *args[:5]))
         lib = None
         if body == "vpu_rowstage":
             f = index_call(planes, bl, by[:, None] + bry, bx[:, None].expand(k, ns))
@@ -1861,12 +1981,17 @@ def check_experiment_kernels(dev, seed):
         rec = out[f"bisect_{body}"] = hold(name, lambda fn=fn: fn(*args),
                                            lambda body=body: probes.bisect_plain(body, *args), nbytes, flops, lib,
                                            probes.SUM_ATOL.get(body))
-        if body in probes.WINDOW_SUM_BODIES + probes.MATMUL_BODIES:
+        if body == "vpu_rowstage":
+            rec.update(hold_rowstage(fn, args, aligned))
+            word_ms = bound(*bisect_work(body, k, ns, sectors=False))[0]
+            print(f"{name}: {100 * word_ms / rec['ms']:.1f}% of its bound at 4 bytes a sample, {word_ms:.4f} ms")
+        else:  # the window and column sums
             rec.update(hold_bisect_sums(body, fn, args, aligned))
-            rec["aligned_bound_ms"] = bound(*bisect_work(body, k, ns, bisect_windows_read(*aligned[:4])))[0]
-            print(f"{name}: {100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound {rec['bound_ms']:.4f} ms "
-                  f"unaligned, {100 * rec['aligned_bound_ms'] / rec['aligned_ms']:.1f}% of "
-                  f"{rec['aligned_bound_ms']:.4f} ms aligned (the windows' distinct bytes)")
+        rec["aligned_bound_ms"] = bound(*bisect_work(body, k, ns, bisect_read(body, *aligned[:5])))[0]
+        print(f"{name}: {100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound {rec['bound_ms']:.4f} ms "
+              f"unaligned, {100 * rec['aligned_bound_ms'] / rec['aligned_ms']:.1f}% of "
+              f"{rec['aligned_bound_ms']:.4f} ms aligned (the distinct "
+              f"{'sectors its samples name' if body == 'vpu_rowstage' else 'bytes of the windows'})")
     del planes, args, aligned
 
     # exp_r3_gather_probe.py and exp_r3_mxu_probe.py: patches (4096, 3, 128,
@@ -1897,6 +2022,12 @@ def check_experiment_kernels(dev, seed):
             hold_row_sums(body, fn, (rx, ry, patches))
             print(f"mxu {body} (K={k}, NS={n}): {100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound "
                   f"({rows_read / k:.2f} distinct rows a keypoint)")
+        elif body == "split":
+            hold_split(fn, (bx, bys, patches))
+            word_ms = bound(*mxu_work(body, k, c, p, n, sectors=False))[0]
+            print(f"mxu split (K={k}, NS={n}): {100 * rec['bound_ms'] / rec['ms']:.1f}% of its bound "
+                  f"{rec['bound_ms']:.4f} ms at 32 bytes a row, {100 * word_ms / rec['ms']:.1f}% of "
+                  f"{word_ms:.4f} ms at 8")
     del patches
 
     # exp_r3_gather_probe.py phase_lane / phase_sublane: a (128, 512) tile.
@@ -1944,9 +2075,12 @@ def check_experiment_kernels(dev, seed):
               f"({ulp[i]} ulp)")
     require(max(ulp) <= 2, f"trig probe within 2 ulp of torch's functions ({ulp} ulp)")
     kms, pms = alternate(lambda: probes.trig_probe(xt), lambda: probes.trig_probe_plain(xt), cuda_ms)
+    kdev, pdev = alternate(lambda: probes.trig_probe(xt), lambda: probes.trig_probe_plain(xt), device_ms)
     n = xt.shape[1]
-    out["trig_probe"] = kernel_record(kms, pms, float((got - ref).abs().max()), 6 * n * 4, 60 * n, trig_ulp=ulp)
-    print(f"trig probe: kernel {kms:.4f} ms, plain {pms:.4f} ms, library none")
+    out["trig_probe"] = kernel_record(kms, pms, float((got - ref).abs().max()), 6 * n * 4, 60 * n, trig_ulp=ulp,
+                                      device_ms=kdev, plain_device_ms=pdev)
+    print(f"trig probe: kernel {kms:.4f} ms, plain {pms:.4f} ms, library none; device (a CUDA graph) {kdev:.4f} ms, "
+          f"plain {pdev:.4f} ms")
     return out
 
 
@@ -3492,8 +3626,8 @@ def main():
 
     def row(name, source, replaces, launches, rec):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        measured = ("device_ms", "library_device_ms", "steps", "us_per_step", "engine", "aligned_ms",
-                    "aligned_plain_ms", "aligned_bound_ms")
+        measured = ("device_ms", "library_device_ms", "plain_device_ms", "steps", "us_per_step", "engine",
+                    "aligned_ms", "aligned_plain_ms", "aligned_bound_ms")
         return {"name": name, "route": "cuda", "source": f"cv_tpu_torch/csrc/{source}.cu", "replaces": replaces,
                 "launches": launches, **{k: rec[k] for k in keys}, **{k: rec[k] for k in measured if k in rec}}
 

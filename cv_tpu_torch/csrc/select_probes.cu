@@ -10,11 +10,13 @@
 //   bisect_dma_only        :75   out[k, :] = sum of the window
 //   bisect_matmul_static   :86   out[k, 3 s + r] = sum over 3 copies, 3
 //                                channels and PH rows of bf16(win[c, y, s % PW])
-//   bisect_matmul_dyn_oh   :110  the same with column rel_x[k, s]
+//   bisect_matmul_dyn_oh   :110  the same with column rel_x[k, s] (+0 where
+//                                it leaves [0, PW): no one-hot match)
 //   bisect_split_nomm      :132  out[k, :] = sum(p1) + sum(p2) + sum(p3), the
 //                                bf16x3 split p1 = bf16(p), r = p - p1,
 //                                p2 = bf16(r), p3 = bf16(r - p2)
 //   bisect_vpu_rowstage    :153  out[k, c NS + s] = win[c, rel_y[k, s], 0]
+//                                (+0 where the row leaves [0, PH))
 // experiments/exp_r3_mxu_probe.py (patches (K, C, P, P); out (K, C, NS),
 // every channel row the same unless stated):
 //   mxu_dots     :50   sum over x of 9 accumulated bf16(patch[k, 0, ry, x]),
@@ -39,15 +41,18 @@
 //
 // What bounds them: bytes.  The window probes read a 209 KB window per
 // keypoint; the patch probes one channel row or a few words.  Design: one
-// block per keypoint; threads stride over samples.  The two window sums
-// have a design of their own (below): one thread a (column, row parity)
-// chain of the window, plain coalesced loads, then a warp-shuffle and
-// shared-memory tree.  The two one-hot column sums have one too: the
-// window once through shared memory by TMA, one thread a column.  Their host code
+// block per keypoint; threads stride over samples.  Six have a design of
+// their own (below).  The two window sums: one thread a (column, row
+// parity) chain of the window, plain coalesced loads, then a warp-shuffle
+// and shared-memory tree.  The two one-hot column sums: the window once
+// through shared memory by TMA, one thread a column; their host code
 // encodes a TMA tensor map with libcuda's cuTensorMapEncodeTiled, which it
-// obtains through cudaGetDriverEntryPoint (no -lcuda at build time).  The two
-// one-hot row sums have one too (P = 128 only): each patch row that a sample
-// names staged once as bf16 in shared memory, one thread a row.
+// obtains through cudaGetDriverEntryPoint (no -lcuda at build time).  The
+// two one-hot row sums (P = 128 only): each patch row that a sample names
+// staged once as bf16 in shared memory, one thread a row.  The row select
+// (vpu_rowstage): the window's column 0 staged once in shared memory,
+// rel_y in 16-byte loads.  The split select (mxu_split): a flat grid, one
+// thread a (keypoint, sample) with its three loads in flight.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
@@ -103,23 +108,17 @@ __device__ __forceinline__ Window window(const float* planes, const int* lvl, co
   return Window{base, plane, width};
 }
 
-__device__ __forceinline__ float at(const Window& w, int c, int y, int x) {
-  return w.base[c * w.plane + static_cast<size_t>(y) * w.width + x];
+__device__ __forceinline__ const float* at(const Window& w, int c, int y, int x) {
+  return w.base + c * w.plane + static_cast<size_t>(y) * w.width + x;
 }
-
-#define BISECT_ARGS                                                                             \
-  const float *__restrict__ planes, const int *__restrict__ lvl, const int *__restrict__ y0,    \
-      const int *__restrict__ x0, const int *__restrict__ rel_y, const int *__restrict__ rel_x, \
-      float *__restrict__ out, int n_levels, int channels, int height, int width, int ph, int pw, int ns
-#define BISECT_WINDOW \
-  window(planes, lvl, y0, x0, blockIdx.x, n_levels, channels, height, width, ph, pw)
 
 // ---------------------------------------------------------------------------
 // The one-hot column sums: bisect_matmul_static and bisect_matmul_dyn_oh.
 //
 // out[k, 3 s + r] = sum over rep < 3, c < 3, y < 136 of bf16(win_k[c, y,
-// col]), col = s % 128 (static) or rel_x[k, s] (dynamic); NaN where the
-// window leaves the stack or the column leaves [0, 128).  The TPU body's
+// col]), col = s % 128 (static) or rel_x[k, s] (dynamic); the quiet NaN
+// where the window leaves the stack, +0 where the column leaves [0, 128)
+// (the one-hot matches nothing there, as in the TPU body).  The TPU body's
 // one-hot product has one nonzero term a column, so only the window's 128
 // column sums are distinct.
 //
@@ -338,7 +337,7 @@ __global__ void __launch_bounds__(kColPW, 2)
   auto value = [&](int s) -> float {
     if (!ok) return nan;
     const int c = kDynamic ? rx[s] : (s & (kColPW - 1));
-    return c >= 0 && c < kColPW ? colsum[c] : nan;
+    return c >= 0 && c < kColPW ? colsum[c] : 0.0f;  // no one-hot column matches: a sum of zeros
   };
   const int n = 3 * ns;
   float* o = out + static_cast<size_t>(k) * n;
@@ -447,14 +446,98 @@ __global__ void __launch_bounds__(kThreads, 4)
   for (int j = head + 4 * quads + t; j < n; j += kThreads) o[j] = v;
 }
 
-__global__ void __launch_bounds__(kThreads) bisect_vpu_rowstage_kernel(BISECT_ARGS) {
-  const Window w = BISECT_WINDOW;
-  const int k = blockIdx.x;
-  float* o = out + static_cast<size_t>(k) * 3 * ns;
-  for (int s = threadIdx.x; s < ns; s += blockDim.x) {
-    const int ry = rel_y[static_cast<size_t>(k) * ns + s];
-    const bool ok = w.base != nullptr && ry >= 0 && ry < ph;
-    for (int c = 0; c < 3; ++c) o[c * ns + s] = ok ? at(w, c, ry, 0) : qnan();
+// ---------------------------------------------------------------------------
+// The row select: bisect_vpu_rowstage.
+//
+// out[k, c NS + s] = win_k[c, rel_y[k, s], 0].  The TPU body broadcasts the
+// window's column 0 and sums it against a one-hot of rel_y: for a finite
+// window that is the value, bit for bit; +0 where the row leaves [0, 136)
+// (the one-hot matches nothing there); and the quiet NaN in every output of
+// a window that leaves the stack (the body's DMA cannot take it).
+//
+// What bounds it: bytes, the output (7.9 MB at exp_bisect.py's K=512,
+// NS=1280), rel_y (2.6 MB) and one 32-byte sector for each distinct
+// (level, channel, row) of column x0 (at most 6.7 MB): ~0.005 ms.  Design:
+// one block a keypoint, its column staged once.
+// * Before the block's one barrier each thread issues two sets of loads, so
+//   that their round trips overlap: its at most kColLoads of the column's
+//   3 x 136 floats, read-only into shared memory (408 scattered 4-byte
+//   reads, no box for TMA), and its kRowstageQuads quads of rel_y[k, :] as
+//   int4 (16 bytes, coalesced) into registers.  A window that leaves the
+//   stack loads nothing of the stack.
+// * Then each thread gathers a quad's four samples from shared memory and
+//   stores them to the three channel rows, a float4 each.
+// * Where NS is not a multiple of 4 or the rows are not 16-byte aligned:
+//   per channel row a scalar head to the first 16-byte boundary, quads,
+//   then the tail, rel_y read a word at a time.
+
+constexpr int kRowstageThreads = 320;  // NS = 1280 is one quad a thread
+constexpr int kRowstageQuads = 1;      // rel_y quads a thread loads at a time
+constexpr int kColLoads = (kWinRows + kRowstageThreads - 1) / kRowstageThreads;
+
+__device__ __forceinline__ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15u) == 0; }
+
+__global__ void __launch_bounds__(kRowstageThreads)
+    rowstage_kernel(const float* __restrict__ planes, const int* __restrict__ lvl, const int* __restrict__ y0,
+                    const int* __restrict__ x0, const int* __restrict__ rel_y, float* __restrict__ out,
+                    int n_levels, int height, int width, int ns) {
+  __shared__ float col[kWinRows];  // col[c * 136 + y] = win[c, y, 0]
+  const int t = threadIdx.x, k = blockIdx.x;
+  const Window w = window(planes, lvl, y0, x0, k, n_levels, kColChannels, height, width, kColPH, kColPW);
+  const bool ok = w.base != nullptr;  // the same for every thread of the block
+  const int* ry = rel_y + static_cast<size_t>(k) * ns;
+  float* o = out + static_cast<size_t>(k) * kColChannels * ns;
+  const bool vec = (ns & 3) == 0 && aligned16(ry) && aligned16(o);  // the same for the block
+  const int n_quads = vec ? ns / 4 : 0;
+
+  if (ok) {
+#pragma unroll
+    for (int j = 0; j < kColLoads; ++j) {
+      const int i = t + j * kRowstageThreads;
+      if (i < kWinRows) col[i] = __ldg(at(w, i / kColPH, i % kColPH, 0));
+    }
+  }
+  int4 r[kRowstageQuads];
+  auto load_quads = [&](int q0) {
+#pragma unroll
+    for (int j = 0; j < kRowstageQuads; ++j) {
+      const int q = q0 + t + j * kRowstageThreads;
+      if (q < n_quads) r[j] = __ldg(reinterpret_cast<const int4*>(ry) + q);
+    }
+  };
+  load_quads(0);
+  __syncthreads();
+
+  const float nan = qnan();
+  auto value = [&](int c, int y) -> float {
+    if (!ok) return nan;
+    return y >= 0 && y < kColPH ? col[c * kColPH + y] : 0.0f;
+  };
+  for (int q0 = 0; q0 < n_quads; q0 += kRowstageThreads * kRowstageQuads) {
+    if (q0 > 0) load_quads(q0);
+#pragma unroll
+    for (int j = 0; j < kRowstageQuads; ++j) {
+      const int q = q0 + t + j * kRowstageThreads;
+      if (q >= n_quads) continue;
+#pragma unroll
+      for (int c = 0; c < kColChannels; ++c) {
+        reinterpret_cast<float4*>(o + static_cast<size_t>(c) * ns)[q] =
+            make_float4(value(c, r[j].x), value(c, r[j].y), value(c, r[j].z), value(c, r[j].w));
+      }
+    }
+  }
+  if (vec) return;
+  for (int c = 0; c < kColChannels; ++c) {
+    float* oc = o + static_cast<size_t>(c) * ns;
+    const int head = min(ns, static_cast<int>(((16u - (reinterpret_cast<uintptr_t>(oc) & 15u)) & 15u) / 4));
+    const int quads = (ns - head) / 4;
+    if (t < head) oc[t] = value(c, __ldg(ry + t));
+    for (int q = t; q < quads; q += kRowstageThreads) {
+      const int* s = ry + head + 4 * q;
+      reinterpret_cast<float4*>(oc + head)[q] =
+          make_float4(value(c, __ldg(s)), value(c, __ldg(s + 1)), value(c, __ldg(s + 2)), value(c, __ldg(s + 3)));
+    }
+    for (int s = head + 4 * quads + t; s < ns; s += kRowstageThreads) oc[s] = value(c, __ldg(ry + s));
   }
 }
 
@@ -634,23 +717,57 @@ __global__ void __launch_bounds__(kThreads) mxu_onehot_kernel(MXU_ARGS) {
   }
 }
 
-__global__ void __launch_bounds__(kThreads) mxu_split_kernel(MXU_ARGS) {
-  const int k = blockIdx.x;
-  for (int s = threadIdx.x; s < ns; s += blockDim.x) {
-    float acc[2] = {0.0f, 0.0f};
-    for (int c = 0; c < channels; ++c) {
-      const float* row = patch_row(patches, k, channels, p, c, s);
-      for (int x = 0; x < 2; ++x) {
-        const float v = row[x];
-        const float p1 = bf16r(v);
-        const float r1 = v - p1;
-        const float p2 = bf16r(r1);
-        const float p3 = bf16r(r1 - p2);
-        acc[x] = acc[x] + ((p1 + p2) + p3);
-      }
-    }
-    mxu_store(out, k, channels, ns, s, acc[0] * 0.0f + acc[1]);
+// ---------------------------------------------------------------------------
+// The split select: mxu_split.
+//
+// out[k, c, s] = a0 * 0 + a1 for every channel row c, where ax adds, from
+// 0.0f, channel 0, then 1, then 2 of t = (p1 + p2) + p3, the bf16x3 split
+// of patch[k, c, s, x] (p1 = bf16(v), r1 = v - p1, p2 = bf16(r1), p3 =
+// bf16(r1 - p2)).  The multiply is kept: the output is NaN wherever column
+// 0 holds an inf or a NaN, as in the TPU body.  NS <= P: the TPU body does
+// not trace above.
+//
+// What bounds it: bytes.  A sample reads two floats of each of its three
+// rows; they share one 32-byte sector, and rows lie 512 bytes apart, so the
+// card moves 32 bytes a row: 50.3 MB read and 6.3 MB written at
+// exp_r3_mxu_probe.py's K=4096, NS=128, 0.0169 ms.  Design: a flat grid of
+// K NS threads, one a (keypoint, sample), every thread live (one division
+// a thread, none in a loop).  Each thread issues its three read-only float2
+// loads before the first add, then stores the three channel rows:
+// consecutive threads at consecutive s, 128 bytes a warp.  No shared
+// memory: each value is read once.
+
+constexpr int kSplitThreads = 256;
+constexpr int kSplitChannels = 3;
+
+__device__ __forceinline__ float split3_term(float v) {
+  const float p1 = bf16r(v);
+  const float r1 = v - p1;
+  const float p2 = bf16r(r1);
+  const float p3 = bf16r(r1 - p2);
+  return (p1 + p2) + p3;
+}
+
+__global__ void __launch_bounds__(kSplitThreads)
+    split_kernel(const float* __restrict__ patches, float* __restrict__ out, int total, int p, int ns) {
+  const unsigned i = blockIdx.x * kSplitThreads + threadIdx.x;  // total < 2^31: no wrap
+  if (i >= static_cast<unsigned>(total)) return;
+  const unsigned k = i / ns, s = i - k * ns;
+  const size_t plane = static_cast<size_t>(p) * p;
+  const float* row = patches + (static_cast<size_t>(k) * kSplitChannels * p + s) * p;  // channel 0, row s
+  float2 v[kSplitChannels];
+#pragma unroll
+  for (int c = 0; c < kSplitChannels; ++c) v[c] = __ldg(reinterpret_cast<const float2*>(row + c * plane));
+  float a0 = 0.0f, a1 = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kSplitChannels; ++c) {
+    a0 = a0 + split3_term(v[c].x);
+    a1 = a1 + split3_term(v[c].y);
   }
+  const float r = a0 * 0.0f + a1;
+  float* o = out + static_cast<size_t>(k) * kSplitChannels * ns + s;
+#pragma unroll
+  for (int c = 0; c < kSplitChannels; ++c) o[static_cast<size_t>(c) * ns] = r;
 }
 
 __global__ void __launch_bounds__(kThreads) mxu_dma_kernel(MXU_ARGS) {
@@ -664,18 +781,23 @@ __global__ void __launch_bounds__(kThreads) mxu_dma_kernel(MXU_ARGS) {
 
 }  // namespace
 
-// Each launches on `stream` and returns cudaGetLastError() (0 on success).
-#define BISECT_EXPORT(name)                                                                           \
-  extern "C" int cv_##name(const float* planes, const int* lvl, const int* y0, const int* x0,         \
-                           const int* rel_y, const int* rel_x, float* out, int n_levels, int channels, \
-                           int height, int width, int ph, int pw, int k, int ns, void* stream) {       \
-    if (k <= 0 || ns <= 0) return 0;                                                                  \
-    name##_kernel<<<k, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(                             \
-        planes, lvl, y0, x0, rel_y, rel_x, out, n_levels, channels, height, width, ph, pw, ns);       \
-    return static_cast<int>(cudaGetLastError());                                                      \
-  }
+// Each export launches on `stream` and returns cudaGetLastError() (0 on
+// success) or a negative code of its own.  The exp_bisect.py bodies share
+// one signature: the stack, lvl, y0, x0, rel_y, rel_x, out, the stack's
+// shape, the window's, K and NS.
 
-BISECT_EXPORT(bisect_vpu_rowstage)
+// Returns -1 when the window is not 3 x 136 x 128 (rel_x unused, as in the
+// TPU body).
+extern "C" int cv_bisect_vpu_rowstage(const float* planes, const int* lvl, const int* y0, const int* x0,
+                                      const int* rel_y, const int* rel_x, float* out, int n_levels, int channels,
+                                      int height, int width, int ph, int pw, int k, int ns, void* stream) {
+  (void)rel_x;
+  if (k <= 0 || ns <= 0) return 0;
+  if (channels != kColChannels || ph != kColPH || pw != kColPW) return -1;
+  rowstage_kernel<<<k, kRowstageThreads, 0, static_cast<cudaStream_t>(stream)>>>(planes, lvl, y0, x0, rel_y, out,
+                                                                                  n_levels, height, width, ns);
+  return static_cast<int>(cudaGetLastError());
+}
 
 namespace {
 
@@ -692,7 +814,7 @@ int launch_window_sum(const float* planes, const int* lvl, const int* y0, const 
 
 }  // namespace
 
-// The BISECT_EXPORT signature (rel_y and rel_x unused, as in the TPU bodies).
+// The bisect signature (rel_y and rel_x unused, as in the TPU bodies).
 #define WINDOW_SUM_EXPORT(name, split)                                                                \
   extern "C" int cv_##name(const float* planes, const int* lvl, const int* y0, const int* x0,         \
                            const int* rel_y, const int* rel_x, float* out, int n_levels, int channels, \
@@ -784,7 +906,7 @@ int launch_column_sums(const float* planes, const int* lvl, const int* y0, const
 
 }  // namespace
 
-// The BISECT_EXPORT signature (rel_y unused, as in the TPU bodies).
+// The bisect signature (rel_y unused, as in the TPU bodies).
 extern "C" int cv_bisect_matmul_static(const float* planes, const int* lvl, const int* y0, const int* x0,
                                        const int* rel_y, const int* rel_x, float* out, int n_levels, int channels,
                                        int height, int width, int ph, int pw, int k, int ns, void* stream) {
@@ -811,8 +933,24 @@ extern "C" int cv_bisect_matmul_dyn_oh(const float* planes, const int* lvl, cons
   }
 
 MXU_EXPORT(mxu_onehot)
-MXU_EXPORT(mxu_split)
 MXU_EXPORT(mxu_dma)
+
+// The MXU_EXPORT signature (rel_x, rel_y and g unused, as in the TPU body).
+// Returns -1 for a shape the kernel does not take: channels other than 3,
+// an odd patch side, NS > P, or K NS >= 2^31 threads.
+extern "C" int cv_mxu_split(const int* rel_x, const int* rel_y, const float* patches, float* out, int channels,
+                            int p, int k, int ns, int g, void* stream) {
+  (void)rel_x;
+  (void)rel_y;
+  (void)g;
+  if (k <= 0 || ns <= 0) return 0;
+  const long long total = static_cast<long long>(k) * ns;
+  if (channels != kSplitChannels || (p & 1) || ns > p || total > 0x7fffffffLL) return -1;
+  const unsigned blocks = static_cast<unsigned>((total + kSplitThreads - 1) / kSplitThreads);
+  split_kernel<<<blocks, kSplitThreads, 0, static_cast<cudaStream_t>(stream)>>>(patches, out,
+                                                                               static_cast<int>(total), p, ns);
+  return static_cast<int>(cudaGetLastError());
+}
 
 namespace {
 

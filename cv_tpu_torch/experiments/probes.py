@@ -243,11 +243,21 @@ def _columns(body, rel_x, k, ns, device):
     return cols.clamp(0, PW - 1), (cols < 0) | (cols >= PW)
 
 
+def _zero_where(bad, x):
+    return torch.where(bad, torch.zeros((), dtype=x.dtype, device=x.device), x)
+
+
 def bisect_plain(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
     """The ``(K, 3 NS)`` output of ``exp_bisect.py``'s body ``body`` (see
     ``csrc/select_probes.cu``) on the 3x136x128 windows: NaN rows where a
-    window leaves the stack, NaN samples where a row (``'vpu_rowstage'``)
-    or column (``'matmul_dyn_oh'``) leaves the window."""
+    window leaves the stack (the TPU body's DMA cannot take such a window,
+    so it defines no result there); +0.0 at a sample whose row
+    (``'vpu_rowstage'``) or column (``'matmul_dyn_oh'``) leaves the window,
+    where the body's one-hot has no match and its product is a sum of
+    zeros.  For finite windows only: an inf or a NaN in a window meets the
+    one-hot's zeros, so the body gives NaN at every sample of the keypoint
+    (the row select: of that value's channel), while this copies or sums
+    the values a sample names."""
     k, ns = rel_y.shape
     win, ok = _windows(planes, lvl, y0, x0)
     if body in WINDOW_SUM_BODIES:
@@ -260,14 +270,14 @@ def bisect_plain(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch.Tensor:
     if body == "vpu_rowstage":
         ry = rel_y.long()
         rows = ry.clamp(0, PH - 1)[:, None, :].expand(k, win.shape[1], ns)
-        bad = (~ok[:, None]) | (ry < 0) | (ry >= PH)
-        return _nan_where(bad[:, None, :], win[..., 0].gather(2, rows)).reshape(k, -1)
+        vals = _zero_where(((ry < 0) | (ry >= PH))[:, None, :], win[..., 0].gather(2, rows))
+        return _nan_where(~ok[:, None, None], vals).reshape(k, -1)
     if body in MATMUL_BODIES:
         cols, bad = _columns(body, rel_x, k, ns, planes.device)
         g = _bf16(win).gather(3, cols[:, None, None, :].expand(k, win.shape[1], PH, ns))
         # Three stacked copies of the channels, summed over rows: the one-hot
         # product's column sum, then repeat(3).
-        s = _nan_where(bad | ~ok[:, None], torch.cat([g] * 3, dim=1).sum(dim=(1, 2)))
+        s = _nan_where(~ok[:, None], _zero_where(bad, torch.cat([g] * 3, dim=1).sum(dim=(1, 2))))
         return s.repeat_interleave(3, dim=1)
     raise ValueError(f"unknown exp_bisect body {body!r}")
 
@@ -314,9 +324,11 @@ def bisect_matmul_ordered(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch
     """:func:`bisect_plain` of a column-sum body (``'matmul_static'``,
     ``'matmul_dyn_oh'``) summed in its kernel's order: a ``(K, PW)``
     float32 accumulator adds ``bf16(win[:, c, y, :])`` for rep 0..2, then
-    c, then y, one IEEE add at a time; then the gather, with NaN where
-    :func:`bisect_plain` has it.  The kernel's output equals it bit for bit
-    on any device."""
+    c, then y, one IEEE add at a time; then the gather, +0.0 at a column
+    outside ``[0, PW)`` and the quiet NaN ``0x7fc00000`` in the rows of
+    windows that leave the stack, as :func:`bisect_plain` has them (finite
+    windows only, as there).  The kernel's output equals it bit for bit on
+    any device."""
     if body not in MATMUL_BODIES:
         raise ValueError(f"not a column-sum body of exp_bisect: {body!r}")
     k, ns = rel_y.shape
@@ -328,12 +340,12 @@ def bisect_matmul_ordered(body: str, planes, lvl, y0, x0, rel_y, rel_x) -> torch
             for y in range(PH):
                 acc = acc + b[:, c, y]
     cols, bad = _columns(body, rel_x, k, ns, planes.device)
-    return _nan_where(bad | ~ok[:, None], acc.gather(1, cols)).repeat_interleave(3, dim=1)
+    return _nan_where(~ok[:, None], _zero_where(bad, acc.gather(1, cols))).repeat_interleave(3, dim=1)
 
 
 _BISECT_ARGS = [_VOID] * 7 + [_INT] * 8 + [_VOID]
-# The window-sum and column-sum kernels' own failures (csrc/select_probes.cu;
-# -2 and -3 the column sums' TMA only).
+# The bisect kernels' own failures (csrc/select_probes.cu; -2 and -3 the
+# column sums' TMA only).
 _BISECT_ERRORS = {-1: "the window is not 3x136x128", -2: "libcuda has no cuTensorMapEncodeTiled",
                   -3: "cuTensorMapEncodeTiled refused the plane stack"}
 
@@ -477,6 +489,11 @@ def _mxu_wrapper(body: str):
         if body in ROW_SUM_BODIES and (p != P or patches.data_ptr() % 16):
             raise ValueError(f"{symbol}: its kernel takes {P}x{P} patches at a 16-byte aligned address, got "
                              f"{tuple(patches.shape)} at {patches.data_ptr():#x}")
+        if body == "split" and (c != 3 or p % 2 or patches.data_ptr() % 8):
+            raise ValueError(f"{symbol}: its kernel takes 3-channel patches of an even side at an 8-byte aligned "
+                             f"address (a float2 a row), got {tuple(patches.shape)} at {patches.data_ptr():#x}")
+        if body == "split" and k * ns > _INT_LIMIT - 1:
+            raise ValueError(f"{symbol}: K * NS = {k * ns} threads reach 2^31")
         out = torch.empty((k, c, ns), dtype=torch.float32, device=dev)
         _launch("select_probes", symbol, _MXU_ARGS, rel_x.data_ptr(), rel_y.data_ptr(), patches.data_ptr(),
                 out.data_ptr(), c, p, k, ns, g, _stream(dev))

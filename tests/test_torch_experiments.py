@@ -26,7 +26,9 @@ inputs); it is held bitwise to that function.  ``exp_r3_mxu_probe.py``'s
 and row sums' order mirrors (``probes.bisect_window_ordered``,
 ``probes.bisect_matmul_ordered``, ``probes.mxu_rows_ordered``), which their
 kernels equal bit for bit, are held bitwise to the same order written in
-NumPy.
+NumPy.  Where a sample's row (``k_vpu_rowstage``) or column
+(``k_matmul_dyn_oh``) leaves the window the JAX bodies' one-hot matches
+nothing and they give +0: the port too, held bitwise.
 
 The probe scripts call ``jax.config.update("jax_compilation_cache_dir",
 ...)`` when imported; they are imported with that call stubbed, so this
@@ -333,10 +335,11 @@ def test_bisect_matmul_ordered_matches_exp_bisect(exp, body, align_x, seed):
 
 
 @pytest.mark.parametrize("body", probes.MATMUL_BODIES)
-def test_bisect_matmul_nan_where_windows_or_columns_leave(body):
+def test_bisect_matmul_nan_where_windows_leave_zero_where_columns_leave(body):
     """Windows that leave the stack (past either edge, or an absent level)
-    give NaN rows; dynamic columns outside [0, 128) NaN samples; the rest
-    as ``bisect_plain``.  (The JAX body's DMA cannot take such a window.)"""
+    give rows of the kernels' quiet NaN (the JAX body's DMA cannot take
+    such a window); dynamic columns outside [0, 128) +0, bitwise (the JAX
+    body's one-hot matches nothing there); the rest as ``bisect_plain``."""
     planes, lvl, y0, x0, rel_y, rel_x = _window_inputs(24, ns=256)
     x0[0], y0[1], lvl[2], x0[3], y0[4] = 384 - 127, -1, 2, -3, 272 - 135
     rel_x[5, :4] = [-1, 128, 300, -200]
@@ -344,14 +347,46 @@ def test_bisect_matmul_nan_where_windows_or_columns_leave(body):
     targs = [torch.as_tensor(a) for a in (planes, lvl, y0, x0, rel_y, rel_x)]
     got = probes.bisect_matmul_ordered(body, *targs).numpy()
     plain = probes.bisect_plain(body, *targs).numpy()
-    bad = np.zeros(rel_x.shape, bool)
-    bad[:5] = True
+    nan_rows = np.zeros(rel_x.shape, bool)
+    nan_rows[:5] = True
+    zero = np.zeros(rel_x.shape, bool)
     if body == "matmul_dyn_oh":
-        bad[5, :4] = bad[6, 100] = True
-    np.testing.assert_array_equal(np.isnan(got), bad.repeat(3, axis=1))
-    np.testing.assert_array_equal(np.isnan(plain), bad.repeat(3, axis=1))
-    assert np.all(got.view(np.int32)[np.isnan(got)] == 0x7FC00000)  # the kernels' quiet NaN
+        zero[5, :4] = zero[6, 100] = True
+    for out in (got, plain):
+        np.testing.assert_array_equal(np.isnan(out), nan_rows.repeat(3, axis=1))
+        assert np.all(out.view(np.int32)[np.isnan(out)] == 0x7FC00000)  # the kernels' quiet NaN
+        assert np.all(out.view(np.int32)[zero.repeat(3, axis=1)] == 0)
     _close(body, got[~np.isnan(got)], plain[~np.isnan(plain)])
+
+
+@pytest.mark.parametrize("body", ["vpu_rowstage", "matmul_dyn_oh"])
+def test_bisect_rows_and_columns_outside_the_window_give_zero(exp, monkeypatch, body):
+    """A sample whose row (``k_vpu_rowstage``) or column (``k_matmul_dyn_oh``)
+    lies at -1, the window's edge or 300 matches no one-hot entry: the JAX
+    body, in interpret mode, gives +0 there, and so do ``bisect_plain`` and,
+    for the column sum, ``bisect_matmul_ordered``, bitwise; elsewhere the
+    row select is bitwise and the column sum within ``SUM_ATOL``."""
+    ns = 256
+    monkeypatch.setattr(exp.exp_bisect, "NS", ns)
+    args = _window_inputs(41, ns=ns)
+    idx, edge = (args[4], probes.PH) if body == "vpu_rowstage" else (args[5], probes.PW)
+    idx[5, :3] = [-1, edge, 300]
+    idx[9, 200] = edge
+    left = np.zeros((K, ns), bool)
+    left[5, :3] = left[9, 200] = True
+    # out[k, c NS + s] (the row select) or out[k, 3 s + r] (the column sums)
+    left = np.tile(left, 3) if body == "vpu_rowstage" else left.repeat(3, axis=1)
+    ref = _window_runner(exp.exp_bisect, getattr(exp.exp_bisect, f"k_{body}"), ns)(*args)
+    assert np.all(ref.view(np.int32)[left] == 0)
+    targs = [torch.as_tensor(a) for a in args]
+    ports = [probes.bisect_plain] + ([probes.bisect_matmul_ordered] if body == "matmul_dyn_oh" else [])
+    for port in ports:
+        got = port(body, *targs).numpy()
+        np.testing.assert_array_equal(got.view(np.int32)[left], ref.view(np.int32)[left])
+        if body == "vpu_rowstage":
+            np.testing.assert_array_equal(got.view(np.int32), ref.view(np.int32))
+        else:
+            _close(body, got[~left], ref[~left])
 
 
 def _window_order_sums(planes, lvl, y0, x0, body):
@@ -449,6 +484,39 @@ def test_bisect_windows_read_counts_each_float_once(case):
     assert got < 3 * 136 * 128 * (K - 5 if case == "leaving" else K)  # the windows overlap
     nbytes, _ = chip_smoke.bisect_work("dma_only", K, 8, got)
     assert nbytes == K * 12 + 4 * got + K * 3 * 8 * 4
+
+
+@pytest.mark.parametrize("case", ["unaligned", "aligned", "leaving"])
+def test_rowstage_sectors_read_counts_each_sector_once(case):
+    """The row select's byte bound counts each 32-byte sector of the stack
+    that an in-range sample of an in-stack window names once
+    (``chip_smoke.rowstage_sectors_read``): a Python set of the sectors of
+    ``planes[lvl, c, y0 + row, x0]``, every channel; leaving windows and
+    rows outside the window name none."""
+    import chip_smoke
+
+    planes, lvl, y0, x0, rel_y, _ = _window_inputs(42, ns=64)
+    if case == "aligned":
+        x0 = x0 & ~127
+    elif case == "leaving":
+        x0[0], y0[1], lvl[2], x0[3], y0[4] = 384 - 127, -1, 2, -3, 272 - 135
+        rel_y[5, :3] = [-1, 136, 300]
+    n_levels, channels, height, width = planes.shape
+    sectors = set()
+    for k in range(K):
+        if not (0 <= lvl[k] < n_levels and 0 <= y0[k] <= height - 136 and 0 <= x0[k] <= width - 128):
+            continue
+        for row in rel_y[k]:
+            if 0 <= row < 136:
+                for c in range(channels):
+                    sectors.add(((((int(lvl[k]) * channels + c) * height + int(y0[k] + row)) * width + int(x0[k]))
+                                 >> 3))
+    got = chip_smoke.rowstage_sectors_read(*(torch.as_tensor(a) for a in (planes, lvl, y0, x0, rel_y)))
+    assert got == len(sectors) > 0
+    named = 3 * 64 * (K - 5 if case == "leaving" else K) - (9 if case == "leaving" else 0)
+    assert got < named  # samples share rows
+    nbytes, flops = chip_smoke.bisect_work("vpu_rowstage", K, 64, got)
+    assert (nbytes, flops) == (K * 12 + 32 * got + K * 64 * 4 + K * 3 * 64 * 4, 0)
 
 
 def test_bisect_window_ordered_takes_only_the_window_sums():
@@ -585,6 +653,24 @@ def test_mxu_rows_ordered_takes_only_the_row_sums():
     rel_x, rel_y, patches = (torch.as_tensor(a) for a in _mxu_inputs(36, 16))
     with pytest.raises(ValueError, match="not a row-sum body"):
         probes.mxu_rows_ordered("onehot", rel_x, rel_y, patches)
+
+
+def test_mxu_split_nonfinite_column_zero(exp, monkeypatch):
+    """``mxu_plain('split')`` against the JAX ``k_split`` (interpret mode,
+    NS=128) with an inf, a -inf or a NaN in column 0 or 1 of a few rows in
+    several channels: NaN at the same places (column 0 passes its NaN on
+    through ``* 0``), every other output bitwise."""
+    rel_x, rel_y, patches = _mxu_inputs(43, 128)
+    inf = np.float32(np.inf)
+    for k, c, y, x, v in ((0, 0, 3, 0, inf), (1, 1, 5, 1, -inf), (2, 2, 7, 0, np.nan), (3, 0, 9, 1, np.nan),
+                          (4, 1, 0, 0, -inf), (12, 2, 127, 1, inf)):
+        patches[k, c, y, x] = v
+    ref = _mxu_jax(exp, monkeypatch, "split", rel_x, rel_y, patches)
+    got = probes.mxu_plain("split", *(torch.as_tensor(a) for a in (rel_x, rel_y, patches))).numpy()
+    nan = np.isnan(ref)
+    assert nan.sum() == 6 * 3
+    np.testing.assert_array_equal(np.isnan(got), nan)
+    np.testing.assert_array_equal(got.view(np.int32)[~nan], ref.view(np.int32)[~nan])
 
 
 def test_mxu_split_fails_at_its_own_shape(exp):
@@ -808,6 +894,88 @@ def test_cuda_mxu_row_sums_reject_other_patch_sides(body):
     rel_x, rel_y, patches = (torch.as_tensor(a, device=dev) for a in _row_inputs(39, p=64)[:3])
     with pytest.raises(ValueError, match="128x128 patches"):
         probes.MXU[body](rel_x, rel_y, patches)
+
+
+def _cuda_rowstage_inputs(dev, case):
+    """Row-select inputs on the card: ``exp_bisect.py``'s shapes (K=512,
+    NS=1280, x0 unaligned or 128-aligned), NS=1279 (rows not 16-byte
+    aligned) or ``chip_smoke.bisect_leaving``'s 16 keypoints."""
+    import chip_smoke
+
+    from cv_tpu_torch.experiments import runs
+
+    args = runs._window_inputs(dev, 44, 16, 544, 1408, 512, 1280, align_x=case == "aligned")
+    if case == "ns1279":
+        return [*args[:4], *(t[:, :1279].contiguous() for t in args[4:])]
+    if case == "leaving":
+        return list(chip_smoke.bisect_leaving(*args))
+    return list(args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["unaligned", "aligned", "ns1279", "leaving"])
+def test_cuda_bisect_rowstage_equals_plain(case):
+    """The row select's kernel bitwise equal to ``bisect_plain`` (NaN by its
+    bits: the quiet NaN where windows leave, +0 where rows leave)."""
+    dev = _cuda()
+    args = _cuda_rowstage_inputs(dev, case)
+    fn = probes.BISECT["vpu_rowstage"]
+    before = fn.launches
+    got = fn(*args)
+    ref = probes.bisect_plain("vpu_rowstage", *args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+def _cuda_split_inputs(dev, case):
+    """Split inputs on the card: ``exp_r3_mxu_probe.py``'s K=4096 patches at
+    NS=128, NS=100, or ``chip_smoke.split_nonfinite``'s 16 keypoints."""
+    import chip_smoke
+
+    gen = torch.Generator(device=dev).manual_seed(45)
+    patches = torch.randn((4096, 3, 128, 128), generator=gen, device=dev)
+    ns = 100 if case == "ns100" else 128
+    rel_x, rel_y = (torch.randint(0, 128, (4096, ns), generator=gen, device=dev, dtype=torch.int32) for _ in range(2))
+    if case == "nonfinite":
+        return list(chip_smoke.split_nonfinite(rel_x, rel_y, patches)[0])
+    return [rel_x, rel_y, patches]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["full", "ns100", "nonfinite"])
+def test_cuda_mxu_split_equals_plain(case):
+    """The split select's kernel bitwise equal to ``mxu_plain('split')``, NaN
+    by its bits where column 0 or 1 holds an inf or a NaN."""
+    dev = _cuda()
+    args = _cuda_split_inputs(dev, case)
+    fn = probes.MXU["split"]
+    before = fn.launches
+    got = fn(*args)
+    ref = probes.mxu_plain("split", *args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    assert torch.equal(got.view(torch.int32), ref.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_cuda_mxu_split_rejects_other_channels():
+    dev = _cuda()
+    rel_x, rel_y, patches = (torch.as_tensor(a, device=dev) for a in _mxu_inputs(46, 128))
+    with pytest.raises(ValueError, match="3-channel patches"):
+        probes.MXU["split"](rel_x, rel_y, patches[:, :2].contiguous())
+
+
+@pytest.mark.cuda
+def test_cuda_mxu_split_rejects_misaligned_patches():
+    dev = _cuda()
+    rel_x, rel_y, patches = (torch.as_tensor(a, device=dev) for a in _mxu_inputs(47, 128))
+    flat = torch.zeros(patches.numel() + 1, device=dev)
+    flat[1:] = patches.reshape(-1)
+    shifted = flat[1:].view(patches.shape)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 8 != 0
+    with pytest.raises(ValueError, match="8-byte aligned"):
+        probes.MXU["split"](rel_x, rel_y, shifted)
 
 
 @pytest.mark.cuda
