@@ -77,8 +77,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      problems and a problem without valid rows; B's and C's shape cases in
      both geometries, with the padding gates; the experiments' kernels at their scripts'
      shapes: the retired selects and the probe selects and gathers
-     bitwise, the trigonometry
-     probe within 2 ulp of torch's functions (bit-equality printed), the
+     bitwise, the trigonometry probe and the describe's trig calls
+     (``ops.trig.angle_cv`` at (K, 109) and (K,), ``cos_sin`` at (K,))
+     bitwise to their plain versions (``ops/trig.py``), an empty launch of
+     the same library timed beside them, the
      summing probes within ``probes.SUM_ATOL`` (the window, column and
      row sums also bitwise to their order mirrors); beside each kernel's time
      and its plain version's, one PyTorch call computing the same function
@@ -138,8 +140,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      save of the live state; run 2 loads run 1's checkpoint, whose arrays equal a save
      of run 1's live state, with its intrinsics on the card; the exact
      extractor's launches (the scan once a frame over every candidate, its
-     steps printed; no describe kernel), A's, B's and C's, the phase times
-     (extract, init, registration, BA+filter, normalize, export, save,
+     steps printed; the trig kernel, no select kernel), A's, B's and C's,
+     the phase times (extract, init, registration, BA+filter, normalize, export, save,
      load, PNG decode a frame), and A's, B's and C's calls replayed and held
      to plain as the SfM path's are; the scan calls are replayed with phase
      7's;
@@ -170,9 +172,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      every word row equal (the fast path), at least 99% (the group
      describe, and the exact extractor on a KITTI crop, row for row); the
      exact extractor's whole KITTI frames at ``Akaze()`` (phase 4b): scale
-     space, counts and points bitwise, at most ``EXACT_UNEQUAL_ROWS`` of the
-     word rows unequal, each one a sample position moved by a last-ulp
-     angle; print the exact extract ms a frame;
+     space, counts, points, angles and word rows bitwise
+     (``EXACT_UNEQUAL_ROWS`` is 0); print the exact extract ms a frame;
   10. time warm extract+match, each stage, the dedup scan and consensus;
   11. the library modules, which have no kernel, on the card against the
      port's CPU path (``library_modules``): five-point at bench.py's 64 sets
@@ -263,12 +264,11 @@ POSE_KERNELS = {
 # keep it well posed.
 TRANSLATING = {"three_view_l2": dict(every=1, steps=2000), "three_view_adaptive": dict(every=4, steps=10)}
 # The most word rows of a whole KITTI frame of the exact extractor at
-# Akaze() that may differ card to CPU, as a share of the rows: the card's
-# atan2 rounds some orientation angles one ulp off the CPU's (349 of 3425 on
-# frame 0), and where that moves a rounded M-LDB sample position the row's
-# cell means change (1 of 3425 rows on frame 0, 0 of 2908 on frame 14, with
-# the scale space and the points bitwise equal; NVIDIA H100 80GB HBM3).
-EXACT_UNEQUAL_ROWS = 0.001
+# Akaze() that may differ card to CPU, as a share of the rows: none.  The
+# angles' atan2, cos and sin are ops/trig.py's on both sides (its kernel,
+# csrc/trig_probe.cu, on the card), so every angle is bitwise equal too,
+# and a last-ulp angle can no longer move a rounded M-LDB sample.
+EXACT_UNEQUAL_ROWS = 0
 # The pose kernels that report their steps (steps_out), and each kernel's
 # plain version in cv_tpu_torch.optimize.optimizers.
 STEPPED = ("single_view_l2", "three_view_l2")
@@ -294,6 +294,16 @@ POSE_FLOPS = {"single_view_l2": 80, "three_view_l2": 500, "three_view_adaptive":
 # 109 atan2 (~25 each), 42 windows x 109 samples x 4 (two compares, two
 # masked adds), 441 M-LDB positions (~20 each); an estimate.
 FUSED_FLOPS = 30_000
+# Float32-equivalent operations an element of csrc/trig.cuh's functions,
+# counted from the source, a float64 operation as two (float64 runs at half
+# float32's rate outside the tensor cores: 34 against 67 TFLOP/s on an H100
+# SXM, NVIDIA's data sheet): atan2 ~35 float operations and the angle's wrap
+# 2 more; cos and sin ~14 float64 operations each; the probe's four rows
+# (atan2, cos, sin, mod); an estimate.
+TRIG_OPS = {"angle": 37, "cos_sin": 56, "probe": 93}
+# Every describe path but 'pfused' (whose kernel computes them itself)
+# launches the trig kernel for its angles and for their cos and sin.
+TRIG_LAUNCHED = dict(angle_cv=(1,), cos_sin=(1,))
 # The probe scripts' shapes: exp_select_kernels.py / exp_bisect.py (a
 # (16, 3, 544, 1408) stack, 136x128 windows, NS=1280, K=4096 / 512) and
 # exp_r3_gather_probe.py / exp_r3_mxu_probe.py (K=4096 patches of 3x128x128,
@@ -327,6 +337,15 @@ EXPERIMENT_KERNELS = {
 def require(cond, what):
     if not cond:
         raise RuntimeError(f"check failed: {what}")
+
+
+def same_bits(a, b):
+    """Two float32 tensors bitwise equal, a NaN only by position."""
+    import torch
+
+    nan = torch.isnan(b)
+    return bool(torch.equal(torch.isnan(a), nan)
+                and torch.equal(a.view(torch.int32)[~nan], b.view(torch.int32)[~nan]))
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -1872,15 +1891,17 @@ def hold_row_sums(body, fn, args):
 def check_experiment_kernels(dev, seed):
     """Phase 3 for the experiments' kernels, at their scripts' shapes: the
     retired selects (the select kernel at the KITTI batch's shapes), the
-    probes' selects and gathers bitwise, the trigonometry within 2 ulp of
-    torch's (printing whether each function is bit-equal), the summing
-    probes within ``probes.SUM_ATOL``; alternating timings, the library
-    call where one computes the function, and the bound.  Returns
+    probes' selects and gathers bitwise, the trigonometry bitwise to
+    ``ops/trig.py`` (the probe and the describe's forms, with the launch
+    floor of an empty kernel), the summing probes within
+    ``probes.SUM_ATOL``; alternating timings, the library call where one
+    computes the function, and the bound.  Returns
     per-kernel records."""
     import torch
 
     from cv_tpu_torch.akaze import select
     from cv_tpu_torch.experiments import mldb_losers, probes
+    from cv_tpu_torch.ops import trig
 
     gen = torch.Generator(device=dev).manual_seed(seed + 21)
 
@@ -2063,24 +2084,55 @@ def check_experiment_kernels(dev, seed):
                 f"take_along axis {axis}, x {x_shape}, idx {idx_shape}: bitwise equal to its plain version")
     print("take_along: thin and ragged shapes with out-of-range indices bitwise equal to its plain version")
 
-    # exp_r5_pfused.py phase_trig: an (8, 128) uniform(-7, 7) tile, held to
-    # torch's functions within 2 ulp; bit-equality per function printed.
+    # exp_r5_pfused.py phase_trig: an (8, 128) uniform(-7, 7) tile, held
+    # bitwise to its plain version (ops/trig.py: the C library's atan2f,
+    # cosf and sinf, as cv_tpu's jnp functions compute them on a CPU).
     xt = torch.rand((8, 128), generator=gen, device=dev) * 14.0 - 7.0
     got, ref = probes.trig_probe(xt), probes.trig_probe_plain(xt)
     torch.cuda.synchronize()
-    ulp = (got.view(torch.int32).long() - ref.view(torch.int32).long()).abs().amax(dim=1).tolist()
     for i, fname in enumerate(("atan2", "cos", "sin", "mod")):
-        print(f"trig probe {fname}: bit-equal to torch.{('atan2', 'cos', 'sin', 'remainder')[i]} "
-              f"{bool(torch.equal(got[i], ref[i]))}, max diff {float((got[i] - ref[i]).abs().max()):.3e} "
-              f"({ulp[i]} ulp)")
-    require(max(ulp) <= 2, f"trig probe within 2 ulp of torch's functions ({ulp} ulp)")
+        print(f"trig probe {fname}: bitwise equal to its plain version {same_bits(got[i], ref[i])}, max diff "
+              f"{float((got[i] - ref[i]).abs().max()):.3e}")
+    require(same_bits(got, ref), "trig probe bitwise equal to its plain version")
     kms, pms = alternate(lambda: probes.trig_probe(xt), lambda: probes.trig_probe_plain(xt), cuda_ms)
     kdev, pdev = alternate(lambda: probes.trig_probe(xt), lambda: probes.trig_probe_plain(xt), device_ms)
     n = xt.shape[1]
-    out["trig_probe"] = kernel_record(kms, pms, float((got - ref).abs().max()), 6 * n * 4, 60 * n, trig_ulp=ulp,
-                                      device_ms=kdev, plain_device_ms=pdev)
+    rec = out["trig_probe"] = kernel_record(kms, pms, float((got - ref).abs().max()), 6 * n * 4,
+                                            TRIG_OPS["probe"] * n, device_ms=kdev, plain_device_ms=pdev)
     print(f"trig probe: kernel {kms:.4f} ms, plain {pms:.4f} ms, library none; device (a CUDA graph) {kdev:.4f} ms, "
-          f"plain {pdev:.4f} ms")
+          f"plain {pdev:.4f} ms; bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    # The describe's forms at the KITTI batch's shapes (K = 8 x 512): the
+    # orientation angles of (K, 109) samples and of the K chosen sums, cos
+    # and sin of the K angles; the samples hold zeros, NaNs (a sample outside
+    # the window) and tied values, held bitwise (a NaN by position).
+    k = BATCH * SHAPES["kitti_k"]
+    res = torch.randn((2, k, 109), generator=gen, device=dev) * torch.exp(
+        torch.rand((2, k, 109), generator=gen, device=dev) * 10.0 - 5.0)
+    res[:, :, ::7] = 0.0
+    res[0, ::5, 3] = float("nan")
+    res[1, ::3, 4] = res[0, ::3, 4]
+    ry, rx = res[0], res[1]
+    sy, sx = ry[:, 0].contiguous(), rx[:, 0].contiguous()
+    ang_k = trig.angle_cv(sy, sx)
+    pairs = (("angle_cv (K, 109)", lambda: trig.angle_cv(ry, rx), lambda: trig.angle_cv_plain(ry, rx), 3 * ry.numel()),
+             ("angle_cv (K,)", lambda: trig.angle_cv(sy, sx), lambda: trig.angle_cv_plain(sy, sx), 3 * k),
+             ("cos_sin (K,)", lambda: trig.cos_sin(ang_k), lambda: trig.cos_sin_plain(ang_k), 3 * k))
+    for label, run_k, run_p, words in pairs:
+        got, ref = (torch.cat(r) if isinstance(r, tuple) else r for r in (run_k(), run_p()))
+        torch.cuda.synchronize()
+        require(same_bits(got, ref), f"trig {label}: bitwise equal to its plain version")
+        fms, fpms = alternate(run_k, run_p, cuda_ms)
+        fdev, fpdev = alternate(run_k, run_p, device_ms)
+        ops = TRIG_OPS["cos_sin" if label.startswith("cos") else "angle"] * (words // 3)
+        b_ms, b_by = bound(words * 4, ops)
+        rec[label] = dict(ms=fms, plain_ms=fpms, device_ms=fdev, plain_device_ms=fpdev, bound_ms=b_ms)
+        print(f"trig {label}: bitwise equal ({int(torch.isnan(ref).sum())} NaN in the same places); kernel {fms:.4f} "
+              f"ms, plain {fpms:.4f} ms; device (a CUDA graph) {fdev:.4f} ms, plain {fpdev:.4f} ms; bound "
+              f"{b_ms:.6f} ms ({b_by})")
+    # The launch floor: an empty kernel of one block from the same library.
+    rec["empty_ms"] = cuda_ms(lambda: trig.empty_launch(dev))
+    rec["empty_device_ms"] = device_ms(lambda: trig.empty_launch(dev))
+    print(f"trig empty launch: call {rec['empty_ms']:.4f} ms, device (a CUDA graph) {rec['empty_device_ms']:.4f} ms")
     return out
 
 
@@ -2220,9 +2272,9 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
     run 1 then run 2 resuming from run 1's checkpoint, each with the
     counters at zero; the gates of the module docstring.  The engine takes
     its default, the exact extractor: one dedup scan a frame over every
-    candidate, no describe kernel.  Records the dedup scan's calls into
-    ``scan_calls`` (replayed in phase 7) and replays A's, B's and C's calls
-    on their own.  Returns per run: seconds, launches, phase ms, the median
+    candidate, the trig kernel for the angles, no select kernel.  Records
+    the dedup scan's calls into ``scan_calls`` (replayed in phase 7) and
+    replays A's, B's and C's calls on their own.  Returns per run: seconds, launches, phase ms, the median
     PNG decode ms."""
     import numpy as np
     import torch
@@ -2277,12 +2329,13 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
               f"{len(recs)} reconstructions, launches select_groups {launches['select_groups']}, dedup_scan "
               f"{launches['dedup_scan']}, single_view_l2 {launches['single_view_l2']}, three_view_l2 "
               f"{launches['three_view_l2']}, three_view_adaptive {launches['three_view_adaptive']}, select_samples "
-              f"{launches['select_samples']}, select_fused {launches['select_fused']}; compiled unfilter calls "
+              f"{launches['select_samples']}, select_fused {launches['select_fused']}, angle_cv "
+              f"{launches['angle_cv']}, cos_sin {launches['cos_sin']}; compiled unfilter calls "
               f"{png_mod.unfilter.calls}; plain-version calls {sb_run['plain']}")
         require(png_mod.unfilter.calls == len(frames), f"sandbox {run}: {png_mod.unfilter.calls} compiled decodes")
         scan_steps_run = [int(scan_steps(args).max()) for args, _ in scan_calls[f"sandbox {run}"]]
         print(f"sandbox {run}: the exact extractor's dedup scan, steps a frame (every candidate) {scan_steps_run}")
-        expect = dict(select_groups=0, select_samples=0, select_fused=0, dedup_scan=len(frames))
+        expect = dict(select_groups=0, select_samples=0, select_fused=0, dedup_scan=len(frames), **TRIG_LAUNCHED)
         if run == "run1":
             expect.update(single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,))
         tally(sb_run, **expect)
@@ -2549,11 +2602,11 @@ def exact_path(dev, counters, plains, tally, scan_calls):
     11 ``match_descriptors`` matches) and at ``Akaze()`` (cv_tpu's pinned
     [3425, 2908]; the word checksums printed beside its 31033516 /
     113943370), each pair with the counters at zero: the dedup scan once an
-    extract and no describe kernel.  Records the scan's calls as path
-    ``exact`` (replayed in phase 7: keep mask and slot output bitwise to the
-    plain version).  Then each frame at ``Akaze()`` against the port's CPU
-    run, stage by stage, with the differing word rows printed
-    (:func:`word_rows`; gated in phase 9).  Returns the warm extract ms a
+    extract, the trig kernel for the angles and no select kernel.  Records
+    the scan's calls as path ``exact`` (replayed in phase 7: keep mask and
+    slot output bitwise to the plain version).  Then each frame at
+    ``Akaze()`` against the port's CPU run, stage by stage, with the
+    differing word rows printed (:func:`word_rows`; gated in phase 9).  Returns the warm extract ms a
     frame, the word rows' reports and the ``Akaze()`` words of the pair."""
     import numpy as np
 
@@ -2581,7 +2634,7 @@ def exact_path(dev, counters, plains, tally, scan_calls):
         else:
             line += " (cv_tpu's pinned [31033516, 113943370])"
         print(line + f"; extract ms a frame {exact_ms[label]}; launches {run['launches']}")
-        tally(run, dedup_scan=len(frames), select_samples=0, select_groups=0, select_fused=0)
+        tally(run, dedup_scan=len(frames), select_samples=0, select_groups=0, select_fused=0, **TRIG_LAUNCHED)
         require(counts == want, f"exact {label}: keypoints {counts}, goldens {want}")
         if label == "sparse":
             require(len(ia) == KITTI_MATCHES, f"exact sparse: {len(ia)} matches")
@@ -3096,7 +3149,7 @@ def apps_phase(dev, counters, plains, tally):
     tutorial chapters 2-5 (chapter 2's PNG decodes to its canvas, chapter 3
     finds 3425 keypoints, chapters 4 and 5 the same symmetric matches,
     chapter 5 its inliers among them), with the counters at zero: one scan
-    an extract, no describe kernel."""
+    an extract, the trig kernel, no select kernel."""
     import numpy as np
 
     from cv_tpu_torch.akaze import load_gray
@@ -3118,7 +3171,7 @@ def apps_phase(dev, counters, plains, tally):
     print(f"apps: kpdraw {len(kp['response'])} keypoints; chapter 3 {len(kp3['response'])} keypoints; chapter 4 "
           f"{len(matches4)} symmetric matches; chapter 5 {inliers5} inliers of {matches5} matches; {seconds:.3f} s; "
           f"launches {run['launches']}")
-    tally(run, dedup_scan=6, select_samples=0, select_groups=0, select_fused=0)
+    tally(run, dedup_scan=6, select_samples=0, select_groups=0, select_fused=0, **TRIG_LAUNCHED)
     require(len(kp["response"]) == KITTI_KEYPOINTS[0], f"kpdraw: {len(kp['response'])} keypoints")
     drawn = read_png(os.path.join(work, "kpdraw.png"))
     require(np.array_equal(drawn, kpdraw.render_crosses(load_gray(frame0), kp["point"])),
@@ -3139,6 +3192,7 @@ def kernel_counters():
     from cv_tpu_torch.akaze import fused as fused_mod
     from cv_tpu_torch.akaze import select as select_mod
     from cv_tpu_torch.experiments import mldb_losers, probes
+    from cv_tpu_torch.ops import trig as trig_mod
     from cv_tpu_torch.optimize import optimizers, resident
 
     counters = {
@@ -3155,6 +3209,8 @@ def kernel_counters():
         "select_window[exp_select_kernels]": probes.select_window,
         "take_along": probes.take_along,
         "trig_probe": probes.trig_probe,
+        "angle_cv": trig_mod.angle_cv,
+        "cos_sin": trig_mod.cos_sin,
         **{f"bisect_{body}": fn for body, fn in probes.BISECT.items()},
         **{f"mxu_{body}": fn for body, fn in probes.MXU.items()},
     }
@@ -3164,6 +3220,7 @@ def kernel_counters():
         (optimizers, "single_view_simple_optimize_l2"), (optimizers, "three_view_simple_optimize_l2"),
         (optimizers, "three_view_adaptive_optimize_l2"), (probes, "select_window_plain"),
         (probes, "take_along_plain"), (probes, "trig_probe_plain"), (probes, "bisect_plain"), (probes, "mxu_plain"),
+        (trig_mod, "angle_cv_plain"), (trig_mod, "cos_sin_plain"),
     ]
     return counters, plains
 
@@ -3303,7 +3360,7 @@ def main():
     require(counts == KITTI_KEYPOINTS * (BATCH // 2), f"keypoints {counts}")
     require(matches == [KITTI_MATCHES] * (BATCH // 2), f"matches {matches}")
     require(int(count) == KITTI_INLIERS, f"inliers {int(count)}")
-    tally(kitti_run, select_samples=2, dedup_scan=1)  # orientation + M-LDB pass; one scan
+    tally(kitti_run, select_samples=2, dedup_scan=1, **TRIG_LAUNCHED)  # orientation + M-LDB pass; one scan
     require(tuple(fs.words.shape) == (BATCH, 512, 16) and fs.words.dtype == torch.int32, "words shape")
     v = fs.valid
     require(bool(torch.isfinite(fs.point[v]).all() & torch.isfinite(fs.angle[v]).all()), "finite keypoints")
@@ -3342,7 +3399,7 @@ def main():
           f"plain-version calls {sfm_run['plain']}")
     print("sfm phases (ms, synchronized): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_ms.items()))
     tally(sfm_run, single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,),
-          select_samples=(2 * SFM_FRAMES,), dedup_scan=(SFM_FRAMES,))
+          select_samples=(2 * SFM_FRAMES,), dedup_scan=(SFM_FRAMES,), **TRIG_LAUNCHED)
     del engine
     # Every A, B and C call of the warm pass, replayed on its own.
     for name, recorded in pose_calls.items():
@@ -3375,9 +3432,10 @@ def main():
           f"landmarks (cv_tpu: {MERGE_REFERENCE_VIEWS} views), sanity_check empty; {merge_s:.3f} s for "
           f"{len(merge_counts)} frames; launches three_view_l2 {merge_run['launches']['three_view_l2']}, "
           f"three_view_adaptive {merge_run['launches']['three_view_adaptive']}, single_view_l2 "
-          f"{merge_run['launches']['single_view_l2']}; plain-version calls {merge_run['plain']}")
+          f"{merge_run['launches']['single_view_l2']}, angle_cv {merge_run['launches']['angle_cv']}, cos_sin "
+          f"{merge_run['launches']['cos_sin']}; plain-version calls {merge_run['plain']}")
     tally(merge_run, three_view_l2=(1,), three_view_adaptive=(1,), single_view_l2=(1,),
-          select_samples=(2 * len(merge_counts),), dedup_scan=(len(merge_counts),))
+          select_samples=(2 * len(merge_counts),), dedup_scan=(len(merge_counts),), **TRIG_LAUNCHED)
     del merge_engine
 
     clock("6")
@@ -3391,9 +3449,10 @@ def main():
     clock("6b")
     # -- 7. the dense path ---------------------------------------------------
     runs = {}
-    for mode, expect in ((None, dict(select_groups=2, dedup_scan=1, select_samples=0)),
-                         ("pfused", dict(select_fused=1, dedup_scan=1, select_groups=0)),
-                         ("pallas", dict(select_samples=2, dedup_scan=1, select_groups=0))):
+    # 'pfused' computes its angles, cos and sin inside the fused kernel.
+    for mode, expect in ((None, dict(select_groups=2, dedup_scan=1, select_samples=0, **TRIG_LAUNCHED)),
+                         ("pfused", dict(select_fused=1, dedup_scan=1, select_groups=0, angle_cv=0, cos_sin=0)),
+                         ("pallas", dict(select_samples=2, dedup_scan=1, select_groups=0, **TRIG_LAUNCHED))):
         ex = dense if mode is None else DeviceExtractor(Akaze(), device=dev, onehot_mode=mode, **DENSE)
         with main_path(counters, plains) as run, recording(extrema, "dedup_scan_device") as calls, \
                 recording(desc_mod, "select_groups", keep_planes) as group_calls, \
@@ -3434,7 +3493,7 @@ def main():
     n0 = len(kp["response"])
     print(f"FastAkazeExtractor(maximum_features=8192) frame 0: {n0} keypoints (dense DeviceExtractor: "
           f"{int(runs[None]['valid'][0].sum())}), launches {run['launches']}")
-    tally(run, select_groups=2, dedup_scan=1)
+    tally(run, select_groups=2, dedup_scan=1, **TRIG_LAUNCHED)
     require(n0 == int(runs[None]["valid"][0].sum()), "engine-budget count differs from the dense extract's")
     require(words0.shape == (n0, 16) and sketch.shape == (16,), "engine-budget words and sketch shapes")
 
@@ -3562,8 +3621,7 @@ def main():
         ("random 192x256", to_gray_f32(rng.uniform(0, 255, (192, 256)).astype(np.uint8)),
          Akaze(detector_threshold=0.001), 128, 256, 1.0),
         ("KITTI crop 256x384", np.ascontiguousarray(crop), Akaze.sparse(), 256, 512, 1.0),
-        # The group describe; 1000+ angles through two atan2 builds: the
-        # fused describe's word gate.
+        # The group describe, 1000+ angles: the fused describe's word gate.
         ("KITTI crop 256x384, dense, groups", np.ascontiguousarray(crop), Akaze(), 512, 2048, 0.99),
     ):
         got = DeviceExtractor(cfg, cb, mf, device=dev).extract(img[None]).to_numpy()
@@ -3589,16 +3647,17 @@ def main():
     print(f"cpu reference exact KITTI crop 256x384: {len(kg['response'])} keypoints, max point diff {diff:.2e} px, "
           f"word rows equal {rows:.4f}")
     # The exact extractor's whole KITTI frames at Akaze() (phase 4b's
-    # reports): scale space, counts and points bitwise; each differing word
-    # row a rounded sample position moved by a last-ulp angle.
+    # reports): scale space, counts, points, angles and word rows bitwise.
     for i, rep in enumerate(exact_rows):
         require(rep["planes_equal"] == rep["evolutions"] > 0, f"exact frame {i}: scale space differs card to CPU")
         require(rep["counts"][0] == rep["counts"][1] and rep["points_equal"], f"exact frame {i}: keypoints differ")
-        require(rep["unequal"] <= EXACT_UNEQUAL_ROWS * rep["rows"] and rep["moved"] == rep["unequal"],
+        require(rep["angles"] == 0, f"exact frame {i}: {rep['angles']} of {rep['rows']} angles differ")
+        require(rep["unequal"] <= EXACT_UNEQUAL_ROWS * rep["rows"],
                 f"exact frame {i}: {rep['unequal']} of {rep['rows']} word rows differ ({rep['moved']} moved a sample)")
     print("cpu reference exact KITTI frames at Akaze(): word rows unequal "
           + ", ".join(f"{r['unequal']} of {r['rows']}" for r in exact_rows)
-          + f" (bound {EXACT_UNEQUAL_ROWS} of the rows), each a moved sample position; scale space and points bitwise")
+          + f", angles unequal {', '.join(str(r['angles']) for r in exact_rows)} (bound {EXACT_UNEQUAL_ROWS}); "
+          "scale space and points bitwise")
     print("exact extract ms a frame (card, warm; median of 3): " + ", ".join(f"{k} {v}" for k, v in exact_ms.items()))
 
     clock("9")
@@ -3650,6 +3709,11 @@ def main():
     ]
     for name, spec in POSE_KERNELS.items():
         records.append(row(name, name, spec["replaces"], main_launches[name], pose_records[name]))
+    # The trig kernel's row counts the describe paths' launches (angle_cv,
+    # cos_sin) with the probe run's.
+    trig_launches = {k: main_launches[k] for k in ("angle_cv", "cos_sin", "trig_probe")}
+    main_launches["trig_probe"] = sum(trig_launches.values())
+    print(f"trig kernel launches: {json.dumps(trig_launches)}")
     for name, (source, replaces) in EXPERIMENT_KERNELS.items():
         records.append(row(name, source, replaces, main_launches[name], exp_records[name]))
     clock("10")

@@ -21,6 +21,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
+from ..ops.trig import TWO_PI, angle_cv, cos_sin
 from .select import GROUP, cut_patches, select_groups, select_samples, select_samples_patch
 
 # 7x7 Gaussian weight table (scale_space_extrema.rs:162-226).
@@ -38,7 +39,6 @@ GAUSS25 = np.array(
 )
 
 PATCH = 128  # side of the window around a keypoint that holds all its samples
-TWO_PI = float(np.float32(2.0 * np.pi))
 
 # Retired describe modes ('ptiles' and 'pepatch', cv_tpu's measured losers
 # on its TPU) register here when cv_tpu_torch/experiments/mldb_losers.py is
@@ -218,11 +218,6 @@ def round_half_away(x: torch.Tensor) -> torch.Tensor:
     return torch.sign(x) * torch.floor(x.abs() + 0.5)
 
 
-def _atan2_cv(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """OpenCV-equivalent atan2 in [0, 2pi) (scale_space_extrema.rs:236-239)."""
-    return torch.remainder(torch.atan2(y, x) + TWO_PI, TWO_PI)
-
-
 def tree_sum(x: torch.Tensor) -> torch.Tensor:
     """Sum over the last axis in a fixed halving tree: zero-pad it to a
     power of two ``n``, then ``x[..., i] + x[..., i + n/2]`` for ``i <
@@ -240,9 +235,11 @@ def tree_sum(x: torch.Tensor) -> torch.Tensor:
 
 def _orientation_from_samples(res_x: torch.Tensor, res_y: torch.Tensor) -> torch.Tensor:
     """Sliding-window dominant orientation from weighted samples (K, 109);
-    each window's sum is a :func:`tree_sum`."""
+    each window's sum is a :func:`tree_sum`.  The angles are OpenCV's atan2
+    in [0, 2pi) (scale_space_extrema.rs:236-239), :func:`ops.trig.angle_cv`
+    (cv_tpu's bits; one kernel launch each on a card)."""
     t = _orientation_device_tables(res_x.device)
-    angs = _atan2_cv(res_y, res_x)
+    angs = angle_cv(res_y, res_x)
     a1 = t["ang1s"][None, :, None]
     a2 = t["ang2s"][None, :, None]
     ang = angs[:, None, :]
@@ -254,7 +251,7 @@ def _orientation_from_samples(res_x: torch.Tensor, res_y: torch.Tensor) -> torch
     sum_y = tree_sum(torch.where(in_window, res_y[:, None, :], zero))
     val = sum_x * sum_x + sum_y * sum_y  # (K, 42)
     best = torch.argmax(val, dim=-1, keepdim=True)  # first max wins (`val > max`)
-    angle = _atan2_cv(sum_y.gather(1, best)[:, 0], sum_x.gather(1, best)[:, 0])
+    angle = angle_cv(sum_y.gather(1, best)[:, 0], sum_x.gather(1, best)[:, 0])
     # The reference keeps angle 0 when no window beats max=0.
     return torch.where(val.max(dim=-1).values > 0.0, angle, zero)
 
@@ -330,10 +327,12 @@ def orientation_from_values(vo: torch.Tensor) -> torch.Tensor:
 
 def _mldb_sample_positions(xf, yf, scale, angle, pattern_size):
     """Rotated grid sample coords for the unique offsets: ``(x1, y1)`` int32
-    (K, U) rounded half away from zero, and ``co``/``si`` (K, 1)."""
+    (K, U) rounded half away from zero, and ``co``/``si`` (K, 1): the
+    angle's :func:`ops.trig.cos_sin` (cv_tpu's bits; one kernel launch on a
+    card)."""
     t = _mldb_device_tables(pattern_size, xf.device)
-    co = torch.cos(angle)[:, None]
-    si = torch.sin(angle)[:, None]
+    co, si = cos_sin(angle)
+    co, si = co[:, None], si[:, None]
     sc = scale[:, None]
     ks, ls = t["ks"][None, :], t["ls"][None, :]
     sy = yf[:, None] + (ls * co + ks * si) * sc

@@ -14,10 +14,12 @@ raises.
 Both sides sum each orientation window in the halving tree of
 :func:`descriptors.tree_sum` and evaluate the same float expressions (the
 kernel is built with ``--fmad=false``), so on the card the kernel gives its
-plain version's bits.  Their ``atan2``/``cos``/``sin`` come from the CUDA
-math library of two builds (PyTorch's and the card's ``nvcc``), which could
-round differently; ``chip_smoke.py`` therefore also states the describe
-gates (angles within 1e-5 rad, >= 99% of word rows equal).
+plain version's bits.  Their ``atan2``/``cos``/``sin`` are one code on
+both sides: ``csrc/trig.cuh`` in the kernel and :mod:`..ops.trig` (or its
+kernel, ``csrc/trig_probe.cu``) in the plain version, glibc's ``atan2f``/
+``cosf``/``sinf`` written out in operations that round once, so the angle,
+its cosine and its sine are bitwise equal too (and equal ``cv_tpu``'s on a
+CPU).
 """
 
 from __future__ import annotations

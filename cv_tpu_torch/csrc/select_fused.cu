@@ -39,11 +39,12 @@
 // 4, 2, 1, the other five: each lane adds its partner's partial sum, the
 // same two operands as the tree's add (in either order, and a float add
 // commutes), so every lane ends with the tree's bits and runs the
-// first-max scan, atan2f, cosf and sinf itself (a warp issues them once
-// whichever lanes take part).  The window test takes its warp-uniform
-// half (lo < hi) as a branch, and an angle's wrap into [0, 2pi) skips
-// fmodf on its exact fast path.  The M-LDB pass loads kPer samples' three
-// channels a lane before it stores them; `ok` is one __any_sync.  Measured
+// first-max scan, atan2, cos and sin itself (a warp issues them once
+// whichever lanes take part); they are trig.cuh's (glibc's atan2f/cosf/
+// sinf, as ops/trig.py computes them), not libdevice's.  The window test
+// takes its warp-uniform half (lo < hi) as a branch, and an angle's wrap
+// into [0, 2pi) skips fmodf on its exact fast path.  The M-LDB pass loads
+// kPer samples' three channels a lane before it stores them; `ok` is one __any_sync.  Measured
 // and not kept (scripts/time_engine_calls.py): 2, 7 and 14 M-LDB samples a
 // lane, 2 and 8 keypoints a block, __launch_bounds__ asking 12 or 16
 // blocks an SM (both spill), the window loop unrolled by 2, evict-first
@@ -56,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stddef.h>
+
+#include "trig.cuh"
 
 namespace {
 
@@ -136,7 +139,7 @@ __global__ void __launch_bounds__(kThreads) select_fused_kernel(
     const float w = s < no ? __ldg(wt + s) : 0.0f;
     rx[i] = s < no ? w * vx : 0.0f;
     ry[i] = s < no ? w * vy : 0.0f;
-    ang[i] = s < no ? wrap(atan2f(ry[i], rx[i]) + two_pi, two_pi) : 0.0f;
+    ang[i] = s < no ? wrap(cv_trig::atan2f_ref(ry[i], rx[i]) + two_pi, two_pi) : 0.0f;
   }
 
   // 2-3. each window's tree sums, the first maximal window.
@@ -178,10 +181,10 @@ __global__ void __launch_bounds__(kThreads) select_fused_kernel(
       best_y = sy;
     }
   }
-  float angle = wrap(atan2f(best_y, best_x) + two_pi, two_pi);
+  float angle = wrap(cv_trig::atan2f_ref(best_y, best_x) + two_pi, two_pi);
   if (!(top > 0.0f)) angle = 0.0f;
-  const float co = cosf(angle);
-  const float si = sinf(angle);
+  const float co = cv_trig::cosf_ref(angle);
+  const float si = cv_trig::sinf_ref(angle);
   const float xc = __ldg(xf + k);
   const float yc = __ldg(yf + k);
   const float sc = __ldg(scale + k);

@@ -1,51 +1,119 @@
-// The trigonometry probe of the fused describe: four float32 functions of
-// two rows a, b of N values,
+// The port's elementwise trigonometry kernel: trig.cuh's atan2f, cosf and
+// sinf (glibc's, with the bits of cv_tpu's jnp.arctan2/cos/sin on a CPU) at
+// any length, one thread an element on a grid-stride loop.  Three entry
+// points:
 //
-//   out[0] = atan2(a, b)   out[1] = cos(a)   out[2] = sin(a)
-//   out[3] = mod(a + 2pi, 2pi), the floored modulo: fmodf, then + 2pi where
-//            the remainder is nonzero and its sign differs from 2pi's
-//            (numpy's and torch.remainder's rule)
+//   cv_trig_probe    the four rows of the trigonometry probe of two rows a,
+//                    b of N values: atan2(a, b), cos(a), sin(a) and the
+//                    floored mod(a + 2pi, 2pi) (fmodf, then + 2pi where the
+//                    remainder is nonzero and its sign differs from 2pi's:
+//                    numpy's and torch.remainder's rule)
+//   cv_trig_angle    the describe's orientation angle, remainder(atan2(y, x)
+//                    + 2pi, 2pi) (ops.trig.angle_cv)
+//   cv_trig_cos_sin  the describe's cos and sin of the angle (ops.trig.cos_sin)
 //
-// with 2pi = float32(2 pi) passed by the caller.
+// Replaces experiments/exp_r5_pfused.py::phase_trig, a TPU probe that asked
+// whether Mosaic's in-kernel atan2/cos/sin round as XLA's do outside a
+// kernel.  Here they round as the plain versions in ops/trig.py do, bit for
+// bit, on every device.  The libdevice body the probe had before is kept
+// behind TRIG_LIBDEVICE (scripts/time_engine_calls.py --ablations
+// trig-libdevice) to show how far the card's own library lies from them.
 //
-// Replaces the TPU probe experiments/exp_r5_pfused.py::phase_trig, which
-// asked whether Mosaic's in-kernel atan2/cos/sin round as XLA's do outside
-// a kernel.  The same question on Hopper: do nvcc's atan2f/cosf/sinf round
-// as PyTorch's CUDA kernels do?  So this file is built with the default
-// math flags (no --use_fast_math); chip_smoke.py holds it to torch.atan2,
-// torch.cos, torch.sin and torch.remainder within 2 ulp and prints whether
-// each is bit-equal.
-//
-// What bounds it: nothing; at the probe's (2, 128) input it is one launch.
-// One thread per column.
+// What bounds it: each call is one launch over a few thousand elements (the
+// describe's K x 109 angles, K angles, K cos/sin pairs), so the launch and
+// not the arithmetic or the bytes.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "trig.cuh"
 
 namespace {
 
-__global__ void trig_probe_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                                  float* __restrict__ out, int n, float two_pi) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float x = a[i];
-  out[i] = atan2f(x, b[i]);
-  out[n + i] = cosf(x);
-  out[2 * n + i] = sinf(x);
-  const float y = x + two_pi;
-  float m = fmodf(y, two_pi);
-  if (m != 0.0f && ((m < 0.0f) != (two_pi < 0.0f))) m = m + two_pi;
-  out[3 * n + i] = m;
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 132 * 16;  // 16 blocks an SM of an H100 SXM
+
+#ifdef TRIG_LIBDEVICE
+__device__ __forceinline__ float atan2_of(float y, float x) { return atan2f(y, x); }
+__device__ __forceinline__ float cos_of(float a) { return cosf(a); }
+__device__ __forceinline__ float sin_of(float a) { return sinf(a); }
+#else
+__device__ __forceinline__ float atan2_of(float y, float x) { return cv_trig::atan2f_ref(y, x); }
+__device__ __forceinline__ float cos_of(float a) { return cv_trig::cosf_ref(a); }
+__device__ __forceinline__ float sin_of(float a) { return cv_trig::sinf_ref(a); }
+#endif
+
+// The floored remainder of a by b (torch.remainder for float).
+__device__ __forceinline__ float floored_mod(float a, float b) {
+  float m = fmodf(a, b);
+  if (m != 0.0f && ((m < 0.0f) != (b < 0.0f))) m = __fadd_rn(m, b);
+  return m;
+}
+
+__global__ void __launch_bounds__(kThreads) trig_probe_kernel(const float* __restrict__ a,
+                                                              const float* __restrict__ b,
+                                                              float* __restrict__ out, int64_t n, float two_pi) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const float x = a[i];
+    out[i] = atan2_of(x, b[i]);
+    out[n + i] = cos_of(x);
+    out[2 * n + i] = sin_of(x);
+    out[3 * n + i] = floored_mod(__fadd_rn(x, two_pi), two_pi);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) angle_kernel(const float* __restrict__ y, const float* __restrict__ x,
+                                                         float* __restrict__ out, int64_t n, float two_pi) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const float a = __fadd_rn(atan2_of(y[i], x[i]), two_pi);
+    out[i] = a >= two_pi ? __fsub_rn(a, two_pi) : a;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) cos_sin_kernel(const float* __restrict__ a, float* __restrict__ co,
+                                                           float* __restrict__ si, int64_t n) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    const float v = a[i];
+    co[i] = cos_of(v);
+    si[i] = sin_of(v);
+  }
+}
+
+__global__ void empty_kernel() {}
+
+int blocks(int64_t n) {
+  const int64_t b = (n + kThreads - 1) / kThreads;
+  return static_cast<int>(b < kMaxBlocks ? b : kMaxBlocks);
 }
 
 }  // namespace
 
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int cv_trig_probe(const float* a, const float* b, float* out, int n, float two_pi,
-                             void* stream) {
+// Each launches on `stream` and returns cudaGetLastError() (0 on success).
+extern "C" int cv_trig_probe(const float* a, const float* b, float* out, int64_t n, float two_pi, void* stream) {
   if (n <= 0) return 0;
-  const int threads = 128;
-  trig_probe_kernel<<<(n + threads - 1) / threads, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      a, b, out, n, two_pi);
+  trig_probe_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, b, out, n, two_pi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cv_trig_angle(const float* y, const float* x, float* out, int64_t n, float two_pi, void* stream) {
+  if (n <= 0) return 0;
+  angle_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(y, x, out, n, two_pi);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cv_trig_cos_sin(const float* a, float* co, float* si, int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  cos_sin_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, co, si, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// An empty kernel of one block: the launch floor the trig calls are read
+// against.
+extern "C" int cv_trig_empty(void* stream) {
+  empty_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>();
   return static_cast<int>(cudaGetLastError());
 }

@@ -12,7 +12,7 @@ Ports of the Pallas kernels of the probe scripts in ``experiments/``:
 * ``exp_r3_gather_probe.py::phase_lane`` / ``phase_sublane``:
   :func:`take_along` (``csrc/take_along.cu``), one kernel, axis 1 or 0.
 * ``exp_r5_pfused.py::phase_trig``: :func:`trig_probe`
-  (``csrc/trig_probe.cu``).
+  (``csrc/trig_probe.cu``, the kernel of :mod:`..ops.trig`).
 * ``exp_bisect.py`` bodies and ``exp_r3_mxu_probe.py`` bodies: the
   functions their stage-isolating bodies compute (``csrc/select_probes.cu``,
   one ``__global__`` per body): :data:`BISECT` and :data:`MXU`, keyed by
@@ -31,16 +31,16 @@ launches its kernel or raises.  Each wrapper counts its launches on
 from __future__ import annotations
 
 import ctypes
-import math
 
 import torch
 
 from .. import kernels
 from ..akaze.select import GROUP, cut_patches, select_samples, select_samples_plain
+from ..ops import trig
 
 PH, PW = 136, 128  # the window of exp_select_kernels.py / exp_bisect.py
 P = 128  # the patch side of exp_r3_mxu_probe.py
-TWO_PI = float(torch.tensor(2.0 * math.pi, dtype=torch.float32))
+TWO_PI = trig.TWO_PI
 BISECT_BODIES = ("dma_only", "matmul_static", "matmul_dyn_oh", "split_nomm", "vpu_rowstage")
 MXU_BODIES = ("dots", "dotsbig", "onehot", "split", "dma")
 ROW_SUM_BODIES = ("dots", "dotsbig")
@@ -185,14 +185,16 @@ take_along.launches = 0
 
 def trig_probe_plain(x) -> torch.Tensor:
     """``(4, N)`` rows ``atan2(x[0], x[1])``, ``cos(x[0])``, ``sin(x[0])``
-    and the floored ``mod(x[0] + 2pi, 2pi)``, in float32."""
+    (:mod:`..ops.trig`: glibc's functions, the reference's bits) and the
+    floored ``mod(x[0] + 2pi, 2pi)``, in float32."""
     a, b = x[0], x[1]
-    return torch.stack([torch.atan2(a, b), torch.cos(a), torch.sin(a), torch.remainder(a + TWO_PI, TWO_PI)])
+    return torch.stack([trig.atan2_f32(a, b), trig.cos_f32(a), trig.sin_f32(a),
+                        torch.remainder(a + TWO_PI, TWO_PI)])
 
 
 def trig_probe(x) -> torch.Tensor:
-    """:func:`trig_probe_plain` through ``csrc/trig_probe.cu``; ``x``:
-    (R >= 2, N) float32."""
+    """:func:`trig_probe_plain` through ``csrc/trig_probe.cu``
+    (``cv_trig_probe``); ``x``: (R >= 2, N) float32."""
     dev = _device("trig_probe", x)
     if dev.type == "cpu":
         return trig_probe_plain(x)
@@ -201,7 +203,7 @@ def trig_probe(x) -> torch.Tensor:
         raise ValueError(f"trig_probe: x needs two rows, got {tuple(x.shape)}")
     n = x.shape[1]
     out = torch.empty((4, n), dtype=torch.float32, device=dev)
-    _launch("trig_probe", "cv_trig_probe", [_VOID] * 3 + [_INT, ctypes.c_float, _VOID],
+    _launch("trig_probe", "cv_trig_probe", [_VOID] * 3 + [ctypes.c_int64, ctypes.c_float, _VOID],
             x[0].data_ptr(), x[1].data_ptr(), out.data_ptr(), n, ctypes.c_float(TWO_PI), _stream(dev))
     trig_probe.launches += 1
     return out

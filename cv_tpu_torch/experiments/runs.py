@@ -20,6 +20,7 @@ import torch
 
 from ..akaze import Akaze, DeviceExtractor
 from ..akaze.select import cut_patches, select_samples_patch
+from ..ops import trig
 from . import mldb_losers, probes
 
 P = 128
@@ -245,14 +246,15 @@ def mxu_probe_run(dev, seed: int = 0, k: int = 4096, c: int = 3, ns: int = 512) 
 
 def trig_run(dev, seed: int = 0) -> dict:
     """``exp_r5_pfused.py`` phase ``trig``: the kernel's atan2, cos, sin and
-    floored mod of an (8, 128) uniform(-7, 7) tile against the framework's
-    own functions outside the kernel: per function, bit-equal and the
-    largest difference."""
+    floored mod of an (8, 128) uniform(-7, 7) tile against the same
+    functions outside the kernel (:mod:`..ops.trig`, the reference's
+    functions): per function, bit-equal and the largest difference."""
     gen = torch.Generator(device=dev).manual_seed(seed)
     x = torch.rand((8, 128), generator=gen, device=dev) * 14.0 - 7.0
     got = probes.trig_probe(x)
     a, b = x[0], x[1]
-    ref = (torch.atan2(a, b), torch.cos(a), torch.sin(a), torch.remainder(a + probes.TWO_PI, probes.TWO_PI))
+    ref = (trig.atan2_f32(a, b), trig.cos_f32(a), trig.sin_f32(a),
+           torch.remainder(a + probes.TWO_PI, probes.TWO_PI))
     out = {name: dict(bit_equal=bool(torch.equal(got[i], r)), max_diff=float((got[i] - r).abs().max()))
            for i, (name, r) in enumerate(zip(("atan2", "cos", "sin", "mod"), ref))}
     out["ms"] = kernel_ms(lambda: probes.trig_probe(x), dev)

@@ -14,9 +14,10 @@ launch on from :func:`current_stream`.
 sequential row filters): ``nvcc`` hands it to its host compiler, and it is
 built and loaded like the kernels.
 
-The pose-optimizer loops, the dedup scan, the fused describe and the
-select probes are built with ``--fmad=false``: no multiply-add is contracted, so each float
-expression rounds as it is written, as the kernels' plain versions round.
+The pose-optimizer loops, the dedup scan, the fused describe, the select
+probes and the trig kernel are built with ``--fmad=false``: no
+multiply-add is contracted, so each float expression rounds as it is
+written, as the kernels' plain versions round.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ EXTRA_FLAGS = {
     "dedup_scan": ["--fmad=false"],
     "select_fused": ["--fmad=false"],
     "select_probes": ["--fmad=false"],
+    "trig_probe": ["--fmad=false"],
 }
 KERNELS = (
     "select_samples", "select_groups", "select_fused", "dedup_scan",

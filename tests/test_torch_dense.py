@@ -5,10 +5,11 @@ On a 256x384 crop of a KITTI fixture, cv_tpu_torch's ``DeviceExtractor``
 against cv_tpu's on the CPU under test_torch_extract's gates: counts
 equal, every point within 1e-3 px of a partner, angles within 1e-4 rad, at
 least 99% of word rows bitwise equal and none more than 16 of 486 bits off
-(the planes and the orientation sums differ from XLA:CPU in the last bits).  The port's describe modes against each other: counts
-and points equal, angles within 1e-6 rad (on the CPU torch's vectorized
-atan2 and its scalar tail loop round differently, so a keypoint's place in
-the batch can move an angle by one ulp), the same word gates.
+(the planes and the orientation sums differ from XLA:CPU in the last
+bits).  The port's describe modes against each other: counts, points,
+angles and words bitwise equal (their angles' atan2, cos and sin,
+``cv_tpu_torch.ops.trig``, give an element the same bits at any place in
+any batch).
 
 The full KITTI pair at this configuration (bench.py's ``dense_anchor``:
 3425 / 2908 keypoints) is held by ``chip_smoke.py`` on the card: its
@@ -81,6 +82,10 @@ def test_dense_modes_agree(dense, crop, mode):
     other = DeviceExtractor(ex.config, device="cpu", onehot_mode=mode, **BUDGETS).extract(crop[None]).to_numpy()
     _gates(other, base, 1e-6)
     np.testing.assert_array_equal(other["point"], base["point"])
+    np.testing.assert_array_equal(other["valid"], base["valid"])
+    v = base["valid"]
+    np.testing.assert_array_equal(other["angle"][v].view(np.uint32), base["angle"][v].view(np.uint32))
+    np.testing.assert_array_equal(other["words"][v], base["words"][v])
 
 
 def test_engine_budget_adapter():

@@ -8,12 +8,11 @@ are held to cv_tpu's under the describe gates: ok flags equal, angles
 within 1e-4 rad, at least 99% of word rows bitwise equal and none more
 than 16 of 486 bits off; the orientation window sums run in torch's and
 XLA's own orders (measured here: angles within 4.8e-7 rad, every word row
-equal).  Against the port's own select-kernel describe, ``'pallas'`` and
-``'pfused'`` are held bitwise (on the CPU they run the same plain code on
-the same batch); the group describe is held to 1e-6 rad, because on the
-CPU torch's vectorized atan2 and its scalar tail loop round differently,
-so a keypoint's place in the batch can move an angle by one ulp (measured:
-two angles of 44 one ulp apart, every word row equal).
+equal).  Against the port's own select-kernel describe, ``'pallas'``,
+``'pfused'`` and the group describe are held bitwise: on the CPU they run
+the same plain code, and the angles' atan2, cos and sin
+(``cv_tpu_torch.ops.trig``) give an element the same bits at any place in
+any batch.
 
 The kernels themselves run only on a CUDA card; the tests marked ``cuda``
 hold them to their plain versions there and skip here.  What of the fused
@@ -35,6 +34,7 @@ from cv_tpu_torch.akaze import descriptors as tdesc
 from cv_tpu_torch.akaze import extrema as textrema
 from cv_tpu_torch.akaze import fused as tfused
 from cv_tpu_torch.akaze import select as tselect
+from cv_tpu_torch.ops import trig
 
 G = 8
 
@@ -205,7 +205,9 @@ def test_orient_mldb_groups_matches_cv_tpu(w):
     _describe_gates(w_t.numpy()[valid], ok_t.numpy()[valid], a_t.numpy()[valid],
                     w_j[valid], ok_j[valid], a_j[valid])
     w_g, ok_g, a_g = (x.numpy()[valid] for x in tdesc.orient_mldb(*targs, pattern_size=10))
-    _describe_gates(w_t.numpy()[valid], ok_t.numpy()[valid], a_t.numpy()[valid], w_g, ok_g, a_g, 1e-6)
+    for got, want in ((w_t, w_g), (ok_t, ok_g), (a_t, a_g)):
+        np.testing.assert_array_equal(got.numpy()[valid], want)
+    np.testing.assert_array_equal(a_t.numpy()[valid].view(np.uint32), a_g.view(np.uint32))
 
 
 @pytest.mark.parametrize("mode", ["pallas", "pfused"])
@@ -241,8 +243,8 @@ def test_select_fused_plain_meta():
     vals, meta = tfused.select_fused_plain(planes, lvl, y0, x0, *orel, xf, yf, scale, width, height)
     assert vals.shape == (24, 3, 441) and meta.shape == (24, 4)
     torch.testing.assert_close(meta[:, 0], angle, rtol=0, atol=0)
-    torch.testing.assert_close(meta[:, 1], torch.cos(angle), rtol=0, atol=0)
-    torch.testing.assert_close(meta[:, 2], torch.sin(angle), rtol=0, atol=0)
+    torch.testing.assert_close(meta[:, 1], trig.cos_f32(angle), rtol=0, atol=0)
+    torch.testing.assert_close(meta[:, 2], trig.sin_f32(angle), rtol=0, atol=0)
     assert torch.equal(meta[:, 3] > 0.5, ok)
 
 
@@ -383,7 +385,7 @@ def _warp_orientation(res_x, res_y):
     the windows in order, the angle of the chosen sums, 0 unless ``top >
     0``.  Returns ``(angle, chosen window)``."""
     t = tdesc._orientation_device_tables(torch.device("cpu"))
-    ang = tdesc._atan2_cv(torch.as_tensor(res_y), torch.as_tensor(res_x)).numpy()[:, None, :]
+    ang = trig.angle_cv(torch.as_tensor(res_y), torch.as_tensor(res_x)).numpy()[:, None, :]
     a1, a2 = t["ang1s"].numpy()[None, :, None], t["ang2s"].numpy()[None, :, None]
     two_pi = np.float32(tdesc.TWO_PI)
     inw = ((a1 < a2) & (a1 < ang) & (ang < a2)) | (
@@ -398,7 +400,7 @@ def _warp_orientation(res_x, res_y):
         up = val[:, w] > top
         top, best = np.where(up, val[:, w], top), np.where(up, w, best)
     rows = np.arange(k)
-    angle = tdesc._atan2_cv(torch.as_tensor(sy[rows, best]), torch.as_tensor(sx[rows, best]))
+    angle = trig.angle_cv(torch.as_tensor(sy[rows, best]), torch.as_tensor(sx[rows, best]))
     return torch.where(torch.as_tensor(top > 0), angle, torch.zeros(())).numpy(), best
 
 
