@@ -80,7 +80,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      bitwise, the trigonometry probe and the describe's trig calls
      (``ops.trig.angle_cv`` at (K, 109) and (K,), ``cos_sin`` at (K,))
      bitwise to their plain versions (``ops/trig.py``), an empty launch of
-     the same library timed beside them, the
+     the same library timed beside them; the float64 atan2 and cos/sin and
+     the float32 atan2 of the trig kernel and the Jacobi eigensolver
+     (``csrc/jacobi.cu``; N = 3, 4, 9, float32 and float64; zero, diagonal,
+     repeated-eigenvalue, ``apq = 0``, rank-one, graded matrices) bitwise to
+     their plain versions, and the Jacobi timed at one consensus block
+     (4,194,304 4x4 float64) beside its plain version, the parent's torch
+     sweep and ``torch.linalg.eigh``; the
      summing probes within ``probes.SUM_ATOL`` (the window, column and
      row sums also bitwise to their order mirrors); beside each kernel's time
      and its plain version's, one PyTorch call computing the same function
@@ -90,7 +96,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      out-of-range indices bitwise to its plain version;
   4. drive the KITTI path once with the launch counters at zero: gates
      [399, 343] keypoints, 11 matches, 11 inliers, the select kernel
-     launched twice and the dedup kernel once per extract;
+     launched twice and the dedup kernel once per extract, the Jacobi
+     kernel launched; the consensus' recorded designs held bitwise
+     (Jacobi kernel against plain);
   4b. the exact extractor on the KITTI pair at full size, each threshold
      with the counters at zero: [399, 343] keypoints and 11
      ``match_descriptors`` matches at ``Akaze.sparse()``, [3425, 2908] at
@@ -113,7 +121,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      12 frames, ATE / trajectory extent < 0.02 after Umeyama alignment,
      every consecutive relative rotation < 1 degree, an empty
      ``sanity_check``, kernels A, B and C launched, the select kernel on
-     every frame, the dedup kernel once per frame; every A, B and C call of
+     every frame, the dedup kernel once per frame, the Jacobi kernel and
+     the so(3) maps' trig launches (atan2, cos/sin); the warm pass's
+     first init consensus designs held bitwise; every A, B and C call of
      the warm pass is recorded and, after the timed pass, replayed on its
      own (calls, N, valid rows, summed device time; A's and B's steps and
      us a step); A's and B's call of fewest steps, their first call with
@@ -304,6 +314,15 @@ TRIG_OPS = {"angle": 37, "cos_sin": 56, "probe": 93}
 # Every describe path but 'pfused' (whose kernel computes them itself)
 # launches the trig kernel for its angles and for their cos and sin.
 TRIG_LAUNCHED = dict(angle_cv=(1,), cos_sin=(1,))
+# Float64 outside the tensor cores on an H100 SXM (NVIDIA's data sheet, at
+# its 700 W limit): the Jacobi kernel's operations bound.
+FP64_FLOPS = 34e12
+# The Jacobi kernel's shapes: (N, sweeps, matrices held) as the port calls
+# it: svd3 (3, 8), the consensus residual and the triangulators (4, 6),
+# eight-point and five-point (9, 8).  The timed batch is one consensus
+# block of 4x4 float64 (consensus.batch.SCORE_BLOCK pairs).
+JACOBI_SHAPES = ((3, 8, 65536), (4, 6, 65536), (9, 8, 8192))
+JACOBI_TIMED = 1 << 22
 # The probe scripts' shapes: exp_select_kernels.py / exp_bisect.py (a
 # (16, 3, 544, 1408) stack, 136x128 windows, NS=1280, K=4096 / 512) and
 # exp_r3_gather_probe.py / exp_r3_mxu_probe.py (K=4096 patches of 3x128x128,
@@ -1888,6 +1907,255 @@ def hold_row_sums(body, fn, args):
     print(f"mxu {body}: bitwise equal to its order mirror (script's shapes, K=12, leaving: {n_zero} zeros)")
 
 
+def same_bits_any(a, b):
+    """Two float32 or float64 tensors bitwise equal, a NaN only by position."""
+    import torch
+
+    bits = torch.int32 if a.dtype == torch.float32 else torch.int64
+    nan = torch.isnan(b)
+    return a.dtype == b.dtype and bool(torch.equal(torch.isnan(a), nan)
+                                       and torch.equal(a.view(bits)[~nan], b.view(bits)[~nan]))
+
+
+def trig64_inputs(seed, n=1 << 20):
+    """Float64 arguments for the trig kernels: normal x e^U(-40, 40) pairs
+    and unit draws; atan2's bands (|y/x| near 1/16, 1, the table's 1/256
+    steps, 2^+-57 binades, magnitudes near 2^+-500); cos/sin's (2^-27,
+    2^-26, 0.126, 0.855469, 2.426265, 105414350, near multiples of pi/2 to
+    10^4, huge); and a grid of special values (zeros, subnormals, infinities,
+    NaN).  Returns ``(y, x, a)`` NumPy arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    y = [rng.standard_normal(n) * np.exp(rng.uniform(-40, 40, n)), rng.uniform(-1, 1, n)]
+    x = [rng.standard_normal(n) * np.exp(rng.uniform(-40, 40, n)), rng.uniform(-1, 1, n)]
+    base = rng.standard_normal(n // 8) * np.exp(rng.uniform(-5, 5, n // 8))
+    for ratio in (1 / 16, 16.0, 1.0, 2.0 ** 57, 2.0 ** -57, 2.0 ** 58, 2.0 ** -58):
+        y.append(base * ratio * (1 + rng.uniform(-1e-9, 1e-9, base.size)))
+        x.append(base * rng.choice([-1.0, 1.0], base.size))
+    y.append(base * rng.integers(16, 257, base.size) / 256 * (1 + rng.uniform(-1e-12, 1e-12, base.size)))
+    x.append(base)
+    for scale in (2.0 ** 500, 2.0 ** -500):
+        y.append(rng.standard_normal(base.size) * scale)
+        x.append(rng.standard_normal(base.size) * scale)
+    special = np.array([0.0, 5e-324, 1e-310, 2.0 ** -1022, 2.0 ** -600, 1e-200, 2.0 ** -27, 0.5, 1.0, 2.0, 1e22,
+                        2.0 ** 501, 1e300, np.finfo(np.float64).max, np.inf])
+    special = np.concatenate([special, -special, [np.nan]])
+    sy, sx = np.meshgrid(special, special, indexing="ij")
+    y += [sy.ravel()]
+    x += [sx.ravel()]
+
+    def near(v, span):
+        b = np.atleast_1d(np.asarray(v, np.float64)).view(np.int64)[:, None]
+        return (b + np.arange(-span, span + 1, dtype=np.int64)[None, :]).ravel().view(np.float64)
+
+    bounds = [2.0 ** -27, 2.0 ** -26, 0.126, 0.85546875, 2.4262657165527344, 105414350.0]
+    a = [y[0], rng.uniform(-np.pi / 2, np.pi / 2, n), near(bounds, 2000), -near(bounds, 2000),
+         near([k * np.pi / 2 for k in range(-6400, 6401) if k], 8), rng.uniform(-1e9, 1e9, n // 8),
+         rng.standard_normal(n // 8) * np.exp(rng.uniform(18, 700, n // 8)), special]
+    return np.concatenate(y), np.concatenate(x), np.concatenate(a)
+
+
+def symmetric_batch(rng, b, n):
+    """``b`` random symmetric n x n matrices (scales e^U(-3, 3)) and a set
+    of structured ones: zero, identity, diagonal (ascending, descending,
+    repeated), repeated eigenvalues in a random basis, ``apq = 0``,
+    rank one, graded, a 2x2 block."""
+    import numpy as np
+
+    m = rng.standard_normal((b, n, n)) * np.exp(rng.uniform(-3, 3, (b, 1, 1)))
+    mats = [np.zeros((n, n)), np.eye(n), np.diag(np.arange(n, 0, -1.0)), np.diag(np.arange(n) * 1.0),
+            np.diag(np.repeat([2.0, -1.0], [n - n // 2, n // 2]))]
+    for _ in range(4):
+        q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+        mats.append(q @ np.diag(np.repeat([1.0, 3.0], [n // 2, n - n // 2])) @ q.T)
+        r = rng.standard_normal((n, n))
+        r = r + r.T
+        r[0, 1] = r[1, 0] = 0.0
+        mats.append(r)
+        v = rng.standard_normal(n)
+        mats.append(np.outer(v, v))
+        d = np.diag(10.0 ** rng.uniform(-8, 8, n))
+        mats.append(d @ (r / 2) @ d)
+        blk = np.zeros((n, n))
+        blk[:2, :2] = r[:2, :2]
+        mats.append(blk)
+    return np.concatenate([(m + np.swapaxes(m, -1, -2)) / 2, np.stack(mats)])
+
+
+def jacobi_flops(n, sweeps):
+    """Float64 operations of one matrix in csrc/jacobi.cu along its
+    cheapest branches (a fused multiply-add as two), counted from the
+    source: a rotation's angle ~25 (atan2's small-quotient form: the
+    quotient, its correction, the polynomial), its cosine and sine ~36
+    (do_cos and the Taylor sine), and 6 a row of each of the three updates
+    (two products, two fused operations), 3N rows."""
+    return sweeps * n * (n - 1) // 2 * (25 + 36 + 18 * n)
+
+
+def torch_jacobi_unfused(a, sweeps=6):
+    """The parent's eigh_small (torch's atan2, cos and sin; unfused
+    updates): the time the kernel replaces, printed beside it."""
+    import torch
+
+    n = a.shape[-1]
+    a = a.reshape(-1, n, n).permute(1, 2, 0).contiguous()
+    v = torch.eye(n, dtype=a.dtype, device=a.device)[:, :, None].expand(a.shape).contiguous()
+    for _ in range(sweeps):
+        for p in range(n):
+            for q in range(p + 1, n):
+                theta = 0.5 * torch.atan2(2.0 * a[p, q], a[q, q] - a[p, p])
+                c, s = torch.cos(theta), torch.sin(theta)
+                col_p, col_q = a[:, p], a[:, q]
+                a[:, p], a[:, q] = c * col_p - s * col_q, s * col_p + c * col_q
+                row_p, row_q = a[p], a[q]
+                a[p], a[q] = c * row_p - s * row_q, s * row_p + c * row_q
+                vp, vq = v[:, p], v[:, q]
+                v[:, p], v[:, q] = c * vp - s * vq, s * vp + c * vq
+    w = torch.diagonal(a.permute(2, 0, 1), dim1=-2, dim2=-1)
+    order = torch.sort(w, dim=-1, stable=True).indices
+    v = v.permute(2, 0, 1)
+    return torch.gather(w, -1, order), torch.gather(v, -1, order[..., None, :].expand(v.shape))
+
+
+def check_eigen_trig64(dev, seed):
+    """The float64 trig kernels (``csrc/trig_probe.cu``: atan2 of float64
+    and float32, cos/sin of float64) and the Jacobi kernel
+    (``csrc/jacobi.cu``) bitwise to their plain versions on the card (a NaN
+    by position): the trig on ``trig64_inputs``, the Jacobi at
+    ``JACOBI_SHAPES`` in float32 and float64; then the Jacobi's times at a
+    consensus block of 4x4 float64 beside the plain version's, the parent's
+    torch sweep's and ``torch.linalg.eigh``'s.  Returns the Jacobi's record
+    and the trig kernel's float64 figures."""
+    import numpy as np
+    import torch
+
+    from cv_tpu_torch.ops import eigen, trig
+
+    yn, xn, an = trig64_inputs(seed)
+    y, x, a = (torch.as_tensor(v, device=dev) for v in (yn, xn, an))
+    got = trig.atan2(y, x)
+    ref = trig.atan2_f64(y, x)
+    require(same_bits_any(got, ref), "atan2 float64 kernel bitwise equal to its plain version")
+    got32, ref32 = trig.atan2(y.float(), x.float()), trig.atan2_f32(y.float(), x.float())
+    require(same_bits_any(got32, ref32), "atan2 float32 kernel bitwise equal to its plain version")
+    co, si = trig.cos_sin(a)
+    pc, ps = trig.cos_sin_f64(a)
+    require(same_bits_any(co, pc) and same_bits_any(si, ps),
+            "cos/sin float64 kernel bitwise equal to its plain version")
+    print(f"trig float64: atan2 on {y.numel()} pairs, cos/sin on {a.numel()} arguments, atan2 float32 on "
+          f"{y.numel()}: bitwise equal to the plain versions ({int(torch.isnan(ref).sum())} / "
+          f"{int(torch.isnan(pc).sum())} NaN in the same places)")
+    # The library yardstick: torch.atan2, and torch.cos plus torch.sin (no
+    # one call computes both), on the same arguments: the same functions,
+    # not the same bits.
+    y32, x32 = y.float(), x.float()
+    trig_rec = {}
+    for label, run_k, run_p, run_l, nbytes, count in (
+            ("atan2 f64", lambda: trig.atan2(y, x), lambda: trig.atan2_f64(y, x), lambda: torch.atan2(y, x),
+             24 * y.numel(), y.numel()),
+            ("atan2 f32", lambda: trig.atan2(y32, x32), lambda: trig.atan2_f32(y32, x32),
+             lambda: torch.atan2(y32, x32), 12 * y.numel(), y.numel()),
+            ("cos_sin f64", lambda: trig.cos_sin(a), lambda: trig.cos_sin_f64(a),
+             lambda: (torch.cos(a), torch.sin(a)), 24 * a.numel(), a.numel())):
+        kdev = device_ms(run_k)
+        kms, pms = alternate(run_k, run_p, lambda f: cuda_ms(f, iters=3, warmup=1))
+        lms = cuda_ms(run_l, iters=10, warmup=2)
+        trig_rec[label] = dict(device_ms=kdev, ms=kms, plain_ms=pms, library_ms=lms,
+                               bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        print(f"trig {label} at {count}: kernel {kms:.4f} ms, device (a CUDA graph) {kdev:.4f} ms, plain "
+              f"{pms:.3f} ms, library {lms:.4f} ms, byte bound {trig_rec[label]['bound_ms']:.4f} ms")
+
+    rng = np.random.default_rng(seed + 17)
+    for n, sweeps, count in JACOBI_SHAPES:
+        mats = symmetric_batch(rng, count, n)
+        for dtype in (torch.float64, torch.float32):
+            m = torch.as_tensor(mats, dtype=dtype, device=dev)
+            w, v = eigen.eigh_small(m, sweeps)
+            wp, vp = eigen.eigh_small_plain(m, sweeps)
+            ok = same_bits_any(w, wp) and same_bits_any(v, vp)
+            print(f"jacobi N={n} sweeps={sweeps} {str(dtype)[6:]}: {len(mats)} matrices bitwise equal to the plain "
+                  f"version {ok}")
+            require(ok, f"jacobi N={n} {dtype}: bitwise equal to eigh_small_plain")
+
+    # One consensus block of 4x4 float64 designs (random symmetric, the
+    # residual's scale): the kernel, the plain version, the parent's torch
+    # sweep and LAPACK-style torch.linalg.eigh.
+    m = torch.as_tensor(symmetric_batch(rng, JACOBI_TIMED, 4)[:JACOBI_TIMED], device=dev)
+    w, v = eigen.eigh_small(m)
+    kdev = device_ms(lambda: eigen.eigh_small(m), iters=5)
+    kms = cuda_ms(lambda: eigen.eigh_small(m), iters=5, warmup=1)
+    pms = statistics.median(wall_ms(lambda: eigen.eigh_small_plain(m), reps=2))
+    wp, vp = eigen.eigh_small_plain(m)
+    require(same_bits_any(w, wp) and same_bits_any(v, vp), "jacobi at the timed block: bitwise equal to plain")
+    parent_ms = statistics.median(wall_ms(lambda: torch_jacobi_unfused(m), reps=3))
+    print(f"jacobi at a consensus block: kernel {kms:.3f} ms (device {kdev:.3f}), plain {pms:.1f} ms, the parent's "
+          f"torch sweep {parent_ms:.1f} ms", flush=True)
+    # torch.linalg.eigh (cuSOLVER's batched syev): one call where cuSOLVER
+    # takes the batch, else the sum over 4, 16, ... equal chunks.
+    chunks = 1
+    while True:
+        step = JACOBI_TIMED // chunks
+
+        def lib():
+            return [torch.linalg.eigh(m[i:i + step]) for i in range(0, JACOBI_TIMED, step)]
+
+        try:
+            wl = torch.cat([r[0] for r in lib()])
+            break
+        except RuntimeError as err:
+            if chunks >= 1024:
+                raise
+            print(f"torch.linalg.eigh on {step} matrices a call: {str(err)[:100]}")
+            chunks *= 4
+    lib_ms = cuda_ms(lib, iters=3, warmup=1)
+    nbytes = JACOBI_TIMED * (16 + 4 + 16) * 8
+    rec = kernel_record(kms, pms, float((w - wp).abs().max()), nbytes, library_ms=lib_ms, device_ms=kdev,
+                        parent_torch_ms=parent_ms, library_calls=chunks)
+    ms_ops = JACOBI_TIMED * jacobi_flops(4, 6) / FP64_FLOPS * 1e3
+    if ms_ops > rec["bound_ms"]:
+        rec["bound_ms"], rec["bound_by"] = ms_ops, "operations"
+    print(f"jacobi at a consensus block ({JACOBI_TIMED} 4x4 float64, 6 sweeps): kernel {kms:.3f} ms, device (a CUDA "
+          f"graph) {kdev:.3f} ms; plain (eigh_small_plain, torch ops) {pms:.1f} ms; the parent's torch sweep "
+          f"{parent_ms:.1f} ms; torch.linalg.eigh {lib_ms:.3f} ms in {chunks} call(s) (eigenvalues within "
+          f"{float((wl - w).abs().max()):.2e}); bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}: "
+          f"{nbytes / 1e9:.3f} GB at 3.35 TB/s {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
+          f"{JACOBI_TIMED * jacobi_flops(4, 6) / 1e9:.2f} GFLOP float64 at 34 TFLOP/s {ms_ops:.4f} ms)")
+    del m, w, v, wp, vp
+    return rec, trig_rec
+
+
+def first_calls(k):
+    """A ``recording`` keep that clones the first ``k`` calls' arguments
+    and drops the rest."""
+    seen = [0]
+
+    def keep(args):
+        seen[0] += 1
+        return _clone(args) if seen[0] <= k else None
+
+    return keep
+
+
+def hold_recorded_designs(calls, label):
+    """Each recorded ``eigh4`` call's matrices (the consensus residual's
+    designs): the Jacobi kernel bitwise to the plain version."""
+    from cv_tpu_torch.ops import eigen
+
+    held = 0
+    for args, kw in calls:
+        if args is None:
+            continue
+        kw = {k: v for k, v in kw.items() if k != "exact"}  # the card's Jacobi is exact either way
+        design = args[0]
+        w, v = eigen.eigh_small(design, *args[1:], **kw)
+        wp, vp = eigen.eigh_small_plain(design, *args[1:], **kw)
+        require(same_bits_any(w, wp) and same_bits_any(v, vp), f"jacobi on {label}'s designs: bitwise equal")
+        held += design.numel() // design.shape[-1] ** 2
+    require(held > 0, f"no {label} design recorded")
+    print(f"jacobi on {label}'s recorded eigensystems: {held} matrices bitwise equal to the plain version")
+
+
 def check_experiment_kernels(dev, seed):
     """Phase 3 for the experiments' kernels, at their scripts' shapes: the
     retired selects (the select kernel at the KITTI batch's shapes), the
@@ -2126,9 +2394,11 @@ def check_experiment_kernels(dev, seed):
         ops = TRIG_OPS["cos_sin" if label.startswith("cos") else "angle"] * (words // 3)
         b_ms, b_by = bound(words * 4, ops)
         rec[label] = dict(ms=fms, plain_ms=fpms, device_ms=fdev, plain_device_ms=fpdev, bound_ms=b_ms)
+        if label.startswith("cos"):  # the library yardstick: torch.cos plus torch.sin (angle_cv's wrap has none)
+            rec[label]["library_ms"] = cuda_ms(lambda: (torch.cos(ang_k), torch.sin(ang_k)))
         print(f"trig {label}: bitwise equal ({int(torch.isnan(ref).sum())} NaN in the same places); kernel {fms:.4f} "
-              f"ms, plain {fpms:.4f} ms; device (a CUDA graph) {fdev:.4f} ms, plain {fpdev:.4f} ms; bound "
-              f"{b_ms:.6f} ms ({b_by})")
+              f"ms, plain {fpms:.4f} ms; device (a CUDA graph) {fdev:.4f} ms, plain {fpdev:.4f} ms; library "
+              f"{rec[label].get('library_ms', float('nan')):.4f} ms; bound {b_ms:.6f} ms ({b_by})")
     # The launch floor: an empty kernel of one block from the same library.
     rec["empty_ms"] = cuda_ms(lambda: trig.empty_launch(dev))
     rec["empty_device_ms"] = device_ms(lambda: trig.empty_launch(dev))
@@ -2330,14 +2600,15 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
               f"{launches['dedup_scan']}, single_view_l2 {launches['single_view_l2']}, three_view_l2 "
               f"{launches['three_view_l2']}, three_view_adaptive {launches['three_view_adaptive']}, select_samples "
               f"{launches['select_samples']}, select_fused {launches['select_fused']}, angle_cv "
-              f"{launches['angle_cv']}, cos_sin {launches['cos_sin']}; compiled unfilter calls "
+              f"{launches['angle_cv']}, cos_sin {launches['cos_sin']}, atan2 {launches['atan2']}, jacobi "
+              f"{launches['jacobi']}; compiled unfilter calls "
               f"{png_mod.unfilter.calls}; plain-version calls {sb_run['plain']}")
         require(png_mod.unfilter.calls == len(frames), f"sandbox {run}: {png_mod.unfilter.calls} compiled decodes")
         scan_steps_run = [int(scan_steps(args).max()) for args, _ in scan_calls[f"sandbox {run}"]]
         print(f"sandbox {run}: the exact extractor's dedup scan, steps a frame (every candidate) {scan_steps_run}")
         expect = dict(select_groups=0, select_samples=0, select_fused=0, dedup_scan=len(frames), **TRIG_LAUNCHED)
         if run == "run1":
-            expect.update(single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,))
+            expect.update(single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,), jacobi=(1,))
         tally(sb_run, **expect)
         ms = hooks["ms"]
         decode = ms.pop("png decode (loader thread)")
@@ -3171,7 +3442,7 @@ def apps_phase(dev, counters, plains, tally):
     print(f"apps: kpdraw {len(kp['response'])} keypoints; chapter 3 {len(kp3['response'])} keypoints; chapter 4 "
           f"{len(matches4)} symmetric matches; chapter 5 {inliers5} inliers of {matches5} matches; {seconds:.3f} s; "
           f"launches {run['launches']}")
-    tally(run, dedup_scan=6, select_samples=0, select_groups=0, select_fused=0, **TRIG_LAUNCHED)
+    tally(run, dedup_scan=6, select_samples=0, select_groups=0, select_fused=0, jacobi=(1,), **TRIG_LAUNCHED)
     require(len(kp["response"]) == KITTI_KEYPOINTS[0], f"kpdraw: {len(kp['response'])} keypoints")
     drawn = read_png(os.path.join(work, "kpdraw.png"))
     require(np.array_equal(drawn, kpdraw.render_crosses(load_gray(frame0), kp["point"])),
@@ -3192,6 +3463,7 @@ def kernel_counters():
     from cv_tpu_torch.akaze import fused as fused_mod
     from cv_tpu_torch.akaze import select as select_mod
     from cv_tpu_torch.experiments import mldb_losers, probes
+    from cv_tpu_torch.ops import eigen as eigen_mod
     from cv_tpu_torch.ops import trig as trig_mod
     from cv_tpu_torch.optimize import optimizers, resident
 
@@ -3211,6 +3483,8 @@ def kernel_counters():
         "trig_probe": probes.trig_probe,
         "angle_cv": trig_mod.angle_cv,
         "cos_sin": trig_mod.cos_sin,
+        "atan2": trig_mod.atan2,
+        "jacobi": eigen_mod.eigh_small,
         **{f"bisect_{body}": fn for body, fn in probes.BISECT.items()},
         **{f"mxu_{body}": fn for body, fn in probes.MXU.items()},
     }
@@ -3220,7 +3494,8 @@ def kernel_counters():
         (optimizers, "single_view_simple_optimize_l2"), (optimizers, "three_view_simple_optimize_l2"),
         (optimizers, "three_view_adaptive_optimize_l2"), (probes, "select_window_plain"),
         (probes, "take_along_plain"), (probes, "trig_probe_plain"), (probes, "bisect_plain"), (probes, "mxu_plain"),
-        (trig_mod, "angle_cv_plain"), (trig_mod, "cos_sin_plain"),
+        (trig_mod, "angle_cv_plain"), (trig_mod, "cos_sin_plain"), (trig_mod, "cos_sin_by_dtype"),
+        (trig_mod, "atan2_plain"), (eigen_mod, "eigh_small_plain"),
     ]
     return counters, plains
 
@@ -3247,6 +3522,7 @@ def main():
     from cv_tpu_torch.experiments import probes
     from cv_tpu_torch.experiments import runs as exp_runs
     from cv_tpu_torch.matching import PAD_DISTANCE, distance_matrix, knn2
+    from cv_tpu_torch.ops import eigen as eigen_mod
     from cv_tpu_torch.sfm import device_refine
     from cv_tpu_torch.solvers import eight_point
     from cv_tpu_torch.utils import KITTI_INTRINSICS, kitti_pair
@@ -3310,6 +3586,7 @@ def main():
     dedup_record = check_dedup_kernel(dev, args.seed, recorded[0][0])
     del recorded
     exp_records = check_experiment_kernels(dev, args.seed)
+    jacobi_record, trig64_record = check_eigen_trig64(dev, args.seed)
 
     clock("3")
     # -- 4. the KITTI path, once, with the counters at zero ------------------
@@ -3350,7 +3627,8 @@ def main():
     select_calls, scan_calls = {}, {}
     with main_path(counters, plains) as kitti_run, \
             recording(desc_mod, "select_samples", keep_planes) as select_calls["kitti"], \
-            recording(extrema, "dedup_scan_device") as scan_calls["kitti"]:
+            recording(extrema, "dedup_scan_device") as scan_calls["kitti"], \
+            recording(eigen_mod, "eigh4", first_calls(2)) as kitti_designs:
         fs, idx, keep = extract_and_match(images)
         model, mask, count = pose_pair0(fs, idx, keep)
     counts = fs.count.tolist()
@@ -3360,7 +3638,9 @@ def main():
     require(counts == KITTI_KEYPOINTS * (BATCH // 2), f"keypoints {counts}")
     require(matches == [KITTI_MATCHES] * (BATCH // 2), f"matches {matches}")
     require(int(count) == KITTI_INLIERS, f"inliers {int(count)}")
-    tally(kitti_run, select_samples=2, dedup_scan=1, **TRIG_LAUNCHED)  # orientation + M-LDB pass; one scan
+    tally(kitti_run, select_samples=2, dedup_scan=1, jacobi=(1,), **TRIG_LAUNCHED)  # orientation + M-LDB; one scan
+    hold_recorded_designs(kitti_designs, "the KITTI pose pipeline")
+    del kitti_designs
     require(tuple(fs.words.shape) == (BATCH, 512, 16) and fs.words.dtype == torch.int32, "words shape")
     v = fs.valid
     require(bool(torch.isfinite(fs.point[v]).all() & torch.isfinite(fs.angle[v]).all()), "finite keypoints")
@@ -3386,7 +3666,8 @@ def main():
     with record_pose_calls() as pose_calls, \
             recording(desc_mod, "select_samples", keep_planes) as select_calls["sfm"], \
             recording(extrema, "dedup_scan_device") as scan_calls["sfm"], \
-            recording(device_refine, "graph_ba_core") as ba_calls:
+            recording(device_refine, "graph_ba_core") as ba_calls, \
+            recording(eigen_mod, "eigh4", first_calls(2)) as sfm_designs:
         warm_engine, warm_s, _, _ = run_sfm(dev)
     print(f"sfm warm pass: {SFM_FRAMES / warm_s:.3f} fps ({warm_s:.3f} s)")
     del warm_engine
@@ -3399,7 +3680,9 @@ def main():
           f"plain-version calls {sfm_run['plain']}")
     print("sfm phases (ms, synchronized): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_ms.items()))
     tally(sfm_run, single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,),
-          select_samples=(2 * SFM_FRAMES,), dedup_scan=(SFM_FRAMES,), **TRIG_LAUNCHED)
+          select_samples=(2 * SFM_FRAMES,), dedup_scan=(SFM_FRAMES,), jacobi=(1,), atan2=(1,), **TRIG_LAUNCHED)
+    hold_recorded_designs(sfm_designs, "the SfM warm pass's first init")
+    del sfm_designs
     del engine
     # Every A, B and C call of the warm pass, replayed on its own.
     for name, recorded in pose_calls.items():
@@ -3435,7 +3718,8 @@ def main():
           f"{merge_run['launches']['single_view_l2']}, angle_cv {merge_run['launches']['angle_cv']}, cos_sin "
           f"{merge_run['launches']['cos_sin']}; plain-version calls {merge_run['plain']}")
     tally(merge_run, three_view_l2=(1,), three_view_adaptive=(1,), single_view_l2=(1,),
-          select_samples=(2 * len(merge_counts),), dedup_scan=(len(merge_counts),), **TRIG_LAUNCHED)
+          select_samples=(2 * len(merge_counts),), dedup_scan=(len(merge_counts),), jacobi=(1,), atan2=(1,),
+          **TRIG_LAUNCHED)
     del merge_engine
 
     clock("6")
@@ -3686,7 +3970,8 @@ def main():
     def row(name, source, replaces, launches, rec):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         measured = ("device_ms", "library_device_ms", "plain_device_ms", "steps", "us_per_step", "engine",
-                    "aligned_ms", "aligned_plain_ms", "aligned_bound_ms")
+                    "aligned_ms", "aligned_plain_ms", "aligned_bound_ms", "parent_torch_ms", "library_calls",
+                    "so3_entries")
         return {"name": name, "route": "cuda", "source": f"cv_tpu_torch/csrc/{source}.cu", "replaces": replaces,
                 "launches": launches, **{k: rec[k] for k in keys}, **{k: rec[k] for k in measured if k in rec}}
 
@@ -3709,11 +3994,13 @@ def main():
     ]
     for name, spec in POSE_KERNELS.items():
         records.append(row(name, name, spec["replaces"], main_launches[name], pose_records[name]))
+    records.append(row("jacobi", "jacobi", "cv_tpu/ops/eigen.py:19", main_launches["jacobi"], jacobi_record))
     # The trig kernel's row counts the describe paths' launches (angle_cv,
-    # cos_sin) with the probe run's.
-    trig_launches = {k: main_launches[k] for k in ("angle_cv", "cos_sin", "trig_probe")}
+    # cos_sin), the so(3) maps' (cos_sin, atan2) and the probe run's.
+    trig_launches = {k: main_launches[k] for k in ("angle_cv", "cos_sin", "atan2", "trig_probe")}
     main_launches["trig_probe"] = sum(trig_launches.values())
     print(f"trig kernel launches: {json.dumps(trig_launches)}")
+    exp_records["trig_probe"]["so3_entries"] = trig64_record
     for name, (source, replaces) in EXPERIMENT_KERNELS.items():
         records.append(row(name, source, replaces, main_launches[name], exp_records[name]))
     clock("10")

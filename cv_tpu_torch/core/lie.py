@@ -7,6 +7,14 @@ float dtype.
 * ``so3_exp`` is Rodrigues with the reference's Taylor branch at
   ``theta^2 <= eps``.
 * ``so3_log`` returns the scaled axis, zeros where the result is NaN.
+* Their sine, cosine and atan2 are ``ops.trig``'s: glibc's, as ``cv_tpu``'s
+  ``jnp.sin``/``cos``/``arctan2`` are on a CPU, in float32 and float64; on
+  the card one trig kernel launch each (``so3_exp`` its cos and sin
+  together).  ``so3_exp``'s square roots are ``trig.sqrt``: correctly
+  rounded, as the reference's are.  Those functions carry their analytic
+  derivatives (``torch.autograd`` and ``torch.func``, as ``optimize.lm``'s
+  default Jacobian takes them), rounded as torch rounds them: the maps'
+  derivatives are within an ulp or so of ``jax.jacfwd``'s, not bitwise.
 * An se(3) tangent is ``(translation, rotation)``; its isometry is
   ``(R, R @ translation)`` with ``R = exp(rotation)`` (so3.rs:52-60), not
   the textbook SE(3) exponential.
@@ -16,6 +24,7 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import trig
 from ..ops.precision import full_f32
 
 
@@ -68,11 +77,12 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rotation matrix from a scaled axis (Rodrigues), with the Taylor
     coefficients at ``theta^2 <= eps`` (so3.rs:243-256)."""
     theta2 = (w * w).sum(dim=-1)
-    theta = torch.sqrt(theta2)
+    theta = trig.sqrt(theta2)
     small = theta2 <= torch.finfo(w.dtype).eps
     t2s = torch.where(small, torch.ones_like(theta2), theta2)
-    a = torch.where(small, 1.0 - theta2 / 6.0, torch.sin(theta) / torch.sqrt(t2s))
-    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / t2s)
+    cos, sin = trig.cos_sin(theta)
+    a = torch.where(small, 1.0 - theta2 / 6.0, sin / trig.sqrt(t2s))
+    b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - cos) / t2s)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(w.shape[:-1] + (3, 3))
     return eye + a[..., None, None] * so3_hat(w) + b[..., None, None] * so3_hat2(w)
 
@@ -92,7 +102,7 @@ def so3_log(r: torch.Tensor) -> torch.Tensor:
         * 0.5
     )
     sin_theta = torch.linalg.vector_norm(axis_sin, dim=-1)
-    theta = torch.atan2(sin_theta, cos_theta)
+    theta = trig.atan2(sin_theta, cos_theta)
     eps = torch.finfo(dtype).eps
     near_pi = cos_theta < -1.0 + 16.0 * eps
     small = theta < eps**0.25

@@ -194,7 +194,7 @@ def camera_to_camera_residual(pose: Isometry3, a: torch.Tensor, b: torch.Tensor)
         for k in range(3):
             tk = term[..., k, :]
             design = design + tk[..., :, None] * tk[..., None, :]
-    eigvals, eigvecs = eigh4(design)
+    eigvals, eigvecs = eigh4(design, exact=False)  # the design is off the reference's bits on a CPU
     # ascending eigenvalues; the reference picks min |eigenvalue|.
     idx = torch.argmin(eigvals.abs(), dim=-1)
     v = torch.gather(eigvecs, -1, idx[..., None, None].expand(eigvecs.shape[:-1] + (1,)))[..., 0]

@@ -6,15 +6,23 @@
 // cv_tpu_torch/ops/trig.py (the plain versions), so a kernel that includes
 // this header gives their bits.
 //
+// The float64 section is glibc 2.36's double sin, cos (dbl-64/s_sin.c,
+// branred.c) and atan2 (dbl-64/e_atan2.c), the x86-64 FMA build that XLA's
+// CPU backend calls for jnp.sin/cos/arctan2 of float64, with atan2 under
+// the flush-to-zero and denormals-are-zero mode that XLA runs it in; its
+// tables are trig64_tables.cuh, copied from libm.so.6.
+//
 // Every float and double operation is an explicit round-to-nearest
 // intrinsic (no contraction under any --fmad setting), and glibc's fused
-// multiply-adds are __fma_rn.  libdevice's atan2f/cosf/sinf round otherwise
-// and are not used.
+// multiply-adds are __fma_rn.  libdevice's atan2f/cosf/sinf and its double
+// functions round otherwise and are not used.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "trig64_tables.cuh"
 
 namespace cv_trig {
 
@@ -200,5 +208,275 @@ __device__ __forceinline__ float sincos_ref(float a, bool cosine) {
 
 __device__ __forceinline__ float cosf_ref(float a) { return sincos_ref(a, true); }
 __device__ __forceinline__ float sinf_ref(float a) { return sincos_ref(a, false); }
+
+
+// ---------------------------------------------------------------------------
+// float64 sin / cos (sysdeps/ieee754/dbl-64/s_sin.c, branred.c)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ double tab64(const uint64_t* table, int i) {
+  return __longlong_as_double(static_cast<long long>(__ldg(reinterpret_cast<const unsigned long long*>(table) + i)));
+}
+__device__ __forceinline__ double bits_d(unsigned long long b) {
+  return __longlong_as_double(static_cast<long long>(b));
+}
+
+constexpr double kBig = 0x1.8p45, kHp0 = 0x1.921fb54442d18p0, kHp1 = 0x1.1a62633145c07p-54;
+constexpr double kSn3 = -0x1.5555555555515p-3, kSn5 = 0x1.11110e829872fp-7;
+constexpr double kCs2 = 0.5, kCs4 = -0x1.5555555555535p-5, kCs6 = 0x1.6c16bedd9e239p-10;
+constexpr double kTs1 = -0x1.5555555555555p-3, kTs2 = 0x1.1111111110ecep-7, kTs3 = -0x1.a01a019db08b8p-13,
+                 kTs4 = 0x1.71de27b9a7ed9p-19, kTs5 = -0x1.addffc2fcdf59p-26;
+constexpr double kHpInv = 0x1.45f306dc9c883p-1, kToInt = 0x1.8p52;
+constexpr double kMp1 = 0x1.921fb58p0, kMp2 = -0x1.dde973cp-27, kPp3 = -0x1.cb3b398p-55, kPp4 = -0x1.d747f23e32ed7p-83;
+constexpr double kSplit = 134217729.0, kTm600 = 0x1p-600, kTm24 = 0x1p-24, kBig1 = 0x1.8p54, kMp2Br = -0x1.dde974p-27;
+
+// TAYLOR_SIN(x^2, x, dx): x + ((P(x^2) x - dx / 2) x^2 + dx).
+__device__ __forceinline__ double taylor_sin(double x, double dx) {
+  const double xx = __dmul_rn(x, x);
+  double poly = __fma_rn(xx, kTs5, kTs4);
+  poly = __fma_rn(poly, xx, kTs3);
+  poly = __fma_rn(poly, xx, kTs2);
+  poly = __fma_rn(poly, xx, kTs1);
+  return __dadd_rn(x, __fma_rn(xx, __fma_rn(poly, x, -__dmul_rn(0.5, dx)), dx));
+}
+
+// The table point nearest |x| (a multiple of 1/128), the remainder and the
+// table's sin, its low part, cos and its low part there.
+struct SinCosPoint {
+  double xr, sn, ssn, cs, ccs;
+};
+
+__device__ __forceinline__ SinCosPoint sincos_point(double x) {
+  const double ax = fabs(x);
+  const double u = __dadd_rn(ax, kBig);
+  const int k = __double2loint(u) << 2;
+  return {__dsub_rn(ax, __dsub_rn(u, kBig)), tab64(kSinCosTab, k), tab64(kSinCosTab, k + 1),
+          tab64(kSinCosTab, k + 2), tab64(kSinCosTab, k + 3)};
+}
+
+// do_sin(x, dx): sin(x + dx), the Taylor form below 0.126.
+__device__ __forceinline__ double do_sin(double x, double dx) {
+  if (fabs(x) < 0.126) return taylor_sin(x, dx);
+  const double dxs = x > 0 ? dx : -dx;
+  const SinCosPoint t = sincos_point(x);
+  const double xx = __dmul_rn(t.xr, t.xr);
+  const double s = __dadd_rn(t.xr, __fma_rn(__dmul_rn(t.xr, xx), __fma_rn(xx, kSn5, kSn3), dxs));
+  const double c = __fma_rn(t.xr, dxs, __dmul_rn(xx, __fma_rn(xx, __fma_rn(xx, kCs6, kCs4), kCs2)));
+  const double cor = __fma_rn(s, t.cs, __fma_rn(-c, t.sn, __fma_rn(s, t.ccs, t.ssn)));
+  return copysign(__dadd_rn(t.sn, cor), x);
+}
+
+// do_cos(x, dx): cos(x + dx).
+__device__ __forceinline__ double do_cos(double x, double dx) {
+  const double dxs = x < 0 ? -dx : dx;
+  const SinCosPoint t = sincos_point(x);
+  const double xr = __dadd_rn(t.xr, dxs);
+  const double xx = __dmul_rn(xr, xr);
+  const double s = __fma_rn(__dmul_rn(xr, xx), __fma_rn(xx, kSn5, kSn3), xr);
+  const double c = __dmul_rn(xx, __fma_rn(xx, __fma_rn(xx, kCs6, kCs4), kCs2));
+  return __dadd_rn(t.cs, __fma_rn(-s, t.sn, __fma_rn(-c, t.cs, __fma_rn(-s, t.ssn, t.ccs))));
+}
+
+// reduce_sincos (|x| < 105414350): x = n pi/2 + a + da to 136 bits.
+__device__ __forceinline__ int reduce_sincos(double x, double* a, double* da) {
+  const double t = __fma_rn(x, kHpInv, kToInt);
+  const double xn = __dsub_rn(t, kToInt);
+  const int n = __double2loint(t) & 3;
+  const double y = __fma_rn(-xn, kMp2, __fma_rn(-xn, kMp1, x));
+  const double t2 = __fma_rn(-xn, kPp3, y);
+  const double db = __fma_rn(-xn, kPp3, __dsub_rn(y, t2));
+  const double b = __fma_rn(-xn, kPp4, t2);
+  *a = b;
+  *da = __dadd_rn(db, __fma_rn(-xn, kPp4, __dsub_rn(t2, b)));
+  return n;
+}
+
+// One half of __branred: x1 times 2/pi in six 24-bit pieces (toverp), the
+// integer part summed apart.
+__device__ __forceinline__ void branred_part(double x1, double* sum, double* b, double* bb) {
+  int k = ((__double2hiint(x1) >> 20) & 2047) - 450;
+  k = k > 0 ? k / 24 : 0;
+  double gor = bits_d(static_cast<unsigned long long>(0x63f00000u - static_cast<unsigned>((k * 24) << 20)) << 32);
+  double r[6];
+  for (int i = 0; i < 6; ++i) {
+    r[i] = __dmul_rn(__dmul_rn(x1, tab64(kToverp, k + i)), gor);
+    gor = __dmul_rn(gor, kTm24);
+  }
+  double total = 0.0;
+  for (int i = 0; i < 6; ++i) {
+    const double s = __dsub_rn(__dadd_rn(r[i], kToInt), kToInt);
+    total = __dadd_rn(total, s);
+    r[i] = __dsub_rn(r[i], s);
+  }
+  double t = 0.0;
+  for (int i = 0; i < 6; ++i) t = __dadd_rn(t, r[5 - i]);
+  double c = __dsub_rn(r[0], t);
+  for (int i = 1; i < 6; ++i) c = __dadd_rn(c, r[i]);
+  const double s = __dsub_rn(__dadd_rn(t, kToInt), kToInt);
+  total = __dadd_rn(total, s);
+  t = __dsub_rn(t, s);
+  *b = __dadd_rn(t, c);
+  *bb = __dadd_rn(__dsub_rn(t, *b), c);
+  *sum = __dsub_rn(total, __dsub_rn(__dadd_rn(total, kBig1), kBig1));
+}
+
+// __branred (|x| >= 105414350; glibc's generic build, no fused operations).
+__device__ __forceinline__ int branred(double x, double* a, double* da) {
+  x = __dmul_rn(x, kTm600);
+  const double tx = __dmul_rn(x, kSplit);
+  const double x1 = __dsub_rn(tx, __dsub_rn(tx, x));
+  const double x2 = __dsub_rn(x, x1);
+  double sum1, b1, bb1, sum2, b2, bb2;
+  branred_part(x1, &sum1, &b1, &bb1);
+  branred_part(x2, &sum2, &b2, &bb2);
+  double total = __dadd_rn(sum1, sum2);
+  double b = __dadd_rn(b1, b2);
+  const double bb = fabs(b1) > fabs(b2) ? __dadd_rn(__dsub_rn(b1, b), b2) : __dadd_rn(__dsub_rn(b2, b), b1);
+  if (b > 0.5) {
+    b = __dsub_rn(b, 1.0);
+    total = __dadd_rn(total, 1.0);
+  } else if (b < -0.5) {
+    b = __dadd_rn(b, 1.0);
+    total = __dsub_rn(total, 1.0);
+  }
+  const double s = __dadd_rn(b, __dadd_rn(__dadd_rn(bb, bb1), bb2));
+  const double t = __dadd_rn(__dadd_rn(__dsub_rn(b, s), bb), __dadd_rn(bb1, bb2));
+  const double ts = __dmul_rn(s, kSplit);
+  const double t1 = __dsub_rn(ts, __dsub_rn(ts, s));
+  const double t2 = __dsub_rn(s, t1);
+  const double hb = __dmul_rn(s, kHp0);
+  const double hbb = __dadd_rn(
+      __dadd_rn(__dadd_rn(__dsub_rn(__dmul_rn(t1, kMp1), hb), __dmul_rn(t1, kMp2Br)), __dmul_rn(t2, kMp1)),
+      __dadd_rn(__dadd_rn(__dmul_rn(t2, kMp2Br), __dmul_rn(s, kHp1)), __dmul_rn(t, kHp0)));
+  const double r = __dadd_rn(hb, hbb);
+  *a = r;
+  *da = __dadd_rn(__dsub_rn(hb, r), hbb);
+  return static_cast<int>(static_cast<long long>(total)) & 3;
+}
+
+// cos(a) and sin(a) of glibc: one do_sin and one do_cos at the points that
+// a's band names.
+__device__ __forceinline__ void cos_sin64(double a, double* co, double* si) {
+  const int k = __double2hiint(a) & 0x7fffffff;
+  if (k >= 0x7ff00000) {  // inf or NaN: NaN
+    *co = *si = __ddiv_rn(a, a);
+    return;
+  }
+  double sx = a, sdx = 0.0, cx = a, cdx = 0.0;
+  bool swap = false, neg_s = false, neg_c = false, middle = false;
+  if (k >= 0x3feb6000 && k < 0x400368fd) {  // 0.855469 <= |a| < 2.426265
+    const double t = __dsub_rn(kHp0, fabs(a));
+    sx = __dadd_rn(t, kHp1);
+    sdx = __dadd_rn(__dsub_rn(t, sx), kHp1);
+    cx = t;
+    cdx = kHp1;
+    swap = middle = true;
+  } else if (k >= 0x400368fd) {
+    double r, dr;
+    const int n = k < 0x419921fb ? reduce_sincos(a, &r, &dr) : branred(a, &r, &dr);
+    sx = cx = r;
+    sdx = cdx = dr;
+    swap = n & 1;
+    neg_s = n & 2;
+    neg_c = (n + 1) & 2;
+  }
+  const double ds = do_sin(sx, sdx), dc = do_cos(cx, cdx);
+  double s = swap ? dc : ds, c = swap ? ds : dc;
+  if (middle) s = copysign(s, a);
+  if (neg_s) s = -s;
+  if (neg_c) c = -c;
+  *si = k < 0x3e500000 ? a : s;
+  *co = k < 0x3e400000 ? 1.0 : c;
+}
+
+// ---------------------------------------------------------------------------
+// float64 atan2 (sysdeps/ieee754/dbl-64/e_atan2.c) under FTZ and DAZ
+// ---------------------------------------------------------------------------
+
+constexpr double kOpi = 0x1.921fb54442d18p1, kOpi1 = 0x1.1a62633145c07p-53;
+constexpr double kQpi = 0x1.921fb54442d18p-1, kTqpi = 0x1.2d97c7f3321d2p1;
+constexpr double kD3 = -0x1.5555555555555p-2, kD5 = 0x1.99999999997fdp-3, kD7 = -0x1.24924923f7603p-3,
+                 kD9 = 0x1.c71c6e5129a3bp-4, kD11 = -0x1.7458022b13c25p-4, kD13 = 0x1.375f08b31cbcep-4;
+
+// A subnormal double as the zero of its sign (XLA's DAZ/FTZ).
+__device__ __forceinline__ double flush64(double v) {
+  return (__double_as_longlong(v) & 0x7ff0000000000000ll) == 0 ? __dmul_rn(v, 0.0) : v;
+}
+
+__device__ __forceinline__ double atan2_64(double y, double x) {
+  const int ux = __double2hiint(x), dx = __double2loint(x), uy = __double2hiint(y), dy = __double2loint(y);
+  if (isnan(x)) return __dadd_rn(x, y);
+  if (isnan(y)) return __dadd_rn(y, y);
+  if ((uy & 0x7fffffff) == 0 && dy == 0) return ux < 0 ? (uy < 0 ? -kOpi : kOpi) : (uy < 0 ? -0.0 : 0.0);
+  const double xf = flush64(x), yf = flush64(y);
+  const double half = uy < 0 ? -kHp0 : kHp0;
+  if (xf == 0.0) return half;
+  const bool y_inf = (uy & 0x7fffffff) == 0x7ff00000 && dy == 0;
+  if ((ux & 0x7fffffff) == 0x7ff00000 && dx == 0) {
+    if (ux < 0) return y_inf ? (uy < 0 ? -kTqpi : kTqpi) : (uy < 0 ? -kOpi : kOpi);
+    return y_inf ? (uy < 0 ? -kQpi : kQpi) : (uy < 0 ? -0.0 : 0.0);
+  }
+  if (y_inf) return half;
+  const int de = (uy & 0x7ff00000) - (ux & 0x7ff00000);
+  if (de >= (57 << 20)) return yf > 0 ? kHp0 : -kHp0;
+  if (de <= -(57 << 20)) {
+    if (xf > 0) return copysign(flush64(__ddiv_rn(fabs(yf), fabs(xf))), y);
+    return yf > 0 ? kOpi : -kOpi;
+  }
+  double ax = fabs(xf), ay = fabs(yf);
+  if (ax < 0x1p-500 || ay < 0x1p-500) {
+    ax = __dmul_rn(ax, 0x1p500);
+    ay = __dmul_rn(ay, 0x1p500);
+  }
+  if (ax > 0x1p500 || ay > 0x1p500) {
+    ax = __dmul_rn(ax, 0x1p-500);
+    ay = __dmul_rn(ay, 0x1p-500);
+  }
+  // u = min / max and its correction du (EMULV with a fused product).
+  const bool lo_y = ay < ax;
+  const double num = lo_y ? ay : ax, den = lo_y ? ax : ay;
+  const double u = __ddiv_rn(num, den);
+  const double v = __dmul_rn(den, u);
+  const double du = __ddiv_rn(__dsub_rn(__dsub_rn(num, v), __fma_rn(den, u, -v)), den);
+  // (i) x > 0, ay < ax: atan(u); (ii) x > 0: pi/2 - atan(u); (iii) x <= 0,
+  // ay > ax: pi/2 + atan(u); (iv) x <= 0, ay <= ax: pi - atan(u).
+  const bool pos = xf > 0;
+  const bool case1 = pos && lo_y, case4 = !pos && ay <= ax;
+  const double sigma = (!pos && !case4) ? 1.0 : -1.0;
+  const double base = case4 ? kOpi : kHp0, base1 = case4 ? kOpi1 : kHp1;
+  double z;
+  if (u < 0.0625) {
+    const double vv = __dmul_rn(u, u);
+    double poly = __fma_rn(vv, kD13, kD11);
+    poly = __fma_rn(poly, vv, kD9);
+    poly = __fma_rn(poly, vv, kD7);
+    poly = __fma_rn(poly, vv, kD5);
+    poly = __fma_rn(poly, vv, kD3);
+    const double uv = __dmul_rn(u, vv);
+    if (case1) {
+      z = __dadd_rn(u, __fma_rn(uv, poly, du));
+    } else {
+      const double t2 = __dadd_rn(base, __dmul_rn(sigma, u));
+      const double cor = __dadd_rn(__dsub_rn(base, t2), __dmul_rn(sigma, u));
+      z = __dadd_rn(t2, __dadd_rn(__dadd_rn(__dadd_rn(base1, cor), __dmul_rn(sigma, du)),
+                                  __dmul_rn(sigma, __dmul_rn(uv, poly))));
+    }
+  } else {
+    const int i = static_cast<int>(__dsub_rn(__dadd_rn(__dmul_rn(u, 256.0), 0x1p52), 0x1p52)) - 16;
+    double c[7];
+    for (int j = 0; j < 7; ++j) c[j] = tab64(kAtanCij, i * 7 + j);
+    const double t3 = __dsub_rn(u, c[0]);
+    const double w = __dadd_rn(t3, du);
+    const double dw = fabs(t3) > fabs(du) ? __dadd_rn(__dsub_rn(t3, w), du) : __dadd_rn(__dsub_rn(du, w), t3);
+    const double q = __fma_rn(__fma_rn(__fma_rn(c[6], w, c[5]), w, c[4]), w, c[3]);
+    if (case1) {
+      z = __dadd_rn(__fma_rn(w, c[2], __fma_rn(dw, c[2], __dmul_rn(__dmul_rn(w, w), q))), c[1]);
+    } else {
+      z = __dadd_rn(__dadd_rn(base, __dmul_rn(sigma, c[1])),
+                    __fma_rn(__dmul_rn(sigma, w), __fma_rn(q, w, c[2]), base1));
+    }
+  }
+  return copysign(z, y);
+}
 
 }  // namespace cv_trig

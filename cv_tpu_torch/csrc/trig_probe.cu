@@ -11,6 +11,10 @@
 //   cv_trig_angle    the describe's orientation angle, remainder(atan2(y, x)
 //                    + 2pi, 2pi) (ops.trig.angle_cv)
 //   cv_trig_cos_sin  the describe's cos and sin of the angle (ops.trig.cos_sin)
+//   cv_trig_atan2_f32, cv_trig_atan2_f64, cv_trig_cos_sin_f64
+//                    atan2 of float32 (so3_log's, no 2pi wrap) and of float64,
+//                    cos and sin of float64 (glibc's sin/cos and atan2, as
+//                    trig.cuh states them): ops.trig.atan2 and cos_sin by dtype
 //
 // Replaces experiments/exp_r5_pfused.py::phase_trig, a TPU probe that asked
 // whether Mosaic's in-kernel atan2/cos/sin round as XLA's do outside a
@@ -83,6 +87,30 @@ __global__ void __launch_bounds__(kThreads) cos_sin_kernel(const float* __restri
   }
 }
 
+__global__ void __launch_bounds__(kThreads) atan2_f32_kernel(const float* __restrict__ y, const float* __restrict__ x,
+                                                             float* __restrict__ out, int64_t n) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    out[i] = atan2_of(y[i], x[i]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) atan2_f64_kernel(const double* __restrict__ y, const double* __restrict__ x,
+                                                             double* __restrict__ out, int64_t n) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    out[i] = cv_trig::atan2_64(y[i], x[i]);
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) cos_sin_f64_kernel(const double* __restrict__ a, double* __restrict__ co,
+                                                               double* __restrict__ si, int64_t n) {
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x; i < n;
+       i += static_cast<int64_t>(gridDim.x) * kThreads) {
+    cv_trig::cos_sin64(a[i], co + i, si + i);
+  }
+}
+
 __global__ void empty_kernel() {}
 
 int blocks(int64_t n) {
@@ -108,6 +136,24 @@ extern "C" int cv_trig_angle(const float* y, const float* x, float* out, int64_t
 extern "C" int cv_trig_cos_sin(const float* a, float* co, float* si, int64_t n, void* stream) {
   if (n <= 0) return 0;
   cos_sin_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, co, si, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cv_trig_atan2_f32(const float* y, const float* x, float* out, int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  atan2_f32_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(y, x, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cv_trig_atan2_f64(const double* y, const double* x, double* out, int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  atan2_f64_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(y, x, out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int cv_trig_cos_sin_f64(const double* a, double* co, double* si, int64_t n, void* stream) {
+  if (n <= 0) return 0;
+  cos_sin_f64_kernel<<<blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(a, co, si, n);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -15,7 +15,7 @@ sequential row filters): ``nvcc`` hands it to its host compiler, and it is
 built and loaded like the kernels.
 
 The pose-optimizer loops, the dedup scan, the fused describe, the select
-probes and the trig kernel are built with ``--fmad=false``: no
+probes, the trig kernel and the Jacobi eigensolver are built with ``--fmad=false``: no
 multiply-add is contracted, so each float expression rounds as it is
 written, as the kernels' plain versions round.
 """
@@ -50,11 +50,12 @@ EXTRA_FLAGS = {
     "select_fused": ["--fmad=false"],
     "select_probes": ["--fmad=false"],
     "trig_probe": ["--fmad=false"],
+    "jacobi": ["--fmad=false"],
 }
 KERNELS = (
     "select_samples", "select_groups", "select_fused", "dedup_scan",
     "single_view_l2", "three_view_l2", "three_view_adaptive",
-    "take_along", "trig_probe", "select_probes", "png_unfilter",
+    "take_along", "trig_probe", "select_probes", "jacobi", "png_unfilter",
 )
 
 # name -> (ctypes library, build record); filled at first use.

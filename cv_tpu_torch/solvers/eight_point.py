@@ -36,7 +36,7 @@ def essential_from_matches(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Least-squares essential matrix from >= 8 matches ``(..., K, 3)``:
     the smallest eigenvector of the 9x9 normal matrix (lib.rs:44-60)."""
     rows = encode_epipolar_equation(a, b)  # (..., K, 9)
-    _, vecs = eigh_small(rows.transpose(-1, -2) @ rows, sweeps=8)  # ascending
+    _, vecs = eigh_small(rows.transpose(-1, -2) @ rows, sweeps=8, exact=False)  # ascending
     v = vecs[..., :, 0]
     # E[i, j] = v[3j + i]
     return v.reshape(v.shape[:-1] + (3, 3)).transpose(-1, -2)

@@ -97,7 +97,7 @@ def nullspace_basis(a: torch.Tensor, b: torch.Tensor):
     above it from the fifth.
     """
     rows = (a[..., :, None] * b[..., None, :]).reshape(a.shape[:-1] + (9,))
-    vals, vecs = eigh_small(rows.transpose(-1, -2) @ rows, sweeps=8)
+    vals, vecs = eigh_small(rows.transpose(-1, -2) @ rows, sweeps=8, exact=False)
     ok = (vals[..., 3] <= EIGEN_THRESHOLD) & (vals[..., 4] > EIGEN_THRESHOLD)
     return vecs[..., :, :4], ok
 

@@ -18,7 +18,15 @@ synchronize (medians):
   kernel, 5 reps);
 * ``exact_sparse`` and ``exact_default``: ``AkazeExtractor`` a KITTI frame
   at ``Akaze.sparse()`` and ``Akaze()``, the mean over the two frames of
-  each frame's median of 3.
+  each frame's median of 3;
+* ``pose_pipeline``: chip_smoke.py's consensus on the KITTI pair 0
+  (eight-point, 512 hypotheses, float64; median of 5);
+* ``sfm_init`` and ``sfm_init_two_view``: the SfM configuration's timed pass
+  (``chip_smoke.run_sfm``, after a warm pass): the engine's init phase and,
+  inside it, its ``init_two_view`` calls (summed ms);
+* ``init_two_view_sandbox``: one ``init_two_view`` of that engine's first
+  two frames at the vslam-sandbox app's two-view budget (8,192 hypotheses,
+  two refit rounds of 1,024; median of 3).
 
 The roots run in the order given (for a comparison: parent, this tree,
 this tree, parent), one process each.  Prints one line per run, then one
@@ -36,9 +44,10 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 METRICS = ("kitti_extract_match", "kitti_describe", "dense_extract", "dense_describe", "pfused_describe",
-           "exact_sparse", "exact_default")
+           "exact_sparse", "exact_default", "pose_pipeline", "sfm_init", "sfm_init_two_view", "init_two_view_sandbox")
 
 
 def child(root: str) -> dict:
@@ -50,8 +59,13 @@ def child(root: str) -> dict:
     import chip_smoke as cs
     from cv_tpu_torch import kernels
     from cv_tpu_torch.akaze import Akaze, AkazeExtractor, DeviceExtractor, load_gray, to_gray_f32
+    from cv_tpu_torch.camera import CameraIntrinsics
+    from cv_tpu_torch.consensus import BatchConsensus, Estimator
+    from cv_tpu_torch.core import Isometry3, camera_to_camera_residual
     from cv_tpu_torch.matching import PAD_DISTANCE, distance_matrix, knn2
-    from cv_tpu_torch.utils import kitti_pair
+    from cv_tpu_torch.sfm import VSlam
+    from cv_tpu_torch.solvers import eight_point
+    from cv_tpu_torch.utils import KITTI_INTRINSICS, kitti_pair
 
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
@@ -87,6 +101,50 @@ def child(root: str) -> dict:
             ex.extract(img)
         out[label] = statistics.mean(statistics.median(cs.wall_ms(lambda img=img: ex.extract(img), reps=3))
                                      for img in frames)
+
+    # The pose pipeline: chip_smoke.py's consensus on pair 0.
+    fs = extractor.extract(images)
+    idx, keep = extract_and_match()
+    intr = CameraIntrinsics.from_values(*KITTI_INTRINSICS, device=dev)
+    ia = torch.nonzero(keep[0])[:, 0]
+    data = (intr.calibrate(fs.point[0][ia].double()), intr.calibrate(fs.point[1][idx[0, :, 0][ia]].double()))
+    estimator = Estimator(
+        min_samples=8, models_per_sample=4, estimate=lambda s: eight_point.estimate(s[0], s[1]),
+        residual=lambda m, d: camera_to_camera_residual(
+            Isometry3(m.rotation[..., None, :, :], m.translation[..., None, :]), d[0], d[1]))
+    consensus = BatchConsensus(threshold=0.1, hypotheses=512, device=dev)
+
+    def pose():
+        return consensus.model_inliers(torch.Generator(device=dev).manual_seed(0), estimator, data)
+
+    pose()
+    out["pose_pipeline"] = statistics.median(cs.wall_ms(pose, reps=5))
+
+    # The SfM configuration: its init phase and init_two_view calls in the
+    # timed pass, then one init_two_view at the sandbox's budget.
+    two_view = {"ms": 0.0}
+    real = VSlam.init_two_view
+
+    def timed(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = real(self, *a, **kw)
+        torch.cuda.synchronize()
+        two_view["ms"] += (time.perf_counter() - t0) * 1e3
+        return res
+
+    cs.run_sfm(dev)
+    VSlam.init_two_view = timed
+    try:
+        engine, _, phase_ms, _ = cs.run_sfm(dev, timed_phases=True)
+    finally:
+        VSlam.init_two_view = real
+    out["sfm_init"], out["sfm_init_two_view"] = phase_ms["init"], two_view["ms"]
+    engine.two_view_consensus = BatchConsensus(threshold=engine.settings.two_view_consensus_threshold,
+                                               hypotheses=8192, refit_rounds=2, refit_hypotheses=1024, device=dev)
+    frames = sorted(engine.data.frames)[:2]
+    engine.init_two_view(*frames)
+    out["init_two_view_sandbox"] = statistics.median(cs.wall_ms(lambda: engine.init_two_view(*frames), reps=3))
     return out
 
 

@@ -7,7 +7,7 @@ round once.  They are held bitwise here (a NaN only by position): on
 seeded draws, on bands around each branch's bounds and on tables of special
 values; and an element's bits are held independent of its place in a
 batch.  The exact fused multiply-add that the cosine and sine need
-(``trig._fma``) is held to exact rational arithmetic.  The kernel,
+(``trig.fma_f64``) is held to exact rational arithmetic.  The kernel,
 ``csrc/trig_probe.cu``, runs only on a card: the ``cuda`` tests hold it to
 the plain versions there and skip here.
 """
@@ -197,15 +197,17 @@ def test_fma_rounds_once(case):
         q = rng.integers(-76, 77, n).astype(np.float64)
         a, b = q, np.full(n, -trig.HPI)
         c = (q * np.pi / 2).astype(F32).astype(np.float64)
-    got = trig._fma(torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(c)).numpy()
+    got = trig.fma_f64(torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(c)).numpy()
     np.testing.assert_array_equal(got.view(np.uint64), _fma_exact(a, b, c).view(np.uint64))
 
 
 def test_wrappers_reject_other_dtypes():
+    """``angle_cv`` takes float32 only; ``cos_sin`` float32 and float64
+    (``tests/test_torch_trig64.py``), nothing else."""
     with pytest.raises(ValueError):
         trig.angle_cv(torch.zeros(3, dtype=torch.float64), torch.zeros(3, dtype=torch.float64))
     with pytest.raises(ValueError):
-        trig.cos_sin(torch.zeros(3, dtype=torch.float64))
+        trig.cos_sin(torch.zeros(3, dtype=torch.float16))
 
 
 # ---------------------------------------------------------------------------
