@@ -53,9 +53,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      bitwise (the fused describe also within its stated gates: ok flags
      equal, angles within 1e-5 rad, >= 99% of word rows bitwise equal, no
      row more than 16 of 486 bits off); the pose kernels' branch-free
-     division bitwise to ``x / y``, square root bitwise to sqrtf and
-     Taylor-branch division bitwise to ``/`` on every float of their
-     ranges; the pose-optimizer loops A (single_view_l2, N=2048), B
+     division bitwise to ``x / y`` and square root bitwise to sqrtf on
+     every float of its range; the pose-optimizer loops A (single_view_l2, N=2048), B
      (three_view_l2, N=1024) and C (three_view_adaptive, K=64, N=64)
      within 1e-6 after one step, 1e-4 after a full run (2,000 / 2,000 /
      1,000 steps), A's and B's step counts (``steps_out``) equal to
@@ -86,7 +85,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      repeated-eigenvalue, ``apq = 0``, rank-one, graded matrices) bitwise to
      their plain versions, and the Jacobi timed at one consensus block
      (4,194,304 4x4 float64) beside its plain version, the parent's torch
-     sweep and ``torch.linalg.eigh``; the
+     sweep and ``torch.linalg.eigh``; the consensus residual's entry of the
+     same source (``cv_c2c_residual_f64``: the design, the Jacobi and the
+     score a pair in registers) bitwise to ``pose.c2c_residual_plain`` and
+     timed beside it at a block of 4,194,304 (model, match) pairs; the
      summing probes within ``probes.SUM_ATOL`` (the window, column and
      row sums also bitwise to their order mirrors); beside each kernel's time
      and its plain version's, one PyTorch call computing the same function
@@ -97,8 +99,11 @@ Phases, in order; any failed check raises and the script exits non-zero:
   4. drive the KITTI path once with the launch counters at zero: gates
      [399, 343] keypoints, 11 matches, 11 inliers, the select kernel
      launched twice and the dedup kernel once per extract, the Jacobi
-     kernel launched; the consensus' recorded designs held bitwise
-     (Jacobi kernel against plain);
+     kernel and the residual entry launched; the consensus's first two
+     recorded residual blocks held bitwise to the plain residual (and the
+     Jacobi kernel to the plain one on their designs), its first scoring
+     stage rerun with the plain residual: the same model, inlier mask and
+     count;
   4b. the exact extractor on the KITTI pair at full size, each threshold
      with the counters at zero: [399, 343] keypoints and 11
      ``match_descriptors`` matches at ``Akaze.sparse()``, [3425, 2908] at
@@ -122,8 +127,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      every consecutive relative rotation < 1 degree, an empty
      ``sanity_check``, kernels A, B and C launched, the select kernel on
      every frame, the dedup kernel once per frame, the Jacobi kernel and
-     the so(3) maps' trig launches (atan2, cos/sin); the warm pass's
-     first init consensus designs held bitwise; every A, B and C call of
+     the so(3) maps' trig launches (atan2, cos/sin), the residual entry;
+     the warm pass's first init consensus held as in phase 4; every A, B
+     and C call of
      the warm pass is recorded and, after the timed pass, replayed on its
      own (calls, N, valid rows, summed device time; A's and B's steps and
      us a step); A's and B's call of fewest steps, their first call with
@@ -152,9 +158,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      extractor's launches (the scan once a frame over every candidate, its
      steps printed; the trig kernel, no select kernel), A's, B's and C's,
      the phase times (extract, init, registration, BA+filter, normalize, export, save,
-     load, PNG decode a frame), and A's, B's and C's calls replayed and held
-     to plain as the SfM path's are; the scan calls are replayed with phase
-     7's;
+     load, PNG decode a frame), A's, B's and C's calls replayed and held
+     to plain as the SfM path's are, and each run's first two-view
+     consensus held as in phase 4 (the residual entry launched in run 1);
+     the scan calls are replayed with phase 7's;
   7. drive the dense path, each run with the counters at zero: keypoint
      counts within bench.py's tolerance of [3425, 2908], the group select
      launched twice and the dedup kernel once; the ``'pfused'`` and
@@ -608,10 +615,8 @@ def check_pose_arithmetic(dev, seed, n=1 << 22):
     bit patterns (every exponent, specials included), log-uniform
     magnitudes across the range's edges at 2^-60 and 2^60, and operands
     whose significand is all ones.  The square root against sqrtf on every
-    float of its range, and the division of Rodrigues' Taylor branch against
-    ``x / 6`` and ``x / 24`` on every float of its (``cv_pose_fast_path_check``).
-    Returns the numbers of pairs, square roots and Taylor divisors
-    checked."""
+    float of its range (``cv_pose_fast_path_check``).  Returns the numbers
+    of pairs and square roots checked."""
     import ctypes
 
     import torch
@@ -637,13 +642,12 @@ def check_pose_arithmetic(dev, seed, n=1 << 22):
         ref = x / y
         same = (out.view(torch.int32) == ref.view(torch.int32)) | (out.isnan() & ref.isnan())
         require(bool(same.all()), f"the pose kernels' division differs from x / y on {int((~same).sum())} pairs")
-    bad = torch.zeros(2, dtype=torch.int64, device=dev)
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
     check = kernels.function("three_view_l2", "cv_pose_fast_path_check", [ctypes.c_void_p] * 2)
     require(check(bad.data_ptr(), kernels.current_stream(dev)) == 0, "fast-path check launch")
-    sqrt_bad, taylor_bad = (int(b) for b in bad.tolist())
+    sqrt_bad = int(bad.item())
     require(sqrt_bad == 0, f"the pose kernels' square root differs from sqrtf on {sqrt_bad} floats")
-    require(taylor_bad == 0, f"the Rodrigues Taylor-branch division differs from x / y on {taylor_bad} floats")
-    return 5 * n, 0x7F7FFFFF - 0x0D000000 + 1, 0x34000000 + 1
+    return 5 * n, 0x7F7FFFFF - 0x0D000000 + 1
 
 
 def gate_pose(name, label, prob, steps, dev):
@@ -703,10 +707,9 @@ def check_pose_kernels(dev, seed):
     and the poses' copy back included), the device time (the launch in a
     CUDA graph) and, for A and B, us a step; then each kernel's shape
     cases.  Returns per-kernel records."""
-    pairs, roots, taylor = check_pose_arithmetic(dev, seed)
+    pairs, roots = check_pose_arithmetic(dev, seed)
     print(f"pose kernels' division bitwise equal to x / y on {pairs} pairs; square root bitwise equal to sqrtf "
-          f"on all {roots} floats of its range; Rodrigues' Taylor division bitwise equal to x / 6 and x / 24 on all "
-          f"{taylor} floats of its range")
+          f"on all {roots} floats of its range")
     out = {}
     for i, (name, spec) in enumerate(POSE_KERNELS.items()):
         prob = pose_problem(name, seed + i)
@@ -2018,6 +2021,37 @@ def torch_jacobi_unfused(a, sweeps=6):
     return torch.gather(w, -1, order), torch.gather(v, -1, order[..., None, :].expand(v.shape))
 
 
+# Float64 operations of one pair in csrc/jacobi.cu's residual entry besides
+# its 4x4 Jacobi (a fused multiply-add as two, a division or square root as
+# one), counted from the source: the two bearings' v^T pm (4 columns of 6)
+# and rows (12 fused operations), 48 + 48; the design's 10 entries of 11;
+# two from_homogeneous of 11; the rotated point, 3 x 8; the two cosines, 12;
+# the residual, 3.
+C2C_EXTRA_FLOPS = 96 + 110 + 22 + 24 + 12 + 3
+# The residual's timed block: 1,024 x 4 models against 1,024 matches.
+C2C_BLOCK = (1024, 4, 1024)
+# The most (model, match) pairs of a recorded scoring stage rerun with the
+# plain residual.
+SCORE_HOLD_PAIRS = 1 << 21
+
+
+def c2c_block(dev, rng):
+    """A consensus block of the residual, float64: random relative poses
+    (so(3) angles within 0.3 rad, unit-variance translations) of batch
+    shape ``(H, M, 1)`` against ``N`` random unit bearing pairs."""
+    import torch
+
+    from cv_tpu_torch.core.lie import so3_exp
+    from cv_tpu_torch.core.pose import Isometry3
+
+    h, m, n = C2C_BLOCK
+    rot = so3_exp(torch.as_tensor(rng.uniform(-0.3, 0.3, (h, m, 1, 3)), device=dev))
+    tr = torch.as_tensor(rng.standard_normal((h, m, 1, 3)), device=dev)
+    a, b = (torch.nn.functional.normalize(torch.as_tensor(rng.standard_normal((n, 3)), device=dev), dim=-1)
+            for _ in range(2))
+    return Isometry3(rot, tr), a, b
+
+
 def check_eigen_trig64(dev, seed):
     """The float64 trig kernels (``csrc/trig_probe.cu``: atan2 of float64
     and float32, cos/sin of float64) and the Jacobi kernel
@@ -2122,7 +2156,35 @@ def check_eigen_trig64(dev, seed):
           f"{nbytes / 1e9:.3f} GB at 3.35 TB/s {nbytes / HBM_BYTES_PER_S * 1e3:.4f} ms, "
           f"{JACOBI_TIMED * jacobi_flops(4, 6) / 1e9:.2f} GFLOP float64 at 34 TFLOP/s {ms_ops:.4f} ms)")
     del m, w, v, wp, vp
-    return rec, trig_rec
+
+    # The residual entry at a block of (model, match) pairs: the kernel
+    # beside its plain version (torch ops, the plain Jacobi); no one library
+    # call computes it.
+    from cv_tpu_torch.core import pose as pose_mod
+
+    pose, a, b = c2c_block(dev, rng)
+    got = pose_mod.c2c_residual(pose, a, b)
+    rdev = device_ms(lambda: pose_mod.c2c_residual(pose, a, b), iters=5)
+    rms = cuda_ms(lambda: pose_mod.c2c_residual(pose, a, b), iters=5, warmup=1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    want = pose_mod.c2c_residual_plain(pose, a, b)
+    torch.cuda.synchronize()
+    rpms = (time.perf_counter() - t0) * 1e3
+    require(same_bits_any(got, want), "residual at the timed block: bitwise equal to the plain version")
+    pairs = got.numel()
+    flops = pairs * (jacobi_flops(4, 6) + C2C_EXTRA_FLOPS)
+    nbytes = (12 * C2C_BLOCK[0] * C2C_BLOCK[1] + 6 * C2C_BLOCK[2] + pairs) * 8  # poses, bearings in; residuals out
+    res_rec = kernel_record(rms, rpms, float((got - want).abs().max()), nbytes, library_ms=None, device_ms=rdev)
+    ms_ops = flops / FP64_FLOPS * 1e3
+    if ms_ops > res_rec["bound_ms"]:
+        res_rec["bound_ms"], res_rec["bound_by"] = ms_ops, "operations"
+    print(f"residual at a consensus block ({pairs} pairs, float64): kernel {rms:.3f} ms, device (a CUDA graph) "
+          f"{rdev:.3f} ms; plain (c2c_residual_plain, torch ops) {rpms:.1f} ms; {int((got == 2.0).sum())} pairs at "
+          f"2.0; bound {res_rec['bound_ms']:.4f} ms ({res_rec['bound_by']}: {flops / 1e9:.2f} GFLOP float64 at 34 "
+          f"TFLOP/s); library: none")
+    del got, want
+    return rec, trig_rec, res_rec
 
 
 def first_calls(k):
@@ -2137,23 +2199,61 @@ def first_calls(k):
     return keep
 
 
-def hold_recorded_designs(calls, label):
-    """Each recorded ``eigh4`` call's matrices (the consensus residual's
-    designs): the Jacobi kernel bitwise to the plain version."""
+def hold_recorded_residuals(calls, scores, label):
+    """Each recorded call of the residual entry (``pose.c2c_residual``: the
+    consensus's blocks of pairs) bitwise to the plain residual, and the
+    Jacobi kernel bitwise to ``eigh_small_plain`` on those pairs' designs;
+    each recorded scoring stage (``BatchConsensus._score_stage``; its first
+    hypotheses, up to ``SCORE_HOLD_PAIRS`` pairs) rerun with the plain
+    residual in the entry's place: the same chosen model, inlier mask and
+    count."""
+    import torch
+
+    from cv_tpu_torch.consensus import BatchConsensus
+    from cv_tpu_torch.core import pose as pose_mod
     from cv_tpu_torch.ops import eigen
 
-    held = 0
+    pairs = designs = 0
     for args, kw in calls:
         if args is None:
             continue
-        kw = {k: v for k, v in kw.items() if k != "exact"}  # the card's Jacobi is exact either way
-        design = args[0]
-        w, v = eigen.eigh_small(design, *args[1:], **kw)
-        wp, vp = eigen.eigh_small_plain(design, *args[1:], **kw)
+        got = pose_mod.c2c_residual(*args, **kw)
+        want = pose_mod.c2c_residual_plain(*args[:3])
+        require(same_bits_any(got, want), f"residual on {label}'s pairs: bitwise equal to the plain version")
+        pairs += got.numel()
+        design = pose_mod.c2c_design(*args[:3]).reshape(-1, 4, 4)[: 1 << 20]
+        w, v = eigen.eigh_small(design)
+        wp, vp = eigen.eigh_small_plain(design)
         require(same_bits_any(w, wp) and same_bits_any(v, vp), f"jacobi on {label}'s designs: bitwise equal")
-        held += design.numel() // design.shape[-1] ** 2
-    require(held > 0, f"no {label} design recorded")
-    print(f"jacobi on {label}'s recorded eigensystems: {held} matrices bitwise equal to the plain version")
+        designs += design.shape[0]
+    require(pairs > 0, f"no {label} residual recorded")
+    held = 0
+    for args, kw in scores:
+        if args is None:
+            continue
+        # At most ``SCORE_HOLD_PAIRS`` pairs: the first hypotheses' models
+        # (the plain residual takes seconds a block).
+        consensus, estimator, models, data, valid = args
+        h, m = models.translation.shape[:2]
+        keep = max(1, SCORE_HOLD_PAIRS // (m * valid.shape[0]))
+        models = type(models)(rotation=models.rotation[:keep], translation=models.translation[:keep])
+        args = (consensus, estimator, models, data, valid)
+        kernel = BatchConsensus._score_stage(*args, **kw)
+        real = pose_mod.c2c_residual
+        pose_mod.c2c_residual = lambda pose, a, b, sweeps=6: pose_mod.c2c_residual_plain(pose, a, b)
+        try:
+            plain = BatchConsensus._score_stage(*args, **kw)
+        finally:
+            pose_mod.c2c_residual = real
+        (km, kmask, kcount, _), (pm, pmask, pcount, _) = kernel, plain
+        same = (torch.equal(km.rotation, pm.rotation) and torch.equal(km.translation, pm.translation)
+                and torch.equal(kmask, pmask) and int(kcount) == int(pcount))
+        require(same, f"{label}'s scoring with the plain residual: the same model, inlier mask and count")
+        held += 1
+    require(held > 0, f"no {label} scoring stage recorded")
+    print(f"residual on {label}'s recorded blocks: {pairs} pairs bitwise equal to the plain version, the jacobi on "
+          f"{designs} of their designs bitwise; {held} scoring stage(s) with the plain residual: the same model, "
+          "inlier mask and count")
 
 
 def check_experiment_kernels(dev, seed):
@@ -2552,6 +2652,8 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
     from cv_tpu_torch.akaze import extrema
     from cv_tpu_torch.akaze.extract import load_gray
     from cv_tpu_torch.apps import vslam_sandbox as sandbox_app
+    from cv_tpu_torch.consensus import BatchConsensus
+    from cv_tpu_torch.core import pose as pose_mod
     from cv_tpu_torch.utils import loader
     from cv_tpu_torch.utils import png as png_mod
 
@@ -2585,7 +2687,8 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
         png_mod.unfilter.calls = 0
         with sandbox_hooks(dev) as hooks, main_path(counters, plains + [(png_mod, "unfilter_plain")]) as sb_run, \
                 recording(extrema, "dedup_scan_device") as scan_calls[f"sandbox {run}"], \
-                record_pose_calls() as sb_pose:
+                record_pose_calls() as sb_pose, recording(pose_mod, "c2c_residual", first_calls(1)) as sb_res, \
+                recording(BatchConsensus, "_score_stage", first_calls(1)) as sb_scores:
             t0 = time.perf_counter()
             sb_engine = sandbox_app.main(argv, device=dev)
             torch.cuda.synchronize()
@@ -2601,15 +2704,19 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
               f"{launches['three_view_l2']}, three_view_adaptive {launches['three_view_adaptive']}, select_samples "
               f"{launches['select_samples']}, select_fused {launches['select_fused']}, angle_cv "
               f"{launches['angle_cv']}, cos_sin {launches['cos_sin']}, atan2 {launches['atan2']}, jacobi "
-              f"{launches['jacobi']}; compiled unfilter calls "
+              f"{launches['jacobi']}, c2c_residual {launches['c2c_residual']}; compiled unfilter calls "
               f"{png_mod.unfilter.calls}; plain-version calls {sb_run['plain']}")
         require(png_mod.unfilter.calls == len(frames), f"sandbox {run}: {png_mod.unfilter.calls} compiled decodes")
         scan_steps_run = [int(scan_steps(args).max()) for args, _ in scan_calls[f"sandbox {run}"]]
         print(f"sandbox {run}: the exact extractor's dedup scan, steps a frame (every candidate) {scan_steps_run}")
         expect = dict(select_groups=0, select_samples=0, select_fused=0, dedup_scan=len(frames), **TRIG_LAUNCHED)
         if run == "run1":
-            expect.update(single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,), jacobi=(1,))
+            expect.update(single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,), jacobi=(1,),
+                          c2c_residual=(1,))
         tally(sb_run, **expect)
+        if run == "run1" or sb_res:
+            hold_recorded_residuals(sb_res, sb_scores, f"the sandbox {run}'s first two-view consensus")
+        del sb_res, sb_scores
         ms = hooks["ms"]
         decode = ms.pop("png decode (loader thread)")
         print(f"sandbox {run} phases (ms, synchronized; calls): "
@@ -3462,6 +3569,7 @@ def kernel_counters():
     from cv_tpu_torch.akaze import extrema
     from cv_tpu_torch.akaze import fused as fused_mod
     from cv_tpu_torch.akaze import select as select_mod
+    from cv_tpu_torch.core import pose as pose_mod
     from cv_tpu_torch.experiments import mldb_losers, probes
     from cv_tpu_torch.ops import eigen as eigen_mod
     from cv_tpu_torch.ops import trig as trig_mod
@@ -3485,6 +3593,7 @@ def kernel_counters():
         "cos_sin": trig_mod.cos_sin,
         "atan2": trig_mod.atan2,
         "jacobi": eigen_mod.eigh_small,
+        "c2c_residual": pose_mod.c2c_residual,
         **{f"bisect_{body}": fn for body, fn in probes.BISECT.items()},
         **{f"mxu_{body}": fn for body, fn in probes.MXU.items()},
     }
@@ -3495,7 +3604,7 @@ def kernel_counters():
         (optimizers, "three_view_adaptive_optimize_l2"), (probes, "select_window_plain"),
         (probes, "take_along_plain"), (probes, "trig_probe_plain"), (probes, "bisect_plain"), (probes, "mxu_plain"),
         (trig_mod, "angle_cv_plain"), (trig_mod, "cos_sin_plain"), (trig_mod, "cos_sin_by_dtype"),
-        (trig_mod, "atan2_plain"), (eigen_mod, "eigh_small_plain"),
+        (trig_mod, "atan2_plain"), (eigen_mod, "eigh_small_plain"), (pose_mod, "c2c_residual_plain"),
     ]
     return counters, plains
 
@@ -3519,10 +3628,10 @@ def main():
     from cv_tpu_torch.camera import CameraIntrinsics
     from cv_tpu_torch.consensus import BatchConsensus, Estimator
     from cv_tpu_torch.core import Isometry3, camera_to_camera_residual
+    from cv_tpu_torch.core import pose as pose_mod
     from cv_tpu_torch.experiments import probes
     from cv_tpu_torch.experiments import runs as exp_runs
     from cv_tpu_torch.matching import PAD_DISTANCE, distance_matrix, knn2
-    from cv_tpu_torch.ops import eigen as eigen_mod
     from cv_tpu_torch.sfm import device_refine
     from cv_tpu_torch.solvers import eight_point
     from cv_tpu_torch.utils import KITTI_INTRINSICS, kitti_pair
@@ -3586,7 +3695,7 @@ def main():
     dedup_record = check_dedup_kernel(dev, args.seed, recorded[0][0])
     del recorded
     exp_records = check_experiment_kernels(dev, args.seed)
-    jacobi_record, trig64_record = check_eigen_trig64(dev, args.seed)
+    jacobi_record, trig64_record, c2c_record = check_eigen_trig64(dev, args.seed)
 
     clock("3")
     # -- 4. the KITTI path, once, with the counters at zero ------------------
@@ -3628,7 +3737,8 @@ def main():
     with main_path(counters, plains) as kitti_run, \
             recording(desc_mod, "select_samples", keep_planes) as select_calls["kitti"], \
             recording(extrema, "dedup_scan_device") as scan_calls["kitti"], \
-            recording(eigen_mod, "eigh4", first_calls(2)) as kitti_designs:
+            recording(pose_mod, "c2c_residual", first_calls(2)) as kitti_residuals, \
+            recording(BatchConsensus, "_score_stage", first_calls(1)) as kitti_scores:
         fs, idx, keep = extract_and_match(images)
         model, mask, count = pose_pair0(fs, idx, keep)
     counts = fs.count.tolist()
@@ -3638,9 +3748,10 @@ def main():
     require(counts == KITTI_KEYPOINTS * (BATCH // 2), f"keypoints {counts}")
     require(matches == [KITTI_MATCHES] * (BATCH // 2), f"matches {matches}")
     require(int(count) == KITTI_INLIERS, f"inliers {int(count)}")
-    tally(kitti_run, select_samples=2, dedup_scan=1, jacobi=(1,), **TRIG_LAUNCHED)  # orientation + M-LDB; one scan
-    hold_recorded_designs(kitti_designs, "the KITTI pose pipeline")
-    del kitti_designs
+    # orientation + M-LDB; one scan; the residual's blocks
+    tally(kitti_run, select_samples=2, dedup_scan=1, jacobi=(1,), c2c_residual=(1,), **TRIG_LAUNCHED)
+    hold_recorded_residuals(kitti_residuals, kitti_scores, "the KITTI pose pipeline")
+    del kitti_residuals, kitti_scores
     require(tuple(fs.words.shape) == (BATCH, 512, 16) and fs.words.dtype == torch.int32, "words shape")
     v = fs.valid
     require(bool(torch.isfinite(fs.point[v]).all() & torch.isfinite(fs.angle[v]).all()), "finite keypoints")
@@ -3667,7 +3778,8 @@ def main():
             recording(desc_mod, "select_samples", keep_planes) as select_calls["sfm"], \
             recording(extrema, "dedup_scan_device") as scan_calls["sfm"], \
             recording(device_refine, "graph_ba_core") as ba_calls, \
-            recording(eigen_mod, "eigh4", first_calls(2)) as sfm_designs:
+            recording(pose_mod, "c2c_residual", first_calls(2)) as sfm_residuals, \
+            recording(BatchConsensus, "_score_stage", first_calls(1)) as sfm_scores:
         warm_engine, warm_s, _, _ = run_sfm(dev)
     print(f"sfm warm pass: {SFM_FRAMES / warm_s:.3f} fps ({warm_s:.3f} s)")
     del warm_engine
@@ -3680,9 +3792,10 @@ def main():
           f"plain-version calls {sfm_run['plain']}")
     print("sfm phases (ms, synchronized): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_ms.items()))
     tally(sfm_run, single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,),
-          select_samples=(2 * SFM_FRAMES,), dedup_scan=(SFM_FRAMES,), jacobi=(1,), atan2=(1,), **TRIG_LAUNCHED)
-    hold_recorded_designs(sfm_designs, "the SfM warm pass's first init")
-    del sfm_designs
+          select_samples=(2 * SFM_FRAMES,), dedup_scan=(SFM_FRAMES,), jacobi=(1,), atan2=(1,), c2c_residual=(1,),
+          **TRIG_LAUNCHED)
+    hold_recorded_residuals(sfm_residuals, sfm_scores, "the SfM warm pass's first init")
+    del sfm_residuals, sfm_scores
     del engine
     # Every A, B and C call of the warm pass, replayed on its own.
     for name, recorded in pose_calls.items():
@@ -3995,6 +4108,8 @@ def main():
     for name, spec in POSE_KERNELS.items():
         records.append(row(name, name, spec["replaces"], main_launches[name], pose_records[name]))
     records.append(row("jacobi", "jacobi", "cv_tpu/ops/eigen.py:19", main_launches["jacobi"], jacobi_record))
+    records.append(row("c2c_residual", "jacobi", "cv_tpu/core/pose.py:206", main_launches["c2c_residual"],
+                       c2c_record))
     # The trig kernel's row counts the describe paths' launches (angle_cv,
     # cos_sin), the so(3) maps' (cos_sin, atan2) and the probe run's.
     trig_launches = {k: main_launches[k] for k in ("angle_cv", "cos_sin", "atan2", "trig_probe")}

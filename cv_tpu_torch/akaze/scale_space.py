@@ -14,6 +14,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops import image as ops
+from ..ops import trig
 from .config import Akaze, EvolutionSpec
 
 
@@ -49,8 +50,8 @@ def compute_contrast_factor(
     batch = mag2.shape[:-2]
     m2 = mag2.reshape(-1, mag2.shape[-2] * mag2.shape[-1]).to(torch.float64)
 
-    hmax = torch.sqrt(m2.max(dim=1).values)  # (F,)
-    modg = torch.sqrt(m2)
+    hmax = trig.sqrt(m2.max(dim=1).values)  # (F,)
+    modg = trig.sqrt(m2)
     nonzero = modg != 0.0
     num_points = nonzero.sum(dim=1)
     threshold = torch.floor(num_points.to(torch.float64) * percentile).to(torch.int64)

@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops import trig
+
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:
     return v / torch.linalg.vector_norm(v, dim=-1, keepdim=True)
@@ -103,7 +105,7 @@ class CameraIntrinsicsK1Distortion:
         k1 = self.k1
         denom = 2.0 * k1 * u2
         denom = torch.where(denom == 0, torch.ones_like(denom), denom)
-        r2_mul_k1 = -(2.0 * k1 * u2 + torch.sqrt(1.0 - 4.0 * k1 * u2) - 1.0) / denom
+        r2_mul_k1 = -(2.0 * k1 * u2 + trig.sqrt(1.0 - 4.0 * k1 * u2) - 1.0) / denom
         r2_mul_k1 = torch.where(k1 * u2 == 0, torch.zeros_like(r2_mul_k1), r2_mul_k1)
         scale = 1.0 + r2_mul_k1
         dx, dy = ux * scale, uy * scale

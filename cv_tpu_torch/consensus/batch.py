@@ -86,7 +86,10 @@ class Estimator:
 
 
 # The most (model, data row) pairs whose residuals are materialized at once
-# in the scoring stage.
+# in the scoring stage.  On a card the relative-pose residual's entry keeps
+# each pair's design and eigensystem in registers, so a block holds only
+# its residuals and masks (~17 bytes a pair); on a CPU the plain residual's
+# intermediates (~300 bytes a pair) set the size.
 SCORE_BLOCK = 1 << 22
 # Hypothesis shares start at multiples of this many hypotheses.  On a CPU
 # the vectorized transcendental functions (the Jacobi sweeps' atan2, cos and
@@ -196,11 +199,11 @@ class BatchConsensus:
         inlier mask, inlier count, total inlier residual)``.
 
         The residuals are taken over blocks of hypotheses of at most
-        ``SCORE_BLOCK`` (model, row) pairs: a residual materializes its
-        intermediates (the relative-pose residual a 4x4 eigensystem per
-        pair), which at the sandbox's budgets (8,192 hypotheses x 4 models x
-        thousands of matches) would not fit a card's memory.  Each pair's
-        residual, count and total are the same in any block."""
+        ``SCORE_BLOCK`` (model, row) pairs: the residuals, masks and sums of
+        the sandbox's budgets (8,192 hypotheses x 4 models x thousands of
+        matches), and on a CPU the plain residual's intermediates (a 4x4
+        eigensystem a pair), would not fit at once.  Each pair's residual,
+        count and total are the same in any block."""
         n = _first_leaf(data).shape[0]
         h, m = _first_leaf(models).shape[:2]
         step = max(1, SCORE_BLOCK // (m * n))

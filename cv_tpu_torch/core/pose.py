@@ -11,6 +11,7 @@ in full precision on the card whatever the TF32 setting
 
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -18,6 +19,7 @@ import torch
 
 from . import projective
 from .lie import so3_exp, so3_hat, so3_log
+from ..ops import trig
 from ..ops.precision import full_f32
 
 
@@ -172,37 +174,162 @@ def world_to_camera_residual(pose: Isometry3, bearing: torch.Tensor, world_point
     return 1.0 - (bearing * obs).sum(dim=-1)
 
 
+# The design's upper triangle, row-major: (row, column) index pairs.
+_UPPER = [(i, j) for i in range(4) for j in range(i, 4)]
+
+
+def _dlt_terms(pm: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The rows ``pm - v (v^T pm)`` ``(..., 3, 4)`` of one bearing's DLT
+    block: each column's ``v^T pm`` by
+    :func:`~cv_tpu_torch.ops.trig.dot_fused` and each entry one fused
+    ``fma(-v_k, s_j, pm_kj)``, as XLA's CPU code computes them in the jitted
+    scoring."""
+    s = trig.dot_fused(v[..., :, None], pm, -2)  # (..., 4)
+    return trig.fma(-v[..., :, None], s[..., None, :], pm)
+
+
+def c2c_design(pose: Isometry3, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The residual's symmetric 4x4 DLT design ``sum_k t_k t_k^T`` over the
+    three rows of each bearing's block (``a`` against the identity, ``b``
+    against ``pose``), broadcast to ``(..., 4, 4)``, with the reference's
+    jitted bits on a CPU: the first product rounded, every later one fused
+    into the running sum (``fma(t0i, t0j, t1i t1j)``, then ``fma(t_ki, t_kj,
+    acc)`` in order: a's rows, then b's)."""
+    eye = torch.eye(3, 4, dtype=a.dtype, device=a.device)
+    ta, tb = _dlt_terms(eye, a), _dlt_terms(pose.matrix3x4(), b)
+    shape = torch.broadcast_shapes(ta.shape, tb.shape)
+    rows = torch.cat([ta.expand(shape), tb.expand(shape)], -2)  # (..., 6, 4)
+    ii, jj = (torch.tensor(k, device=a.device) for k in zip(*_UPPER))
+    x, y = rows[..., ii], rows[..., jj]  # (..., 6, 10)
+    acc = trig.fma(x[..., 0, :], y[..., 0, :], x[..., 1, :] * y[..., 1, :])
+    for k in range(2, 6):
+        acc = trig.fma(x[..., k, :], y[..., k, :], acc)
+    full = [_UPPER.index((min(i, j), max(i, j))) for i in range(4) for j in range(4)]
+    return acc[..., full].reshape(shape[:-2] + (4, 4))
+
+
+def c2c_residual_plain(pose: Isometry3, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`camera_to_camera_residual` in torch operations on any device,
+    with the bits of ``cv_tpu``'s jitted scoring on a CPU: the design of
+    :func:`c2c_design`, the Jacobi ``ops.eigen.eigh_small_plain``, the
+    eigenvector of least
+    |eigenvalue| (the first on ties), and the point, the bearings and the
+    cosines as XLA's CPU code computes them: each sum of products
+    :func:`~cv_tpu_torch.ops.trig.dot_fused`, the pose's translation fused
+    into its rotated point, the IEEE square root, and the residual as
+    ``((2 - a.bearing_a) - b.bearing_b) * 0.5``, XLA's reassociation of
+    ``0.5 (1 - a.bearing_a + 1 - b.bearing_b)``.  Non-finite results are
+    2.0."""
+    from ..ops import eigen
+
+    eigvals, eigvecs = eigen.eigh_small_plain(c2c_design(pose, a, b))
+    idx = torch.argmin(eigvals.abs(), dim=-1)
+    v = torch.gather(eigvecs, -1, idx[..., None, None].expand(eigvecs.shape[:-1] + (1,)))[..., 0]
+    pt = _from_homogeneous_fused(v)
+    p = pt.unbind(-1)
+    rot, tr = pose.rotation, pose.translation
+    q = [trig.fma(tr[..., i], p[3], trig.dot_fused([rot[..., i, k] for k in range(3)], p[:3])) for i in range(3)]
+    qb = _from_homogeneous_fused(torch.stack(q + [p[3].expand(q[0].shape)], -1)).unbind(-1)
+    da = trig.dot_fused(a.unbind(-1), p[:3])
+    db = trig.dot_fused(b.unbind(-1), qb[:3])
+    res = ((2.0 - da) - db) * 0.5
+    finite = torch.isfinite(pt).all(dim=-1)
+    return torch.where(finite & torch.isfinite(res), res, torch.full_like(res, 2.0))
+
+
+def _c2c_residual_unfused(pose: Isometry3, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The residual in its cheap form (a CPU's outside
+    ``ops.eigen.exact_on_cpu``): the design and the scores summed in plain
+    products, the unfused Jacobi sweep, within a few ulps of
+    :func:`c2c_residual_plain`."""
+    from ..ops.eigen import eigh4
+
+    eye_pose = Isometry3.identity(dtype=a.dtype, device=a.device)
+    shape = torch.broadcast_shapes(a.shape[:-1], pose.batch_shape) + (4, 4)
+    design = torch.zeros(shape, dtype=a.dtype, device=a.device)
+    for p, bearing_vec in ((eye_pose, a), (pose, b)):
+        pm = p.matrix3x4()  # (..., 3, 4)
+        s = (bearing_vec[..., :, None] * pm).sum(dim=-2)  # (..., 4)
+        term = pm - bearing_vec[..., :, None] * s[..., None, :]  # (..., 3, 4)
+        for k in range(3):
+            tk = term[..., k, :]
+            design = design + tk[..., :, None] * tk[..., None, :]
+    eigvals, eigvecs = eigh4(design, exact=False)
+    idx = torch.argmin(eigvals.abs(), dim=-1)
+    v = torch.gather(eigvecs, -1, idx[..., None, None].expand(eigvecs.shape[:-1] + (1,)))[..., 0]
+    pt = projective.from_homogeneous(v)
+    res = 0.5 * (1.0 - (a * projective.bearing(pt)).sum(dim=-1) + 1.0
+                 - (b * projective.bearing(pose.transform(pt))).sum(dim=-1))
+    return torch.where(projective.is_finite(pt) & torch.isfinite(res), res, torch.full_like(res, 2.0))
+
+
+def _from_homogeneous_fused(point: torch.Tensor) -> torch.Tensor:
+    """:func:`projective.from_homogeneous` with the norm's squares summed by
+    ``dot_fused`` and the IEEE square root (the jitted scoring's bits)."""
+    point = torch.where(point[..., 3:4] < 0, -point, point)
+    xyz = point[..., :3].unbind(-1)
+    return point / trig.sqrt(trig.dot_fused(xyz, xyz))[..., None]
+
+
 def camera_to_camera_residual(pose: Isometry3, a: torch.Tensor, b: torch.Tensor):
     """``Model<FeatureMatch>::residual`` for a relative pose (pose.rs:249-296).
 
     Triangulates via the symmetric 4x4 DLT (smallest eigenvector of the
     accumulated design matrix) and scores cheirality + cosine distance; any
     non-finite result maps to 2.0 exactly like the reference.  Broadcasts
-    the pose batch against the match batch.
+    the pose batch against the match batch.  On a CUDA tensor one launch of
+    ``csrc/jacobi.cu``'s residual entry (:func:`c2c_residual`); on a CPU
+    tensor :func:`c2c_residual_plain` within ``ops.eigen.exact_on_cpu``
+    (it costs tens of times the cheap form there), else
+    :func:`_c2c_residual_unfused`.
     """
-    from ..ops.eigen import eigh4
+    from ..ops import eigen
 
-    dtype = a.dtype
-    eye_pose = Isometry3.identity(dtype=dtype, device=a.device)
-    shape = torch.broadcast_shapes(a.shape[:-1], pose.batch_shape) + (4, 4)
-    design = torch.zeros(shape, dtype=dtype, device=a.device)
-    for p, bearing_vec in ((eye_pose, a), (pose, b)):
-        pm = p.matrix3x4()  # (..., 3, 4)
-        # b (b^T pm) == (b b^T) pm; kept in the reference's elementwise form.
-        s = (bearing_vec[..., :, None] * pm).sum(dim=-2)  # (..., 4)
-        term = pm - bearing_vec[..., :, None] * s[..., None, :]  # (..., 3, 4)
-        for k in range(3):
-            tk = term[..., k, :]
-            design = design + tk[..., :, None] * tk[..., None, :]
-    eigvals, eigvecs = eigh4(design, exact=False)  # the design is off the reference's bits on a CPU
-    # ascending eigenvalues; the reference picks min |eigenvalue|.
-    idx = torch.argmin(eigvals.abs(), dim=-1)
-    v = torch.gather(eigvecs, -1, idx[..., None, None].expand(eigvecs.shape[:-1] + (1,)))[..., 0]
-    pt = projective.from_homogeneous(v)
-    finite = projective.is_finite(pt)
-    bearing_a = projective.bearing(pt)
-    bearing_b = projective.bearing(pose.transform(pt))
-    res = 0.5 * (
-        1.0 - (a * bearing_a).sum(dim=-1) + 1.0 - (b * bearing_b).sum(dim=-1)
-    )
-    return torch.where(finite & torch.isfinite(res), res, torch.full_like(res, 2.0))
+    if a.device.type == "cuda":
+        return c2c_residual(pose, a, b)
+    return c2c_residual_plain(pose, a, b) if eigen._exact(a) else _c2c_residual_unfused(pose, a, b)
+
+
+_VOID, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+
+
+def c2c_residual(pose: Isometry3, a: torch.Tensor, b: torch.Tensor, sweeps: int = 6) -> torch.Tensor:
+    """:func:`c2c_residual_plain` on CUDA tensors, one thread a
+    (model, match) pair in one launch of ``csrc/jacobi.cu``
+    (``cv_c2c_residual_f64`` / ``_f32``): the design, the Jacobi, the
+    eigenvector and the score in registers; only the residuals are written.
+    Poses of batch shape ``S + (1,)`` against ``(M, 3)`` matches (the
+    consensus's layout) run as a ``(P, M)`` grid; any other broadcast is
+    expanded and run pair by pair.  Counted on ``c2c_residual.launches``."""
+    from .. import kernels
+
+    tensors = (pose.rotation, pose.translation, a, b)
+    if any(t.device.type != "cuda" for t in tensors) or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"c2c_residual: CUDA tensors on one device, got {[t.device for t in tensors]}")
+    if len({t.dtype for t in tensors}) != 1 or a.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"c2c_residual: one dtype of float32 / float64, got {[t.dtype for t in tensors]}")
+    sp, sd = pose.rotation.shape[:-2], torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
+    shape = torch.broadcast_shapes(sp, pose.translation.shape[:-1], sd)
+    if len(sd) == 1 and len(sp) >= 1 and sp[-1] == 1 and shape == sp[:-1] + sd and pose.translation.shape[:-1] == sp:
+        rot, tr = pose.rotation.reshape(-1, 9), pose.translation.reshape(-1, 3)
+        av, bv = a.expand(sd + (3,)), b.expand(sd + (3,))
+        n_pose, n_match, paired = rot.shape[0], sd[0], 0
+    else:
+        rot = pose.rotation.expand(shape + (3, 3)).reshape(-1, 9)
+        tr = pose.translation.expand(shape + (3,)).reshape(-1, 3)
+        av, bv = a.expand(shape + (3,)).reshape(-1, 3), b.expand(shape + (3,)).reshape(-1, 3)
+        n_pose, n_match, paired = rot.shape[0], 1, 1
+    rot, tr, av, bv = (t.contiguous() for t in (rot, tr, av, bv))
+    out = torch.empty(shape, dtype=a.dtype, device=a.device)
+    symbol = "cv_c2c_residual_f32" if a.dtype == torch.float32 else "cv_c2c_residual_f64"
+    err = kernels.function("jacobi", symbol, [_VOID] * 5 + [_I64, _I64, _INT, _INT, _VOID])(
+        rot.data_ptr(), tr.data_ptr(), av.data_ptr(), bv.data_ptr(), out.data_ptr(), n_pose, n_match, paired,
+        int(sweeps), kernels.current_stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
+    if out.numel() > 0:
+        c2c_residual.launches += 1
+    return out
+
+
+c2c_residual.launches = 0  # kernel launches so far

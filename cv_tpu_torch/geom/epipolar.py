@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from ..ops import trig
+
 
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Broadcasting 3-vector cross product over the last axis."""
@@ -137,8 +139,8 @@ def loss(translation, a, b):
     ca2 = _dot(cross_a, cross_a)
     cross_b = cross(b, translation)
     cb2 = _dot(cross_b, cross_b)
-    res_a = (_dot(a, cross_b) / torch.sqrt(cb2)).abs()
-    res_b = (_dot(b, cross_a) / torch.sqrt(ca2)).abs()
+    res_a = (_dot(a, cross_b) / trig.sqrt(cb2)).abs()
+    res_b = (_dot(b, cross_a) / trig.sqrt(ca2)).abs()
     residual = torch.where(ca2 < cb2, res_a, res_b)
     bad = torch.isnan(residual) | (_dot(a, b) < 0)
     return torch.where(bad, torch.ones_like(residual), residual)

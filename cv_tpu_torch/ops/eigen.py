@@ -20,27 +20,51 @@ sweep (a product, an update, ``aqq - app``, the angle) is the zero of its
 sign there, and so it is here (:func:`_ftz`).  On a CUDA tensor
 ``csrc/jacobi.cu`` computes the same function, one thread a matrix.
 
-On a CPU that exact function costs 6 to 40 times the plain unfused sweep
-(``scripts/cpu_costs.py``).  A caller whose matrices are not the
-reference's bits on a CPU anyway (the consensus residual's design,
-eight-point's and five-point's normal matrices, ``svd3``'s ``E^T E``: XLA
-contracts their products, ROADMAP Queue 3) passes ``exact=False`` and gets
-:func:`_eigh_unfused` there, within a few ulps; on a card the kernel is
-exact either way.  The derivative is not defined: a tensor that requires
-grad is refused.
+On a CPU that exact function costs 5 to 43 times the plain unfused sweep
+(``scripts/cpu_costs.py``), so the callers whose batches are large there
+(the consensus residual, eight-point, five-point and ``svd3``) get
+:func:`_eigh_unfused` on a CPU, within a few ulps, and the cheap unfused
+forms of their products as well; within :func:`exact_on_cpu` they take the
+reference's contractions (:func:`gram_fused`, ``core.pose.c2c_design``)
+and the exact Jacobi, and give its bits.  On a card the kernel is exact
+either way.  The derivative is not defined:
+a tensor that requires grad is refused.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
 
 from .. import kernels
 from . import trig
-from .precision import full_f32
+from .precision import full_f32_products
 
 MAX_N = 10  # csrc/jacobi.cu's largest matrix
+
+_EXACT_CPU = False  # set by exact_on_cpu()
+
+
+@contextlib.contextmanager
+def exact_on_cpu():
+    """Within it the CPU callers of the Jacobi (``core.pose``'s consensus
+    residual, eight-point, five-point, :func:`svd3`) compute ``cv_tpu``'s
+    jitted bits: its contracted products and the exact Jacobi, at 2 to 33
+    times the cost of their cheap forms (``scripts/cpu_costs.py``).  A card
+    computes those bits either way."""
+    global _EXACT_CPU
+    before, _EXACT_CPU = _EXACT_CPU, True
+    try:
+        yield
+    finally:
+        _EXACT_CPU = before
+
+
+def _exact(t: torch.Tensor) -> bool:
+    """Whether a CPU caller on ``t`` takes the reference's forms."""
+    return _EXACT_CPU and t.device.type == "cpu"
 
 
 def _ftz(v: torch.Tensor) -> torch.Tensor:
@@ -74,20 +98,27 @@ def _rotate_f32(c, s, x, y):
     return _ftz(torch.where((err != 0) & ((bits & 1) == 0), (bits + step).view(torch.float64), t).float())
 
 
+def _converged(y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Where ``atan2(y, x)`` of float64 takes its first small-quotient form
+    and ``theta`` lies below 2^-27 (see :func:`_angle_f64`)."""
+    ax, ay = x.abs(), y.abs()
+    ex = (x.view(torch.int64) >> 52) & 0x7FF
+    ey = (y.view(torch.int64) >> 52) & 0x7FF
+    return (x >= 2.0 ** -500) & (x <= 2.0 ** 500) & (ay >= 2.0 ** -500) & (ay <= 2.0 ** 500) \
+        & (ay / ax < 2.0 ** -28) & (ey - ex > -57)
+
+
 def _angle_f64(apq, app, aqq):
     """``(cos theta, sin theta)`` of the Jacobi angle ``theta = atan2(2 apq,
     aqq - app) / 2`` in float64, glibc's functions.  Where ``aqq - app > 0``
     dominates ``2 apq`` by more than 2^28 (as it does once a sweep has
-    converged) ``theta`` is atan2's first small-quotient form, with its
-    polynomial exactly -1/3 there, and below 2^-27: cos is 1 and sin is
-    ``theta``.  The other elements take the general functions."""
+    converged, :func:`_converged`) ``theta`` is atan2's first small-quotient
+    form, with its polynomial exactly -1/3 there, and below 2^-27: cos is 1
+    and sin is ``theta``.  The other elements take the general functions."""
     y, x = 2.0 * apq, _ftz(aqq - app)
     ax, ay = x.abs(), y.abs()
     u = ay / ax
-    ex = (x.view(torch.int64) >> 52) & 0x7FF
-    ey = (y.view(torch.int64) >> 52) & 0x7FF
-    fast = (x >= 2.0 ** -500) & (x <= 2.0 ** 500) & (ay >= 2.0 ** -500) & (ay <= 2.0 ** 500) & (u < 2.0 ** -28) \
-        & (ey - ex > -57)
+    fast = _converged(y, x)
     v = ax * u
     du = ((ay - v) - trig.fma_f64(ax, u, -v)) / ax
     theta = 0.5 * torch.copysign(u + trig.fma_f64(u * (u * u), trig.D[0], du), y)
@@ -243,30 +274,69 @@ def eigh4(a: torch.Tensor, sweeps: int = 6, exact: bool = True):
     return eigh_small(a, sweeps=sweeps, exact=exact)
 
 
-@full_f32
+def cross_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.cross`` of ``(..., 3)`` vectors as XLA's CPU code computes it
+    under a jit: each component ``a_i b_j - a_j b_i`` with the first product
+    fused, ``fma(a_i, b_j, -(a_j b_i))``."""
+    a, b = a.unbind(-1), b.unbind(-1)
+    i, j = [1, 2, 0], [2, 0, 1]
+    return trig.fma(torch.stack([a[k] for k in i], -1), torch.stack([b[k] for k in j], -1),
+                    -(torch.stack([a[k] for k in j], -1) * torch.stack([b[k] for k in i], -1)))
+
+
+def gram_fused(rows: torch.Tensor) -> torch.Tensor:
+    """``rows^T rows`` of ``(..., K, N)``, each entry the reference's
+    ``sum_k rows[k, i] rows[k, j]`` as its jitted CPU code sums it
+    (:func:`~cv_tpu_torch.ops.trig.dot_fused` over k in order)."""
+    return trig.dot_fused(rows[..., :, :, None], rows[..., :, None, :], -3)
+
+
+def gram(rows: torch.Tensor) -> torch.Tensor:
+    """``rows^T rows``: :func:`gram_fused` on a CPU within
+    :func:`exact_on_cpu` (the reference's bits), else a matmul in full
+    float32 (the cheap CPU form; the card's, whose solvers are not held to
+    the reference's bits)."""
+    if _exact(rows):
+        return gram_fused(rows)
+    with full_f32_products():
+        return rows.transpose(-1, -2) @ rows
+
+
 def svd3(e: torch.Tensor, sweeps: int = 8):
     """SVD of ``(..., 3, 3)`` batches via Jacobi on E^T E.
 
     Returns ``(u, s, vt)`` with singular values descending.  The left
     vector of the smallest singular value is completed by a cross product
     when that value is (near) zero — the rank-2 essential-matrix case this
-    exists for.
+    exists for.  On a CPU within :func:`exact_on_cpu` the bits of
+    ``cv_tpu``'s jitted ``svd3``: every sum of products, cross product and
+    norm as its jitted code contracts it (``E^T E`` by :func:`gram_fused`,
+    ``E V`` by ``dot_fused``, :func:`cross_fused`; the norms are
+    ``torch.linalg.vector_norm``'s, which sum and round as
+    ``jnp.linalg.norm`` does on a CPU), the IEEE square root and the exact
+    Jacobi.  Otherwise (a CPU outside it, a card) the products are matmuls
+    in full float32; on a CPU the sweep is the unfused one, on a card the
+    Jacobi kernel.
     """
-    b = e.transpose(-1, -2) @ e
-    w, v = eigh_small(b, sweeps=sweeps, exact=False)  # ascending; E^T E is off the reference's bits on a CPU
+    fused = _exact(e)
+    w, v = eigh_small(gram(e), sweeps=sweeps, exact=fused)  # ascending
     # Descending order.
     w = w.flip(-1)
     v = v.flip(-1)
-    s = torch.sqrt(torch.clamp(w, min=0.0))
-    ev = e @ v  # columns: s_i * u_i
+    s = trig.sqrt(torch.clamp(w, min=0.0))
+    if fused:
+        ev = trig.dot_fused(e[..., :, :, None], v[..., None, :, :], -2)  # columns: s_i * u_i
+        cross = cross_fused
+    else:
+        with full_f32_products():
+            ev = e @ v
+        cross = torch.linalg.cross
     s0 = s[..., 0:1]
     tol = torch.finfo(e.dtype).eps ** 0.5 * torch.clamp(s0, min=1e-30)
     safe = torch.where(s <= tol, torch.ones_like(s), s)
     u = ev / safe[..., None, :]
     u0, u1 = u[..., :, 0], u[..., :, 1]
-    u2 = torch.where(
-        (s[..., 2] <= tol[..., 0])[..., None], torch.linalg.cross(u0, u1), u[..., :, 2]
-    )
+    u2 = torch.where((s[..., 2] <= tol[..., 0])[..., None], cross(u0, u1), u[..., :, 2])
     u = u.clone()
     u[..., :, 2] = u2
     # Degenerate rank<2 batches: fall back to orthonormal completion of u1.
@@ -275,12 +345,10 @@ def svd3(e: torch.Tensor, sweeps: int = 8):
     ex[..., 0] = 1.0
     ey = torch.zeros_like(u0)
     ey[..., 1] = 1.0
-    alt = torch.linalg.cross(u0, ex)
+    alt = cross(u0, ex)
     alt_norm = torch.linalg.vector_norm(alt, dim=-1, keepdim=True)
-    alt = torch.where(alt_norm > 0.1, alt, torch.linalg.cross(u0, ey))
+    alt = torch.where(alt_norm > 0.1, alt, cross(u0, ey))
     alt = alt / torch.linalg.vector_norm(alt, dim=-1, keepdim=True)
     u[..., :, 1] = torch.where(u1_ok[..., None], u[..., :, 1], alt)
-    u[..., :, 2] = torch.where(
-        u1_ok[..., None], u[..., :, 2], torch.linalg.cross(u0, u[..., :, 1])
-    )
+    u[..., :, 2] = torch.where(u1_ok[..., None], u[..., :, 2], cross(u0, u[..., :, 1]))
     return u, s, v.transpose(-1, -2)

@@ -213,6 +213,46 @@ def fma_f64(a: torch.Tensor, b, c) -> torch.Tensor:
     return _round_sum(p, ((ah * bh - p) + ah * bl + al * bh) + al * bl, c)
 
 
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` of float32 rounded once: the product is exact in
+    float64, its sum with ``c`` rounded to odd there, then to float32."""
+    p = a.double() * (b.double() if isinstance(b, torch.Tensor) else b)
+    q = c.double() if isinstance(c, torch.Tensor) else torch.full_like(p, c)
+    t = p + q
+    bb = t - p
+    err = (p - (t - bb)) + (q - bb)
+    bits = t.view(torch.int64)
+    step = ((err.view(torch.int64) ^ bits) >> 63) | 1
+    return torch.where((err != 0) & ((bits & 1) == 0), (bits + step).view(torch.float64), t).float()
+
+
+def fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """``a * b + c`` rounded once, in ``a``'s dtype (float32 or float64):
+    what XLA's CPU code computes where it contracts a product into the sum
+    that takes it.  A CPU call on at most ``SMALL`` elements takes the C
+    library's ``fma``/``fmaf`` where :func:`_libm` found them equal to the
+    written-out forms (the pose loops' plain versions call it every step;
+    an operand of at most ``SMALL`` elements decides, the others broadcast
+    to it)."""
+    if a.device.type == "cpu" and max(a.numel(), getattr(b, "numel", int)(), getattr(c, "numel", int)()) <= SMALL \
+            and _libm() is not None:
+        return _libm_fma(_libm(), a, b, c)
+    return fma_f32(a, b, c) if a.dtype == torch.float32 else fma_f64(a, b, c)
+
+
+def dot_fused(x, y, dim: int = -1) -> torch.Tensor:
+    """``sum(x * y, dim)`` as a jitted XLA reduction of products sums it on
+    a CPU: ``x0 y0 + 0``, then each next product fused into the sum,
+    ``fma(x_k, y_k, acc)``, in order along ``dim`` (broadcast).  ``x`` and
+    ``y`` may also be sequences of the terms (in ``y``, Python floats)."""
+    xs = x.unbind(dim) if isinstance(x, torch.Tensor) else x
+    ys = y.unbind(dim) if isinstance(y, torch.Tensor) else y
+    acc = xs[0] * ys[0] + 0.0
+    for a, b in zip(xs[1:], ys[1:]):
+        acc = fma(a, b, acc)
+    return acc
+
+
 @lru_cache(maxsize=None)
 def _inv_pio4(device: torch.device) -> torch.Tensor:
     return torch.tensor(INV_PIO4, dtype=torch.int64, device=device)
@@ -660,7 +700,7 @@ def _libm_sample():
 
 @lru_cache(maxsize=None)
 def _libm():
-    """The C library's ``atan2``, ``cos``, ``sin`` and their float
+    """The C library's ``atan2``, ``cos``, ``sin``, ``fma`` and their float
     versions through ctypes, or None unless each gives this module's
     written-out function's bits (a NaN by position) on
     :func:`_libm_sample`, in float64 and in float32: glibc 2.36's x86-64
@@ -672,19 +712,22 @@ def _libm():
         return None
     lib = ctypes.CDLL(path)
     for name, ct in (("atan2", ctypes.c_double), ("cos", ctypes.c_double), ("sin", ctypes.c_double),
-                     ("atan2f", ctypes.c_float), ("cosf", ctypes.c_float), ("sinf", ctypes.c_float)):
+                     ("fma", ctypes.c_double), ("atan2f", ctypes.c_float), ("cosf", ctypes.c_float),
+                     ("sinf", ctypes.c_float), ("fmaf", ctypes.c_float)):
         fn = getattr(lib, name)
         fn.restype = ct
-        fn.argtypes = [ct] * (2 if name.startswith("atan2") else 1)
+        fn.argtypes = [ct] * (2 if name.startswith("atan2") else 3 if name.startswith("fma") else 1)
     a, y, x = _libm_sample()
     for dt in (torch.float64, torch.float32):
         ta, ty, tx = (torch.as_tensor(v).to(dt) for v in (a, y, x))
         ok = (ty.abs() >= (_F64_MIN if dt == torch.float64 else _F32_MIN)) | (ty == 0)
         ok &= (tx.abs() >= (_F64_MIN if dt == torch.float64 else _F32_MIN)) | (tx == 0)
         ty, tx = ty[ok], tx[ok]
-        got = (*_libm_cos_sin(lib, ta), _libm_atan2(lib, ty, tx))
+        fy, fx, fa = ty[:2048], tx[:2048], ta[:2048]
+        got = (*_libm_cos_sin(lib, ta), _libm_atan2(lib, ty, tx), _libm_fma(lib, fy, fx, fa))
         want = (*(cos_sin_plain(ta) if dt == torch.float32 else cos_sin_f64(ta)),
-                atan2_f32(ty, tx) if dt == torch.float32 else atan2_f64(ty, tx))
+                atan2_f32(ty, tx) if dt == torch.float32 else atan2_f64(ty, tx),
+                fma_f32(fy, fx, fa) if dt == torch.float32 else fma_f64(fy, fx, fa))
         bits = torch.int32 if dt == torch.float32 else torch.int64
         for g, w in zip(got, want):
             nan = torch.isnan(w)
@@ -698,6 +741,13 @@ def _libm_cos_sin(lib, a: torch.Tensor):
     vals = a.reshape(-1).tolist()
     return (torch.tensor([cos(v) for v in vals], dtype=a.dtype).reshape(a.shape),
             torch.tensor([sin(v) for v in vals], dtype=a.dtype).reshape(a.shape))
+
+
+def _libm_fma(lib, a: torch.Tensor, b, c):
+    a, b, c = torch.broadcast_tensors(a, torch.as_tensor(b, dtype=a.dtype), torch.as_tensor(c, dtype=a.dtype))
+    fn = lib.fmaf if a.dtype == torch.float32 else lib.fma
+    return torch.tensor([fn(x, y, z) for x, y, z in zip(a.reshape(-1).tolist(), b.reshape(-1).tolist(),
+                                                        c.reshape(-1).tolist())], dtype=a.dtype).reshape(a.shape)
 
 
 def _libm_atan2(lib, y: torch.Tensor, x: torch.Tensor):

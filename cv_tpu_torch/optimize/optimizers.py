@@ -17,11 +17,15 @@ of the result.
 
 from __future__ import annotations
 
+import math
+import struct
+
 import torch
 
 from ..core import projective
 from ..core.pose import Isometry3
 from ..geom import epipolar
+from ..ops import trig
 from ..ops.precision import full_f32
 
 PATIENCE = 50  # single_view_optimizer.rs:116
@@ -48,6 +52,107 @@ def _apply_tangent(t, r, pose: Isometry3) -> Isometry3:
     the pose's frame type."""
     out = Isometry3.from_tangent(t, r).compose(pose)
     return type(pose)(rotation=out.rotation, translation=out.translation)
+
+
+def _rodrigues_fused(w):
+    """``so3_exp`` of ``(..., 3)`` as the resident kernels' interpret mode
+    computes it (``pallas_loop.py::_rodrigues`` under XLA's CPU code): each
+    sum of products contracted (``fma(x0, y0, x1 y1)``; where the first
+    product is negated, the second fused, ``fma(b, w0 w1, -(a w2))``), the
+    diagonal ``fma(b, -(sum), 1)``, and the Taylor branch's divisions by 6
+    and 24 the products by their rounded reciprocals, fused.  Not
+    reproduced: XLA writes ``sin / sqrt(t2s)`` as ``sin * rsqrt(t2s)`` and
+    lowers the float32 ``rsqrt`` to the x86 estimate (``vrsqrtps``) and two
+    Newton steps, whose bits are the processor's; the division stays.
+    Returns the nine entries row-major ``(..., 9)``."""
+    w0, w1, w2 = w.unbind(-1)
+    f = trig.fma
+    theta2 = f(w2, w2, f(w0, w0, w1 * w1))
+    small = theta2 <= torch.finfo(w.dtype).eps
+    t2s = torch.where(small, torch.ones_like(theta2), theta2)
+    theta = trig.sqrt(theta2)
+    cos, sin = trig.cos_sin(theta)
+    sixth, p24 = (float(torch.tensor(1.0 / k, dtype=w.dtype)) for k in (6.0, 24.0))
+    a = torch.where(small, f(-theta2, sixth, 1.0), sin / trig.sqrt(t2s))[..., None]
+    b = torch.where(small, f(-theta2, p24, 0.5), (1.0 - cos) / t2s)[..., None]
+    w01, w02, w12 = w0 * w1, w0 * w2, w1 * w2
+    x, y = torch.stack((w1, w0, w0), -1), torch.stack((w2, w2, w1), -1)
+    diag = f(b, -f(x, x, y * y), 1.0)  # d0, d4, d8
+    by_a = f(a, torch.stack((w1, w2, w0), -1), b * torch.stack((w02, w01, w12), -1))  # d2, d3, d7
+    by_b = f(b, torch.stack((w01, w12, w02), -1), -(a * torch.stack((w2, w0, w1), -1)))  # d1, d5, d6
+    return torch.stack([diag[..., 0], by_b[..., 0], by_a[..., 0], by_a[..., 1], diag[..., 1], by_b[..., 1],
+                        by_b[..., 2], by_a[..., 2], diag[..., 2]], -1)
+
+
+def _m3_vec_fused(d: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``d @ v`` of row-major ``d`` ``(..., 9)`` and vectors ``(..., V, 3)``
+    (each against the same ``d``), each row ``fma(d2, v2, fma(d0, v0, d1
+    v1))``: ``(..., V, 3)``."""
+    dm = d.reshape(d.shape[:-1] + (1, 3, 3))
+    vk = v[..., :, None, :]
+    return trig.fma(dm[..., 2], vk[..., 2], trig.fma(dm[..., 0], vk[..., 0], dm[..., 1] * vk[..., 1]))
+
+
+_F32 = struct.Struct("f")
+
+
+def _apply_tangent_scalar(t, r, pose: Isometry3, lib) -> Isometry3:
+    """:func:`_apply_tangent_l2` of one pose on a CPU in Python floats: the
+    C library's ``fma``/``fmaf``, ``cos``/``cosf`` and ``sin``/``sinf``
+    (``trig._libm``'s, checked equal to the written-out forms), every other
+    operation in double and, in float32, rounded to float (exact for +, -,
+    *, / and the square root of floats).  The same bits as the tensor form
+    at a fraction of its cost a step."""
+    f32 = r.dtype == torch.float32
+    fma, cos, sin = (lib.fmaf, lib.cosf, lib.sinf) if f32 else (lib.fma, lib.cos, lib.sin)
+    rnd = (lambda v: _F32.unpack(_F32.pack(v))[0]) if f32 else (lambda v: v)
+    w0, w1, w2 = r.tolist()
+    theta2 = fma(w2, w2, fma(w0, w0, rnd(w1 * w1)))
+    if theta2 <= torch.finfo(r.dtype).eps:
+        sixth, p24 = (float(torch.tensor(1.0 / k, dtype=r.dtype)) for k in (6.0, 24.0))
+        a, b = fma(-theta2, sixth, 1.0), fma(-theta2, p24, 0.5)
+    else:
+        theta = rnd(math.sqrt(theta2))
+        a = rnd(sin(theta) / theta)
+        b = rnd(rnd(1.0 - cos(theta)) / theta2)
+    w01, w02, w12 = rnd(w0 * w1), rnd(w0 * w2), rnd(w1 * w2)
+    d = (fma(b, -fma(w1, w1, rnd(w2 * w2)), 1.0), fma(b, w01, -rnd(a * w2)), fma(a, w1, rnd(b * w02)),
+         fma(a, w2, rnd(b * w01)), fma(b, -fma(w0, w0, rnd(w2 * w2)), 1.0), fma(b, w12, -rnd(a * w0)),
+         fma(b, w02, -rnd(a * w1)), fma(a, w0, rnd(b * w12)), fma(b, -fma(w0, w0, rnd(w1 * w1)), 1.0))
+
+    def mv(v):
+        return [fma(d[3 * i + 2], v[2], fma(d[3 * i], v[0], rnd(d[3 * i + 1] * v[1]))) for i in range(3)]
+
+    rot = pose.rotation.tolist()
+    cols = [mv([rot[0][j], rot[1][j], rot[2][j]]) for j in range(3)]
+    tn = [rnd(x + y) for x, y in zip(mv(pose.translation.tolist()), mv(t.tolist()))]
+    dtype = pose.translation.dtype
+    return type(pose)(rotation=torch.tensor([[cols[j][i] for j in range(3)] for i in range(3)], dtype=dtype),
+                      translation=torch.tensor(tn, dtype=dtype))
+
+
+def _apply_tangent_l2(t, r, pose: Isometry3) -> Isometry3:
+    """:func:`_apply_tangent` as the resident kernels compute it
+    (``pallas_loop.py::_apply_tangent_scalars`` in interpret mode):
+    :func:`_rodrigues_fused`, then ``(d r, d t + d dt)`` with each product
+    sum contracted as :func:`_m3_vec_fused` (the five vectors in one).  One
+    pose takes :func:`_apply_tangent_scalar`.  On a card the update runs on
+    the host: its exact fused operations would cost a few hundred launches
+    a step there, against two copies each way."""
+    if t.device.type != "cpu":
+        host = _apply_tangent_l2(t.cpu(), r.cpu(), type(pose)(rotation=pose.rotation.cpu(),
+                                                                translation=pose.translation.cpu()))
+        return type(pose)(rotation=host.rotation.to(t.device), translation=host.translation.to(t.device))
+    if r.dim() == 1 and pose.translation.dim() == 1 and t.dim() == 1:
+        lib = trig._libm()
+        if lib is not None:
+            return _apply_tangent_scalar(t, r, pose, lib)
+    d = _rodrigues_fused(r)
+    rot = pose.rotation
+    vecs = torch.stack(torch.broadcast_tensors(t, rot[..., :, 0], rot[..., :, 1], rot[..., :, 2], pose.translation),
+                       -2)
+    out = _m3_vec_fused(d, vecs)  # (..., 5, 3): d dt, d r's columns, d t
+    return type(pose)(rotation=out[..., 1:4, :].transpose(-1, -2), translation=out[..., 4, :] + out[..., 0, :])
 
 
 def landmark_deltas(pose: Isometry3, bearings, world_points, valid):
@@ -132,7 +237,7 @@ def single_view_simple_optimize_l2(
         stale = 0 if (best_t > nt or best_r > nr) else stale + 1
         best_t, best_r = min(best_t, nt), min(best_r, nr)
         if stale < PATIENCE:  # the stabilizing step is not applied
-            pose = _apply_tangent(l2_t * inv_len * optimization_rate, l2_r * inv_len * optimization_rate, pose)
+            pose = _apply_tangent_l2(l2_t * inv_len * optimization_rate, l2_r * inv_len * optimization_rate, pose)
         it += 1
     if steps_out is not None:
         steps_out.fill_(it)
@@ -217,8 +322,8 @@ def three_view_simple_optimize_l2(
         stale = 0 if any(b > n for b, n in zip(bests, norms)) else stale + 1
         bests = [min(b, n) for b, n in zip(bests, norms)]
         if stale < PATIENCE:  # the stabilizing step is not applied
-            ftoc = _apply_tangent(sums[0] * scale, sums[1] * scale, ftoc)
-            stoc = _apply_tangent(sums[2] * scale, sums[3] * scale, stoc)
+            ftoc = _apply_tangent_l2(sums[0] * scale, sums[1] * scale, ftoc)
+            stoc = _apply_tangent_l2(sums[2] * scale, sums[3] * scale, stoc)
         it += 1
     if steps_out is not None:
         steps_out.fill_(it)
@@ -250,6 +355,6 @@ def three_view_adaptive_optimize_l2(poses: tuple, observations, valid, iteration
             rrate = _norm(mean_r) / rstd
             trate = torch.where(torch.isfinite(trate), trate, zero)
             rrate = torch.where(torch.isfinite(rrate), rrate, zero)
-            new.append(_apply_tangent(mean_t * trate[..., None], mean_r * rrate[..., None], pose))
+            new.append(_apply_tangent_l2(mean_t * trate[..., None], mean_r * rrate[..., None], pose))
         ftoc, stoc = new
     return ftoc.inverse(), stoc.inverse()

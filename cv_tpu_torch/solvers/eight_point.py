@@ -11,8 +11,7 @@ import torch
 
 from ..camera import essential
 from ..core.pose import CameraToCamera
-from ..ops.eigen import eigh_small
-from ..ops.precision import full_f32
+from ..ops import eigen
 
 MIN_SAMPLES = 8
 MODELS_PER_SAMPLE = 4
@@ -31,12 +30,15 @@ def encode_epipolar_equation(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return (ap[..., :, None] * bp[..., None, :]).reshape(a.shape[:-1] + (9,))
 
 
-@full_f32
 def essential_from_matches(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Least-squares essential matrix from >= 8 matches ``(..., K, 3)``:
-    the smallest eigenvector of the 9x9 normal matrix (lib.rs:44-60)."""
+    the smallest eigenvector of the 9x9 normal matrix (lib.rs:44-60).  On
+    a CPU within ``eigen.exact_on_cpu`` the matrix is summed as the
+    reference's jitted code sums it (``eigen.gram_fused``) and the Jacobi is
+    the exact one: ``cv_tpu``'s bits; outside it a matmul and the unfused
+    sweep."""
     rows = encode_epipolar_equation(a, b)  # (..., K, 9)
-    _, vecs = eigh_small(rows.transpose(-1, -2) @ rows, sweeps=8, exact=False)  # ascending
+    _, vecs = eigen.eigh_small(eigen.gram(rows), sweeps=8, exact=eigen._exact(rows))  # ascending
     v = vecs[..., :, 0]
     # E[i, j] = v[3j + i]
     return v.reshape(v.shape[:-1] + (3, 3)).transpose(-1, -2)

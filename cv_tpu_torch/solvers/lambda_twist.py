@@ -18,6 +18,7 @@ from ..core import projective
 from ..core.pose import WorldToCamera
 from ..geom.epipolar import cross
 from ..ops.eigen import svd3
+from ..ops import trig
 from ..ops.precision import full_f32
 
 MIN_SAMPLES = 3
@@ -29,13 +30,13 @@ def _cube_root(b, c, d):
     """Most stable real root of r^3 + b r^2 + c r + d (lib.rs:458-506)."""
     diff = b * b - 3.0 * c
     has_stationary = diff >= 0.0
-    v = torch.sqrt(torch.clamp(diff, min=0.0))
+    v = trig.sqrt(torch.clamp(diff, min=0.0))
     t1 = (-b - v) / 3.0
     k1 = ((t1 + b) * t1 + c) * t1 + d
-    r_t1 = t1 - torch.sqrt(torch.clamp(-k1 / (3.0 * t1 + b), min=0.0))
+    r_t1 = t1 - trig.sqrt(torch.clamp(-k1 / (3.0 * t1 + b), min=0.0))
     t2 = (-b + v) / 3.0
     k2 = ((t2 + b) * t2 + c) * t2 + d
-    r_t2 = t2 + torch.sqrt(torch.clamp(-k2 / (3.0 * t2 + b), min=0.0))
+    r_t2 = t2 + trig.sqrt(torch.clamp(-k2 / (3.0 * t2 + b), min=0.0))
     r_stat = torch.where(k1 > 0.0, r_t1, r_t2)
     # Monotonic case: start at the inflection point, nudged off a flat spot.
     r_mono = -b / 3.0
@@ -58,7 +59,7 @@ def _root2real(b, c):
     returns ``(real, r1, r2)``."""
     disc = b * b - 4.0 * c
     real = disc >= 0.0
-    y = torch.sqrt(torch.clamp(disc, min=0.0))
+    y = trig.sqrt(torch.clamp(disc, min=0.0))
     neg = b < 0.0
     r1 = torch.where(neg, 0.5 * (-b + y), 2.0 * c / (-b + y))
     r2 = torch.where(neg, 0.5 * (-b - y), 2.0 * c / (-b - y))
@@ -90,7 +91,7 @@ def _eigen_singular(m):
         tmp = 1.0 / (e * (m11 + m22) + mx0011 - e * e + x12_sqr)
         a1 = -(e * m13 + prec_0) * tmp
         a2 = -(e * m23 + prec_1) * tmp
-        rnorm = 1.0 / torch.sqrt(a1 * a1 + a2 * a2 + 1.0)
+        rnorm = 1.0 / trig.sqrt(a1 * a1 + a2 * a2 + 1.0)
         return torch.stack([a1 * rnorm, a2 * rnorm, rnorm], dim=-1)
 
     vectors = torch.stack([vec(e1), vec(e2), v3], dim=-1)  # columns
@@ -212,7 +213,7 @@ def estimate(bearings: torch.Tensor, world_points: torch.Tensor):
         dim=-2,
     )
     ev, eig_values = _eigen_singular(d0)
-    eigen_ratio = torch.sqrt(torch.clamp(-eig_values[..., 1] / eig_values[..., 0], min=0.0))
+    eigen_ratio = trig.sqrt(torch.clamp(-eig_values[..., 1] / eig_values[..., 0], min=0.0))
 
     def lambdas_for_ratio(ratio):
         # Quadratic coefficients, eq. (15) (lib.rs:206-216).
@@ -228,7 +229,7 @@ def estimate(bearings: torch.Tensor, world_points: torch.Tensor):
         def depths(tau):
             # eq. (16) (lib.rs:220-231).
             d = a23 / (tau * (b23 + tau) + 1.0)
-            l2 = torch.sqrt(torch.clamp(d, min=0.0))
+            l2 = trig.sqrt(torch.clamp(d, min=0.0))
             l3 = tau * l2
             l1 = w0 * l2 + w1 * l3
             ok = disc_ok & (tau > 0.0) & (d > 0.0) & (l1 >= 0.0)

@@ -23,7 +23,7 @@ import torch
 
 from ..camera import essential as essential_mod
 from ..core.pose import CameraToCamera
-from ..ops.eigen import eigh_small
+from ..ops import eigen, trig
 from ..ops.precision import full_f32
 
 MIN_SAMPLES = 5
@@ -87,17 +87,19 @@ def _o2(a, b):
     return torch.stack(out, dim=-1)
 
 
-@full_f32
 def nullspace_basis(a: torch.Tensor, b: torch.Tensor):
     """4-dim nullspace of the 5x9 epipolar constraint (lib.rs:68-96).
 
     ``a``/``b``: (..., 5, 3). Returns ``(basis (..., 9, 4), ok)``; ``ok``
     requires nullity exactly 4: the 9x9 Gram's eigenvalues (Jacobi, 8
     sweeps, ascending) at or below ``EIGEN_THRESHOLD`` up to the fourth and
-    above it from the fifth.
+    above it from the fifth.  On a CPU within ``eigen.exact_on_cpu`` the
+    Gram is summed as the reference's jitted float64 code sums it
+    (``eigen.gram_fused``) and the Jacobi is the exact one: its float64
+    bits; outside it a matmul and the unfused sweep.
     """
     rows = (a[..., :, None] * b[..., None, :]).reshape(a.shape[:-1] + (9,))
-    vals, vecs = eigh_small(rows.transpose(-1, -2) @ rows, sweeps=8, exact=False)
+    vals, vecs = eigen.eigh_small(eigen.gram(rows), sweeps=8, exact=eigen._exact(rows))
     ok = (vals[..., 3] <= EIGEN_THRESHOLD) & (vals[..., 4] > EIGEN_THRESHOLD)
     return vecs[..., :, :4], ok
 
@@ -170,7 +172,7 @@ def real_eigen_10(at: torch.Tensor):
             col = at[..., :, i].abs().sum(dim=-1) - at[..., i, i].abs()
             row = at[..., i, :].abs().sum(dim=-1) - at[..., i, i].abs()
             safe = (col > 0) & (row > 0)
-            f = torch.where(safe, torch.sqrt(row / torch.where(safe, col, one)), one)
+            f = torch.where(safe, trig.sqrt(row / torch.where(safe, col, one)), one)
             f = torch.exp2(torch.round(torch.log2(f)))
             at[..., :, i] *= f[..., None]
             at[..., i, :] /= f[..., None]

@@ -21,7 +21,7 @@ import torch
 from ..core import projective
 from ..core.pose import Isometry3
 from ..geom import epipolar
-from ..ops import eigen
+from ..ops import eigen, trig
 from ..ops.precision import full_f32
 from .linear_eigen import triangulate_observations as linear_eigen_observations
 
@@ -184,7 +184,7 @@ def angular_linf(pose: Isometry3, a: torch.Tensor, b: torch.Tensor):
     na2 = _dot(na, na)
     nb = _cross(a_t - b_p, nt)
     nb2 = _dot(nb, nb)
-    n = torch.where((na2 > nb2)[..., None], na / torch.sqrt(na2)[..., None], nb / torch.sqrt(nb2)[..., None])
+    n = torch.where((na2 > nb2)[..., None], na / trig.sqrt(na2)[..., None], nb / trig.sqrt(nb2)[..., None])
     a_c = _normalize(a_t - _dot(a_t, n)[..., None] * n)
     b_c = _normalize(b_p - _dot(b_p, n)[..., None] * n)
     return _angular_common(a_c, b_c, translation)

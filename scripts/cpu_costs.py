@@ -2,8 +2,10 @@
 
 * ``ops.eigen``: the exact Jacobi (``eigh_small_plain``) against the unfused
   sweep (``_eigh_unfused``) at N = 3, 4 and 9, per call and per matrix, on
-  one thread: why the callers whose matrices are off the reference's bits
-  on a CPU pass ``exact=False``.
+  one thread; and its callers within ``eigen.exact_on_cpu`` against
+  outside it (the consensus residual, ``svd3``, eight-point) at the sizes
+  of a single problem and of a consensus: why they take the cheap forms on
+  a CPU.
 * ``ops.trig``: a call on one, two or ``SMALL`` elements through the C
   library's functions against the written-out ones: why a small CPU call
   takes the C library.
@@ -56,6 +58,44 @@ def eigen_costs(seconds):
     return out
 
 
+def exact(fn):
+    """``fn`` within ``eigen.exact_on_cpu``."""
+    def run():
+        with eigen.exact_on_cpu():
+            return fn()
+    return run
+
+
+def caller_costs(seconds):
+    from scipy.spatial.transform import Rotation
+
+    from cv_tpu_torch.core import pose
+    from cv_tpu_torch.solvers import eight_point
+
+    rng = np.random.default_rng(2)
+    out = []
+    for h, n in ((1, 1), (16, 64), (64, 64)):
+        rot = torch.as_tensor(Rotation.from_rotvec(rng.uniform(-0.3, 0.3, (h * 4, 3))).as_matrix()
+                              .reshape(h, 4, 1, 3, 3))
+        p = pose.Isometry3(rot, torch.as_tensor(rng.standard_normal((h, 4, 1, 3))))
+        a, b = (torch.nn.functional.normalize(torch.as_tensor(rng.standard_normal((n, 3))), dim=-1) for _ in "ab")
+        out.append(dict(caller="camera_to_camera_residual", pairs=h * 4 * n,
+                        exact_ms=per_call_s(exact(lambda: pose.camera_to_camera_residual(p, a, b)), seconds) * 1e3,
+                        unfused_ms=per_call_s(lambda: pose.camera_to_camera_residual(p, a, b), seconds) * 1e3))
+    for k in (1, 64, 512):
+        e = torch.as_tensor(rng.standard_normal((k, 3, 3)))
+        out.append(dict(caller="svd3", matrices=k,
+                        exact_ms=per_call_s(exact(lambda: eigen.svd3(e)), seconds) * 1e3,
+                        unfused_ms=per_call_s(lambda: eigen.svd3(e), seconds) * 1e3))
+        a, b = (torch.as_tensor(rng.standard_normal((k, 8, 3))) for _ in "ab")
+        out.append(dict(caller="eight_point.essential_from_matches", sets=k,
+                        exact_ms=per_call_s(exact(lambda: eight_point.essential_from_matches(a, b)), seconds) * 1e3,
+                        unfused_ms=per_call_s(lambda: eight_point.essential_from_matches(a, b), seconds) * 1e3))
+    for row in out:
+        row["ratio"] = row["exact_ms"] / row["unfused_ms"]
+    return out
+
+
 def trig_costs(seconds):
     out = []
     for dtype in (torch.float64, torch.float32):
@@ -92,7 +132,8 @@ def main(argv=None):
     torch.set_num_threads(1)
     result = dict(machine=platform.machine(), torch=torch.__version__,
                   capability=torch.backends.cpu.get_cpu_capability(), threads=1,
-                  eigen=eigen_costs(args.seconds), trig=trig_costs(args.seconds / 2), sqrt_mismatch=sqrt_shares())
+                  eigen=eigen_costs(args.seconds), callers=caller_costs(args.seconds),
+                  trig=trig_costs(args.seconds / 2), sqrt_mismatch=sqrt_shares())
     print(json.dumps(result, indent=1))
 
 

@@ -1,4 +1,5 @@
-"""cv_tpu_torch.ops.eigen against cv_tpu's jitted Jacobi eigensolver.
+"""cv_tpu_torch.ops.eigen against cv_tpu's jitted Jacobi eigensolver, and
+the consensus residual entry of the same kernel source.
 
 ``cv_tpu.ops.eigen.eigh_small`` is a jitted ``fori_loop`` of cyclic Jacobi
 sweeps: XLA's CPU backend takes each rotation's angle from glibc's
@@ -208,3 +209,45 @@ def test_cuda_jacobi_bitwise_to_plain(n, dtype):
     wp, vp = teig.eigh_small_plain(a, sweeps=8)
     _same_bits(w.cpu().numpy(), wp.numpy())
     _same_bits(v.cpu().numpy(), vp.numpy())
+
+
+def test_c2c_residual_rejects_the_cpu():
+    """The residual entry of ``csrc/jacobi.cu`` takes CUDA tensors only; on a
+    CPU ``camera_to_camera_residual`` runs its cheap form, and within
+    ``eigen.exact_on_cpu`` its plain version."""
+    from cv_tpu_torch.core import pose
+
+    p = pose.Isometry3(torch.eye(3, dtype=torch.float64)[None], torch.zeros(1, 3, dtype=torch.float64))
+    a = torch.tensor([[0.0, 0.0, 1.0]], dtype=torch.float64)
+    with pytest.raises(ValueError):
+        pose.c2c_residual(p, a, a)
+    _same_bits(pose.camera_to_camera_residual(p, a, a).numpy(), pose._c2c_residual_unfused(p, a, a).numpy())
+    with teig.exact_on_cpu():
+        _same_bits(pose.camera_to_camera_residual(p, a, a).numpy(), pose.c2c_residual_plain(p, a, a).numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cuda_c2c_residual_bitwise_to_plain(dtype):
+    """The residual entry against ``c2c_residual_plain`` on the card, in the
+    consensus's (models, 1) x (matches,) layout and pair by pair."""
+    from cv_tpu_torch.core import pose
+    from cv_tpu_torch.core.lie import so3_exp
+
+    dev = _cuda()
+    rng = np.random.default_rng(50)
+    rot = so3_exp(torch.as_tensor(rng.uniform(-0.3, 0.3, (16, 4, 1, 3)), dtype=dtype))
+    tr = torch.as_tensor(rng.standard_normal((16, 4, 1, 3)), dtype=dtype)
+    a, b = (torch.nn.functional.normalize(torch.as_tensor(rng.standard_normal((300, 3)), dtype=dtype), dim=-1)
+            for _ in range(2))
+    b[3], a[4], b[5, 0] = a[3], 0.0, float("nan")
+    p = pose.Isometry3(rot.to(dev), tr.to(dev))
+    before = pose.c2c_residual.launches
+    got = pose.camera_to_camera_residual(p, a.to(dev), b.to(dev))
+    torch.cuda.synchronize()
+    assert pose.c2c_residual.launches == before + 1
+    _same_bits(got.cpu().numpy(), pose.c2c_residual_plain(pose.Isometry3(rot, tr), a, b).numpy())
+    p2 = pose.Isometry3(rot[:, :, 0].to(dev), tr[:, :, 0].to(dev))
+    got2 = pose.c2c_residual(p2, a[:4].to(dev), b[:4].to(dev))
+    want2 = pose.c2c_residual_plain(pose.Isometry3(rot[:, :, 0], tr[:, :, 0]), a[:4], b[:4])
+    _same_bits(got2.cpu().numpy(), want2.numpy())
