@@ -88,7 +88,10 @@ Phases, in order; any failed check raises and the script exits non-zero:
      sweep and ``torch.linalg.eigh``; the consensus residual's entry of the
      same source (``cv_c2c_residual_f64``: the design, the Jacobi and the
      score a pair in registers) bitwise to ``pose.c2c_residual_plain`` and
-     timed beside it at a block of 4,194,304 (model, match) pairs; the
+     timed beside it at a block of 4,194,304 (model, match) pairs, and its
+     score entry (``cv_c2c_score_f64``: each model's inlier count and total,
+     no residual written) bitwise to ``pose.c2c_score_plain`` at the same
+     block, both beside the parent's figures; the
      summing probes within ``probes.SUM_ATOL`` (the window, column and
      row sums also bitwise to their order mirrors); beside each kernel's time
      and its plain version's, one PyTorch call computing the same function
@@ -2030,6 +2033,10 @@ def torch_jacobi_unfused(a, sweeps=6):
 C2C_EXTRA_FLOPS = 96 + 110 + 22 + 24 + 12 + 3
 # The residual's timed block: 1,024 x 4 models against 1,024 matches.
 C2C_BLOCK = (1024, 4, 1024)
+# The parent commit's device ms at that block, as PERF.md records them
+# (its residual entry; its residual entry plus the torch passes of its
+# scoring), printed beside this tree's.
+C2C_PARENT_MS = {"residual": 3.441, "scoring": 3.610}
 # The most (model, match) pairs of a recorded scoring stage rerun with the
 # plain residual.
 SCORE_HOLD_PAIRS = 1 << 21
@@ -2159,7 +2166,7 @@ def check_eigen_trig64(dev, seed):
 
     # The residual entry at a block of (model, match) pairs: the kernel
     # beside its plain version (torch ops, the plain Jacobi); no one library
-    # call computes it.
+    # call computes it.  Then the score entry on the same block.
     from cv_tpu_torch.core import pose as pose_mod
 
     pose, a, b = c2c_block(dev, rng)
@@ -2180,11 +2187,50 @@ def check_eigen_trig64(dev, seed):
     if ms_ops > res_rec["bound_ms"]:
         res_rec["bound_ms"], res_rec["bound_by"] = ms_ops, "operations"
     print(f"residual at a consensus block ({pairs} pairs, float64): kernel {rms:.3f} ms, device (a CUDA graph) "
-          f"{rdev:.3f} ms; plain (c2c_residual_plain, torch ops) {rpms:.1f} ms; {int((got == 2.0).sum())} pairs at "
-          f"2.0; bound {res_rec['bound_ms']:.4f} ms ({res_rec['bound_by']}: {flops / 1e9:.2f} GFLOP float64 at 34 "
-          f"TFLOP/s); library: none")
-    del got, want
-    return rec, trig_rec, res_rec
+          f"{rdev:.3f} ms (the parent's: {C2C_PARENT_MS['residual']} ms device); plain (c2c_residual_plain, torch "
+          f"ops) {rpms:.1f} ms; {int((got == 2.0).sum())} pairs at 2.0; bound {res_rec['bound_ms']:.4f} ms "
+          f"({res_rec['bound_by']}: {flops / 1e9:.2f} GFLOP float64 at 34 TFLOP/s); library: none")
+    # The score entry: every model's inlier count and total (at 0.1, where
+    # ~15% of this draw's pairs are inliers, so the totals sum many terms),
+    # all rows valid, beside its plain version and the parent's
+    # scoring of the block (its residual entry, then the torch passes:
+    # compare, isfinite, and, sum, where, sum).
+    thr = 0.1
+    valid = torch.ones(C2C_BLOCK[2], dtype=torch.bool, device=dev)
+    counts, totals = pose_mod.c2c_score(pose, a, b, valid, thr)
+    sdev = device_ms(lambda: pose_mod.c2c_score(pose, a, b, valid, thr), iters=5)
+    sms = cuda_ms(lambda: pose_mod.c2c_score(pose, a, b, valid, thr), iters=5, warmup=1)
+    inliers = (want < thr) & valid & torch.isfinite(want)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pcounts, ptotals = pose_mod.c2c_score_plain(pose, a, b, valid, thr)
+    torch.cuda.synchronize()
+    spms = (time.perf_counter() - t0) * 1e3
+    require(torch.equal(counts, pcounts) and same_bits_any(totals, ptotals),
+            "score at the timed block: counts and totals bitwise equal to the plain version")
+    require(torch.equal(counts, inliers.sum(-1)), "score at the timed block: counts equal the residuals' inliers")
+
+    def torch_scoring():
+        res = pose_mod.c2c_residual(pose, a, b)
+        ins = (res < thr) & valid & torch.isfinite(res)
+        return ins.sum(-1), torch.where(ins, res, torch.zeros_like(res)).sum(-1)
+
+    tdev = device_ms(torch_scoring, iters=5)
+    flops_s = pairs * (jacobi_flops(4, 6) + C2C_EXTRA_FLOPS + 2)
+    nbytes_s = (12 * C2C_BLOCK[0] * C2C_BLOCK[1] + 6 * C2C_BLOCK[2]) * 8 + C2C_BLOCK[2] \
+        + 16 * C2C_BLOCK[0] * C2C_BLOCK[1]  # poses, bearings, valid in; counts, totals out
+    score_rec = kernel_record(sms, spms, float((totals - ptotals).abs().max()), nbytes_s, library_ms=None,
+                              device_ms=sdev, residual_and_torch_device_ms=tdev)
+    ms_ops = flops_s / FP64_FLOPS * 1e3
+    if ms_ops > score_rec["bound_ms"]:
+        score_rec["bound_ms"], score_rec["bound_by"] = ms_ops, "operations"
+    print(f"score at a consensus block ({pairs} pairs, float64, threshold {thr!r}, {int(counts.sum())} inliers): "
+          f"kernel {sms:.3f} ms, device {sdev:.3f} ms; the residual entry plus the torch passes {tdev:.3f} ms device "
+          f"(the parent's: {C2C_PARENT_MS['scoring']} ms device); plain (c2c_score_plain) {spms:.1f} ms; bound "
+          f"{score_rec['bound_ms']:.4f} ms ({score_rec['bound_by']}: {flops_s / 1e9:.2f} GFLOP float64 at 34 "
+          "TFLOP/s); library: none")
+    del got, want, inliers
+    return rec, trig_rec, res_rec, score_rec
 
 
 def first_calls(k):
@@ -2199,21 +2245,37 @@ def first_calls(k):
     return keep
 
 
-def hold_recorded_residuals(calls, scores, label):
+def cut_models(models, valid, pairs):
+    """The first hypotheses of a ``(H, M)`` models batch, at most ``pairs``
+    (model, row) pairs against ``valid``'s rows."""
+    h, m = models.translation.shape[:2]
+    keep = max(1, pairs // (m * valid.shape[0]))
+    return type(models)(rotation=models.rotation[:keep], translation=models.translation[:keep])
+
+
+def hold_recorded_residuals(calls, score_calls, scores, label):
     """Each recorded call of the residual entry (``pose.c2c_residual``: the
-    consensus's blocks of pairs) bitwise to the plain residual, and the
-    Jacobi kernel bitwise to ``eigh_small_plain`` on those pairs' designs;
-    each recorded scoring stage (``BatchConsensus._score_stage``; its first
-    hypotheses, up to ``SCORE_HOLD_PAIRS`` pairs) rerun with the plain
-    residual in the entry's place: the same chosen model, inlier mask and
-    count."""
+    winners' rows) bitwise to the plain residual, and the Jacobi kernel
+    bitwise to ``eigh_small_plain`` on those pairs' designs; each recorded
+    call of the score entry (``pose.c2c_score``: the stages' blocks; its
+    first models, up to ``SCORE_HOLD_PAIRS`` pairs) bitwise to
+    ``c2c_score_plain``, counts and totals; each recorded scoring stage
+    (``BatchConsensus._score_stage``; its first hypotheses, up to
+    ``SCORE_HOLD_PAIRS`` pairs) rerun with the plain residual and score in
+    the entries' place (the same model, mask, count and total, bitwise) and
+    on the parent's path, the estimator without its ``score`` (every
+    residual written, torch's sums): the same model, mask and count, or a
+    tie of counts that only the totals' summation order decides, printed
+    with both totals."""
+    import dataclasses
+
     import torch
 
     from cv_tpu_torch.consensus import BatchConsensus
     from cv_tpu_torch.core import pose as pose_mod
     from cv_tpu_torch.ops import eigen
 
-    pairs = designs = 0
+    pairs = designs = held = scored = 0
     for args, kw in calls:
         if args is None:
             continue
@@ -2227,33 +2289,52 @@ def hold_recorded_residuals(calls, scores, label):
         require(same_bits_any(w, wp) and same_bits_any(v, vp), f"jacobi on {label}'s designs: bitwise equal")
         designs += design.shape[0]
     require(pairs > 0, f"no {label} residual recorded")
-    held = 0
+    for args, kw in score_calls:
+        if args is None:
+            continue
+        pose, a, b, valid, thr = args
+        pose = cut_models(pose, valid, SCORE_HOLD_PAIRS)
+        got_c, got_t = pose_mod.c2c_score(pose, a, b, valid, thr)
+        want_c, want_t = pose_mod.c2c_score_plain(pose, a, b, valid, thr)
+        require(torch.equal(got_c, want_c) and same_bits_any(got_t, want_t),
+                f"score on {label}'s blocks: counts and totals bitwise equal to the plain version")
+        scored += got_c.numel() * a.shape[0]
+    require(scored > 0, f"no {label} score recorded")
     for args, kw in scores:
         if args is None:
             continue
         # At most ``SCORE_HOLD_PAIRS`` pairs: the first hypotheses' models
         # (the plain residual takes seconds a block).
         consensus, estimator, models, data, valid = args
-        h, m = models.translation.shape[:2]
-        keep = max(1, SCORE_HOLD_PAIRS // (m * valid.shape[0]))
-        models = type(models)(rotation=models.rotation[:keep], translation=models.translation[:keep])
-        args = (consensus, estimator, models, data, valid)
+        args = (consensus, estimator, cut_models(models, valid, SCORE_HOLD_PAIRS), data, valid)
         kernel = BatchConsensus._score_stage(*args, **kw)
-        real = pose_mod.c2c_residual
-        pose_mod.c2c_residual = lambda pose, a, b, sweeps=6: pose_mod.c2c_residual_plain(pose, a, b)
+        real = pose_mod.c2c_residual, pose_mod.c2c_score
+        pose_mod.c2c_residual = lambda pose, a, b: pose_mod.c2c_residual_plain(pose, a, b)
+        pose_mod.c2c_score = pose_mod.c2c_score_plain
         try:
             plain = BatchConsensus._score_stage(*args, **kw)
         finally:
-            pose_mod.c2c_residual = real
-        (km, kmask, kcount, _), (pm, pmask, pcount, _) = kernel, plain
+            pose_mod.c2c_residual, pose_mod.c2c_score = real
+        parent = BatchConsensus._score_stage(args[0], dataclasses.replace(estimator, score=None), *args[2:], **kw)
+        (km, kmask, kcount, ktotal), (pm, pmask, pcount, ptotal) = kernel, plain
         same = (torch.equal(km.rotation, pm.rotation) and torch.equal(km.translation, pm.translation)
-                and torch.equal(kmask, pmask) and int(kcount) == int(pcount))
-        require(same, f"{label}'s scoring with the plain residual: the same model, inlier mask and count")
+                and torch.equal(kmask, pmask) and int(kcount) == int(pcount) and same_bits_any(ktotal, ptotal))
+        require(same, f"{label}'s scoring with the plain residual and score: the same model, mask, count and total")
+        qm, qmask, qcount, qtotal = parent
+        if not (torch.equal(km.rotation, qm.rotation) and torch.equal(km.translation, qm.translation)):
+            require(int(kcount) == int(qcount), f"{label}'s scoring on the parent's path: another count")
+            print(f"{label}'s scoring: a tie of {int(kcount)} inliers decided otherwise than on the parent's path "
+                  f"by the totals' summation order: this tree's winner's total {float(ktotal)!r}, the parent's "
+                  f"winner's total {float(qtotal)!r}")
+        else:
+            require(torch.equal(kmask, qmask) and int(kcount) == int(qcount),
+                    f"{label}'s scoring on the parent's path: the same model, mask and count")
         held += 1
     require(held > 0, f"no {label} scoring stage recorded")
     print(f"residual on {label}'s recorded blocks: {pairs} pairs bitwise equal to the plain version, the jacobi on "
-          f"{designs} of their designs bitwise; {held} scoring stage(s) with the plain residual: the same model, "
-          "inlier mask and count")
+          f"{designs} of their designs bitwise; score entry on {scored} recorded pairs bitwise equal to the plain "
+          f"version; {held} scoring stage(s) with the plain residual and score: the same model, inlier mask, count "
+          "and total; on the parent's path the same model, mask and count")
 
 
 def check_experiment_kernels(dev, seed):
@@ -2688,6 +2769,7 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
         with sandbox_hooks(dev) as hooks, main_path(counters, plains + [(png_mod, "unfilter_plain")]) as sb_run, \
                 recording(extrema, "dedup_scan_device") as scan_calls[f"sandbox {run}"], \
                 record_pose_calls() as sb_pose, recording(pose_mod, "c2c_residual", first_calls(1)) as sb_res, \
+                recording(pose_mod, "c2c_score", first_calls(1)) as sb_score_calls, \
                 recording(BatchConsensus, "_score_stage", first_calls(1)) as sb_scores:
             t0 = time.perf_counter()
             sb_engine = sandbox_app.main(argv, device=dev)
@@ -2704,7 +2786,8 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
               f"{launches['three_view_l2']}, three_view_adaptive {launches['three_view_adaptive']}, select_samples "
               f"{launches['select_samples']}, select_fused {launches['select_fused']}, angle_cv "
               f"{launches['angle_cv']}, cos_sin {launches['cos_sin']}, atan2 {launches['atan2']}, jacobi "
-              f"{launches['jacobi']}, c2c_residual {launches['c2c_residual']}; compiled unfilter calls "
+              f"{launches['jacobi']}, c2c_residual {launches['c2c_residual']}, c2c_score {launches['c2c_score']}; "
+              f"compiled unfilter calls "
               f"{png_mod.unfilter.calls}; plain-version calls {sb_run['plain']}")
         require(png_mod.unfilter.calls == len(frames), f"sandbox {run}: {png_mod.unfilter.calls} compiled decodes")
         scan_steps_run = [int(scan_steps(args).max()) for args, _ in scan_calls[f"sandbox {run}"]]
@@ -2712,11 +2795,11 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
         expect = dict(select_groups=0, select_samples=0, select_fused=0, dedup_scan=len(frames), **TRIG_LAUNCHED)
         if run == "run1":
             expect.update(single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,), jacobi=(1,),
-                          c2c_residual=(1,))
+                          c2c_residual=(1,), c2c_score=(1,))
         tally(sb_run, **expect)
         if run == "run1" or sb_res:
-            hold_recorded_residuals(sb_res, sb_scores, f"the sandbox {run}'s first two-view consensus")
-        del sb_res, sb_scores
+            hold_recorded_residuals(sb_res, sb_score_calls, sb_scores, f"the sandbox {run}'s first two-view consensus")
+        del sb_res, sb_score_calls, sb_scores
         ms = hooks["ms"]
         decode = ms.pop("png decode (loader thread)")
         print(f"sandbox {run} phases (ms, synchronized; calls): "
@@ -3527,7 +3610,7 @@ def apps_phase(dev, counters, plains, tally):
     tutorial chapters 2-5 (chapter 2's PNG decodes to its canvas, chapter 3
     finds 3425 keypoints, chapters 4 and 5 the same symmetric matches,
     chapter 5 its inliers among them), with the counters at zero: one scan
-    an extract, the trig kernel, no select kernel."""
+    an extract, the trig kernel, the score entry, no select kernel."""
     import numpy as np
 
     from cv_tpu_torch.akaze import load_gray
@@ -3549,7 +3632,8 @@ def apps_phase(dev, counters, plains, tally):
     print(f"apps: kpdraw {len(kp['response'])} keypoints; chapter 3 {len(kp3['response'])} keypoints; chapter 4 "
           f"{len(matches4)} symmetric matches; chapter 5 {inliers5} inliers of {matches5} matches; {seconds:.3f} s; "
           f"launches {run['launches']}")
-    tally(run, dedup_scan=6, select_samples=0, select_groups=0, select_fused=0, jacobi=(1,), **TRIG_LAUNCHED)
+    tally(run, dedup_scan=6, select_samples=0, select_groups=0, select_fused=0, jacobi=(1,), c2c_score=(1,),
+          **TRIG_LAUNCHED)
     require(len(kp["response"]) == KITTI_KEYPOINTS[0], f"kpdraw: {len(kp['response'])} keypoints")
     drawn = read_png(os.path.join(work, "kpdraw.png"))
     require(np.array_equal(drawn, kpdraw.render_crosses(load_gray(frame0), kp["point"])),
@@ -3594,6 +3678,7 @@ def kernel_counters():
         "atan2": trig_mod.atan2,
         "jacobi": eigen_mod.eigh_small,
         "c2c_residual": pose_mod.c2c_residual,
+        "c2c_score": pose_mod.c2c_score,
         **{f"bisect_{body}": fn for body, fn in probes.BISECT.items()},
         **{f"mxu_{body}": fn for body, fn in probes.MXU.items()},
     }
@@ -3605,6 +3690,7 @@ def kernel_counters():
         (probes, "take_along_plain"), (probes, "trig_probe_plain"), (probes, "bisect_plain"), (probes, "mxu_plain"),
         (trig_mod, "angle_cv_plain"), (trig_mod, "cos_sin_plain"), (trig_mod, "cos_sin_by_dtype"),
         (trig_mod, "atan2_plain"), (eigen_mod, "eigh_small_plain"), (pose_mod, "c2c_residual_plain"),
+        (pose_mod, "c2c_score_plain"),
     ]
     return counters, plains
 
@@ -3695,7 +3781,7 @@ def main():
     dedup_record = check_dedup_kernel(dev, args.seed, recorded[0][0])
     del recorded
     exp_records = check_experiment_kernels(dev, args.seed)
-    jacobi_record, trig64_record, c2c_record = check_eigen_trig64(dev, args.seed)
+    jacobi_record, trig64_record, c2c_record, score_record = check_eigen_trig64(dev, args.seed)
 
     clock("3")
     # -- 4. the KITTI path, once, with the counters at zero ------------------
@@ -3709,6 +3795,9 @@ def main():
         estimate=lambda s: eight_point.estimate(s[0], s[1]),
         residual=lambda m, d: camera_to_camera_residual(
             Isometry3(m.rotation[..., None, :, :], m.translation[..., None, :]), d[0], d[1]
+        ),
+        score=lambda m, d, valid, threshold: pose_mod.c2c_score(
+            Isometry3(m.rotation[..., None, :, :], m.translation[..., None, :]), d[0], d[1], valid, threshold
         ),
     )
     consensus = BatchConsensus(threshold=0.1, hypotheses=512, device=dev)
@@ -3738,6 +3827,7 @@ def main():
             recording(desc_mod, "select_samples", keep_planes) as select_calls["kitti"], \
             recording(extrema, "dedup_scan_device") as scan_calls["kitti"], \
             recording(pose_mod, "c2c_residual", first_calls(2)) as kitti_residuals, \
+            recording(pose_mod, "c2c_score", first_calls(2)) as kitti_score_calls, \
             recording(BatchConsensus, "_score_stage", first_calls(1)) as kitti_scores:
         fs, idx, keep = extract_and_match(images)
         model, mask, count = pose_pair0(fs, idx, keep)
@@ -3749,9 +3839,10 @@ def main():
     require(matches == [KITTI_MATCHES] * (BATCH // 2), f"matches {matches}")
     require(int(count) == KITTI_INLIERS, f"inliers {int(count)}")
     # orientation + M-LDB; one scan; the residual's blocks
-    tally(kitti_run, select_samples=2, dedup_scan=1, jacobi=(1,), c2c_residual=(1,), **TRIG_LAUNCHED)
-    hold_recorded_residuals(kitti_residuals, kitti_scores, "the KITTI pose pipeline")
-    del kitti_residuals, kitti_scores
+    tally(kitti_run, select_samples=2, dedup_scan=1, jacobi=(1,), c2c_residual=(1,), c2c_score=(1,),
+          **TRIG_LAUNCHED)
+    hold_recorded_residuals(kitti_residuals, kitti_score_calls, kitti_scores, "the KITTI pose pipeline")
+    del kitti_residuals, kitti_score_calls, kitti_scores
     require(tuple(fs.words.shape) == (BATCH, 512, 16) and fs.words.dtype == torch.int32, "words shape")
     v = fs.valid
     require(bool(torch.isfinite(fs.point[v]).all() & torch.isfinite(fs.angle[v]).all()), "finite keypoints")
@@ -3779,6 +3870,7 @@ def main():
             recording(extrema, "dedup_scan_device") as scan_calls["sfm"], \
             recording(device_refine, "graph_ba_core") as ba_calls, \
             recording(pose_mod, "c2c_residual", first_calls(2)) as sfm_residuals, \
+            recording(pose_mod, "c2c_score", first_calls(2)) as sfm_score_calls, \
             recording(BatchConsensus, "_score_stage", first_calls(1)) as sfm_scores:
         warm_engine, warm_s, _, _ = run_sfm(dev)
     print(f"sfm warm pass: {SFM_FRAMES / warm_s:.3f} fps ({warm_s:.3f} s)")
@@ -3793,9 +3885,9 @@ def main():
     print("sfm phases (ms, synchronized): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_ms.items()))
     tally(sfm_run, single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,),
           select_samples=(2 * SFM_FRAMES,), dedup_scan=(SFM_FRAMES,), jacobi=(1,), atan2=(1,), c2c_residual=(1,),
-          **TRIG_LAUNCHED)
-    hold_recorded_residuals(sfm_residuals, sfm_scores, "the SfM warm pass's first init")
-    del sfm_residuals, sfm_scores
+          c2c_score=(1,), **TRIG_LAUNCHED)
+    hold_recorded_residuals(sfm_residuals, sfm_score_calls, sfm_scores, "the SfM warm pass's first init")
+    del sfm_residuals, sfm_score_calls, sfm_scores
     del engine
     # Every A, B and C call of the warm pass, replayed on its own.
     for name, recorded in pose_calls.items():
@@ -4084,7 +4176,7 @@ def main():
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         measured = ("device_ms", "library_device_ms", "plain_device_ms", "steps", "us_per_step", "engine",
                     "aligned_ms", "aligned_plain_ms", "aligned_bound_ms", "parent_torch_ms", "library_calls",
-                    "so3_entries")
+                    "so3_entries", "residual_and_torch_device_ms")
         return {"name": name, "route": "cuda", "source": f"cv_tpu_torch/csrc/{source}.cu", "replaces": replaces,
                 "launches": launches, **{k: rec[k] for k in keys}, **{k: rec[k] for k in measured if k in rec}}
 
@@ -4110,6 +4202,8 @@ def main():
     records.append(row("jacobi", "jacobi", "cv_tpu/ops/eigen.py:19", main_launches["jacobi"], jacobi_record))
     records.append(row("c2c_residual", "jacobi", "cv_tpu/core/pose.py:206", main_launches["c2c_residual"],
                        c2c_record))
+    records.append(row("c2c_score", "jacobi", "cv_tpu/consensus/batch.py:135", main_launches["c2c_score"],
+                       score_record))
     # The trig kernel's row counts the describe paths' launches (angle_cv,
     # cos_sin), the so(3) maps' (cos_sin, atan2) and the probe run's.
     trig_launches = {k: main_launches[k] for k in ("angle_cv", "cos_sin", "atan2", "trig_probe")}

@@ -105,6 +105,7 @@ def chapter5_geometric_verification(device="cuda", seed=0):
     from ..camera import CameraIntrinsics
     from ..consensus import BatchConsensus, Estimator
     from ..core import Isometry3, camera_to_camera_residual, lie
+    from ..core import pose as pose_mod
     from ..solvers import eight_point
 
     ex = AkazeExtractor(Akaze.new(0.001), device=device)
@@ -122,6 +123,10 @@ def chapter5_geometric_verification(device="cuda", seed=0):
         estimate=lambda s: eight_point.estimate(s[0], s[1]),
         residual=lambda m, d: camera_to_camera_residual(
             Isometry3(rotation=m.rotation[..., None, :, :], translation=m.translation[..., None, :]), d[0], d[1]
+        ),
+        score=lambda m, d, valid, threshold: pose_mod.c2c_score(
+            Isometry3(rotation=m.rotation[..., None, :, :], translation=m.translation[..., None, :]), d[0], d[1],
+            valid, threshold,
         ),
     )
     cons = BatchConsensus(threshold=1e-7, hypotheses=2048, device=device)

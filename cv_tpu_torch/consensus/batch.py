@@ -77,19 +77,41 @@ class Estimator:
       tree with batch shape ``(..., models_per_sample)``.
     * ``residual``: (models with batch shape S, data tree of ``(N, ...)``)
       -> residuals ``S + (N,)``.
+    * ``score`` (optional): (models with batch shape S, data tree, valid
+      rows ``(N,)``, threshold) -> ``(counts S, totals S)`` of each model's
+      inliers (``residual < threshold``, valid, finite), without the
+      residuals.  Where it is set, the stages on a CUDA card take it; the
+      totals are summed in its own order.  Without it (and on a CPU) they
+      score through ``residual``.
     """
 
     min_samples: int
     models_per_sample: int
     estimate: Callable[..., Any]
     residual: Callable[..., Any]
+    score: Callable[..., Any] | None = None
+
+
+def _lexicographic_best(models, flat_counts, flat_total):
+    """The index of the model with the most inliers, ties broken by the
+    least total (a true two-stage argmax, never a folded float score), and
+    that model."""
+    at_max = flat_counts == flat_counts.max()
+    # argmin returns the first index among equal totals: exact ties keep the
+    # first-drawn model.
+    best = torch.argmin(torch.where(at_max, flat_total, torch.inf))
+    return best, _tree_map(lambda x: x.reshape((-1,) + x.shape[2:])[best], models)
+
+
+def _counts_first(estimator: Estimator, data) -> bool:
+    """Whether the stages score through ``estimator.score``."""
+    return estimator.score is not None and _first_leaf(data).device.type == "cuda"
 
 
 # The most (model, data row) pairs whose residuals are materialized at once
-# in the scoring stage.  On a card the relative-pose residual's entry keeps
-# each pair's design and eigensystem in registers, so a block holds only
-# its residuals and masks (~17 bytes a pair); on a CPU the plain residual's
-# intermediates (~300 bytes a pair) set the size.
+# in the scoring stage of an estimator without a ``score`` (or on a CPU):
+# a block holds its residuals and masks (~17 bytes a pair), and on a CPU
+# the plain residual's intermediates (~300 bytes a pair) set the size.
 SCORE_BLOCK = 1 << 22
 # Hypothesis shares start at multiples of this many hypotheses.  On a CPU
 # the vectorized transcendental functions (the Jacobi sweeps' atan2, cos and
@@ -176,13 +198,18 @@ class BatchConsensus:
         the rows ``block``, ties toward the lower block residual.  Returns a
         models tree with batch shape ``(prescore_keep, 1)``."""
         sub = _tree_map(lambda x: x[block], data)
+        counted = _counts_first(estimator, data)
 
         def keys(rows, d):
-            res = estimator.residual(_tree_map(lambda x: x[rows].to(d), models),
-                                     _tree_map(lambda x: x.to(d), sub))  # (h, M, P)
-            inliers = (res < self.threshold) & valid_row[block].to(d) & torch.isfinite(res)
-            counts = inliers.sum(dim=-1).reshape(-1)
-            total = torch.where(inliers, res, torch.zeros_like(res)).sum(dim=-1).reshape(-1)
+            share = _tree_map(lambda x: x[rows].to(d), models)
+            sub_d, valid_d = _tree_map(lambda x: x.to(d), sub), valid_row[block].to(d)
+            if counted:
+                counts, total = (x.reshape(-1) for x in estimator.score(share, sub_d, valid_d, self.threshold))
+            else:
+                res = estimator.residual(share, sub_d)  # (h, M, P)
+                inliers = (res < self.threshold) & valid_d & torch.isfinite(res)
+                counts = inliers.sum(dim=-1).reshape(-1)
+                total = torch.where(inliers, res, torch.zeros_like(res)).sum(dim=-1).reshape(-1)
             # Composite preemption key: counts are small ints, and the
             # tie-break term lives in (0, 1], so it can never reorder counts.
             return counts.to(torch.float32) * 2.0 + 1.0 / (1.0 + total)
@@ -203,7 +230,10 @@ class BatchConsensus:
         the sandbox's budgets (8,192 hypotheses x 4 models x thousands of
         matches), and on a CPU the plain residual's intermediates (a 4x4
         eigensystem a pair), would not fit at once.  Each pair's residual,
-        count and total are the same in any block."""
+        count and total are the same in any block.  An estimator with a
+        ``score`` on a card takes :meth:`_score_counted` instead."""
+        if _counts_first(estimator, data):
+            return self._score_counted(estimator, models, data, valid_row)
         n = _first_leaf(data).shape[0]
         h, m = _first_leaf(models).shape[:2]
         step = max(1, SCORE_BLOCK // (m * n))
@@ -221,12 +251,25 @@ class BatchConsensus:
             return torch.cat(masks), torch.cat(counts), torch.cat(totals)
 
         inliers, flat_counts, flat_total = (torch.cat(parts) for parts in zip(*self._sharded(h, score)))
-        at_max = flat_counts == flat_counts.max()
-        # argmin returns the first index among equal totals: exact ties keep
-        # the first-drawn model.
-        best = torch.argmin(torch.where(at_max, flat_total, torch.inf))
-        best_model = _tree_map(lambda x: x.reshape((-1,) + x.shape[2:])[best], models)
+        best, best_model = _lexicographic_best(models, flat_counts, flat_total)
         return best_model, inliers[best], flat_counts[best], flat_total[best]
+
+    def _score_counted(self, estimator, models, data, valid_row):
+        """:meth:`_score_stage` through ``estimator.score``: every model's
+        count and total without its residuals or mask, the same
+        lexicographic best, and then the winner's residual row alone (one
+        ``estimator.residual`` call over the rows) for its inlier mask."""
+        h = _first_leaf(models).shape[0]
+
+        def score(rows, d):
+            share = _tree_map(lambda x: x[rows].to(d), models)
+            return estimator.score(share, _tree_map(lambda x: x.to(d), data), valid_row.to(d), self.threshold)
+
+        flat_counts, flat_total = (torch.cat(parts).reshape(-1) for parts in zip(*self._sharded(h, score)))
+        best, best_model = _lexicographic_best(models, flat_counts, flat_total)
+        res = estimator.residual(best_model, data)  # (N,)
+        mask = (res < self.threshold) & valid_row & torch.isfinite(res)
+        return best_model, mask, flat_counts[best], flat_total[best]
 
     def _round(self, generator, estimator, data, valid_row, sample_mask, n_hyp, sample_idx):
         """One draw-solve-(prescore)-score round; returns ``(model, mask,

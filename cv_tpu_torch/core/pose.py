@@ -238,11 +238,11 @@ def c2c_residual_plain(pose: Isometry3, a: torch.Tensor, b: torch.Tensor) -> tor
 
 
 def _c2c_residual_unfused(pose: Isometry3, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """The residual in its cheap form (a CPU's outside
-    ``ops.eigen.exact_on_cpu``): the design and the scores summed in plain
+    """The residual in its cheap form (a CPU's within
+    ``ops.eigen.cheap_on_cpu``): the design and the scores summed in plain
     products, the unfused Jacobi sweep, within a few ulps of
     :func:`c2c_residual_plain`."""
-    from ..ops.eigen import eigh4
+    from ..ops.eigen import _eigh_unfused
 
     eye_pose = Isometry3.identity(dtype=a.dtype, device=a.device)
     shape = torch.broadcast_shapes(a.shape[:-1], pose.batch_shape) + (4, 4)
@@ -254,7 +254,7 @@ def _c2c_residual_unfused(pose: Isometry3, a: torch.Tensor, b: torch.Tensor) -> 
         for k in range(3):
             tk = term[..., k, :]
             design = design + tk[..., :, None] * tk[..., None, :]
-    eigvals, eigvecs = eigh4(design, exact=False)
+    eigvals, eigvecs = _eigh_unfused(design)
     idx = torch.argmin(eigvals.abs(), dim=-1)
     v = torch.gather(eigvecs, -1, idx[..., None, None].expand(eigvecs.shape[:-1] + (1,)))[..., 0]
     pt = projective.from_homogeneous(v)
@@ -279,21 +279,32 @@ def camera_to_camera_residual(pose: Isometry3, a: torch.Tensor, b: torch.Tensor)
     non-finite result maps to 2.0 exactly like the reference.  Broadcasts
     the pose batch against the match batch.  On a CUDA tensor one launch of
     ``csrc/jacobi.cu``'s residual entry (:func:`c2c_residual`); on a CPU
-    tensor :func:`c2c_residual_plain` within ``ops.eigen.exact_on_cpu``
-    (it costs tens of times the cheap form there), else
+    tensor :func:`c2c_residual_plain`, or within ``ops.eigen.cheap_on_cpu``
+    (the plain version costs tens of times the cheap form there)
     :func:`_c2c_residual_unfused`.
     """
     from ..ops import eigen
 
     if a.device.type == "cuda":
         return c2c_residual(pose, a, b)
-    return c2c_residual_plain(pose, a, b) if eigen._exact(a) else _c2c_residual_unfused(pose, a, b)
+    return _c2c_residual_unfused(pose, a, b) if eigen._cheap(a) else c2c_residual_plain(pose, a, b)
 
 
 _VOID, _I64, _INT = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
 
 
-def c2c_residual(pose: Isometry3, a: torch.Tensor, b: torch.Tensor, sweeps: int = 6) -> torch.Tensor:
+def _check_entry_args(name, pose: Isometry3, a: torch.Tensor, b: torch.Tensor, tensors=()):
+    """The checks of the residual and score entries: CUDA tensors on one
+    device, one dtype of float32 / float64."""
+    tensors = (pose.rotation, pose.translation, a, b, *tensors)
+    if any(t.device.type != "cuda" for t in tensors) or len({t.device for t in tensors}) != 1:
+        raise ValueError(f"{name}: CUDA tensors on one device, got {[t.device for t in tensors]}")
+    floats = tensors[:4]
+    if len({t.dtype for t in floats}) != 1 or a.dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"{name}: one dtype of float32 / float64, got {[t.dtype for t in floats]}")
+
+
+def c2c_residual(pose: Isometry3, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """:func:`c2c_residual_plain` on CUDA tensors, one thread a
     (model, match) pair in one launch of ``csrc/jacobi.cu``
     (``cv_c2c_residual_f64`` / ``_f32``): the design, the Jacobi, the
@@ -303,11 +314,7 @@ def c2c_residual(pose: Isometry3, a: torch.Tensor, b: torch.Tensor, sweeps: int 
     expanded and run pair by pair.  Counted on ``c2c_residual.launches``."""
     from .. import kernels
 
-    tensors = (pose.rotation, pose.translation, a, b)
-    if any(t.device.type != "cuda" for t in tensors) or len({t.device for t in tensors}) != 1:
-        raise ValueError(f"c2c_residual: CUDA tensors on one device, got {[t.device for t in tensors]}")
-    if len({t.dtype for t in tensors}) != 1 or a.dtype not in (torch.float32, torch.float64):
-        raise ValueError(f"c2c_residual: one dtype of float32 / float64, got {[t.dtype for t in tensors]}")
+    _check_entry_args("c2c_residual", pose, a, b)
     sp, sd = pose.rotation.shape[:-2], torch.broadcast_shapes(a.shape[:-1], b.shape[:-1])
     shape = torch.broadcast_shapes(sp, pose.translation.shape[:-1], sd)
     if len(sd) == 1 and len(sp) >= 1 and sp[-1] == 1 and shape == sp[:-1] + sd and pose.translation.shape[:-1] == sp:
@@ -322,9 +329,9 @@ def c2c_residual(pose: Isometry3, a: torch.Tensor, b: torch.Tensor, sweeps: int 
     rot, tr, av, bv = (t.contiguous() for t in (rot, tr, av, bv))
     out = torch.empty(shape, dtype=a.dtype, device=a.device)
     symbol = "cv_c2c_residual_f32" if a.dtype == torch.float32 else "cv_c2c_residual_f64"
-    err = kernels.function("jacobi", symbol, [_VOID] * 5 + [_I64, _I64, _INT, _INT, _VOID])(
+    err = kernels.function("jacobi", symbol, [_VOID] * 5 + [_I64, _I64, _INT, _VOID])(
         rot.data_ptr(), tr.data_ptr(), av.data_ptr(), bv.data_ptr(), out.data_ptr(), n_pose, n_match, paired,
-        int(sweeps), kernels.current_stream(a.device))
+        kernels.current_stream(a.device))
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
     if out.numel() > 0:
@@ -333,3 +340,91 @@ def c2c_residual(pose: Isometry3, a: torch.Tensor, b: torch.Tensor, sweeps: int 
 
 
 c2c_residual.launches = 0  # kernel launches so far
+
+# The widest chunk of a model's row in the score entry, and so the shape of
+# its summation order (csrc/jacobi.cu's kChunkWidth).
+SCORE_CHUNK_WIDTH = 128
+
+
+def score_chunk(matches: int) -> int:
+    """The chunk width of a row of ``matches``: the least power of two at
+    least ``matches``, at most ``SCORE_CHUNK_WIDTH``."""
+    r = 1
+    while r < SCORE_CHUNK_WIDTH and r < matches:
+        r <<= 1
+    return r
+
+
+def ordered_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """The score entry's sum of ``x`` ``(..., M)`` over its last axis: the
+    row cut into chunks of ``C = score_chunk(M)``, each chunk's values
+    meeting in a halving tree (``s[t] + s[t + h]`` for ``h = C/2, ..., 1``;
+    the last chunk padded with +0), then the chunks' sums added in order
+    (the first, then each next)."""
+    m = x.shape[-1]
+    cw = score_chunk(m)
+    chunks = max(1, -(-m // cw))
+    x = torch.nn.functional.pad(x, (0, chunks * cw - m)).reshape(x.shape[:-1] + (chunks, cw))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    acc = x[..., 0, 0]
+    for k in range(1, chunks):
+        acc = acc + x[..., k, 0]
+    return acc
+
+
+def c2c_score_plain(pose: Isometry3, a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor, threshold: float):
+    """The consensus score of relative poses of batch shape ``S + (1,)``
+    against ``(M, 3)`` matches in torch operations on any device: each
+    pair's :func:`c2c_residual_plain`, an inlier where ``res < threshold``,
+    ``valid`` and ``res`` finite, and per pose the inliers' count (int64)
+    and the sum of their residuals in the score entry's order
+    (:func:`ordered_row_sum`).  Returns ``(counts S, totals S)``."""
+    res = c2c_residual_plain(pose, a, b)
+    inliers = (res < threshold) & valid & torch.isfinite(res)
+    return inliers.sum(dim=-1), ordered_row_sum(torch.where(inliers, res, torch.zeros_like(res)))
+
+
+def c2c_score(pose: Isometry3, a: torch.Tensor, b: torch.Tensor, valid: torch.Tensor, threshold: float):
+    """:func:`c2c_score_plain`, on CUDA tensors one launch of
+    ``csrc/jacobi.cu``'s score entry (``cv_c2c_score_f64`` / ``_f32``): each
+    pair's residual in registers as in :func:`c2c_residual`, tested and
+    summed in the same launch; only the counts and totals are written (no
+    residual, no mask).  Poses of batch shape ``S + (1,)`` (``S`` non-empty),
+    matches ``(M, 3)``, ``valid`` ``(M,)`` bool.  On CPU tensors the plain
+    version.  Counted on ``c2c_score.launches``."""
+    from .. import kernels
+
+    if a.device.type == "cpu":
+        return c2c_score_plain(pose, a, b, valid, threshold)
+    _check_entry_args("c2c_score", pose, a, b, (valid,))
+    sp = pose.rotation.shape[:-2]
+    if (len(sp) < 2 or sp[-1] != 1 or pose.translation.shape[:-1] != sp or a.dim() != 2 or a.shape != b.shape
+            or a.shape[-1] != 3 or valid.shape != a.shape[:1] or valid.dtype != torch.bool):
+        raise ValueError(f"c2c_score: poses S + (1,), matches (M, 3), valid (M,) bool; got {tuple(sp)}, "
+                         f"{tuple(a.shape)}, {tuple(b.shape)}, {tuple(valid.shape)} {valid.dtype}")
+    rot, tr = pose.rotation.reshape(-1, 9).contiguous(), pose.translation.reshape(-1, 3).contiguous()
+    av, bv, ok = a.contiguous(), b.contiguous(), valid.contiguous().view(torch.uint8)
+    n_pose, n_match = rot.shape[0], av.shape[0]
+    counts = torch.empty(sp[:-1], dtype=torch.int64, device=a.device)
+    totals = torch.empty(sp[:-1], dtype=a.dtype, device=a.device)
+    # Rows of several chunks meet in the kernel's scratch: each chunk's sum
+    # and count, and a zeroed arrival count a row.
+    chunks = max(1, -(-n_match // score_chunk(n_match)))
+    scratch = (torch.empty(n_pose * chunks, dtype=a.dtype, device=a.device),
+               torch.empty(n_pose * chunks, dtype=torch.int64, device=a.device),
+               torch.zeros(n_pose, dtype=torch.int32, device=a.device)) if chunks > 1 else ()
+    scratch_ptrs = [t.data_ptr() for t in scratch] or [None] * 3
+    symbol = "cv_c2c_score_f32" if a.dtype == torch.float32 else "cv_c2c_score_f64"
+    err = kernels.function("jacobi", symbol, [_VOID] * 5 + [ctypes.c_double, _I64, _I64] + [_VOID] * 6)(
+        rot.data_ptr(), tr.data_ptr(), av.data_ptr(), bv.data_ptr(), ok.data_ptr(), float(threshold), n_pose, n_match,
+        counts.data_ptr(), totals.data_ptr(), *scratch_ptrs, kernels.current_stream(a.device))
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
+    if counts.numel() > 0:
+        c2c_score.launches += 1
+    return counts, totals
+
+
+c2c_score.launches = 0  # kernel launches so far

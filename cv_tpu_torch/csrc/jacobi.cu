@@ -1,9 +1,34 @@
 // The port's Jacobi eigensolver, cv_tpu/ops/eigen.py::eigh_small (a jitted
 // fori_loop of cyclic Jacobi sweeps) bit for bit, one thread a matrix; and
-// the consensus residual, cv_tpu/core/pose.py::camera_to_camera_residual
-// under the jit of cv_tpu/consensus/batch.py::_score_stage, one thread a
-// (model, match) pair, its 4x4 design built, solved and scored in
-// registers.
+// the consensus residual and its scoring: cv_tpu/core/pose.py::
+// camera_to_camera_residual with cv_tpu/ops/eigen.py::eigh4 under the jit of
+// cv_tpu/consensus/batch.py::_score_stage (and _prescore_stage), one thread
+// a (model, match) pair, its 4x4 design built, solved and scored in
+// registers.  The residual entry (cv_c2c_residual_*, core/pose.py::
+// c2c_residual, counted on c2c_residual.launches) writes each residual; the
+// score entry (cv_c2c_score_*, core/pose.py::c2c_score, counted on
+// c2c_score.launches) writes only each model's inlier count and total,
+// summed in a fixed order (c2c_score_plain's), so the stages no longer
+// materialize residuals and masks: they take the winner from the counts
+// and totals and recompute its residual row alone.
+//
+// What bounds the residual (PERF.md; NVIDIA H100 80GB HBM3, 700 W):
+// instruction issue, not the float64 lanes.  A pair executes ~4,460
+// DADD / DMUL / DFMA (counted; a division is 22 of them, and each
+// rotation's atan2 takes two), ~1.12 ms of the card's 64 float64 lanes an
+// SM at 4,194,304 pairs, while the entry takes ~2.85 ms: the integer,
+// select, branch and table work of glibc's atan2, cos and sin, their
+// branches diverging within warps, is half of its time (a branch-free
+// stand-in of the same length halves it), and the flushes of XLA's FTZ
+// were a fifth of its first form's.  So the design removes issued work:
+// a rotation of the residual decides its flushes once from the exponents
+// of c, s and the values it reads (c2c_rotate); every float64 angle (the Jacobi
+// entry's too) tests atan2's common case first (atan2_jacobi) and skips
+// the argument reduction and, below 2^-27 (the last sweeps), do_sin and
+// do_cos (cos_sin_jacobi).  The score entry takes a pair a thread over
+// (row, chunk) blocks, as wide a grid as the residual entry's, skips the
+// residuals of invalid rows (the padding of the consensus's buckets), and
+// joins a row's chunks in the last of its blocks to finish.
 //
 // A rotation is the reference's, as XLA's CPU backend compiles it: theta =
 // 0.5 atan2(2 apq, aqq - app) with glibc's atan2 and its cos and sin of
@@ -17,8 +42,8 @@
 // its sign here too (ftz), as in ops/eigen.py.  Built with --fmad=false;
 // every fused operation is an explicit fma.
 //
-// What bounds it: the float64 operations, mostly the trigonometry.  The
-// parent kept A and V in local memory (its pair loops were `#pragma unroll
+// What bounds the Jacobi entry: the float64 operations, mostly the
+// trigonometry.  An earlier form kept A and V in local memory (its pair loops were `#pragma unroll
 // 1`, so a[i][p] took a run-time index) and ran at 5.0% of its operations
 // bound at a consensus block (4,194,304 4x4 float64, 6 sweeps: 11.8 ms
 // against 0.59 ms on an H100 at 700 W).  Here, for N <= kRegN, the sweep
@@ -76,10 +101,55 @@ __device__ __forceinline__ float ftz(float v) {
   return (__float_as_uint(v) & 0x7f800000u) == 0 ? __fmul_rn(v, 0.0f) : v;
 }
 
+
+// cv_trig::cos_sin64 where |a| <= pi/2 or a is a NaN (the Jacobi angle's
+// range): the same bits without the argument reduction's branches, and
+// below 2^-27, where the results are 1 and a (every rotation of the last
+// sweeps), without do_sin and do_cos.
+__device__ __forceinline__ void cos_sin_jacobi(double a, double& co, double& si) {
+  const int k = __double2hiint(a) & 0x7fffffff;
+  if (k >= 0x7ff00000) {
+    co = si = __ddiv_rn(a, a);
+    return;
+  }
+  if (k < 0x3e400000) {
+    co = 1.0;
+    si = a;
+    return;
+  }
+  const bool middle = k >= 0x3feb6000;  // 0.855469 <= |a| <= pi/2
+  double sx = a, sdx = 0.0, cx = a, cdx = 0.0;
+  if (middle) {
+    const double t = __dsub_rn(cv_trig::kHp0, fabs(a));
+    sx = __dadd_rn(t, cv_trig::kHp1);
+    sdx = __dadd_rn(__dsub_rn(t, sx), cv_trig::kHp1);
+    cx = t;
+    cdx = cv_trig::kHp1;
+  }
+  const double ds = cv_trig::do_sin(sx, sdx), dc = cv_trig::do_cos(cx, cdx);
+  const double s = middle ? copysign(dc, a) : ds, c = middle ? ds : dc;
+  si = k < 0x3e500000 ? a : s;
+  co = k < 0x3e400000 ? 1.0 : c;
+}
+
+// cv_trig::atan2_64 with its common case tested first: where x and y are
+// normal, within [2^-500, 2^500) and less than 2^57 apart, none of its
+// special cases, flushes or scalings acts, so its quotient forms run at
+// once (one integer test instead of a dozen float64 ones); every other
+// pair takes atan2_64.
+__device__ __forceinline__ double atan2_jacobi(double y, double x) {
+  const unsigned ex = (static_cast<unsigned>(__double2hiint(x)) >> 20) & 0x7ff;
+  const unsigned ey = (static_cast<unsigned>(__double2hiint(y)) >> 20) & 0x7ff;
+  if (ex - 523u <= 999u && ey - 523u <= 999u && ex - ey + 56u <= 112u) {
+    return cv_trig::atan2_quotient(y, x, fabs(x), fabs(y));
+  }
+  return cv_trig::atan2_64(y, x);
+}
+
 // cos and sin of theta = atan2(2 apq, aqq - app) / 2.
 __device__ __forceinline__ void angle(double apq, double app, double aqq, double& c, double& s) {
-  const double theta = ftz(__dmul_rn(0.5, cv_trig::atan2_64(__dmul_rn(2.0, apq), ftz(__dsub_rn(aqq, app)))));
-  cv_trig::cos_sin64(theta, &c, &s);
+  const double theta = ftz(__dmul_rn(0.5, atan2_jacobi(__dmul_rn(2.0, apq), ftz(__dsub_rn(aqq, app)))));
+  cos_sin_jacobi(theta, c, s);
 }
 
 __device__ __forceinline__ void angle(float apq, float app, float aqq, float& c, float& s) {
@@ -283,13 +353,136 @@ int dispatch(const T* a, T* w, T* v, int64_t batch, int n, int sweeps, void* str
 }
 
 // ---------------------------------------------------------------------------
-// The consensus residual (core/pose.py::c2c_residual_plain)
+// The consensus residual and its score (core/pose.py::c2c_residual_plain,
+// c2c_score_plain)
 // ---------------------------------------------------------------------------
+
+constexpr int kSweeps = 6;        // eigh4's sweeps: the only count the residual uses
+constexpr int kChunkWidth = 128;  // the score entry's widest chunk of a row (its sum order)
+
+__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+__device__ __forceinline__ double div_(double a, double b) { return __ddiv_rn(a, b); }
+__device__ __forceinline__ float div_(float a, float b) { return __fdiv_rn(a, b); }
+__device__ __forceinline__ double sqrt_(double a) { return __dsqrt_rn(a); }
+__device__ __forceinline__ float sqrt_(float a) { return __fsqrt_rn(a); }
+
+// A lower bound of |v|'s biased exponent in the top bits of (bits << 1) - 1
+// (its own exponent, or one less), and of a zero the largest key: a zero
+// operand makes every product exact.
+template <typename T>
+struct Expo;
+template <>
+struct Expo<double> {
+  // Every product c x and fused sum fma(c, x, -(s y)) of a rotation is a
+  // multiple of 2^(e_c + e_x - 104) or of the rounded product's ulp, so it
+  // is zero or normal where e_coef + e_operand >= -918: biased, >= 1128.
+  static constexpr unsigned kShift = 21, kMinSum = 1128;
+  static __device__ __forceinline__ unsigned key(double v) {
+    return (static_cast<unsigned>(__double2hiint(v)) << 1) - 1u;
+  }
+};
+template <>
+struct Expo<float> {
+  static constexpr unsigned kShift = 24, kMinSum = 174;  // e_coef + e_operand >= -80
+  static __device__ __forceinline__ unsigned key(float v) { return (__float_as_uint(v) << 1) - 1u; }
+};
+
+template <typename T>
+__device__ __forceinline__ unsigned key_min(unsigned k, T v) {
+  return min(k, Expo<T>::key(v));
+}
+
+// Whether every product and fused sum with coefficients of key kc and
+// operands of key ko is zero or normal: then no flush can act.
+template <typename T>
+__device__ __forceinline__ bool no_subnormal(unsigned kc, unsigned ko) {
+  return (kc >> Expo<T>::kShift) + (ko >> Expo<T>::kShift) >= Expo<T>::kMinSum;
+}
+
+// The pair (x, y) rotated: (fma(c, x, -(s y)), fma(s, x, c y)), each value
+// flushed where kFlush.
+template <bool kFlush, typename T>
+__device__ __forceinline__ void turn(T c, T s, T& x, T& y) {
+  const T x0 = x, y0 = y;
+  if constexpr (kFlush) {
+    x = ftz(fma_(c, x0, -ftz(mul(s, y0))));
+    y = ftz(fma_(s, x0, ftz(mul(c, y0))));
+  } else {
+    x = fma_(c, x0, -mul(s, y0));
+    y = fma_(s, x0, mul(c, y0));
+  }
+}
+
+
+// One rotation (p, q) of the 4x4 A and V, rotate()'s bits.  The flushes
+// are decided once: where the exponents of c, s and the values the
+// rotation reads show that no product or fused sum can be subnormal, the
+// updates run without them (a flush then returns its argument); else each
+// value is flushed as in rotate().  The rows p and q read the block's
+// values that the column update writes, so their test follows it.
+template <typename T>
+__device__ __forceinline__ void c2c_rotate(T (&a)[4][4], T (&v)[4][4], int p, int q) {
+  T c, s;
+  angle(a[p][q], a[p][p], a[q][q], c, s);
+  const unsigned kc = key_min(Expo<T>::key(c), s);
+  unsigned ko = 0xffffffffu;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    ko = key_min(key_min(key_min(key_min(ko, a[i][p]), a[i][q]), v[i][p]), v[i][q]);
+    if (i != p && i != q) ko = key_min(key_min(ko, a[p][i]), a[q][i]);
+  }
+  const bool fast = no_subnormal<T>(kc, ko);
+  if (fast) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      turn<false>(c, s, a[i][p], a[i][q]);
+      turn<false>(c, s, v[i][p], v[i][q]);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      turn<true>(c, s, a[i][p], a[i][q]);
+      turn<true>(c, s, v[i][p], v[i][q]);
+    }
+  }
+  const unsigned kb = key_min(key_min(key_min(Expo<T>::key(a[p][p]), a[p][q]), a[q][p]), a[q][q]);
+  if (fast && no_subnormal<T>(kc, kb)) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) turn<false>(c, s, a[p][j], a[q][j]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) turn<true>(c, s, a[p][j], a[q][j]);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void c2c_sweep(T (&a)[4][4], T (&v)[4][4]) {
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+#pragma unroll
+    for (int q = p + 1; q < 4; ++q) c2c_rotate<T>(a, v, p, q);
+  }
+}
+
+// eigh4's kSweeps sweeps of the design, V from I.
+template <typename T>
+__device__ __forceinline__ void c2c_jacobi(T (&a)[4][4], T (&v)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) v[i][j] = i == j ? T(1) : T(0);
+  }
+#pragma unroll 1
+  for (int sweep = 0; sweep < kSweeps; ++sweep) c2c_sweep<T>(a, v);
+}
 
 // s_j = dot_fused(v, pm[:, j]): v0 pm0j + 0, then fma(v_k, pm_kj, acc).
 template <typename T>
 __device__ __forceinline__ T dot3(T v0, T v1, T v2, T p0, T p1, T p2) {
-  return fma_(v2, p2, fma_(v1, p1, mul(v0, p0) + T(0)));
+  return fma_(v2, p2, fma_(v1, p1, add(mul(v0, p0), T(0))));
 }
 
 // The rows pm - v (v^T pm) of one bearing's DLT block, each entry
@@ -312,54 +505,57 @@ __device__ __forceinline__ void from_homogeneous(T (&p)[4]) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[i] = -p[i];
   }
-  const T n = sqrt(dot3(p[0], p[1], p[2], p[0], p[1], p[2]));
+  const T n = sqrt_(dot3(p[0], p[1], p[2], p[0], p[1], p[2]));
 #pragma unroll
-  for (int i = 0; i < 4; ++i) p[i] = p[i] / n;
+  for (int i = 0; i < 4; ++i) p[i] = div_(p[i], n);
 }
 
 __device__ __forceinline__ bool finite(double x) { return isfinite(x); }
 __device__ __forceinline__ bool finite(float x) { return isfinite(x); }
 
-// out[i] for i < P * M: the pose p = i / M (rotation row-major, then the
-// translation), the match m = paired ? p : i % M.
+// The pose (rotation row-major at rp, translation at tp) and the bearings
+// at ap and bp: 12 + 6 values.
 template <typename T>
-__global__ void __launch_bounds__(kThreads, kC2cMinBlocks)
-    c2c_residual_kernel(const T* __restrict__ rot, const T* __restrict__ trans, const T* __restrict__ a,
-                        const T* __restrict__ b, T* __restrict__ out, int64_t poses, int64_t matches, int paired,
-                        int sweeps) {
-  const int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
-  if (i >= poses * matches) return;
-  const int64_t p = i / matches, m = paired ? p : i - p * matches;
-  T pm[3][4], eye[3][4], av[3], bv[3];
+__device__ __forceinline__ void load_pair(const T* rp, const T* tp, const T* ap, const T* bp, T (&pm)[3][4],
+                                          T (&av)[3], T (&bv)[3]) {
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
 #pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      pm[k][j] = rot[p * 9 + k * 3 + j];
-      eye[k][j] = k == j ? T(1) : T(0);
-    }
-    pm[k][3] = trans[p * 3 + k];
-    eye[k][3] = T(0);
-    av[k] = a[m * 3 + k];
-    bv[k] = b[m * 3 + k];
+    for (int j = 0; j < 3; ++j) pm[k][j] = rp[k * 3 + j];
+    pm[k][3] = tp[k];
+    av[k] = ap[k];
+    bv[k] = bp[k];
   }
-  // The design: fma(t0i, t0j, t1i t1j), then each later row fused in
-  // order (a's rows, then b's); the Jacobi reads it flushed.
-  T ta[3][4], tb[3][4], d[4][4], v[4][4];
-  dlt_terms(eye, av, ta);
-  dlt_terms(pm, bv, tb);
+}
+
+// One (pose, match) pair's residual.
+template <typename T>
+__device__ __forceinline__ T pair_residual(const T* rp, const T* tp, const T* ap, const T* bp) {
+  // The pose and the bearings are not live in registers across the sweeps:
+  // at the register cap the compiler keeps them in local memory (144 bytes
+  // in float64) and reads them back for the score.
+  T pm[3][4], av[3], bv[3], d[4][4], v[4][4];
+  load_pair(rp, tp, ap, bp, pm, av, bv);
+  {
+    // The design: fma(t0i, t0j, t1i t1j), then each later row fused in
+    // order (a's rows, then b's); the Jacobi reads it flushed.
+    T ta[3][4], tb[3][4];
+    const T eye[3][4] = {{T(1), T(0), T(0), T(0)}, {T(0), T(1), T(0), T(0)}, {T(0), T(0), T(1), T(0)}};
+    dlt_terms(eye, av, ta);
+    dlt_terms(pm, bv, tb);
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
+    for (int r = 0; r < 4; ++r) {
 #pragma unroll
-    for (int c = r; c < 4; ++c) {
-      T acc = fma_(ta[0][r], ta[0][c], mul(ta[1][r], ta[1][c]));
-      acc = fma_(ta[2][r], ta[2][c], acc);
+      for (int c = r; c < 4; ++c) {
+        T acc = fma_(ta[0][r], ta[0][c], mul(ta[1][r], ta[1][c]));
+        acc = fma_(ta[2][r], ta[2][c], acc);
 #pragma unroll
-      for (int k = 0; k < 3; ++k) acc = fma_(tb[k][r], tb[k][c], acc);
-      d[r][c] = d[c][r] = sweeps > 0 ? ftz(acc) : acc;
+        for (int k = 0; k < 3; ++k) acc = fma_(tb[k][r], tb[k][c], acc);
+        d[r][c] = d[c][r] = kSweeps > 0 ? ftz(acc) : acc;
+      }
     }
   }
-  sweep_all<T, 4>(d, v, sweeps);
+  c2c_jacobi<T>(d, v);
   // The eigenvector of least |eigenvalue| in the sorted order, the first
   // on ties (a NaN first, as torch.argmin takes it), kept column by
   // column with constant indices.
@@ -386,18 +582,129 @@ __global__ void __launch_bounds__(kThreads, kC2cMinBlocks)
   from_homogeneous(q);
   const T da = dot3(av[0], av[1], av[2], pt[0], pt[1], pt[2]);
   const T db = dot3(bv[0], bv[1], bv[2], q[0], q[1], q[2]);
-  const T res = ((T(2) - da) - db) * T(0.5);
-  out[i] = pt_finite && finite(res) ? res : T(2);
+  const T res = mul(sub(sub(T(2), da), db), T(0.5));
+  return pt_finite && finite(res) ? res : T(2);
+}
+
+// out[p * matches + m] for p < poses, m < matches (pose p's rotation
+// row-major, then its translation); with `paired` (matches = 1) pose i
+// against match i into out[i].  A warp takes consecutive matches of one
+// pose (a warp of one match across poses was no faster, PERF.md).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kC2cMinBlocks)
+    c2c_residual_kernel(const T* __restrict__ rot, const T* __restrict__ trans, const T* __restrict__ a,
+                        const T* __restrict__ b, T* __restrict__ out, int64_t poses, int64_t matches, int paired) {
+  const int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
+  if (i >= poses * matches) return;
+  const int64_t p = paired ? i : i / matches, m = paired ? i : i - p * matches;
+  out[i] = pair_residual(rot + p * 9, trans + p * 3, a + m * 3, b + m * 3);
+}
+
+// The chunk width of a row of `matches` in the score entry: the least
+// power of two >= matches, at most kChunkWidth (c2c_score_plain's order).
+__host__ __device__ __forceinline__ int chunk_width(int64_t matches) {
+  int r = 1;
+  while (r < kChunkWidth && r < matches) r <<= 1;
+  return r;
+}
+
+// Pose p's inlier count and total over the matches: a pair is an inlier
+// where valid[m], res < threshold and res is finite (an invalid row's
+// residual is not computed).  A row is cut into chunks of C = chunk_width
+// matches and a thread takes one pair, so the grid is as wide as the
+// residual entry's: a block holds kThreads / C rows of one chunk each
+// (their poses staged in shared memory), the C values of a (row, chunk)
+// meet in a halving tree (s[t] + s[t + h] for h = C/2, ..., 1; a pair
+// past the row or not an inlier gives +0), and where a row has several
+// chunks, each chunk's sum and count go to `part`, and the row's last
+// block to finish adds them in chunk order (the first, then each next).
+// Only the counts and totals are written.
+template <typename T>
+__global__ void __launch_bounds__(kThreads, kC2cMinBlocks)
+    c2c_score_kernel(const T* __restrict__ rot, const T* __restrict__ trans, const T* __restrict__ a,
+                     const T* __restrict__ b, const uint8_t* __restrict__ valid, T threshold, int64_t poses,
+                     int64_t matches, long long* __restrict__ counts, T* __restrict__ totals, T* part_sum,
+                     long long* part_count, int* arrived) {
+  __shared__ T pose_s[kThreads * 12];
+  __shared__ T sum_s[kThreads];
+  __shared__ long long count_s[kThreads];
+  const int cw = chunk_width(matches);
+  const int64_t chunks = matches > cw ? (matches + cw - 1) / cw : 1;
+  const int rows = kThreads / cw;
+  const int r = threadIdx.x % cw, g = threadIdx.x / cw;
+  const int64_t chunk = blockIdx.x % chunks, first = blockIdx.x / chunks * rows;
+  for (int e = threadIdx.x; e < rows * 12; e += kThreads) {
+    const int64_t pg = first + e / 12;
+    const int k = e % 12;
+    if (pg < poses) pose_s[e] = k < 9 ? rot[pg * 9 + k] : trans[pg * 3 + k - 9];
+  }
+  __syncthreads();
+  const int64_t p = first + g, m = chunk * cw + r;
+  T value = T(0);
+  long long count = 0;
+  if (p < poses && m < matches && valid[m] != 0) {
+    const T res = pair_residual(pose_s + g * 12, pose_s + g * 12 + 9, a + m * 3, b + m * 3);
+    const bool in = res < threshold && finite(res);
+    value = in ? res : T(0);
+    count = in;
+  }
+  sum_s[threadIdx.x] = value;
+  count_s[threadIdx.x] = count;
+  __syncthreads();
+  for (int h = cw / 2; h > 0; h >>= 1) {
+    if (r < h) {
+      sum_s[threadIdx.x] = add(sum_s[threadIdx.x], sum_s[threadIdx.x + h]);
+      count_s[threadIdx.x] += count_s[threadIdx.x + h];
+    }
+    __syncthreads();
+  }
+  if (chunks == 1) {
+    if (r == 0 && p < poses) {
+      counts[p] = count_s[threadIdx.x];
+      totals[p] = sum_s[threadIdx.x];
+    }
+    return;
+  }
+  // Several chunks (then cw = kThreads: one row a block).
+  if (threadIdx.x == 0) {
+    part_sum[p * chunks + chunk] = sum_s[0];
+    part_count[p * chunks + chunk] = count_s[0];
+    __threadfence();
+    if (atomicAdd(arrived + p, 1) != chunks - 1) return;
+    T total = __ldcg(part_sum + p * chunks);
+    long long n = __ldcg(part_count + p * chunks);
+    for (int64_t c = 1; c < chunks; ++c) {
+      total = add(total, __ldcg(part_sum + p * chunks + c));
+      n += __ldcg(part_count + p * chunks + c);
+    }
+    counts[p] = n;
+    totals[p] = total;
+  }
 }
 
 template <typename T>
 int c2c_launch(const T* rot, const T* trans, const T* a, const T* b, T* out, int64_t poses, int64_t matches,
-               int paired, int sweeps, void* stream) {
+               int paired, void* stream) {
   const int64_t total = poses * matches;
   if (total <= 0) return 0;
   const int64_t blocks = (total + kThreads - 1) / kThreads;
   c2c_residual_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      rot, trans, a, b, out, poses, matches, paired, sweeps);
+      rot, trans, a, b, out, poses, matches, paired);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int c2c_score_launch(const T* rot, const T* trans, const T* a, const T* b, const uint8_t* valid, double threshold,
+                     int64_t poses, int64_t matches, long long* counts, T* totals, T* part_sum, long long* part_count,
+                     int* arrived, void* stream) {
+  if (poses <= 0) return 0;
+  const int cw = chunk_width(matches);
+  const int rows = kThreads / cw;
+  const int64_t chunks = matches > cw ? (matches + cw - 1) / cw : 1;
+  const int64_t blocks = (poses + rows - 1) / rows * chunks;
+  c2c_score_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      rot, trans, a, b, valid, static_cast<T>(threshold), poses, matches, counts, totals, part_sum, part_count,
+      arrived);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -418,12 +725,33 @@ extern "C" int cv_jacobi_f32(const float* a, float* w, float* v, int64_t batch, 
 // or with `paired` pose i against match i (M = 1).  Returns
 // cudaGetLastError().
 extern "C" int cv_c2c_residual_f64(const double* rot, const double* trans, const double* a, const double* b,
-                                   double* out, int64_t poses, int64_t matches, int paired, int sweeps,
-                                   void* stream) {
-  return c2c_launch(rot, trans, a, b, out, poses, matches, paired, sweeps, stream);
+                                   double* out, int64_t poses, int64_t matches, int paired, void* stream) {
+  return c2c_launch(rot, trans, a, b, out, poses, matches, paired, stream);
 }
 
 extern "C" int cv_c2c_residual_f32(const float* rot, const float* trans, const float* a, const float* b, float* out,
-                                   int64_t poses, int64_t matches, int paired, int sweeps, void* stream) {
-  return c2c_launch(rot, trans, a, b, out, poses, matches, paired, sweeps, stream);
+                                   int64_t poses, int64_t matches, int paired, void* stream) {
+  return c2c_launch(rot, trans, a, b, out, poses, matches, paired, stream);
+}
+
+// The score of `poses` relative poses against `matches` bearing pairs
+// (valid: M bytes, 0 or 1): counts (P,) int64 and totals (P,) of each
+// pose's inliers (res < threshold, valid, finite), the threshold rounded to
+// the entry's type.  Where a row has several chunks (more than kChunkWidth
+// matches), part_sum and part_count hold P x chunks scratch values and
+// arrived P zeros; else they may be null.  Returns cudaGetLastError().
+extern "C" int cv_c2c_score_f64(const double* rot, const double* trans, const double* a, const double* b,
+                                const uint8_t* valid, double threshold, int64_t poses, int64_t matches,
+                                long long* counts, double* totals, double* part_sum, long long* part_count,
+                                int* arrived, void* stream) {
+  return c2c_score_launch(rot, trans, a, b, valid, threshold, poses, matches, counts, totals, part_sum, part_count,
+                          arrived, stream);
+}
+
+extern "C" int cv_c2c_score_f32(const float* rot, const float* trans, const float* a, const float* b,
+                                const uint8_t* valid, double threshold, int64_t poses, int64_t matches,
+                                long long* counts, float* totals, float* part_sum, long long* part_count,
+                                int* arrived, void* stream) {
+  return c2c_score_launch(rot, trans, a, b, valid, threshold, poses, matches, counts, totals, part_sum, part_count,
+                          arrived, stream);
 }

@@ -214,6 +214,8 @@ __device__ __forceinline__ float sinf_ref(float a) { return sincos_ref(a, false)
 // float64 sin / cos (sysdeps/ieee754/dbl-64/s_sin.c, branred.c)
 // ---------------------------------------------------------------------------
 
+// Word i of a table of float64 bits.  A row's words are read as
+// tab64(table + row, j), one address a row and an immediate offset a word.
 __device__ __forceinline__ double tab64(const uint64_t* table, int i) {
   return __longlong_as_double(static_cast<long long>(__ldg(reinterpret_cast<const unsigned long long*>(table) + i)));
 }
@@ -250,8 +252,8 @@ __device__ __forceinline__ SinCosPoint sincos_point(double x) {
   const double ax = fabs(x);
   const double u = __dadd_rn(ax, kBig);
   const int k = __double2loint(u) << 2;
-  return {__dsub_rn(ax, __dsub_rn(u, kBig)), tab64(kSinCosTab, k), tab64(kSinCosTab, k + 1),
-          tab64(kSinCosTab, k + 2), tab64(kSinCosTab, k + 3)};
+  const uint64_t* row = kSinCosTab + k;
+  return {__dsub_rn(ax, __dsub_rn(u, kBig)), tab64(row, 0), tab64(row, 1), tab64(row, 2), tab64(row, 3)};
 }
 
 // do_sin(x, dx): sin(x + dx), the Taylor form below 0.126.
@@ -403,35 +405,10 @@ __device__ __forceinline__ double flush64(double v) {
   return (__double_as_longlong(v) & 0x7ff0000000000000ll) == 0 ? __dmul_rn(v, 0.0) : v;
 }
 
-__device__ __forceinline__ double atan2_64(double y, double x) {
-  const int ux = __double2hiint(x), dx = __double2loint(x), uy = __double2hiint(y), dy = __double2loint(y);
-  if (isnan(x)) return __dadd_rn(x, y);
-  if (isnan(y)) return __dadd_rn(y, y);
-  if ((uy & 0x7fffffff) == 0 && dy == 0) return ux < 0 ? (uy < 0 ? -kOpi : kOpi) : (uy < 0 ? -0.0 : 0.0);
-  const double xf = flush64(x), yf = flush64(y);
-  const double half = uy < 0 ? -kHp0 : kHp0;
-  if (xf == 0.0) return half;
-  const bool y_inf = (uy & 0x7fffffff) == 0x7ff00000 && dy == 0;
-  if ((ux & 0x7fffffff) == 0x7ff00000 && dx == 0) {
-    if (ux < 0) return y_inf ? (uy < 0 ? -kTqpi : kTqpi) : (uy < 0 ? -kOpi : kOpi);
-    return y_inf ? (uy < 0 ? -kQpi : kQpi) : (uy < 0 ? -0.0 : 0.0);
-  }
-  if (y_inf) return half;
-  const int de = (uy & 0x7ff00000) - (ux & 0x7ff00000);
-  if (de >= (57 << 20)) return yf > 0 ? kHp0 : -kHp0;
-  if (de <= -(57 << 20)) {
-    if (xf > 0) return copysign(flush64(__ddiv_rn(fabs(yf), fabs(xf))), y);
-    return yf > 0 ? kOpi : -kOpi;
-  }
-  double ax = fabs(xf), ay = fabs(yf);
-  if (ax < 0x1p-500 || ay < 0x1p-500) {
-    ax = __dmul_rn(ax, 0x1p500);
-    ay = __dmul_rn(ay, 0x1p500);
-  }
-  if (ax > 0x1p500 || ay > 0x1p500) {
-    ax = __dmul_rn(ax, 0x1p-500);
-    ay = __dmul_rn(ay, 0x1p-500);
-  }
+// atan2_64's quotient forms, where its special cases and scalings have
+// passed the arguments on: x (flushed) and |x|, |y| (flushed, scaled)
+// nonzero, finite and less than 2^57 apart.
+__device__ __forceinline__ double atan2_quotient(double y, double xf, double ax, double ay) {
   // u = min / max and its correction du (EMULV with a fused product).
   const bool lo_y = ay < ax;
   const double num = lo_y ? ay : ax, den = lo_y ? ax : ay;
@@ -464,7 +441,8 @@ __device__ __forceinline__ double atan2_64(double y, double x) {
   } else {
     const int i = static_cast<int>(__dsub_rn(__dadd_rn(__dmul_rn(u, 256.0), 0x1p52), 0x1p52)) - 16;
     double c[7];
-    for (int j = 0; j < 7; ++j) c[j] = tab64(kAtanCij, i * 7 + j);
+    const uint64_t* row = kAtanCij + i * 7;
+    for (int j = 0; j < 7; ++j) c[j] = tab64(row, j);
     const double t3 = __dsub_rn(u, c[0]);
     const double w = __dadd_rn(t3, du);
     const double dw = fabs(t3) > fabs(du) ? __dadd_rn(__dsub_rn(t3, w), du) : __dadd_rn(__dsub_rn(du, w), t3);
@@ -477,6 +455,38 @@ __device__ __forceinline__ double atan2_64(double y, double x) {
     }
   }
   return copysign(z, y);
+}
+
+__device__ __forceinline__ double atan2_64(double y, double x) {
+  const int ux = __double2hiint(x), dx = __double2loint(x), uy = __double2hiint(y), dy = __double2loint(y);
+  if (isnan(x)) return __dadd_rn(x, y);
+  if (isnan(y)) return __dadd_rn(y, y);
+  if ((uy & 0x7fffffff) == 0 && dy == 0) return ux < 0 ? (uy < 0 ? -kOpi : kOpi) : (uy < 0 ? -0.0 : 0.0);
+  const double xf = flush64(x), yf = flush64(y);
+  const double half = uy < 0 ? -kHp0 : kHp0;
+  if (xf == 0.0) return half;
+  const bool y_inf = (uy & 0x7fffffff) == 0x7ff00000 && dy == 0;
+  if ((ux & 0x7fffffff) == 0x7ff00000 && dx == 0) {
+    if (ux < 0) return y_inf ? (uy < 0 ? -kTqpi : kTqpi) : (uy < 0 ? -kOpi : kOpi);
+    return y_inf ? (uy < 0 ? -kQpi : kQpi) : (uy < 0 ? -0.0 : 0.0);
+  }
+  if (y_inf) return half;
+  const int de = (uy & 0x7ff00000) - (ux & 0x7ff00000);
+  if (de >= (57 << 20)) return yf > 0 ? kHp0 : -kHp0;
+  if (de <= -(57 << 20)) {
+    if (xf > 0) return copysign(flush64(__ddiv_rn(fabs(yf), fabs(xf))), y);
+    return yf > 0 ? kOpi : -kOpi;
+  }
+  double ax = fabs(xf), ay = fabs(yf);
+  if (ax < 0x1p-500 || ay < 0x1p-500) {
+    ax = __dmul_rn(ax, 0x1p500);
+    ay = __dmul_rn(ay, 0x1p500);
+  }
+  if (ax > 0x1p500 || ay > 0x1p500) {
+    ax = __dmul_rn(ax, 0x1p-500);
+    ay = __dmul_rn(ay, 0x1p-500);
+  }
+  return atan2_quotient(y, xf, ax, ay);
 }
 
 }  // namespace cv_trig

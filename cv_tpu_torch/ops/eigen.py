@@ -20,14 +20,14 @@ sweep (a product, an update, ``aqq - app``, the angle) is the zero of its
 sign there, and so it is here (:func:`_ftz`).  On a CUDA tensor
 ``csrc/jacobi.cu`` computes the same function, one thread a matrix.
 
-On a CPU that exact function costs 5 to 43 times the plain unfused sweep
-(``scripts/cpu_costs.py``), so the callers whose batches are large there
-(the consensus residual, eight-point, five-point and ``svd3``) get
-:func:`_eigh_unfused` on a CPU, within a few ulps, and the cheap unfused
-forms of their products as well; within :func:`exact_on_cpu` they take the
-reference's contractions (:func:`gram_fused`, ``core.pose.c2c_design``)
-and the exact Jacobi, and give its bits.  On a card the kernel is exact
-either way.  The derivative is not defined:
+That exact function is what every CPU caller gets: the consensus
+residual, eight-point, five-point and :func:`svd3` take the reference's
+contractions (:func:`gram_fused`, ``core.pose.c2c_design``) and the exact
+Jacobi, and give its bits.  On a CPU it costs 5 to 43 times the plain
+unfused sweep (``scripts/cpu_costs.py``), so a caller whose CPU batches are
+large may opt into the cheap forms, within a few ulps, with
+:func:`cheap_on_cpu`: :func:`_eigh_unfused` and unfused products.  On a
+card the kernel is exact either way.  The derivative is not defined:
 a tensor that requires grad is refused.
 """
 
@@ -44,27 +44,36 @@ from .precision import full_f32_products
 
 MAX_N = 10  # csrc/jacobi.cu's largest matrix
 
-_EXACT_CPU = False  # set by exact_on_cpu()
+_CHEAP_CPU = False  # set by cheap_on_cpu()
 
 
 @contextlib.contextmanager
-def exact_on_cpu():
+def cheap_on_cpu():
     """Within it the CPU callers of the Jacobi (``core.pose``'s consensus
-    residual, eight-point, five-point, :func:`svd3`) compute ``cv_tpu``'s
-    jitted bits: its contracted products and the exact Jacobi, at 2 to 33
-    times the cost of their cheap forms (``scripts/cpu_costs.py``).  A card
-    computes those bits either way."""
-    global _EXACT_CPU
-    before, _EXACT_CPU = _EXACT_CPU, True
+    residual, eight-point, five-point, :func:`svd3`) take their cheap forms:
+    unfused products and the unfused sweep, within a few ulps of
+    ``cv_tpu``'s jitted bits and 2 to 33 times cheaper
+    (``scripts/cpu_costs.py``).  Outside it they compute those bits; a card
+    computes them either way."""
+    global _CHEAP_CPU
+    before, _CHEAP_CPU = _CHEAP_CPU, True
     try:
         yield
     finally:
-        _EXACT_CPU = before
+        _CHEAP_CPU = before
+
+
+def _cheap(t: torch.Tensor) -> bool:
+    """Whether a caller on ``t`` takes the cheap CPU forms (a CPU tensor
+    within :func:`cheap_on_cpu`)."""
+    return _CHEAP_CPU and t.device.type == "cpu"
 
 
 def _exact(t: torch.Tensor) -> bool:
-    """Whether a CPU caller on ``t`` takes the reference's forms."""
-    return _EXACT_CPU and t.device.type == "cpu"
+    """Whether a caller on ``t`` takes the reference's fused products (a
+    CPU tensor outside :func:`cheap_on_cpu`; the card's solvers use
+    matmuls)."""
+    return t.device.type == "cpu" and not _CHEAP_CPU
 
 
 def _ftz(v: torch.Tensor) -> torch.Tensor:
@@ -185,21 +194,20 @@ def eigh_small_plain(a: torch.Tensor, sweeps: int = 6):
     return w, v
 
 
-def eigh_small(a: torch.Tensor, sweeps: int = 6, exact: bool = True):
+def eigh_small(a: torch.Tensor, sweeps: int = 6):
     """Eigendecomposition of symmetric ``(..., N, N)`` matrices (N small).
 
     Returns ``(eigenvalues (..., N) ascending, eigenvectors (..., N, N))``
     with eigenvectors in columns, bit for bit ``cv_tpu``'s.  On a CUDA
     tensor one launch of ``csrc/jacobi.cu`` (N <= 10, float32 or float64),
-    counted on ``eigh_small.launches``.  On a CPU tensor
-    :func:`eigh_small_plain`, or with ``exact=False`` the cheaper
-    :func:`_eigh_unfused`.
+    counted on ``eigh_small.launches``; on a CPU tensor
+    :func:`eigh_small_plain`.
     """
     if torch.is_grad_enabled() and a.requires_grad:
         raise ValueError("eigh_small: no derivative; pass a tensor that does not require grad")
     if a.device.type != "cpu":
         return jacobi(a, sweeps)
-    return eigh_small_plain(a, sweeps) if exact else _eigh_unfused(a, sweeps)
+    return eigh_small_plain(a, sweeps)
 
 
 eigh_small.launches = 0  # jacobi.cu launches so far (CPU calls do not count)
@@ -232,8 +240,8 @@ def jacobi(a: torch.Tensor, sweeps: int = 6):
 
 
 def _eigh_unfused(a: torch.Tensor, sweeps: int = 6):
-    """The same cyclic Jacobi on a CPU without the reference's bits
-    (:func:`eigh_small` with ``exact=False``): each rotation's cosine and sine come
+    """The same cyclic Jacobi on a CPU without the reference's bits (the
+    callers' within :func:`cheap_on_cpu`): each rotation's cosine and sine come
     from the half-angle formulas of ``theta = atan2(2 apq, aqq - app) / 2``
     instead of glibc's functions and the updates are not fused, so each
     rotation lies within a few ulps of the exact one
@@ -269,9 +277,16 @@ def _eigh_unfused(a: torch.Tensor, sweeps: int = 6):
     return torch.gather(w, -1, order), torch.gather(v, -1, order[..., None, :].expand(v.shape))
 
 
-def eigh4(a: torch.Tensor, sweeps: int = 6, exact: bool = True):
+def eigh4(a: torch.Tensor, sweeps: int = 6):
     """Symmetric 4x4 batch eigendecomposition (see :func:`eigh_small`)."""
-    return eigh_small(a, sweeps=sweeps, exact=exact)
+    return eigh_small(a, sweeps=sweeps)
+
+
+def _eigh_for_caller(a: torch.Tensor, sweeps: int):
+    """:func:`eigh_small` for the callers :func:`cheap_on_cpu` covers
+    (eight-point, five-point, :func:`svd3`): within it on a CPU the unfused
+    sweep."""
+    return _eigh_unfused(a, sweeps) if _cheap(a) else eigh_small(a, sweeps)
 
 
 def cross_fused(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -292,10 +307,10 @@ def gram_fused(rows: torch.Tensor) -> torch.Tensor:
 
 
 def gram(rows: torch.Tensor) -> torch.Tensor:
-    """``rows^T rows``: :func:`gram_fused` on a CPU within
-    :func:`exact_on_cpu` (the reference's bits), else a matmul in full
-    float32 (the cheap CPU form; the card's, whose solvers are not held to
-    the reference's bits)."""
+    """``rows^T rows``: :func:`gram_fused` on a CPU (the reference's bits),
+    else a matmul in full float32 (the cheap CPU form within
+    :func:`cheap_on_cpu`; the card's, whose solvers are not held to the
+    reference's bits)."""
     if _exact(rows):
         return gram_fused(rows)
     with full_f32_products():
@@ -308,18 +323,17 @@ def svd3(e: torch.Tensor, sweeps: int = 8):
     Returns ``(u, s, vt)`` with singular values descending.  The left
     vector of the smallest singular value is completed by a cross product
     when that value is (near) zero — the rank-2 essential-matrix case this
-    exists for.  On a CPU within :func:`exact_on_cpu` the bits of
-    ``cv_tpu``'s jitted ``svd3``: every sum of products, cross product and
+    exists for.  On a CPU the bits of ``cv_tpu``'s jitted ``svd3``: every sum of products, cross product and
     norm as its jitted code contracts it (``E^T E`` by :func:`gram_fused`,
     ``E V`` by ``dot_fused``, :func:`cross_fused`; the norms are
     ``torch.linalg.vector_norm``'s, which sum and round as
     ``jnp.linalg.norm`` does on a CPU), the IEEE square root and the exact
-    Jacobi.  Otherwise (a CPU outside it, a card) the products are matmuls
-    in full float32; on a CPU the sweep is the unfused one, on a card the
-    Jacobi kernel.
+    Jacobi.  Otherwise (a CPU within :func:`cheap_on_cpu`, a card) the
+    products are matmuls in full float32; on a CPU the sweep is the unfused
+    one, on a card the Jacobi kernel.
     """
     fused = _exact(e)
-    w, v = eigh_small(gram(e), sweeps=sweeps, exact=fused)  # ascending
+    w, v = _eigh_for_caller(gram(e), sweeps)  # ascending
     # Descending order.
     w = w.flip(-1)
     v = v.flip(-1)

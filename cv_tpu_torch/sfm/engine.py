@@ -35,6 +35,7 @@ from ..akaze import Akaze, AkazeExtractor
 from ..camera import CameraIntrinsics, CameraIntrinsicsK1Distortion
 from ..consensus import BatchConsensus, Estimator
 from ..core import CameraToCamera, Isometry3, camera_to_camera_residual, world_to_camera_residual
+from ..core import pose as pose_mod
 from ..matching import PAD_DISTANCE, distance_matrix, knn, symmetric_matches
 from ..optimize import single_view_l2, three_view_adaptive, three_view_l2
 from ..solvers import eight_point, lambda_twist
@@ -121,6 +122,19 @@ def _essential_residual(m, d):
     )
 
 
+def _essential_score(m, d, valid, threshold):
+    """The essential estimator's counts and totals without its residuals
+    (``core.pose.c2c_score``: the score entry of ``csrc/jacobi.cu`` on a
+    card; looked up at each call, where a recorder may have bound it)."""
+    return pose_mod.c2c_score(
+        Isometry3(rotation=m.rotation[..., None, :, :], translation=m.translation[..., None, :]),
+        d[0],
+        d[1],
+        valid,
+        threshold,
+    )
+
+
 def _p3p_estimate(s):
     poses, valid = lambda_twist.estimate(s[0], s[1])
     # Zero-poisoning: a zero pose maps every point to the zero vector, whose
@@ -144,7 +158,8 @@ def _p3p_residual(m, d):
 # Shared default estimators (the reference keeps them module-level so every
 # engine uses the same objects).
 DEFAULT_ESSENTIAL_ESTIMATOR = Estimator(
-    min_samples=8, models_per_sample=4, estimate=_essential_estimate, residual=_essential_residual
+    min_samples=8, models_per_sample=4, estimate=_essential_estimate, residual=_essential_residual,
+    score=_essential_score,
 )
 DEFAULT_POSE_ESTIMATOR = Estimator(
     min_samples=3, models_per_sample=4, estimate=_p3p_estimate, residual=_p3p_residual

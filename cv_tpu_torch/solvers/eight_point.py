@@ -33,12 +33,11 @@ def encode_epipolar_equation(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def essential_from_matches(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Least-squares essential matrix from >= 8 matches ``(..., K, 3)``:
     the smallest eigenvector of the 9x9 normal matrix (lib.rs:44-60).  On
-    a CPU within ``eigen.exact_on_cpu`` the matrix is summed as the
-    reference's jitted code sums it (``eigen.gram_fused``) and the Jacobi is
-    the exact one: ``cv_tpu``'s bits; outside it a matmul and the unfused
-    sweep."""
+    a CPU the matrix is summed as the reference's jitted code sums it
+    (``eigen.gram_fused``) and the Jacobi is the exact one: ``cv_tpu``'s
+    bits; within ``eigen.cheap_on_cpu`` a matmul and the unfused sweep."""
     rows = encode_epipolar_equation(a, b)  # (..., K, 9)
-    _, vecs = eigen.eigh_small(eigen.gram(rows), sweeps=8, exact=eigen._exact(rows))  # ascending
+    _, vecs = eigen._eigh_for_caller(eigen.gram(rows), 8)  # ascending
     v = vecs[..., :, 0]
     # E[i, j] = v[3j + i]
     return v.reshape(v.shape[:-1] + (3, 3)).transpose(-1, -2)

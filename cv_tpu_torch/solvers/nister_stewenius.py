@@ -93,13 +93,13 @@ def nullspace_basis(a: torch.Tensor, b: torch.Tensor):
     ``a``/``b``: (..., 5, 3). Returns ``(basis (..., 9, 4), ok)``; ``ok``
     requires nullity exactly 4: the 9x9 Gram's eigenvalues (Jacobi, 8
     sweeps, ascending) at or below ``EIGEN_THRESHOLD`` up to the fourth and
-    above it from the fifth.  On a CPU within ``eigen.exact_on_cpu`` the
-    Gram is summed as the reference's jitted float64 code sums it
-    (``eigen.gram_fused``) and the Jacobi is the exact one: its float64
-    bits; outside it a matmul and the unfused sweep.
+    above it from the fifth.  On a CPU the Gram is summed as the
+    reference's jitted float64 code sums it (``eigen.gram_fused``) and the
+    Jacobi is the exact one: its float64 bits; within
+    ``eigen.cheap_on_cpu`` a matmul and the unfused sweep.
     """
     rows = (a[..., :, None] * b[..., None, :]).reshape(a.shape[:-1] + (9,))
-    vals, vecs = eigen.eigh_small(eigen.gram(rows), sweeps=8, exact=eigen._exact(rows))
+    vals, vecs = eigen._eigh_for_caller(eigen.gram(rows), 8)
     ok = (vals[..., 3] <= EIGEN_THRESHOLD) & (vals[..., 4] > EIGEN_THRESHOLD)
     return vecs[..., :, :4], ok
 

@@ -19,11 +19,14 @@ synchronize (medians):
 * ``exact_sparse`` and ``exact_default``: ``AkazeExtractor`` a KITTI frame
   at ``Akaze.sparse()`` and ``Akaze()``, the mean over the two frames of
   each frame's median of 3;
-* ``pose_pipeline``: chip_smoke.py's consensus on the KITTI pair 0
-  (eight-point, 512 hypotheses, float64; median of 5);
+* ``pose_pipeline``: chip_smoke.py's consensus on the KITTI pair 0 with
+  the engine's eight-point estimator (``DEFAULT_ESSENTIAL_ESTIMATOR``, with
+  its ``score`` where the tree has one), 512 hypotheses, float64; median of
+  5;
 * ``sfm_init`` and ``sfm_init_two_view``: the SfM configuration's timed pass
   (``chip_smoke.run_sfm``, after a warm pass): the engine's init phase and,
-  inside it, its ``init_two_view`` calls (summed ms);
+  inside it, its ``init_two_view`` calls (summed ms); ``sfm_pass`` and
+  ``sfm_ba_filter``: that pass's wall ms and its BA+filter phase;
 * ``init_two_view_sandbox``: one ``init_two_view`` of that engine's first
   two frames at the vslam-sandbox app's two-view budget (8,192 hypotheses,
   two refit rounds of 1,024; median of 3).
@@ -47,7 +50,8 @@ import sys
 import time
 
 METRICS = ("kitti_extract_match", "kitti_describe", "dense_extract", "dense_describe", "pfused_describe",
-           "exact_sparse", "exact_default", "pose_pipeline", "sfm_init", "sfm_init_two_view", "init_two_view_sandbox")
+           "exact_sparse", "exact_default", "pose_pipeline", "sfm_init", "sfm_init_two_view", "sfm_pass",
+           "sfm_ba_filter", "init_two_view_sandbox")
 
 
 def child(root: str) -> dict:
@@ -60,11 +64,10 @@ def child(root: str) -> dict:
     from cv_tpu_torch import kernels
     from cv_tpu_torch.akaze import Akaze, AkazeExtractor, DeviceExtractor, load_gray, to_gray_f32
     from cv_tpu_torch.camera import CameraIntrinsics
-    from cv_tpu_torch.consensus import BatchConsensus, Estimator
-    from cv_tpu_torch.core import Isometry3, camera_to_camera_residual
+    from cv_tpu_torch.consensus import BatchConsensus
     from cv_tpu_torch.matching import PAD_DISTANCE, distance_matrix, knn2
     from cv_tpu_torch.sfm import VSlam
-    from cv_tpu_torch.solvers import eight_point
+    from cv_tpu_torch.sfm.engine import DEFAULT_ESSENTIAL_ESTIMATOR as estimator
     from cv_tpu_torch.utils import KITTI_INTRINSICS, kitti_pair
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -108,10 +111,6 @@ def child(root: str) -> dict:
     intr = CameraIntrinsics.from_values(*KITTI_INTRINSICS, device=dev)
     ia = torch.nonzero(keep[0])[:, 0]
     data = (intr.calibrate(fs.point[0][ia].double()), intr.calibrate(fs.point[1][idx[0, :, 0][ia]].double()))
-    estimator = Estimator(
-        min_samples=8, models_per_sample=4, estimate=lambda s: eight_point.estimate(s[0], s[1]),
-        residual=lambda m, d: camera_to_camera_residual(
-            Isometry3(m.rotation[..., None, :, :], m.translation[..., None, :]), d[0], d[1]))
     consensus = BatchConsensus(threshold=0.1, hypotheses=512, device=dev)
 
     def pose():
@@ -136,10 +135,11 @@ def child(root: str) -> dict:
     cs.run_sfm(dev)
     VSlam.init_two_view = timed
     try:
-        engine, _, phase_ms, _ = cs.run_sfm(dev, timed_phases=True)
+        engine, pass_s, phase_ms, _ = cs.run_sfm(dev, timed_phases=True)
     finally:
         VSlam.init_two_view = real
     out["sfm_init"], out["sfm_init_two_view"] = phase_ms["init"], two_view["ms"]
+    out["sfm_pass"], out["sfm_ba_filter"] = pass_s * 1e3, phase_ms["ba+filter"]
     engine.two_view_consensus = BatchConsensus(threshold=engine.settings.two_view_consensus_threshold,
                                                hypotheses=8192, refit_rounds=2, refit_hypotheses=1024, device=dev)
     frames = sorted(engine.data.frames)[:2]

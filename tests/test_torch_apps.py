@@ -20,7 +20,19 @@ from cv_tpu.apps import tutorials as ref_tutorials
 from cv_tpu.utils.fixtures import fixture_path
 from cv_tpu_torch.akaze import load_gray
 from cv_tpu_torch.apps import kpdraw, tutorials
+from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.utils import read_png, write_png
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cheap_consensus():
+    """On a CPU the exact forms of this module's consensus runs and solver
+    batches cost tens of times the cheap ones (``scripts/cpu_costs.py``):
+    the module opts into the cheap CPU forms (``ops.eigen.cheap_on_cpu``,
+    within a few ulps of cv_tpu's bits), which every CPU caller took before
+    the exact forms became the default."""
+    with eigen.cheap_on_cpu():
+        yield
 
 
 @pytest.mark.parametrize("rgb", [False, True], ids=["gray", "rgb"])

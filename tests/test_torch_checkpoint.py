@@ -38,6 +38,7 @@ from cv_tpu.sfm import VSlamSettings as RefSettings
 from cv_tpu.sfm import data as ref_data
 from cv_tpu.sfm.export import export_ply as ref_export_ply
 import cv_tpu_torch.camera as port_camera
+from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.sfm import VSlam, VSlamSettings, se3
 from cv_tpu_torch.sfm import data as port_data
 from cv_tpu_torch.sfm.export import export_ply
@@ -53,6 +54,17 @@ SETTINGS = dict(optimization_iterations=64, constraint_patience=200, minimum_rob
 # orders; measured max |difference| 6.1e-15 (the 30 constraints' poses) and
 # 1.2e-15 (the views' poses after graph BA).
 REGEN_TOL = 1e-12
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cheap_consensus():
+    """On a CPU the exact forms of this module's consensus runs and solver
+    batches cost tens of times the cheap ones (``scripts/cpu_costs.py``):
+    the module opts into the cheap CPU forms (``ops.eigen.cheap_on_cpu``,
+    within a few ulps of cv_tpu's bits), which every CPU caller took before
+    the exact forms became the default."""
+    with eigen.cheap_on_cpu():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

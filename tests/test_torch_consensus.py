@@ -17,6 +17,7 @@ from cv_tpu.consensus import BatchConsensus as RefConsensus
 from cv_tpu.sfm import engine as ref_engine
 from cv_tpu.sfm.se3 import so3_exp
 from cv_tpu_torch.consensus import BatchConsensus
+from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.sfm import engine
 
 
@@ -49,6 +50,17 @@ def _reference(cons, bear, wp, n_valid, sample_idx, refit_idx):
     if take:
         model, mask, count = m2, k2, c2
     return model, np.asarray(mask), int(count)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cheap_consensus():
+    """On a CPU the exact forms of this module's consensus runs and solver
+    batches cost tens of times the cheap ones (``scripts/cpu_costs.py``):
+    the module opts into the cheap CPU forms (``ops.eigen.cheap_on_cpu``,
+    within a few ulps of cv_tpu's bits), which every CPU caller took before
+    the exact forms became the default."""
+    with eigen.cheap_on_cpu():
+        yield
 
 
 @pytest.mark.parametrize("seed", [0, 1])

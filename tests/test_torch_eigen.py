@@ -11,7 +11,8 @@ bit here (eigenvalues and eigenvectors, a NaN only by position) at N = 3,
 4 and 9, at 6 and 8 sweeps, in float32 and float64, on random symmetric
 matrices and on zero, diagonal, repeated-eigenvalue, ``apq = 0`` and
 graded ones.  The angle's shortcut for converged rotations is held to the
-general functions; the unfused sweep (``exact=False`` on a CPU) is held
+general functions; the unfused sweep (the callers' within
+``eigen.cheap_on_cpu``) is held
 near cv_tpu's at a stated tolerance, and the kernel (``csrc/jacobi.cu``) runs
 only on a card: the ``cuda`` tests skip here.
 """
@@ -155,7 +156,7 @@ UNFUSED_TOL = {"float64": (1e-14, 1e-12), "float32": (1e-5, 1e-4)}
 @pytest.mark.parametrize("dtype", ["float64", "float32"])
 @pytest.mark.parametrize("n,sweeps", [(3, 8), (4, 6), (9, 8)])
 def test_unfused_sweep_near_cv_tpu(n, sweeps, dtype):
-    """The CPU's ``exact=False`` sweep (``_eigh_unfused``) against cv_tpu's
+    """The CPU's cheap sweep (``_eigh_unfused``) against cv_tpu's
     on 2,000 random matrices: eigenvalues within 1e-14 of the matrix's
     largest entry in float64 (measured worst 5.3e-15, N = 9), 1e-5 in
     float32 (3.6e-6); eigenvectors, in the same order and sign, within
@@ -171,17 +172,22 @@ def test_unfused_sweep_near_cv_tpu(n, sweeps, dtype):
 
 
 def test_eigh_small_exact_false_takes_the_unfused_sweep_on_a_cpu():
-    """``exact=False`` gives the unfused sweep's bits on a CPU; the default,
-    cv_tpu's."""
+    """Within ``eigen.cheap_on_cpu`` the callers' Jacobi
+    (``_eigh_for_caller``) gives the unfused sweep's bits on a CPU; outside
+    it, and ``eigh_small`` / ``eigh4`` always, cv_tpu's."""
     a = torch.as_tensor(_random(np.random.default_rng(41), 64, 4))
-    w, v = teig.eigh_small(a, exact=False)
-    wu, vu = teig._eigh_unfused(a, 6)
-    _same_bits(w.numpy(), wu.numpy())
-    _same_bits(v.numpy(), vu.numpy())
-    w, v = teig.eigh4(a)
     wj, vj = jeig.eigh_small(jnp.asarray(a.numpy()))
-    _same_bits(w.numpy(), wj)
-    _same_bits(v.numpy(), vj)
+    wu, vu = teig._eigh_unfused(a, 6)
+    with teig.cheap_on_cpu():
+        w, v = teig._eigh_for_caller(a, 6)
+        _same_bits(w.numpy(), wu.numpy())
+        _same_bits(v.numpy(), vu.numpy())
+        for w, v in (teig.eigh4(a), teig.eigh_small(a)):
+            _same_bits(w.numpy(), wj)
+            _same_bits(v.numpy(), vj)
+    for w, v in (teig._eigh_for_caller(a, 6), teig.eigh4(a)):
+        _same_bits(w.numpy(), wj)
+        _same_bits(v.numpy(), vj)
 
 
 # ---------------------------------------------------------------------------
@@ -213,17 +219,17 @@ def test_cuda_jacobi_bitwise_to_plain(n, dtype):
 
 def test_c2c_residual_rejects_the_cpu():
     """The residual entry of ``csrc/jacobi.cu`` takes CUDA tensors only; on a
-    CPU ``camera_to_camera_residual`` runs its cheap form, and within
-    ``eigen.exact_on_cpu`` its plain version."""
+    CPU ``camera_to_camera_residual`` runs its plain version, and within
+    ``eigen.cheap_on_cpu`` its cheap form."""
     from cv_tpu_torch.core import pose
 
     p = pose.Isometry3(torch.eye(3, dtype=torch.float64)[None], torch.zeros(1, 3, dtype=torch.float64))
     a = torch.tensor([[0.0, 0.0, 1.0]], dtype=torch.float64)
     with pytest.raises(ValueError):
         pose.c2c_residual(p, a, a)
-    _same_bits(pose.camera_to_camera_residual(p, a, a).numpy(), pose._c2c_residual_unfused(p, a, a).numpy())
-    with teig.exact_on_cpu():
-        _same_bits(pose.camera_to_camera_residual(p, a, a).numpy(), pose.c2c_residual_plain(p, a, a).numpy())
+    _same_bits(pose.camera_to_camera_residual(p, a, a).numpy(), pose.c2c_residual_plain(p, a, a).numpy())
+    with teig.cheap_on_cpu():
+        _same_bits(pose.camera_to_camera_residual(p, a, a).numpy(), pose._c2c_residual_unfused(p, a, a).numpy())
 
 
 @pytest.mark.cuda

@@ -39,7 +39,19 @@ from cv_tpu.core.pose import CameraToCamera as JC2C
 from cv_tpu.solvers import nister_stewenius as jns
 from cv_tpu_torch.camera import essential
 from cv_tpu_torch.core import CameraToCamera, lie, projective
+from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.solvers import eight_point, nister_stewenius
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cheap_consensus():
+    """On a CPU the exact forms of this module's consensus runs and solver
+    batches cost tens of times the cheap ones (``scripts/cpu_costs.py``):
+    the module opts into the cheap CPU forms (``ops.eigen.cheap_on_cpu``,
+    within a few ulps of cv_tpu's bits), which every CPU caller took before
+    the exact forms became the default."""
+    with eigen.cheap_on_cpu():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -146,8 +146,7 @@ _JIT_RESIDUAL = jax.jit(lambda r, t, a, b: JEST.residual(JIso(rotation=r, transl
 def _port_residual(rot, tr, a, b, dtype=torch.float64):
     t = lambda x: torch.as_tensor(x, dtype=dtype)  # noqa: E731
     pose = TIso(t(rot)[..., None, :, :], t(tr)[..., None, :])
-    with eigen.exact_on_cpu():
-        return camera_to_camera_residual(pose, t(a), t(b)).numpy()
+    return camera_to_camera_residual(pose, t(a), t(b)).numpy()
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -180,10 +179,9 @@ def test_residual_bitwise_on_the_kitti_consensus():
         jnp.asarray(valid))
     est = TEstimator(8, 4, None, lambda m, d: camera_to_camera_residual(
         TIso(m.rotation[..., None, :, :], m.translation[..., None, :]), d[0], d[1]))
-    with eigen.exact_on_cpu():
-        tm, tmask, tcount, _ = TConsensus(threshold=1e-3, hypotheses=1, device="cpu")._score_stage(
-            est, TIso(torch.as_tensor(rot), torch.as_tensor(tr)), (torch.as_tensor(a), torch.as_tensor(b)),
-            torch.as_tensor(valid))
+    tm, tmask, tcount, _ = TConsensus(threshold=1e-3, hypotheses=1, device="cpu")._score_stage(
+        est, TIso(torch.as_tensor(rot), torch.as_tensor(tr)), (torch.as_tensor(a), torch.as_tensor(b)),
+        torch.as_tensor(valid))
     assert int(tcount) == int(jcount) == 11
     np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
     _same_bits(tm.rotation.numpy(), np.asarray(jm.rotation))
@@ -207,8 +205,7 @@ def test_residual_plain_on_an_expanded_broadcast():
     grid = _port_residual(rot, tr, a, b)  # (3, 4, 12)
     t = torch.as_tensor
     pose = TIso(t(rot)[:, :, None].expand(3, 4, 12, 3, 3), t(tr)[:, :, None].expand(3, 4, 12, 3))
-    with eigen.exact_on_cpu():
-        paired = camera_to_camera_residual(pose, t(a).expand(3, 4, 12, 3), t(b).expand(3, 4, 12, 3))
+    paired = camera_to_camera_residual(pose, t(a).expand(3, 4, 12, 3), t(b).expand(3, 4, 12, 3))
     _same_bits(paired.numpy(), grid)
 
 
@@ -234,26 +231,28 @@ def test_svd3_bitwise_to_cv_tpu():
     e = _essential_like(np.random.default_rng(11), 1000)
     want = jax.jit(lambda m: jnp.sum(m[..., :, :, None] * m[..., :, None, :], axis=-3))(jnp.asarray(e))
     _same_bits(eigen.gram_fused(torch.as_tensor(e)).numpy(), want)
-    with eigen.exact_on_cpu():
-        got = eigen.svd3(torch.as_tensor(e))
+    got = eigen.svd3(torch.as_tensor(e))
     for g, ref in zip(got, jeig.svd3(jnp.asarray(e))):
         _same_bits(g.numpy(), ref)
 
 
 def test_exact_on_cpu_is_scoped():
-    """``eigen.exact_on_cpu`` holds only inside its block, an exception
-    included, and only for CPU tensors."""
+    """The CPU callers are exact by default; the one opt-in into their
+    cheap forms, ``eigen.cheap_on_cpu``, holds only inside its block, an
+    exception included, and only for CPU tensors.  ``exact_on_cpu`` is
+    gone."""
     cpu, meta = torch.zeros(1), torch.zeros(1, device="meta")
-    assert not eigen._exact(cpu)
-    with eigen.exact_on_cpu():
-        assert eigen._exact(cpu) and not eigen._exact(meta)
-        with eigen.exact_on_cpu():
+    assert not hasattr(eigen, "exact_on_cpu")
+    assert eigen._exact(cpu) and not eigen._cheap(cpu) and not eigen._exact(meta)
+    with eigen.cheap_on_cpu():
+        assert eigen._cheap(cpu) and not eigen._exact(cpu) and not eigen._cheap(meta)
+        with eigen.cheap_on_cpu():
             pass
-        assert eigen._exact(cpu)
+        assert eigen._cheap(cpu)
     with pytest.raises(RuntimeError):
-        with eigen.exact_on_cpu():
+        with eigen.cheap_on_cpu():
             raise RuntimeError
-    assert not eigen._exact(cpu)
+    assert eigen._exact(cpu) and not eigen._cheap(cpu)
 
 
 def test_eight_point_normal_matrix_and_essential_bitwise():
@@ -263,7 +262,8 @@ def test_eight_point_normal_matrix_and_essential_bitwise():
     the parent's matmul gave 100% of the normal matrices on this CPU (its
     BLAS accumulates with fused operations in the same order; the order is
     now the port's own), its unfused sweep 0% of the essential matrices
-    (ROADMAP); after: 100% within ``eigen.exact_on_cpu``."""
+    (ROADMAP); after: 100%, the CPU default since ``eigen.exact_on_cpu``
+    went."""
     rng = np.random.default_rng(12)
     a, b = rng.standard_normal((200, 8, 3)), rng.standard_normal((200, 8, 3))
     rows = j8.encode_epipolar_equation(jnp.asarray(a), jnp.asarray(b))
@@ -271,8 +271,7 @@ def test_eight_point_normal_matrix_and_essential_bitwise():
     got = eigen.gram_fused(eight_point.encode_epipolar_equation(torch.as_tensor(a), torch.as_tensor(b)))
     _same_bits(got.numpy(), want)
     want_e = jax.jit(j8.essential_from_matches)(jnp.asarray(a), jnp.asarray(b))
-    with eigen.exact_on_cpu():
-        got_e = eight_point.essential_from_matches(torch.as_tensor(a), torch.as_tensor(b))
+    got_e = eight_point.essential_from_matches(torch.as_tensor(a), torch.as_tensor(b))
     _same_bits(got_e.numpy(), want_e)
 
 
@@ -280,13 +279,12 @@ def test_five_point_nullspace_bitwise():
     """Five-point's float64 nullspace basis (the Gram by ``gram_fused``, the
     exact Jacobi) on 200 sets: bitwise to cv_tpu's jitted one, the same
     ``ok``.  Before: 100% with the parent's matmul and its Jacobi made
-    exact (as for eight-point), 0% with its unfused sweep; after: 100% with
-    ``eigen.exact_on_cpu``."""
+    exact (as for eight-point), 0% with its unfused sweep; after: 100%, the
+    CPU default."""
     rng = np.random.default_rng(13)
     a, b = rng.standard_normal((200, 5, 3)), rng.standard_normal((200, 5, 3))
     jb, jok = jax.jit(j5.nullspace_basis)(jnp.asarray(a), jnp.asarray(b))
-    with eigen.exact_on_cpu():
-        tb, tok = nister_stewenius.nullspace_basis(torch.as_tensor(a), torch.as_tensor(b))
+    tb, tok = nister_stewenius.nullspace_basis(torch.as_tensor(a), torch.as_tensor(b))
     _same_bits(tb.numpy(), jb)
     np.testing.assert_array_equal(tok.numpy(), np.asarray(jok))
 

@@ -60,6 +60,17 @@ def _scene(seed, n=40, outliers=0, noise=1e-4, spread=2.0, depth=(4.0, 10.0)):
     return a, b
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _cheap_consensus():
+    """On a CPU the exact forms of this module's consensus runs and solver
+    batches cost tens of times the cheap ones (``scripts/cpu_costs.py``):
+    the module opts into the cheap CPU forms (``ops.eigen.cheap_on_cpu``,
+    within a few ulps of cv_tpu's bits), which every CPU caller took before
+    the exact forms became the default."""
+    with teig.cheap_on_cpu():
+        yield
+
+
 @pytest.mark.parametrize("n", [3, 4, 9])
 def test_eigh_small_matches_reference(n):
     a = _sym(np.random.default_rng(n), (50,), n)

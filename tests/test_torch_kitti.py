@@ -12,8 +12,20 @@ from cv_tpu_torch.camera import CameraIntrinsics
 from cv_tpu_torch.consensus import BatchConsensus, Estimator
 from cv_tpu_torch.core import Isometry3, camera_to_camera_residual
 from cv_tpu_torch.matching import PAD_DISTANCE, distance_matrix, knn2, lowes_ratio_matches
+from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.solvers import eight_point
 from cv_tpu_torch.utils import KITTI_INTRINSICS, kitti_pair
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cheap_consensus():
+    """On a CPU the exact forms of this module's consensus runs and solver
+    batches cost tens of times the cheap ones (``scripts/cpu_costs.py``):
+    the module opts into the cheap CPU forms (``ops.eigen.cheap_on_cpu``,
+    within a few ulps of cv_tpu's bits), which every CPU caller took before
+    the exact forms became the default."""
+    with eigen.cheap_on_cpu():
+        yield
 
 
 @pytest.fixture(scope="module")

@@ -33,6 +33,7 @@ from cv_tpu.sfm import VSlam as RefVSlam
 from cv_tpu.sfm import VSlamSettings as RefSettings
 from cv_tpu.sfm import data as ref_data
 from cv_tpu_torch.consensus import BatchConsensus
+from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.sfm import VSlam, VSlamSettings, se3
 from cv_tpu_torch.sfm import data as port_data
 
@@ -99,6 +100,17 @@ def _snapshot(data, rec_key):
     rec = data.reconstructions[rec_key]
     views = {k: (v.frame, v.pose, list(v.landmarks)) for k, v in rec.views.items()}
     return views, {k: dict(lm.observations) for k, lm in rec.landmarks.items()}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cheap_consensus():
+    """On a CPU the exact forms of this module's consensus runs and solver
+    batches cost tens of times the cheap ones (``scripts/cpu_costs.py``):
+    the module opts into the cheap CPU forms (``ops.eigen.cheap_on_cpu``,
+    within a few ulps of cv_tpu's bits), which every CPU caller took before
+    the exact forms became the default."""
+    with eigen.cheap_on_cpu():
+        yield
 
 
 @pytest.mark.parametrize("reject", [None, 1], ids=["all_accepted", "second_view_rejected"])

@@ -25,8 +25,20 @@ from cv_tpu.parallel import sharded_extract as j_sharded_extract
 from cv_tpu_torch.akaze import Akaze, DeviceExtractor
 from cv_tpu_torch.consensus import BatchConsensus, Estimator
 from cv_tpu_torch.core import Isometry3, camera_to_camera_residual, lie, projective
+from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.parallel import make_mesh, sharded_consensus, sharded_extract
 from cv_tpu_torch.solvers import eight_point
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cheap_consensus():
+    """On a CPU the exact forms of this module's consensus runs and solver
+    batches cost tens of times the cheap ones (``scripts/cpu_costs.py``):
+    the module opts into the cheap CPU forms (``ops.eigen.cheap_on_cpu``,
+    within a few ulps of cv_tpu's bits), which every CPU caller took before
+    the exact forms became the default."""
+    with eigen.cheap_on_cpu():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

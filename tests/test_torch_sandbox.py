@@ -37,6 +37,7 @@ from cv_tpu_torch import video
 from cv_tpu_torch.akaze import load_gray
 from cv_tpu_torch.apps import vslam_sandbox
 from cv_tpu_torch.apps.synth import render_sequence
+from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.sfm import se3
 from cv_tpu_torch.utils import fixture_path, kitti_pair, read_png
 from cv_tpu_torch.utils.loader import PrefetchLoader, load_gray_compiled
@@ -54,6 +55,17 @@ CONSENSUS_CUT = 64
 APP_RENDER = dict(height=384, width=512, n_points=700, seed=0, fx=416.0, fy=416.0)
 APP_SETTINGS = dict(tracking_features=1024, single_view_patience=500, three_view_patience=500,
                     two_view_patience=500, constraint_patience=200, optimization_iterations=64)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cheap_consensus():
+    """On a CPU the exact forms of this module's consensus runs and solver
+    batches cost tens of times the cheap ones (``scripts/cpu_costs.py``):
+    the module opts into the cheap CPU forms (``ops.eigen.cheap_on_cpu``,
+    within a few ulps of cv_tpu's bits), which every CPU caller took before
+    the exact forms became the default."""
+    with eigen.cheap_on_cpu():
+        yield
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -23,6 +23,7 @@ import pytest
 from cv_tpu.sfm import VSlam as RefVSlam
 from cv_tpu.sfm import VSlamSettings as RefSettings
 from cv_tpu.sfm.data import Feed as RefFeed
+from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.sfm import VSlam, VSlamSettings, se3
 from cv_tpu_torch.sfm.data import Feed
 
@@ -70,6 +71,17 @@ def _run(engine, feed_cls, scene):
         engine.try_localize(frame, rec_frames, free_frames)
     engine.flush_pending()
     return engine
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _cheap_consensus():
+    """On a CPU the exact forms of this module's consensus runs and solver
+    batches cost tens of times the cheap ones (``scripts/cpu_costs.py``):
+    the module opts into the cheap CPU forms (``ops.eigen.cheap_on_cpu``,
+    within a few ulps of cv_tpu's bits), which every CPU caller took before
+    the exact forms became the default."""
+    with eigen.cheap_on_cpu():
+        yield
 
 
 @pytest.fixture(scope="module")
