@@ -1109,13 +1109,20 @@ def fused_bytes(k, no, ns, sectors=None):
     return k * (32 + no * 8 + ns * 3 * 4 + 16) + reads
 
 
-def plane_sectors(planes, lvl, c0, ys, xs):
+def plane_sectors(planes, lvl, c0, ys, xs, interleaved=False):
     """The distinct 32-byte sectors of ``planes`` (L, C, Hp, Wp) float32
     that reads of channels ``c0:`` at ``planes[lvl, c, ys, xs]`` touch
     (``lvl`` (N,), ``ys``/``xs`` (N, S)): a 1-D int64 tensor of sector
-    numbers (the stack's base is 32-byte aligned)."""
+    numbers (the stack's base is 32-byte aligned).  ``interleaved``: the
+    same reads of the pixel-interleaved stack (L, Hp, 3 * Wp), word
+    ``3 * x + c`` of a row."""
     import torch
 
+    if interleaved:
+        _, h, lanes = planes.shape
+        ch = torch.arange(c0, 3, device=planes.device)[None, :, None]
+        addr = (lvl.long()[:, None, None] * h + ys.long()[:, None, :]) * lanes + 3 * xs.long()[:, None, :] + ch
+        return torch.unique(addr // 8)
     _, c, h, w = planes.shape
     ch = torch.arange(c0, c, device=planes.device)[None, :, None]
     addr = ((lvl.long()[:, None, None] * c + ch) * h + ys.long()[:, None, :]) * w + xs.long()[:, None, :]
@@ -1239,7 +1246,51 @@ def check_select_kernels(dev, seed):
               f"advanced index {lms:.4f} ms, bound {bound(select_bytes(k_kp, ns, 3 - c0))[0]:.4f} ms")
     out["select_samples"] = kernel_record(rec["ms"], rec["plain_ms"], rec["max_abs_err"], rec["nbytes"],
                                           library_ms=rec["library_ms"])
-    del planes
+
+    # The same select from the pixel-interleaved stack ('+inter'), on the
+    # same planes and keypoints; then an adversarial draw whose indices
+    # leave the stack on every axis (NaN there, as the plain version).
+    stack = planes.permute(0, 2, 3, 1).reshape(n_lvl, hp, 3 * wp).contiguous()
+    rec = dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0)
+    for c0, ns in ((1, 109), (0, 441)):
+        rel_x, rel_y = rand_i32(128, (k_kp, ns)), rand_i32(128, (k_kp, ns))
+        lanes = 3 * (x0[:, None] + rel_x).long()
+        lib = lambda: torch.stack([stack[lvl.long()[:, None], (y0[:, None] + rel_y).long(), lanes + c]  # noqa: E731
+                                   for c in range(c0, 3)], dim=1)
+        run_k = lambda: select.select_samples_interleaved(stack, lvl, y0, x0, rel_x, rel_y, c0=c0)  # noqa: E731
+        run_p = lambda: select.select_samples_interleaved_plain(stack, lvl, y0, x0, rel_x, rel_y, c0=c0)  # noqa: E731
+        got, ref = run_k(), run_p()
+        torch.cuda.synchronize()
+        require(got.shape == ref.shape == (k_kp, 3 - c0, ns), f"interleaved select shape {tuple(got.shape)}")
+        require(torch.equal(got, ref), f"interleaved select c0={c0} NS={ns} bitwise equal to plain")
+        require(torch.equal(got, select.select_samples_plain(planes, lvl, y0, x0, rel_x, rel_y, c0=c0)),
+                f"interleaved select c0={c0}: the channel-major select's values")
+        require(torch.equal(lib(), got), f"interleaved select c0={c0}: the advanced-index call gives its values")
+        kms, pms = alternate(run_k, run_p, cuda_ms)
+        lms = cuda_ms(lib)
+        rec["ms"] += kms
+        rec["plain_ms"] += pms
+        rec["library_ms"] += lms
+        rec["nbytes"] += select_bytes(k_kp, ns, 3 - c0)
+        print(f"interleaved select c0={c0} K={k_kp} NS={ns}: bitwise equal; kernel {kms:.4f} ms, plain {pms:.4f} ms, "
+              f"advanced index {lms:.4f} ms, bound {bound(select_bytes(k_kp, ns, 3 - c0))[0]:.4f} ms")
+    for c0, ns in ((1, 109), (0, 441)):
+        bad_l, bad_y, bad_x = lvl.clone(), y0.clone(), x0.clone()
+        bad_l[::97], bad_l[1::89], bad_y[2::83], bad_x[3::79], bad_x[4::73] = -1, n_lvl, -3, -1, wp - 100
+        rel_x, rel_y = rand_i32(128, (k_kp, ns)), rand_i32(128, (k_kp, ns))
+        rel_y[5::71] = hp
+        for fn, plain, src in ((select.select_samples_interleaved, select.select_samples_interleaved_plain, stack),
+                               (select.select_samples, select.select_samples_plain, planes)):
+            got, ref = fn(src, bad_l, bad_y, bad_x, rel_x, rel_y, c0), plain(src, bad_l, bad_y, bad_x, rel_x, rel_y, c0)
+            torch.cuda.synchronize()
+            nan = int(torch.isnan(ref).sum())
+            require(nan > 0 and torch.equal(got.view(torch.int32), ref.view(torch.int32)),
+                    f"{fn.__name__} c0={c0}, indices outside the stack: bitwise equal to plain ({nan} NaN)")
+        print(f"select and interleaved select c0={c0}, indices outside the stack: bitwise equal to plain, "
+              f"{nan} NaN values")
+    out["select_samples_interleaved"] = kernel_record(rec["ms"], rec["plain_ms"], 0.0, rec["nbytes"],
+                                                      library_ms=rec["library_ms"])
+    del planes, stack
 
     # The dense stack (B=2: 26 levels) and its K = 2 x 4096 keypoints.
     n_lvl, k_kp = 2 * SHAPES["levels"], 2 * SHAPES["dense_k"]
@@ -1539,6 +1590,64 @@ def replay_select(paths):
         print(f"engine-call replay select_samples {path}: {rec['calls']} calls bitwise equal to plain, summed "
               f"device {rec['ms']:.4f} ms, byte bound {rec['bound_ms']:.4f} ms ({100 * rec['bound_share']:.1f}%)")
     return out
+
+
+def replay_interleaved(calls):
+    """Each recorded interleaved select call held bitwise to its plain
+    version and timed in a CUDA graph, beside #1 (the channel-major select)
+    at the same call on the same planes laid out channel-major; each with
+    its byte bound (``select_bytes``) and its sector bound (32 bytes for
+    each distinct plane sector its reads touch, plus the offsets, words and
+    output)."""
+    import torch
+
+    from cv_tpu_torch.akaze import select
+
+    rec = dict(calls=len(calls), ms=0.0, channel_major_ms=0.0, bound_ms=0.0, sector_bound_ms=0.0,
+               channel_major_sector_bound_ms=0.0, sectors=0, channel_major_sectors=0, calls_detail=[])
+    for j, (args, kw) in enumerate(calls):
+        stack, lvl, y0, x0, rel_x, rel_y = args[:6]
+        c0 = kw.get("c0", args[6] if len(args) > 6 else 0)
+        got = select.select_samples_interleaved(*args, **kw)
+        ref = select.select_samples_interleaved_plain(*args, **kw)
+        n_lvl, hp, lanes = stack.shape
+        planes = stack.reshape(n_lvl, hp, lanes // 3, 3).permute(0, 3, 1, 2).contiguous()
+        cm = select.select_samples(planes, lvl, y0, x0, rel_x, rel_y, c0)
+        torch.cuda.synchronize()
+        require(torch.equal(got, ref) and torch.equal(got, cm),
+                f"interleaved select call {j}: bitwise equal to the plain version and to the channel-major select")
+        ms = device_ms(lambda: select.select_samples_interleaved(*args, **kw), iters=10)
+        cms = device_ms(lambda: select.select_samples(planes, lvl, y0, x0, rel_x, rel_y, c0), iters=10)
+        k, ns = rel_x.shape
+        ys, xs = y0.long()[:, None] + rel_y.long(), x0.long()[:, None] + rel_x.long()
+        sec = plane_sectors(stack, lvl, c0, ys, xs, interleaved=True).numel()
+        cm_sec = plane_sectors(planes, lvl, c0, ys, xs).numel()
+        b4 = select_bytes(k, ns, 3 - c0)
+        rest = b4 - k * ns * (3 - c0) * 4  # the words, offsets and output
+        detail = dict(c0=c0, k=k, ns=ns, ms=ms, channel_major_ms=cms, bound_ms=bound(b4)[0],
+                      sector_bound_ms=bound(rest + 32 * sec)[0],
+                      channel_major_sector_bound_ms=bound(rest + 32 * cm_sec)[0], sectors=sec,
+                      channel_major_sectors=cm_sec, sectors_per_sample=sec / (k * ns),
+                      channel_major_sectors_per_sample=cm_sec / (k * ns))
+        rec["calls_detail"].append(detail)
+        for key in ("ms", "channel_major_ms", "bound_ms", "sector_bound_ms", "channel_major_sector_bound_ms",
+                    "sectors", "channel_major_sectors"):
+            rec[key] += detail[key]
+        print(f"engine-call replay select_samples_interleaved kitti call {j} (c0={c0}, K={k}, NS={ns}): bitwise "
+              f"equal to plain and to #1; device {ms:.4f} ms, #1 (channel-major) {cms:.4f} ms; byte bound "
+              f"{detail['bound_ms']:.4f} ms; {sec} sectors ({detail['sectors_per_sample']:.3f} a sample): sector "
+              f"bound {detail['sector_bound_ms']:.4f} ms; #1 {cm_sec} sectors "
+              f"({detail['channel_major_sectors_per_sample']:.3f} a sample): "
+              f"{detail['channel_major_sector_bound_ms']:.4f} ms")
+        del planes
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"] if rec["ms"] else 0.0
+    rec["sector_bound_share"] = rec["sector_bound_ms"] / rec["ms"] if rec["ms"] else 0.0
+    print(f"engine-call replay select_samples_interleaved kitti: {rec['calls']} calls, summed device {rec['ms']:.4f} "
+          "ms "
+          f"(#1 at the same calls {rec['channel_major_ms']:.4f} ms); byte bound {rec['bound_ms']:.4f} ms "
+          f"({100 * rec['bound_share']:.1f}%), sector bound {rec['sector_bound_ms']:.4f} ms "
+          f"({100 * rec['sector_bound_share']:.1f}%; #1's {rec['channel_major_sector_bound_ms']:.4f} ms)")
+    return rec
 
 
 def replay_describe(paths):
@@ -2034,9 +2143,9 @@ C2C_EXTRA_FLOPS = 96 + 110 + 22 + 24 + 12 + 3
 # The residual's timed block: 1,024 x 4 models against 1,024 matches.
 C2C_BLOCK = (1024, 4, 1024)
 # The parent commit's device ms at that block, as PERF.md records them
-# (its residual entry; its residual entry plus the torch passes of its
-# scoring), printed beside this tree's.
-C2C_PARENT_MS = {"residual": 3.441, "scoring": 3.610}
+# (its residual entry; its score entry: scripts/jacobi_variants.py
+# --parent, NVIDIA H100 80GB HBM3 at 700 W), printed beside this tree's.
+C2C_PARENT_MS = {"residual": 2.858, "scoring": 3.075}
 # The most (model, match) pairs of a recorded scoring stage rerun with the
 # plain residual.
 SCORE_HOLD_PAIRS = 1 << 21
@@ -2190,6 +2299,22 @@ def check_eigen_trig64(dev, seed):
           f"{rdev:.3f} ms (the parent's: {C2C_PARENT_MS['residual']} ms device); plain (c2c_residual_plain, torch "
           f"ops) {rpms:.1f} ms; {int((got == 2.0).sum())} pairs at 2.0; bound {res_rec['bound_ms']:.4f} ms "
           f"({res_rec['bound_by']}: {flops / 1e9:.2f} GFLOP float64 at 34 TFLOP/s); library: none")
+    # Poses scaled to ~1e-155: the design's products and the rotated
+    # points' squares fall below the normal range, where the reference
+    # flushes them (XLA's FTZ/DAZ); the kernel flushes at the same steps and
+    # the plain version's fused operations are exact there.  Residual and
+    # score held bitwise on 64 x 4 models against 1024 rows.
+    tiny = pose_mod.Isometry3(pose.rotation[:64] * 1e-155, pose.translation[:64] * 1e-155)
+    got_t, want_t = pose_mod.c2c_residual(tiny, a, b), pose_mod.c2c_residual_plain(tiny, a, b)
+    valid_t = torch.ones(a.shape[0], dtype=torch.bool, device=dev)
+    score_t, pscore_t = pose_mod.c2c_score(tiny, a, b, valid_t, 0.1), pose_mod.c2c_score_plain(tiny, a, b, valid_t, 0.1)
+    torch.cuda.synchronize()
+    require(same_bits_any(got_t, want_t), "residual on poses at 1e-155: bitwise equal to the plain version")
+    require(torch.equal(score_t[0], pscore_t[0]) and same_bits_any(score_t[1], pscore_t[1]),
+            "score on poses at 1e-155: counts and totals bitwise equal to the plain version")
+    print(f"residual and score on poses scaled to 1e-155 ({got_t.numel()} pairs, {int((got_t < 2.0).sum())} below "
+          "2.0): bitwise equal to the plain versions")
+    del got_t, want_t, tiny
     # The score entry: every model's inlier count and total (at 0.1, where
     # ~15% of this draw's pairs are inliers, so the totals sum many terms),
     # all rows valid, beside its plain version and the parent's
@@ -2225,8 +2350,8 @@ def check_eigen_trig64(dev, seed):
     if ms_ops > score_rec["bound_ms"]:
         score_rec["bound_ms"], score_rec["bound_by"] = ms_ops, "operations"
     print(f"score at a consensus block ({pairs} pairs, float64, threshold {thr!r}, {int(counts.sum())} inliers): "
-          f"kernel {sms:.3f} ms, device {sdev:.3f} ms; the residual entry plus the torch passes {tdev:.3f} ms device "
-          f"(the parent's: {C2C_PARENT_MS['scoring']} ms device); plain (c2c_score_plain) {spms:.1f} ms; bound "
+          f"kernel {sms:.3f} ms, device {sdev:.3f} ms (the parent's: {C2C_PARENT_MS['scoring']} ms device); the "
+          f"residual entry plus the torch passes {tdev:.3f} ms device; plain (c2c_score_plain) {spms:.1f} ms; bound "
           f"{score_rec['bound_ms']:.4f} ms ({score_rec['bound_by']}: {flops_s / 1e9:.2f} GFLOP float64 at 34 "
           "TFLOP/s); library: none")
     del got, want, inliers
@@ -3661,6 +3786,7 @@ def kernel_counters():
 
     counters = {
         "select_samples": select_mod.select_samples,
+        "select_samples_interleaved": select_mod.select_samples_interleaved,
         "select_groups": select_mod.select_groups,
         "select_fused": fused_mod.select_fused,
         "dedup_scan": extrema.dedup_scan_device,
@@ -3683,7 +3809,8 @@ def kernel_counters():
         **{f"mxu_{body}": fn for body, fn in probes.MXU.items()},
     }
     plains = [
-        (select_mod, "select_samples_plain"), (select_mod, "select_groups_plain"),
+        (select_mod, "select_samples_plain"), (select_mod, "select_samples_interleaved_plain"),
+        (select_mod, "select_groups_plain"),
         (fused_mod, "select_fused_plain"), (extrema, "dedup_scan_plain"),
         (optimizers, "single_view_simple_optimize_l2"), (optimizers, "three_view_simple_optimize_l2"),
         (optimizers, "three_view_adaptive_optimize_l2"), (probes, "select_window_plain"),
@@ -3802,8 +3929,8 @@ def main():
     )
     consensus = BatchConsensus(threshold=0.1, hypotheses=512, device=dev)
 
-    def extract_and_match(batch):
-        fs = extractor.extract(batch)
+    def extract_and_match(batch, ex=extractor):
+        fs = ex.extract(batch)
         words = fs.words.reshape(BATCH // 2, 2, -1, 16)
         valid = fs.valid.reshape(BATCH // 2, 2, -1)
         d = distance_matrix(words[:, 0], words[:, 1])
@@ -3854,6 +3981,40 @@ def main():
     )
 
     clock("4")
+    # -- 4d. the KITTI path in the '+inter' describe modes --------------------
+    # The same batch through DeviceExtractor on the pixel-interleaved stack:
+    # 'pgather+inter' (the interleaved select kernel) and 'pallas+inter' (the
+    # patch form on patches cut from it); each run with the counters at zero,
+    # the goldens, and keypoints, words and angles bitwise phase 4's.
+    kitti_ref = fs.to_numpy()
+    inter_extractors = {}
+    for mode, expect in (("pgather+inter", dict(select_samples_interleaved=2, select_samples=0)),
+                         ("pallas+inter", dict(select_samples=2, select_samples_interleaved=0))):
+        ex = inter_extractors[mode] = DeviceExtractor(Akaze.sparse(), candidate_budget=256, max_features=512,
+                                                      device=dev, onehot_mode=mode)
+        with main_path(counters, plains) as run, \
+                recording(desc_mod, "select_samples_interleaved", keep_planes) as inter_calls:
+            fs_i, idx_i, keep_i = extract_and_match(images, ex)
+            _, _, count_i = pose_pair0(fs_i, idx_i, keep_i)
+        if mode == "pgather+inter":
+            select_calls["kitti+inter"] = inter_calls
+        host = fs_i.to_numpy()
+        cnt, matches_i = host["valid"].sum(axis=1).tolist(), keep_i.sum(dim=-1).tolist()
+        print(f"KITTI {mode}: keypoints {cnt} matches {matches_i} inliers {int(count_i)} launches {run['launches']} "
+              f"plain-version calls {run['plain']}")
+        require(cnt == KITTI_KEYPOINTS * (BATCH // 2), f"{mode}: keypoints {cnt}")
+        require(matches_i == [KITTI_MATCHES] * (BATCH // 2), f"{mode}: matches {matches_i}")
+        require(int(count_i) == KITTI_INLIERS, f"{mode}: inliers {int(count_i)}")
+        tally(run, attribute="select_samples_patch" if mode == "pallas+inter" else None, dedup_scan=1,
+              jacobi=(1,), c2c_residual=(1,), c2c_score=(1,), **TRIG_LAUNCHED, **expect)
+        for key in ("valid", "point", "words"):
+            require(np.array_equal(host[key], kitti_ref[key]), f"{mode}: {key} differ from the 'pgather' run")
+        require(np.array_equal(host["angle"].view(np.uint32), kitti_ref["angle"].view(np.uint32)),
+                f"{mode}: angles differ from the 'pgather' run")
+        print(f"KITTI {mode}: valid flags, points, words and angles bitwise the 'pgather' run's")
+    require(len(select_calls["kitti+inter"]) == 2, "interleaved select: 2 KITTI calls recorded")
+
+    clock("4d")
     # -- 4b. the exact extractor on the KITTI pair, with the counters at zero
     exact_ms, exact_rows, exact_words = exact_path(dev, counters, plains, tally, scan_calls)
     clock("4b")
@@ -4011,6 +4172,7 @@ def main():
                              ("select_fused", "pfused", 1)):
         got = len(describe_calls[name][path])
         require(got == want, f"{name}: {got} {path} calls recorded")
+    select_records["select_samples_interleaved"]["engine"] = replay_interleaved(select_calls.pop("kitti+inter"))
     select_records["select_samples"]["engine"] = replay_select(select_calls)
     dedup_record["engine"] = replay_dedup(scan_calls)
     for name, rec in replay_describe(describe_calls).items():
@@ -4023,7 +4185,6 @@ def main():
     # KITTI batch, against phase 4's 'pgather'; 'ptiles' on the dense pair,
     # against the default 'pgroups'.  Each run with the counters at zero;
     # the retired wrappers count their own select-kernel launches.
-    kitti_ref = fs.to_numpy()
     for mode, ex, imgs_in, base, row in (
         ("pepatch", DeviceExtractor(Akaze.sparse(), 256, 512, device=dev, onehot_mode="pepatch"), images,
          kitti_ref, "select_samples_epatch"),
@@ -4165,10 +4326,18 @@ def main():
     print(f"stage match: median {statistics.median(match):.3f} ms over 5 reps")
     print(f"dedup kernel: median {statistics.median(s[0] for s in scan):.3f} ms, "
           f"sequential steps per frame {scan[0][1]}")
-    for mode in ("pepatch", "ptiles"):
-        _, retired_ms, _ = staged(extractor, images, mode, reps=5)
-        print(f"stage describe, {mode}: median {retired_ms['describe']:.3f} ms over 5 reps "
+    for mode in ("pepatch", "ptiles", "pgather+inter", "pallas+inter"):
+        _, other_ms, _ = staged(extractor, images, mode, reps=5)
+        print(f"stage describe, {mode}: median {other_ms['describe']:.3f} ms over 5 reps "
               f"(pgather {stage_ms['describe']:.3f} ms)")
+    # The whole extract in each mode of the slice, in turns (pgather, then
+    # each '+inter' mode, then pgather again).
+    extract_ms = {}
+    for label, ex in (("pgather", extractor), *inter_extractors.items(), ("pgather ", extractor)):
+        ex.extract(images)
+        extract_ms[label] = statistics.median(wall_ms(lambda ex=ex: ex.extract(images), reps=7))
+    print("extract B=8 ms (median of 7, in turns): " + ", ".join(f"{k.strip()} {v:.3f}" for k, v in
+                                                                 extract_ms.items()))
     cons = wall_ms(lambda: pose_pair0(fs, idx, keep), reps=5)
     print(f"consensus (512 hypotheses, f64): median {statistics.median(cons):.3f} ms over {len(cons)} reps")
 
@@ -4186,6 +4355,8 @@ def main():
     records = [
         row("select_samples", "select_samples", "cv_tpu/akaze/pallas_mldb.py:136",
             main_launches["select_samples"], select_records["select_samples"]),
+        row("select_samples_interleaved", "select_samples", "cv_tpu/akaze/pallas_mldb.py:136",
+            main_launches["select_samples_interleaved"], select_records["select_samples_interleaved"]),
         row("select_samples_patch[select_samples_batched]", "select_samples",
             "cv_tpu/akaze/pallas_mldb.py:175", main_launches["select_samples_patch"], patch),
         row("select_samples_patch[select_samples]", "select_samples",

@@ -22,7 +22,8 @@ import numpy as np
 import torch
 
 from ..ops.trig import TWO_PI, angle_cv, cos_sin
-from .select import GROUP, cut_patches, select_groups, select_samples, select_samples_patch
+from .select import (GROUP, cut_patches, select_groups, select_samples, select_samples_interleaved,
+                     select_samples_patch)
 
 # 7x7 Gaussian weight table (scale_space_extrema.rs:162-226).
 GAUSS25 = np.array(
@@ -367,7 +368,8 @@ def mldb_offsets(xf, yf, scale, angle, width, height, x0, y0, span: int, pattern
 
 
 def orient_mldb(
-    planes: torch.Tensor,  # (L, 3, Hp, Wp) channel-major padded (Lt, Lx, Ly) stack
+    planes: torch.Tensor,  # (L, 3, Hp, Wp) channel-major padded (Lt, Lx, Ly) stack,
+    #                        or (L, Hp, 3 * Wp) pixel-interleaved when ``interleaved``
     lvl: torch.Tensor,  # (K,) plane index per keypoint
     width: torch.Tensor,  # (K,) true plane width (for the OOB mask)
     height: torch.Tensor,  # (K,)
@@ -376,6 +378,7 @@ def orient_mldb(
     scale: torch.Tensor,  # (K,) rounded sampling scale
     pattern_size: int = 10,
     mode: str = "pgather",
+    interleaved: bool = False,
 ):
     """Dominant orientation, then M-LDB words, for ``K`` keypoints.
 
@@ -388,21 +391,32 @@ def orient_mldb(
     one-hot kernels, and selected through :func:`select_samples_patch`.
     ``'pepatch'``: the retired select hook ``EXTERNAL_MODES['pepatch']``
     (``KeyError`` until its module is imported) on the same anchors and
-    offsets.  All give the same bits.  Returns ``(words (K, 16) int32, ok
-    (K,), angle (K,))``.
+    offsets.  ``interleaved`` (``'pgather+inter'``, ``'pallas+inter'``):
+    ``planes`` is the pixel-interleaved stack; ``'pgather'`` reads it
+    through :func:`select_samples_interleaved`, ``'pallas'`` cuts its
+    patches with :func:`cut_patches_interleaved`.  All give the same bits.
+    Returns ``(words (K, 16) int32, ok (K,), angle (K,))``.
     """
-    if mode not in ("pgather", "pallas", "pepatch"):
-        raise ValueError(f"orient_mldb: mode {mode!r} is not 'pgather', 'pallas' or 'pepatch'")
+    if mode not in ("pgather", "pallas", "pepatch") or (interleaved and mode == "pepatch"):
+        raise ValueError(f"orient_mldb: mode {mode!r} (interleaved {interleaved}) is not 'pgather', 'pallas' or "
+                         "a channel-major 'pepatch'")
     p = PATCH
     lvl = lvl.to(torch.int32)
-    y0, x0 = patch_anchor(xf, yf, planes.shape[2], planes.shape[3])
+    if interleaved:
+        y0, x0 = patch_anchor(xf, yf, planes.shape[1], planes.shape[2] // 3)
+    else:
+        y0, x0 = patch_anchor(xf, yf, planes.shape[2], planes.shape[3])
     if mode == "pallas":
-        patches = cut_patches(planes, lvl, y0, x0, p)
+        if interleaved:
+            patches = cut_patches_interleaved(planes, lvl, y0, x0, p).contiguous()
+        else:
+            patches = cut_patches(planes, lvl, y0, x0, p)
 
         def select(rel_x, rel_y, c0):
             return select_samples_patch(patches, rel_x, rel_y, c0)
     else:
-        hook = external_mode(mode) if mode == "pepatch" else select_samples
+        hook = external_mode(mode) if mode == "pepatch" else (
+            select_samples_interleaved if interleaved else select_samples)
 
         def select(rel_x, rel_y, c0):
             return hook(planes, lvl, y0, x0, rel_x, rel_y, c0)

@@ -556,9 +556,11 @@ def stage_refine_select(cfg, specs, cand, planes, k, max_features, slack=128):
 # ---------------------------------------------------------------------------
 
 
-# Describe modes with a kernel (cv_tpu's names), the one-hot product, and
-# cv_tpu's TPU matrix-unit workarounds, which the port does not have.
+# Describe modes with a kernel (cv_tpu's names), those of them cv_tpu also
+# runs on the pixel-interleaved stack, the one-hot product, and cv_tpu's
+# TPU matrix-unit workarounds, which the port does not have.
 KERNEL_MODES = ("pgather", "pgroups", "pfused", "pallas", "pepatch", "ptiles")
+INTER_MODES = ("pgather+inter", "pallas+inter")
 ONEHOT_MODES = ("highest", "highest+inter")
 TPU_MODES = ("bf16x3", "bf16x3k", "+fused")
 
@@ -570,15 +572,18 @@ def check_describe_mode(mode: str | None) -> None:
     grid step; a table layout only here), ``'pfused'`` (the fused describe),
     ``'pallas'`` (the patch-form select), the retired ``'pepatch'`` /
     ``'ptiles'``, which run once ``cv_tpu_torch.experiments.mldb_losers`` is
-    imported (an extract raises ``KeyError`` before), or ``'highest'`` /
+    imported (an extract raises ``KeyError`` before), ``'highest'`` /
     ``'highest+inter'`` (cv_tpu's default off the TPU: a float32 one-hot
     product there, the exact index gather of ``descriptors.patch_select``
-    here, from the channel-major or the pixel-interleaved stack)."""
-    if mode is None or mode in KERNEL_MODES or mode in ONEHOT_MODES:
+    here, from the channel-major or the pixel-interleaved stack), or
+    ``'pgather+inter'`` / ``'pallas+inter'`` (the select kernel and the
+    patch-form select on the pixel-interleaved stack).  ``cv_tpu`` fails on
+    ``'+inter'`` with any other kernel mode, and so it is refused here."""
+    if mode is None or mode in KERNEL_MODES or mode in ONEHOT_MODES or mode in INTER_MODES:
         return
     if mode.startswith("pgroups") and mode[7:].isdigit() and int(mode[7:]) > 0:
         return
-    known = ", ".join(map(repr, KERNEL_MODES + ONEHOT_MODES))
+    known = ", ".join(map(repr, KERNEL_MODES + INTER_MODES + ONEHOT_MODES))
     base, plus, suffix = mode.partition("+")
     if base in TPU_MODES or suffix.startswith("fused"):
         raise ValueError(
@@ -588,8 +593,10 @@ def check_describe_mode(mode: str | None) -> None:
         )
     if plus:
         raise ValueError(
-            f"describe mode {mode!r}: '+inter' (the pixel-interleaved stack) is ported for 'highest' only; "
-            f"the kernel modes read the channel-major stack, so {mode!r} is not ported.  Use one of {known}"
+            f"describe mode {mode!r}: '+inter' (the pixel-interleaved stack) is ported for 'highest', 'pgather' "
+            f"and 'pallas'; cv_tpu itself fails on {mode!r} ('pfused' and 'pgroups' index the interleaved stack "
+            "as channel-major and raise IndexError, 'pepatch' and 'ptiles' assert a channel-major stack at its "
+            f"akaze/descriptors.py:744, :778), so it is not ported.  Use one of {known}"
         )
     raise ValueError(f"unknown describe mode {mode!r}; use one of {known}")
 
@@ -624,11 +631,13 @@ def stage_describe(cfg, planes, sel, mode: str = "pgather", sampler: str = "oneh
         angle = desc.orientation_flat(flat, *kp)
         words, w_ok = desc.mldb_flat(flat, *kp, angle, pattern_size=cfg.descriptor_pattern_size)
         return _feature_set(sel, words, w_ok, angle)
-    interleaved = mode == "highest+inter"
+    # '+inter' swaps the stack for the pixel-interleaved one (only it is built).
+    interleaved = mode.endswith("+inter")
+    mode = mode.removesuffix("+inter")
     stack = padded_plane_stack_interleaved(planes) if interleaved else padded_plane_stack(planes)
     lvl = (torch.arange(b, device=sel["cls"].device)[:, None] * n_evo + sel["cls"]).reshape(-1)
     kp = (lvl, sel["w"].reshape(-1), sel["h"].reshape(-1), xf, yf, sel["ssamp"].reshape(-1))
-    if mode in ONEHOT_MODES:
+    if mode == "highest":
         words, w_ok, angle = desc.orient_mldb_onehot(stack, *kp, pattern_size=cfg.descriptor_pattern_size,
                                                      interleaved=interleaved)
     elif mode.startswith("pgroups"):
@@ -645,7 +654,8 @@ def stage_describe(cfg, planes, sel, mode: str = "pgather", sampler: str = "oneh
     elif mode == "ptiles":
         words, w_ok, angle = desc.external_mode("ptiles")(stack, *kp, cfg.descriptor_pattern_size)
     else:
-        words, w_ok, angle = desc.orient_mldb(stack, *kp, pattern_size=cfg.descriptor_pattern_size, mode=mode)
+        words, w_ok, angle = desc.orient_mldb(stack, *kp, pattern_size=cfg.descriptor_pattern_size, mode=mode,
+                                              interleaved=interleaved)
     return _feature_set(sel, words, w_ok, angle)
 
 

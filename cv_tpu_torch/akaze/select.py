@@ -3,6 +3,13 @@ plain PyTorch version.
 
 ``out[k, c - c0, s] = planes[lvl[k], c, y0[k] + rel_y[k, s], x0[k] + rel_x[k, s]]``
 
+and from the pixel-interleaved stack (the ``'+inter'`` modes),
+:func:`select_samples_interleaved`:
+
+``out[k, c - c0, s] = stack[lvl[k], y0[k] + rel_y[k, s], 3 * (x0[k] + rel_x[k, s]) + c]``
+
+An index outside the stack gives NaN.
+
 Port of ``cv_tpu/akaze/pallas_mldb.py::select_samples_gather`` together
 with the patch cut before it: the kernel (``csrc/select_samples.cu``)
 reads the padded plane stack directly.  ``c0=1`` is the orientation pass
@@ -20,15 +27,80 @@ import torch
 from .. import kernels
 
 
-def select_samples_plain(planes, lvl, y0, x0, rel_x, rel_y, c0: int = 0) -> torch.Tensor:
-    """The select by advanced indexing: ``(K, C - c0, NS)`` float32."""
+def _inside(lvl, y0, x0, rel_x, rel_y, n_levels: int, height: int, width: int):
+    """Each sample's ``(lvl, y, x)`` clamped into the stack ``(K, NS)``
+    int64, and whether it was inside (the kernel reads nothing outside and
+    yields NaN)."""
     lv = lvl.long()[:, None]
     yy = y0.long()[:, None] + rel_y.long()
     xx = x0.long()[:, None] + rel_x.long()
-    return torch.stack([planes[lv, c, yy, xx] for c in range(c0, planes.shape[1])], dim=1)
+    ok = (lv >= 0) & (lv < n_levels) & (yy >= 0) & (yy < height) & (xx >= 0) & (xx < width)
+    return lv.clamp(0, n_levels - 1), yy.clamp(0, height - 1), xx.clamp(0, width - 1), ok
+
+
+def _nan_outside(vals, ok):
+    """``vals`` (K, C, NS) with NaN where the sample was outside."""
+    return torch.where(ok[:, None, :], vals, torch.full((), float("nan"), dtype=vals.dtype, device=vals.device))
+
+
+def select_samples_plain(planes, lvl, y0, x0, rel_x, rel_y, c0: int = 0) -> torch.Tensor:
+    """The select by advanced indexing: ``(K, C - c0, NS)`` float32."""
+    lv, yy, xx, ok = _inside(lvl, y0, x0, rel_x, rel_y, planes.shape[0], planes.shape[2], planes.shape[3])
+    return _nan_outside(torch.stack([planes[lv, c, yy, xx] for c in range(c0, planes.shape[1])], dim=1), ok)
+
+
+def select_samples_interleaved_plain(stack, lvl, y0, x0, rel_x, rel_y, c0: int = 0) -> torch.Tensor:
+    """:func:`select_samples_interleaved` by advanced indexing: ``(K, 3 -
+    c0, NS)`` float32 from the ``(L, Hp, 3 * Wp)`` stack."""
+    lv, yy, xx, ok = _inside(lvl, y0, x0, rel_x, rel_y, stack.shape[0], stack.shape[1], stack.shape[2] // 3)
+    return _nan_outside(torch.stack([stack[lv, yy, 3 * xx + c] for c in range(c0, 3)], dim=1), ok)
 
 
 _SELECT_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+
+
+def _launch(fn, symbol, src, dims, lvl, y0, x0, rel_x, rel_y, c0):
+    """Check one select's inputs and launch ``symbol`` of
+    ``csrc/select_samples.cu`` on ``src`` (the stack in either layout),
+    ``dims`` = (L, C, Hp, Wp); returns the (K, C - c0, NS) output."""
+    n_levels, channels, height, width = dims
+    k, ns = rel_x.shape
+    for name, t, shape in (
+        ("lvl", lvl, (k,)), ("y0", y0, (k,)), ("x0", x0, (k,)),
+        ("rel_x", rel_x, (k, ns)), ("rel_y", rel_y, (k, ns)),
+    ):
+        if t.dtype != torch.int32 or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be int32 {shape}, got {t.dtype} {tuple(t.shape)}")
+    if not all(t.is_contiguous() for t in (src, lvl, y0, x0, rel_x, rel_y)):
+        raise ValueError(f"{fn.__name__}: inputs must be contiguous")
+    if not 0 <= c0 < channels:
+        raise ValueError(f"c0={c0} outside [0, {channels})")
+    out = torch.empty((k, channels - c0, ns), dtype=torch.float32, device=src.device)
+    if k == 0 or ns == 0:
+        return out
+    err = kernels.function("select_samples", symbol, _SELECT_ARGS)(
+        src.data_ptr(), lvl.data_ptr(), y0.data_ptr(), x0.data_ptr(),
+        rel_x.data_ptr(), rel_y.data_ptr(), out.data_ptr(),
+        n_levels, channels, height, width, k, ns, c0,
+        kernels.current_stream(src.device),
+    )
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} kernel launch failed: cudaError {err}")
+    fn.launches += 1
+    return out
+
+
+def _on_card(fn, args) -> bool:
+    """False where the select runs its plain version (every tensor on the
+    CPU), True on a CUDA card; raises on mixed or other devices."""
+    devices = {t.device for t in args}
+    if len(devices) != 1:
+        raise ValueError(f"{fn.__name__}: tensors on several devices {devices}")
+    if args[0].device.type == "cpu":
+        return False
+    if args[0].device.type != "cuda":
+        raise ValueError(f"{fn.__name__}: unsupported device {args[0].device}")
+    return True
 
 
 def select_samples(planes, lvl, y0, x0, rel_x, rel_y, c0: int = 0) -> torch.Tensor:
@@ -37,44 +109,39 @@ def select_samples(planes, lvl, y0, x0, rel_x, rel_y, c0: int = 0) -> torch.Tens
     ``planes``: (L, C, Hp, Wp) float32 contiguous; ``lvl``/``y0``/``x0``:
     (K,) int32; ``rel_x``/``rel_y``: (K, NS) int32; ``c0`` in [0, C).
     """
-    args = (planes, lvl, y0, x0, rel_x, rel_y)
-    devices = {t.device for t in args}
-    if len(devices) != 1:
-        raise ValueError(f"select_samples: tensors on several devices {devices}")
-    if planes.device.type == "cpu":
+    if not _on_card(select_samples, (planes, lvl, y0, x0, rel_x, rel_y)):
         return select_samples_plain(planes, lvl, y0, x0, rel_x, rel_y, c0)
-    if planes.device.type != "cuda":
-        raise ValueError(f"select_samples: unsupported device {planes.device}")
     if planes.dtype != torch.float32 or planes.ndim != 4:
         raise ValueError(f"planes must be (L, C, Hp, Wp) float32, got {planes.dtype} {tuple(planes.shape)}")
-    n_levels, channels, height, width = planes.shape
-    k, ns = rel_x.shape
-    for name, t, shape in (
-        ("lvl", lvl, (k,)), ("y0", y0, (k,)), ("x0", x0, (k,)),
-        ("rel_x", rel_x, (k, ns)), ("rel_y", rel_y, (k, ns)),
-    ):
-        if t.dtype != torch.int32 or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be int32 {shape}, got {t.dtype} {tuple(t.shape)}")
-    if not all(t.is_contiguous() for t in args):
-        raise ValueError("select_samples: inputs must be contiguous")
-    if not 0 <= c0 < channels:
-        raise ValueError(f"c0={c0} outside [0, {channels})")
-    out = torch.empty((k, channels - c0, ns), dtype=torch.float32, device=planes.device)
-    if k == 0 or ns == 0:
-        return out
-    err = kernels.function("select_samples", "cv_select_samples", _SELECT_ARGS)(
-        planes.data_ptr(), lvl.data_ptr(), y0.data_ptr(), x0.data_ptr(),
-        rel_x.data_ptr(), rel_y.data_ptr(), out.data_ptr(),
-        n_levels, channels, height, width, k, ns, c0,
-        kernels.current_stream(planes.device),
-    )
-    if err != 0:
-        raise RuntimeError(f"select_samples kernel launch failed: cudaError {err}")
-    select_samples.launches += 1
-    return out
+    return _launch(select_samples, "cv_select_samples", planes, planes.shape, lvl, y0, x0, rel_x, rel_y, c0)
 
 
 select_samples.launches = 0  # kernel launches so far (CPU calls do not count)
+
+
+def select_samples_interleaved(stack, lvl, y0, x0, rel_x, rel_y, c0: int = 0) -> torch.Tensor:
+    """Select samples from the pixel-interleaved stack; see the module
+    docstring.  Port of ``cv_tpu/akaze/pallas_mldb.py::select_samples_gather``
+    fed by the ``'+inter'`` patch cut (``cv_tpu/akaze/descriptors.py``:
+    one ``(128, 384)`` slice a keypoint, de-interleaved): the kernel
+    (``csrc/select_samples.cu``, ``cv_select_samples_interleaved``) reads
+    the stack directly, a sample's channels as adjacent words.
+
+    ``stack``: (L, Hp, 3 * Wp) float32 contiguous; ``lvl``/``y0``/``x0``:
+    (K,) int32; ``rel_x``/``rel_y``: (K, NS) int32; ``c0`` in [0, 3).  On a
+    CPU tensor the plain version runs; on a CUDA tensor the kernel, counted
+    on ``select_samples_interleaved.launches``.
+    """
+    if not _on_card(select_samples_interleaved, (stack, lvl, y0, x0, rel_x, rel_y)):
+        return select_samples_interleaved_plain(stack, lvl, y0, x0, rel_x, rel_y, c0)
+    if stack.dtype != torch.float32 or stack.ndim != 3 or stack.shape[2] % 3:
+        raise ValueError(f"stack must be (L, Hp, 3 * Wp) float32, got {stack.dtype} {tuple(stack.shape)}")
+    dims = (stack.shape[0], 3, stack.shape[1], stack.shape[2] // 3)
+    return _launch(select_samples_interleaved, "cv_select_samples_interleaved", stack, dims, lvl, y0, x0, rel_x,
+                   rel_y, c0)
+
+
+select_samples_interleaved.launches = 0  # kernel launches so far (CPU calls do not count)
 
 
 def select_samples_patch(patches, rel_x, rel_y, c0: int = 0) -> torch.Tensor:

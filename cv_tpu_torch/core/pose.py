@@ -183,9 +183,11 @@ def _dlt_terms(pm: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     block: each column's ``v^T pm`` by
     :func:`~cv_tpu_torch.ops.trig.dot_fused` and each entry one fused
     ``fma(-v_k, s_j, pm_kj)``, as XLA's CPU code computes them in the jitted
-    scoring."""
-    s = trig.dot_fused(v[..., :, None], pm, -2)  # (..., 4)
-    return trig.fma(-v[..., :, None], s[..., None, :], pm)
+    scoring (each result below the normal range flushed: XLA's FTZ/DAZ,
+    :func:`~cv_tpu_torch.ops.trig.ftz`)."""
+    s = trig.dot_fused(v[..., :, None], pm, -2, flush=True)  # (..., 4)
+    return trig.ftz(trig.fma(-v[..., :, None], s[..., None, :], pm))
+
 
 
 def c2c_design(pose: Isometry3, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -196,14 +198,14 @@ def c2c_design(pose: Isometry3, a: torch.Tensor, b: torch.Tensor) -> torch.Tenso
     into the running sum (``fma(t0i, t0j, t1i t1j)``, then ``fma(t_ki, t_kj,
     acc)`` in order: a's rows, then b's)."""
     eye = torch.eye(3, 4, dtype=a.dtype, device=a.device)
-    ta, tb = _dlt_terms(eye, a), _dlt_terms(pose.matrix3x4(), b)
+    ta, tb = _dlt_terms(eye, trig.ftz(a)), _dlt_terms(trig.ftz(pose.matrix3x4()), trig.ftz(b))
     shape = torch.broadcast_shapes(ta.shape, tb.shape)
     rows = torch.cat([ta.expand(shape), tb.expand(shape)], -2)  # (..., 6, 4)
     ii, jj = (torch.tensor(k, device=a.device) for k in zip(*_UPPER))
     x, y = rows[..., ii], rows[..., jj]  # (..., 6, 10)
-    acc = trig.fma(x[..., 0, :], y[..., 0, :], x[..., 1, :] * y[..., 1, :])
+    acc = trig.ftz(trig.fma(x[..., 0, :], y[..., 0, :], trig.ftz(x[..., 1, :] * y[..., 1, :])))
     for k in range(2, 6):
-        acc = trig.fma(x[..., k, :], y[..., k, :], acc)
+        acc = trig.ftz(trig.fma(x[..., k, :], y[..., k, :], acc))
     full = [_UPPER.index((min(i, j), max(i, j))) for i in range(4) for j in range(4)]
     return acc[..., full].reshape(shape[:-2] + (4, 4))
 
@@ -227,12 +229,13 @@ def c2c_residual_plain(pose: Isometry3, a: torch.Tensor, b: torch.Tensor) -> tor
     v = torch.gather(eigvecs, -1, idx[..., None, None].expand(eigvecs.shape[:-1] + (1,)))[..., 0]
     pt = _from_homogeneous_fused(v)
     p = pt.unbind(-1)
-    rot, tr = pose.rotation, pose.translation
-    q = [trig.fma(tr[..., i], p[3], trig.dot_fused([rot[..., i, k] for k in range(3)], p[:3])) for i in range(3)]
+    rot, tr, a, b = trig.ftz(pose.rotation), trig.ftz(pose.translation), trig.ftz(a), trig.ftz(b)
+    q = [trig.ftz(trig.fma(tr[..., i], p[3], trig.dot_fused([rot[..., i, k] for k in range(3)], p[:3], flush=True)))
+         for i in range(3)]
     qb = _from_homogeneous_fused(torch.stack(q + [p[3].expand(q[0].shape)], -1)).unbind(-1)
-    da = trig.dot_fused(a.unbind(-1), p[:3])
-    db = trig.dot_fused(b.unbind(-1), qb[:3])
-    res = ((2.0 - da) - db) * 0.5
+    da = trig.dot_fused(a.unbind(-1), p[:3], flush=True)
+    db = trig.dot_fused(b.unbind(-1), qb[:3], flush=True)
+    res = trig.ftz((trig.ftz(2.0 - da) - db) * 0.5)
     finite = torch.isfinite(pt).all(dim=-1)
     return torch.where(finite & torch.isfinite(res), res, torch.full_like(res, 2.0))
 
@@ -268,7 +271,7 @@ def _from_homogeneous_fused(point: torch.Tensor) -> torch.Tensor:
     ``dot_fused`` and the IEEE square root (the jitted scoring's bits)."""
     point = torch.where(point[..., 3:4] < 0, -point, point)
     xyz = point[..., :3].unbind(-1)
-    return point / trig.sqrt(trig.dot_fused(xyz, xyz))[..., None]
+    return trig.ftz(point / trig.sqrt(trig.dot_fused(xyz, xyz, flush=True))[..., None])
 
 
 def camera_to_camera_residual(pose: Isometry3, a: torch.Tensor, b: torch.Tensor):

@@ -479,35 +479,49 @@ __device__ __forceinline__ void c2c_jacobi(T (&a)[4][4], T (&v)[4][4]) {
   for (int sweep = 0; sweep < kSweeps; ++sweep) c2c_sweep<T>(a, v);
 }
 
+// The design and the score flush as XLA's FTZ/DAZ does (the jitted
+// scoring's, as its Jacobi does) where kF: every input, product and fused
+// sum below the normal range is the zero of its sign.  A pair decides once
+// whether any can be subnormal (in_range, pt_in_range below); the flushes
+// act only on poses far from unit scale (~1e-155).
+template <bool kF, typename T>
+__device__ __forceinline__ T fz(T v) {
+  if constexpr (kF) {
+    return ftz(v);
+  } else {
+    return v;
+  }
+}
+
 // s_j = dot_fused(v, pm[:, j]): v0 pm0j + 0, then fma(v_k, pm_kj, acc).
-template <typename T>
+template <bool kF, typename T>
 __device__ __forceinline__ T dot3(T v0, T v1, T v2, T p0, T p1, T p2) {
-  return fma_(v2, p2, fma_(v1, p1, add(mul(v0, p0), T(0))));
+  return fz<kF>(fma_(v2, p2, fz<kF>(fma_(v1, p1, add(fz<kF>(mul(v0, p0)), T(0))))));
 }
 
 // The rows pm - v (v^T pm) of one bearing's DLT block, each entry
 // fma(-v_k, s_j, pm_kj).
-template <typename T>
+template <bool kF, typename T>
 __device__ __forceinline__ void dlt_terms(const T (&pm)[3][4], const T (&v)[3], T (&t)[3][4]) {
 #pragma unroll
   for (int j = 0; j < 4; ++j) {
-    const T s = dot3(v[0], v[1], v[2], pm[0][j], pm[1][j], pm[2][j]);
+    const T s = dot3<kF>(v[0], v[1], v[2], pm[0][j], pm[1][j], pm[2][j]);
 #pragma unroll
-    for (int k = 0; k < 3; ++k) t[k][j] = fma_(-v[k], s, pm[k][j]);
+    for (int k = 0; k < 3; ++k) t[k][j] = fz<kF>(fma_(-v[k], s, pm[k][j]));
   }
 }
 
 // from_homogeneous: the sign flipped where w < 0, then xyz (and w) over
 // the IEEE root of dot_fused(xyz, xyz).
-template <typename T>
+template <bool kF, typename T>
 __device__ __forceinline__ void from_homogeneous(T (&p)[4]) {
   if (p[3] < T(0)) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) p[i] = -p[i];
   }
-  const T n = sqrt_(dot3(p[0], p[1], p[2], p[0], p[1], p[2]));
+  const T n = sqrt_(dot3<kF>(p[0], p[1], p[2], p[0], p[1], p[2]));
 #pragma unroll
-  for (int i = 0; i < 4; ++i) p[i] = div_(p[i], n);
+  for (int i = 0; i < 4; ++i) p[i] = fz<kF>(div_(p[i], n));
 }
 
 __device__ __forceinline__ bool finite(double x) { return isfinite(x); }
@@ -528,38 +542,85 @@ __device__ __forceinline__ void load_pair(const T* rp, const T* tp, const T* ap,
   }
 }
 
-// One (pose, match) pair's residual.
-template <typename T>
-__device__ __forceinline__ T pair_residual(const T* rp, const T* tp, const T* ap, const T* bp) {
-  // The pose and the bearings are not live in registers across the sweeps:
-  // at the register cap the compiler keeps them in local memory (144 bytes
-  // in float64) and reads them back for the score.
-  T pm[3][4], av[3], bv[3], d[4][4], v[4][4];
-  load_pair(rp, tp, ap, bp, pm, av, bv);
-  {
-    // The design: fma(t0i, t0j, t1i t1j), then each later row fused in
-    // order (a's rows, then b's); the Jacobi reads it flushed.
-    T ta[3][4], tb[3][4];
-    const T eye[3][4] = {{T(1), T(0), T(0), T(0)}, {T(0), T(1), T(0), T(0)}, {T(0), T(0), T(1), T(0)}};
-    dlt_terms(eye, av, ta);
-    dlt_terms(pm, bv, tb);
+// Whether no flush can act in a float64 pair's design: every nonzero input
+// in [2^-83, 2^500].  Then each dot3 sum is a multiple of 2^-270, each
+// DLT entry of 2^-457 and each design entry of 2^-1018, so every nonzero
+// value is normal.  Float32 has no such range: it always flushes.
+__device__ __forceinline__ bool in_range(const double (&pm)[3][4], const double (&av)[3], const double (&bv)[3]) {
+  unsigned lo = 0xffffffffu;  // Expo's key of the least nonzero magnitude
+  int hi = 0;                 // the high word of the largest
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
+  for (int k = 0; k < 3; ++k) {
 #pragma unroll
-      for (int c = r; c < 4; ++c) {
-        T acc = fma_(ta[0][r], ta[0][c], mul(ta[1][r], ta[1][c]));
-        acc = fma_(ta[2][r], ta[2][c], acc);
+    for (int j = 0; j < 4; ++j) {
+      lo = key_min(lo, pm[k][j]);
+      hi = max(hi, __double2hiint(pm[k][j]) & 0x7fffffff);
+    }
+    lo = key_min(key_min(lo, av[k]), bv[k]);
+    hi = max(hi, max(__double2hiint(av[k]) & 0x7fffffff, __double2hiint(bv[k]) & 0x7fffffff));
+  }
+  return (lo >> Expo<double>::kShift) >= 1023 - 83 && (hi >> 20) <= 1023 + 500;
+}
+__device__ __forceinline__ bool in_range(const float (&)[3][4], const float (&)[3], const float (&)[3]) {
+  return false;
+}
+
+// Whether, in range, no flush can act in the score either: every nonzero
+// entry of the eigenvector at least 2^-80 (the entries are at most 1).
+// Then the normalized point is a multiple of 2^-133 or zero, the rotated
+// one of 2^-268, its normalized form at least 2^-772, the cosines
+// multiples of 2^-959 and the residual of 2^-1012.
+__device__ __forceinline__ bool pt_in_range(const double (&pt)[4]) {
+  return (key_min(key_min(key_min(Expo<double>::key(pt[0]), pt[1]), pt[2]), pt[3]) >> Expo<double>::kShift) >=
+         1023 - 80;
+}
+__device__ __forceinline__ bool pt_in_range(const float (&)[4]) { return false; }
+
+// The design: fma(t0i, t0j, t1i t1j), then each later row fused in order
+// (a's rows, then b's).
+template <bool kF, typename T>
+__device__ __forceinline__ void design(const T (&pm)[3][4], const T (&av)[3], const T (&bv)[3], T (&d)[4][4]) {
+  T ta[3][4], tb[3][4];
+  const T eye[3][4] = {{T(1), T(0), T(0), T(0)}, {T(0), T(1), T(0), T(0)}, {T(0), T(0), T(1), T(0)}};
+  dlt_terms<kF>(eye, av, ta);
+  dlt_terms<kF>(pm, bv, tb);
 #pragma unroll
-        for (int k = 0; k < 3; ++k) acc = fma_(tb[k][r], tb[k][c], acc);
-        d[r][c] = d[c][r] = kSweeps > 0 ? ftz(acc) : acc;
-      }
+  for (int r = 0; r < 4; ++r) {
+#pragma unroll
+    for (int c = r; c < 4; ++c) {
+      T acc = fz<kF>(fma_(ta[0][r], ta[0][c], fz<kF>(mul(ta[1][r], ta[1][c]))));
+      acc = fz<kF>(fma_(ta[2][r], ta[2][c], acc));
+#pragma unroll
+      for (int k = 0; k < 3; ++k) acc = fz<kF>(fma_(tb[k][r], tb[k][c], acc));
+      d[r][c] = d[c][r] = acc;
     }
   }
-  c2c_jacobi<T>(d, v);
-  // The eigenvector of least |eigenvalue| in the sorted order, the first
-  // on ties (a NaN first, as torch.argmin takes it), kept column by
-  // column with constant indices.
-  T w4[4], pt[4];
+}
+
+// The score of the eigenvector pt: the point's cosines to both bearings.
+template <bool kF, typename T>
+__device__ __forceinline__ T score(const T (&pm)[3][4], const T (&av)[3], const T (&bv)[3], T (&pt)[4]) {
+  from_homogeneous<kF>(pt);
+  const bool pt_finite = finite(pt[0]) && finite(pt[1]) && finite(pt[2]) && finite(pt[3]);
+  T q[4];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    q[r] = fz<kF>(fma_(pm[r][3], pt[3], dot3<kF>(pm[r][0], pm[r][1], pm[r][2], pt[0], pt[1], pt[2])));
+  }
+  q[3] = pt[3];
+  from_homogeneous<kF>(q);
+  const T da = dot3<kF>(av[0], av[1], av[2], pt[0], pt[1], pt[2]);
+  const T db = dot3<kF>(bv[0], bv[1], bv[2], q[0], q[1], q[2]);
+  const T res = fz<kF>(mul(sub(fz<kF>(sub(T(2), da)), db), T(0.5)));
+  return pt_finite && finite(res) ? res : T(2);
+}
+
+// The eigenvector of least |eigenvalue| in the sorted order, the first on
+// ties (a NaN first, as torch.argmin takes it), kept column by column with
+// constant indices.
+template <typename T>
+__device__ __forceinline__ void least_vector(T (&d)[4][4], T (&v)[4][4], T (&pt)[4]) {
+  T w4[4];
   sort_columns<T, 4>(d, v, w4);
   T best = fabs(w4[0]);
 #pragma unroll
@@ -573,17 +634,43 @@ __device__ __forceinline__ T pair_residual(const T* rp, const T* tp, const T* ap
       for (int r = 0; r < 4; ++r) pt[r] = v[r][k];
     }
   }
-  from_homogeneous(pt);
-  const bool pt_finite = finite(pt[0]) && finite(pt[1]) && finite(pt[2]) && finite(pt[3]);
-  T q[4];
+}
+
+// A pair's residual with every flush: out of line, and handed only the
+// input pointers, since pairs rarely take it and, inlined or handed the
+// common path's arrays, it would take that path's registers.
+template <typename T>
+__device__ __noinline__ T pair_residual_flushed(const T* rp, const T* tp, const T* ap, const T* bp) {
+  T pm[3][4], av[3], bv[3], d[4][4], v[4][4], pt[4];
+  load_pair(rp, tp, ap, bp, pm, av, bv);
 #pragma unroll
-  for (int r = 0; r < 3; ++r) q[r] = fma_(pm[r][3], pt[3], dot3(pm[r][0], pm[r][1], pm[r][2], pt[0], pt[1], pt[2]));
-  q[3] = pt[3];
-  from_homogeneous(q);
-  const T da = dot3(av[0], av[1], av[2], pt[0], pt[1], pt[2]);
-  const T db = dot3(bv[0], bv[1], bv[2], q[0], q[1], q[2]);
-  const T res = mul(sub(sub(T(2), da), db), T(0.5));
-  return pt_finite && finite(res) ? res : T(2);
+  for (int k = 0; k < 3; ++k) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) pm[k][j] = ftz(pm[k][j]);
+    av[k] = ftz(av[k]);
+    bv[k] = ftz(bv[k]);
+  }
+  design<true>(pm, av, bv, d);
+  c2c_jacobi<T>(d, v);
+  least_vector(d, v, pt);
+  return score<true>(pm, av, bv, pt);
+}
+
+// One (pose, match) pair's residual: without the design's and the score's
+// flushes where they cannot act, else pair_residual_flushed.
+template <typename T>
+__device__ __forceinline__ T pair_residual(const T* rp, const T* tp, const T* ap, const T* bp) {
+  // The pose and the bearings are not live in registers across the sweeps:
+  // at the register cap the compiler keeps them in local memory (144 bytes
+  // in float64) and reads them back for the score.
+  T pm[3][4], av[3], bv[3], d[4][4], v[4][4], pt[4];
+  load_pair(rp, tp, ap, bp, pm, av, bv);
+  if (!in_range(pm, av, bv)) return pair_residual_flushed(rp, tp, ap, bp);
+  design<false>(pm, av, bv, d);
+  c2c_jacobi<T>(d, v);
+  least_vector(d, v, pt);
+  if (!pt_in_range(pt)) return pair_residual_flushed(rp, tp, ap, bp);
+  return score<false>(pm, av, bv, pt);
 }
 
 // out[p * matches + m] for p < poses, m < matches (pose p's rotation

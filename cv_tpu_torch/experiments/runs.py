@@ -140,10 +140,10 @@ def extract_modes(images, modes, config, candidate_budget: int, max_features: in
 
 def epatch_extract(images, reps: int = 5) -> dict:
     """``exp_r4_epatch.py`` phase ``extract``: ``Akaze.sparse()``, 512
-    candidates and 4096 features a frame, ``'pgather'`` then ``'pepatch'``
-    (its ``'pgather+inter'`` is one of cv_tpu's XLA-only modes, which the
-    port does not have)."""
-    return extract_modes(images, ("pgather", "pepatch"), Akaze.sparse(), 512, 4096, reps)
+    candidates and 4096 features a frame, ``'pgather'``, ``'pepatch'``
+    and ``'pgather+inter'`` (the select kernel on the pixel-interleaved
+    stack)."""
+    return extract_modes(images, ("pgather", "pepatch", "pgather+inter"), Akaze.sparse(), 512, 4096, reps)
 
 
 def ptiles_extract(images, reps: int = 5) -> dict:

@@ -35,13 +35,27 @@ def distance_matrix(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Pairwise Hamming distances of packed descriptors.
 
     ``a``: (..., N, W), ``b``: (..., M, W) int32 words -> (..., N, M) int32,
-    summed word by word as in the reference.
+    summed word by word as in the reference.  On a CPU the same integers
+    come from one float32 product of the unpacked bits, ``w(a) + w(b) - 2
+    a.b`` (exact: every sum is an integer of at most 32 W), which the CPU's
+    matrix product runs many times faster than the word-by-word bit counts.
     """
+    if a.device.type == "cpu":
+        ab, bb = _bits_f32(a), _bits_f32(b)
+        dots = torch.matmul(ab, bb.transpose(-1, -2))
+        return (ab.sum(dim=-1)[..., :, None] + bb.sum(dim=-1)[..., None, :] - 2 * dots).to(torch.int32)
     acc = None
     for w in range(a.shape[-1]):
         t = popcount32(a[..., :, None, w] ^ b[..., None, :, w])
         acc = t if acc is None else acc + t
     return acc.to(torch.int32)
+
+
+def _bits_f32(words: torch.Tensor) -> torch.Tensor:
+    """(..., N, W) int32 words -> (..., N, 32 W) float32 of {0, 1}, every
+    bit of every word."""
+    shifts = torch.arange(32, device=words.device, dtype=torch.int32)
+    return ((words[..., None] >> shifts) & 1).reshape(words.shape[:-1] + (-1,)).to(torch.float32)
 
 
 def unpack_bits(words: torch.Tensor, n_bits: int = DESCRIPTOR_BITS) -> torch.Tensor:

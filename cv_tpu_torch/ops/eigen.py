@@ -76,9 +76,7 @@ def _exact(t: torch.Tensor) -> bool:
     return t.device.type == "cpu" and not _CHEAP_CPU
 
 
-def _ftz(v: torch.Tensor) -> torch.Tensor:
-    """A subnormal as the zero of its sign (XLA's FTZ and DAZ)."""
-    return trig._flush(v) if v.dtype == torch.float32 else trig._flush64(v)
+_ftz = trig.ftz  # a subnormal as the zero of its sign (XLA's FTZ and DAZ)
 
 
 def _rotate_f64(c, s, x, y):
@@ -239,16 +237,27 @@ def jacobi(a: torch.Tensor, sweeps: int = 6):
     return w.reshape(batch + (n,)), v.reshape(batch + (n, n))
 
 
+UNFUSED_CHUNK = 16384  # matrices a chunk of the unfused sweep: ~2x over one pass on a CPU core
+
+
 def _eigh_unfused(a: torch.Tensor, sweeps: int = 6):
     """The same cyclic Jacobi on a CPU without the reference's bits (the
     callers' within :func:`cheap_on_cpu`): each rotation's cosine and sine come
     from the half-angle formulas of ``theta = atan2(2 apq, aqq - app) / 2``
     instead of glibc's functions and the updates are not fused, so each
     rotation lies within a few ulps of the exact one
-    (``tests/test_torch_eigen.py`` holds the result to ``cv_tpu``'s)."""
+    (``tests/test_torch_eigen.py`` holds the result to ``cv_tpu``'s).
+    Batches run in chunks of ``UNFUSED_CHUNK`` matrices, whose sweeps stay
+    in the CPU's cache (each matrix's arithmetic is its own, so the bits
+    do not depend on the chunk)."""
     n = a.shape[-1]
     batch = a.shape[:-2]
-    a = a.reshape(-1, n, n).permute(1, 2, 0).contiguous()
+    flat = a.reshape(-1, n, n)
+    if flat.shape[0] > UNFUSED_CHUNK:
+        parts = [_eigh_unfused(flat[i:i + UNFUSED_CHUNK], sweeps) for i in range(0, flat.shape[0], UNFUSED_CHUNK)]
+        return (torch.cat([w for w, _ in parts]).reshape(batch + (n,)),
+                torch.cat([v for _, v in parts]).reshape(batch + (n, n)))
+    a = flat.permute(1, 2, 0).contiguous()
     v = torch.eye(n, dtype=a.dtype, device=a.device)[:, :, None].expand(a.shape).contiguous()
     for _ in range(sweeps):
         for p in range(n):

@@ -181,12 +181,10 @@ def _split(a):
     return hi, a - hi
 
 
-def _round_sum(p, e, q):
-    """``p + e + q`` rounded once, where ``p + e`` is an exact product
-    (Dekker) and ``q`` a double (a tensor or a Python float): the exact
-    sum ``s + t`` of ``p`` and ``q``, ``t + e`` rounded to odd, then ``s``
-    plus it (Boldo and Melquiond).  A zero sum takes ``p + q``'s sign, as
-    the fused operation's does."""
+def _odd_sum(p, e, q):
+    """The exact sum ``s + t`` of ``p`` and ``q``, and ``u``, ``t + e``
+    rounded to odd; also the error ``err`` of ``t + e``'s rounding to
+    nearest and whether ``u`` moved off it (``stepped``)."""
     s = p + q
     bb = s - p
     t = (p - (s - bb)) + (q - bb)
@@ -197,20 +195,155 @@ def _round_sum(p, e, q):
     # An inexact even u moves one unit toward the exact sum: up in
     # magnitude where the error has u's sign.
     step = ((err.view(torch.int64) ^ bits) >> 63) | 1
-    u = torch.where((err != 0) & ((bits & 1) == 0), (bits + step).view(torch.float64), u)
+    stepped = (err != 0) & ((bits & 1) == 0)
+    return s, torch.where(stepped, (bits + step).view(torch.float64), u), err, stepped
+
+
+def _round_sum(p, e, q):
+    """``p + e + q`` rounded once, where ``p + e`` is an exact product
+    (Dekker) and ``q`` a double (a tensor or a Python float): the exact
+    sum ``s + t`` of ``p`` and ``q``, ``t + e`` rounded to odd, then ``s``
+    plus it (Boldo and Melquiond).  A zero sum takes ``p + q``'s sign, as
+    the fused operation's does."""
+    s, u, _, _ = _odd_sum(p, e, q)
     return torch.where(u == 0, s, s + u)
 
 
 def fma_f64(a: torch.Tensor, b, c) -> torch.Tensor:
     """``a * b + c`` of float64 rounded once (the x86 ``vfmadd``): ``a`` a
-    tensor, ``b`` and ``c`` tensors or Python floats (broadcast).  Exact
-    where the product neither overflows Veltkamp's split (|a|, |b| <
-    2^996) nor underflows its error term (|a b| >= 2^-969 or 0): every
-    use here stays inside."""
+    tensor, ``b`` and ``c`` tensors or Python floats (broadcast).  Dekker's
+    exact product with :func:`_round_sum` wherever that is exact (the
+    product's error term a normal double, the split and the sum inside the
+    range); the few elements outside (tiny or huge products, huge operands)
+    are redone by :func:`_fma_scaled`, so the result is correctly rounded
+    wherever it is finite, subnormal results included."""
+    p = a * b
+    out = _fma_dekker(a, b, c, p)
+    pa, aa = p.abs(), a.abs()
+    ba = b.abs() if isinstance(b, torch.Tensor) else abs(b)
+    far = (pa < TINY_PRODUCT) | (pa >= HUGE_PRODUCT) | (aa >= HUGE_OPERAND) | (ba >= HUGE_OPERAND)
+    # While a CUDA graph captures (the plain versions are timed so on a
+    # card) the repair runs on every element, with no host sync.
+    dense = out.is_cuda and torch.cuda.is_current_stream_capturing()
+    if dense or bool(far.any()):
+        # The fast form is exact where an operand is zero, or the product is
+        # below a quarter unit of c (the sum then rounds to c), and the
+        # other operand does not overflow the split: those keep it.  With
+        # c = +-0 the result is the product, rounded once by the
+        # multiplication itself (its zero keeps the product's sign).
+        ca = c.abs() if isinstance(c, torch.Tensor) else abs(c)
+        fast = ((a == 0) | (b == 0) | ((pa < TINY_PRODUCT) & (ca >= C_ABOVE_TINY))) & (aa < HUGE_OPERAND) \
+            & (ba < HUGE_OPERAND)
+        far = far & ~fast
+        prod = far & (c == 0)
+        out = torch.where(prod, p, out)
+        far = far & ~prod
+        if dense or bool(far.any()):
+            out = _fma_scaled(a, b, c, out, far, dense)
+    return out
+
+
+def _fma_dekker(a, b, c, p=None):
+    """:func:`fma_f64`'s fast form, Dekker's exact product and
+    :func:`_round_sum`: correctly rounded where the product's error term is
+    a normal double and the split and the sum stay finite (below), or where
+    c swamps a tiny product.  The float32 functions' polynomials call it
+    directly: their operands, float32 values and constants, stay there."""
     ah, al = _split(a)
     bh, bl = _split(b)
-    p = a * b
+    p = a * b if p is None else p
     return _round_sum(p, ((ah * bh - p) + ah * bl + al * bh) + al * bl, c)
+
+
+# Dekker's product is exact where |a b| >= 2^-969 (its error term a normal
+# double) and the split and the sum stay finite: |a|, |b| < 2^996.
+TINY_PRODUCT = 2.0 ** -960
+C_ABOVE_TINY = 2.0 ** -900  # a unit of such a c is 2^-952 or more: a tiny product rounds away
+HUGE_PRODUCT = 2.0 ** 990
+HUGE_OPERAND = 2.0 ** 995
+
+
+def _pow2(k: torch.Tensor) -> torch.Tensor:
+    """``2^k`` as float64 for integer ``k`` in [-1022, 1023], from its bits."""
+    return ((k.to(torch.int64) + 1023) << 52).view(torch.float64)
+
+
+def _ldexp(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """``x 2^k`` for ``|k| <= 3000``, in three exact steps of at most 2^1000
+    each: the magnitude moves one way, so only the last step can round (to
+    a subnormal or to infinity), as a single scaling would."""
+    k = k.to(torch.int64)
+    for _ in range(3):
+        step = k.clamp(-1000, 1000)
+        x = x * _pow2(step)
+        k = k - step
+    return x
+
+
+def _round_sum_signed(p, e, q):
+    """:func:`_round_sum`'s ``r = RN(p + e + q)`` and the sign of the exact
+    ``p + e + q - r`` (-1, 0 or 1): the sign of the last sum's error where
+    that is not zero, else of the odd rounding's remainder (below one unit
+    of the odd term, so the last error, a multiple of that unit, outweighs
+    it)."""
+    s, u, err, stepped = _odd_sum(p, e, q)
+    rest = torch.where(stepped, -torch.sign(err), torch.sign(err))  # sign of t + e - u
+    r = torch.where(u == 0, s, s + u)
+    bb = r - s
+    err2 = (s - (r - bb)) + (u - bb)
+    return r, torch.where(err2 != 0, torch.sign(err2), rest)
+
+
+def _fma_scaled(a, b, c, out, far, dense: bool = False):
+    """:func:`fma_f64` of the elements where ``far`` (all of them, selected
+    after, where ``dense``; else only those), by :func:`_fma_scaled_values`;
+    infinite and NaN operands keep ``out``."""
+    shape = out.shape
+    a, b, c = (v.expand(shape) if isinstance(v, torch.Tensor) else torch.full_like(out, v) for v in (a, b, c))
+    far = far & torch.isfinite(a) & torch.isfinite(b) & torch.isfinite(c)
+    if dense:
+        return torch.where(far, _fma_scaled_values(a, b, c), out)
+    idx = far.nonzero(as_tuple=True)
+    if idx[0].numel() == 0:
+        return out
+    out = out.clone()
+    out[idx] = _fma_scaled_values(a[idx], b[idx], c[idx])
+    return out
+
+
+def _fma_scaled_values(a, b, c):
+    """``a * b + c`` of finite float64 tensors rounded once, with ``a`` and
+    ``b`` scaled to their mantissas in [0.5, 1) and ``c`` by the same power
+    of two, where every step is exact; the sum rounded there to 53 bits,
+    then scaled back, exactly where the result is normal, else rounded once
+    more to the subnormal grid with the sign of the first rounding's
+    remainder.  A ``c`` 2^60 times the product or more is the result; one
+    below 2^-110 of it only decides ties, so it stands in at 2^-120.  A zero
+    ``a`` or ``b`` gives ``a b + c`` (exact)."""
+    ma, ea = torch.frexp(a)
+    mb, eb = torch.frexp(b)
+    mc, ec = torch.frexp(c)
+    ea, eb, ec = ea.long(), eb.long(), ec.long()
+    eab = ea + eb  # |a b| in [2^(eab - 2), 2^eab)
+    rel = ec - eab
+    cs = torch.where(rel < -110, torch.copysign(torch.full_like(c, 2.0 ** -120), c), mc * _pow2(rel.clamp(-110, 60)))
+    cs = torch.where(c == 0, c, cs)
+    mah, mal = _split(ma)
+    mbh, mbl = _split(mb)
+    p = ma * mb
+    r, rest = _round_sum_signed(p, ((mah * mbh - p) + mah * mbl + mal * mbh) + mal * mbl, cs)
+    # The result is subnormal where |r| 2^eab < 2^-1022.
+    er = torch.frexp(r)[1].long()
+    normal = _ldexp(r, eab)
+    # Subnormal: r in units of 2^-1074, rounded to an integer; a half-way r
+    # goes the way of the remainder, or to even where it is exact.
+    y = _ldexp(r, eab + 1074)
+    half = (y - torch.trunc(y)).abs() == 0.5
+    n = torch.where(half & (rest != 0), torch.where(rest > 0, torch.ceil(y), torch.floor(y)), torch.round(y))
+    sub = _ldexp(torch.where(n == 0, r * 0, n), torch.full_like(eab, -1074))
+    res = torch.where(er + eab <= -1022, sub, normal)
+    res = torch.where((c != 0) & (rel > 60), c, res)
+    return torch.where((a == 0) | (b == 0), a * b + c, res)
 
 
 def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
@@ -240,17 +373,27 @@ def fma(a: torch.Tensor, b, c) -> torch.Tensor:
     return fma_f32(a, b, c) if a.dtype == torch.float32 else fma_f64(a, b, c)
 
 
-def dot_fused(x, y, dim: int = -1) -> torch.Tensor:
+def dot_fused(x, y, dim: int = -1, flush: bool = False) -> torch.Tensor:
     """``sum(x * y, dim)`` as a jitted XLA reduction of products sums it on
     a CPU: ``x0 y0 + 0``, then each next product fused into the sum,
     ``fma(x_k, y_k, acc)``, in order along ``dim`` (broadcast).  ``x`` and
-    ``y`` may also be sequences of the terms (in ``y``, Python floats)."""
+    ``y`` may also be sequences of the terms (in ``y``, Python floats).
+    ``flush``: each step's subnormal result flushed to zero, as XLA's CPU
+    code does (:func:`ftz`)."""
     xs = x.unbind(dim) if isinstance(x, torch.Tensor) else x
     ys = y.unbind(dim) if isinstance(y, torch.Tensor) else y
-    acc = xs[0] * ys[0] + 0.0
+    keep = ftz if flush else (lambda v: v)
+    acc = keep(keep(xs[0] * ys[0]) + 0.0)
     for a, b in zip(xs[1:], ys[1:]):
-        acc = fma(a, b, acc)
+        acc = keep(fma(a, b, acc))
     return acc
+
+
+def ftz(v: torch.Tensor) -> torch.Tensor:
+    """A subnormal as the zero of its sign, in ``v``'s dtype: XLA's CPU
+    code runs with flush-to-zero and denormals-are-zero, so every result it
+    computes below the normal range is that zero."""
+    return _flush(v) if v.dtype == torch.float32 else _flush64(v)
 
 
 @lru_cache(maxsize=None)
@@ -282,19 +425,19 @@ def _reduce_large(bits: torch.Tensor):
 
 def _sin_poly(xs, x2):
     x3 = xs * x2
-    s1 = fma_f64(x2, S[2], S[1])
+    s1 = _fma_dekker(x2, S[2], S[1])
     x7 = x3 * x2
-    s = fma_f64(x3, S[0], xs)
-    return fma_f64(x7, s1, s)
+    s = _fma_dekker(x3, S[0], xs)
+    return _fma_dekker(x7, s1, s)
 
 
 def _cos_poly(x2):
     x4 = x2 * x2
-    c2 = fma_f64(x2, C[4], C[3])
-    c1 = fma_f64(x2, C[1], C[0])
+    c2 = _fma_dekker(x2, C[4], C[3])
+    c1 = _fma_dekker(x2, C[1], C[0])
     x6 = x4 * x2
-    c = fma_f64(x4, C[2], c1)
-    return fma_f64(x6, c2, c)
+    c = _fma_dekker(x4, C[2], c1)
+    return _fma_dekker(x6, c2, c)
 
 
 def _sincos(a: torch.Tensor):
@@ -308,7 +451,7 @@ def _sincos(a: torch.Tensor):
     # |a| < 120: n = round(a 2/pi) by the scaled truncation, r = a - n pi/2.
     xm = torch.where(fast, x, 0.0)
     n = ((xm * HPI_INV).to(torch.int32) + 0x800000) >> 24
-    r = fma_f64(n.to(torch.float64), -HPI, xm)
+    r = _fma_dekker(n.to(torch.float64), -HPI, xm)
     q = n
     # |a| >= 120: the 4/pi product; the quadrant of the sign and the tables
     # also take the input's sign.  On a CPU only where an element needs it

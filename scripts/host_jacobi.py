@@ -14,7 +14,10 @@ float64 and float32:
   ``cv_c2c_score_*`` against ``c2c_score_plain`` on seeded consensus
   problems (inliers through the first pose, outliers, a == b, a zero
   bearing, a NaN and an infinite entry; 11 to 300 matches, so eight rows a
-  block to three chunks a row; the last fifth of the rows invalid);
+  block to three chunks a row; the last fifth of the rows invalid), and on
+  poses scaled to 1e-155 (float32: 1e-20), where the design's products
+  flush, and to 2^-80, 2^-86, 1e120 and 1e160 (float64), about the bounds
+  of the range where the kernel's pair skips its flushes;
 * ``cv_jacobi_*`` at N = 3, 4 and 9 against ``ops.eigen.eigh_small_plain``;
 * the specialized trigonometry of the float64 angle against ``trig.cuh``'s general
   functions on edge draws: ``atan2_jacobi`` against ``atan2_64`` (exponents
@@ -52,6 +55,7 @@ STUB = r"""
 #define __global__
 #define __host__
 #define __forceinline__ inline
+#define __noinline__ __attribute__((noinline))
 #define __constant__
 #define __launch_bounds__(...)
 #define __shared__ static
@@ -99,6 +103,7 @@ template <typename T> inline T __ldcg(const T* p) { return *p; }
 inline void __threadfence() {}
 inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }  // blocks run in turn
 inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
+inline int max(int a, int b) { return a > b ? a : b; }
 using std::copysign; using std::fabs; using std::isfinite; using std::isnan;
 """
 
@@ -146,10 +151,12 @@ def same(a, b) -> bool:
     return bool(torch.equal(torch.isnan(a), nan) and torch.equal(a.view(bits)[~nan], b.view(bits)[~nan]))
 
 
-def problem(seed: int, h: int, m: int, n: int, dtype):
+def problem(seed: int, h: int, m: int, n: int, dtype, scale: float = 1.0):
     """``h`` x ``m`` relative poses against ``n`` bearing pairs: half the
     pairs inliers of the first pose, the degenerate rows of
-    ``tests/test_torch_fused.py``'s scenes."""
+    ``tests/test_torch_fused.py``'s scenes; the poses then scaled by
+    ``scale`` (1e-155 puts the design's products below the normal range,
+    where the reference flushes them)."""
     import numpy as np
     import torch
 
@@ -164,7 +171,7 @@ def problem(seed: int, h: int, m: int, n: int, dtype):
     pts = a[:k] * torch.as_tensor(rng.uniform(2, 10, (k, 1)))
     b[:k] = torch.nn.functional.normalize(pts @ rot[0, 0, 0].T + tr[0, 0, 0], dim=-1)
     b[2], a[3], b[5, 1], a[6, 0] = a[2], 0.0, float("nan"), float("inf")
-    return tpose.Isometry3(rot.to(dtype), tr.to(dtype)), a.to(dtype), b.to(dtype)
+    return tpose.Isometry3((rot * scale).to(dtype), (tr * scale).to(dtype)), a.to(dtype), b.to(dtype)
 
 
 def check_entries(lib) -> bool:
@@ -179,8 +186,12 @@ def check_entries(lib) -> bool:
         res.argtypes = [p] * 5 + [i64, i64, i32, p]
         score = getattr(lib, f"cv_c2c_score_{suffix}")
         score.argtypes = [p] * 5 + [ctypes.c_double, i64, i64] + [p] * 6
-        for seed, (h, m, n) in enumerate(((8, 4, 37), (4, 4, 300), (16, 4, 11), (3, 4, 64), (5, 3, 129))):
-            pose, a, b = problem(seed, h, m, n, dtype)
+        cases = ((8, 4, 37, 1.0), (4, 4, 300, 1.0), (16, 4, 11, 1.0), (3, 4, 64, 1.0), (5, 3, 129, 1.0),
+                 (12, 4, 35, 1e-155 if dtype == torch.float64 else 1e-20))
+        if dtype == torch.float64:  # at the bounds of the kernel's flush-free range, and past them
+            cases += ((12, 4, 35, 2.0 ** -80), (12, 4, 35, 2.0 ** -86), (12, 4, 35, 1e120), (12, 4, 35, 1e160))
+        for seed, (h, m, n, scale) in enumerate(cases):
+            pose, a, b = problem(seed, h, m, n, dtype, scale)
             rot, tr = pose.rotation.reshape(-1, 9).contiguous(), pose.translation.reshape(-1, 3).contiguous()
             out = torch.empty(h, m, n, dtype=dtype)
             res(rot.data_ptr(), tr.data_ptr(), a.data_ptr(), b.data_ptr(), out.data_ptr(), h * m, n, 0, None)
@@ -196,7 +207,8 @@ def check_entries(lib) -> bool:
                       counts.data_ptr(), totals.data_ptr(), *(t.data_ptr() for t in scratch), None)
                 pc, pt = tpose.c2c_score_plain(pose, a, b, valid, thr)
                 good &= torch.equal(counts, pc.reshape(-1)) and same(totals, pt.reshape(-1))
-            print(f"{suffix} {h} x {m} models against {n} matches: residual and score bitwise {good}", flush=True)
+            print(f"{suffix} {h} x {m} models (scale {scale:g}) against {n} matches: residual and score bitwise "
+                  f"{good}", flush=True)
             ok &= good
     return ok
 

@@ -41,6 +41,7 @@ from cv_tpu.core.lie import so3_exp as ref_so3_exp
 from cv_tpu_torch.akaze import AkazeExtractor, DeviceExtractor, FastAkazeExtractor
 from cv_tpu_torch.consensus import BatchConsensus
 from cv_tpu_torch.sfm import VSlam
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 NOT_PORTED = set()
 # cv_tpu modules with no counterpart module of the same name in the port.

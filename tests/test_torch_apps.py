@@ -22,6 +22,7 @@ from cv_tpu_torch.akaze import load_gray
 from cv_tpu_torch.apps import kpdraw, tutorials
 from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.utils import read_png, write_png
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -30,16 +30,7 @@ from cv_tpu_torch.akaze import Akaze, AkazeExtractor, load_gray, to_gray_f32
 from cv_tpu_torch.apps.synth import render_sequence
 from cv_tpu_torch.matching import codebook, lsh
 from cv_tpu_torch.utils import kitti_pair
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """This module's tensor work on one thread: parallel test workers share
-    the machine's cores, and torch's threads would spin against theirs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 PORT_DIR = os.path.dirname(os.path.abspath(codebook.__file__))

@@ -15,6 +15,7 @@ from cv_tpu_torch.akaze import config as tcfg
 from cv_tpu_torch.akaze import descriptors as tdesc
 from cv_tpu_torch.akaze import fast as tfast
 from cv_tpu_torch.ops import image as timage
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 CONFIGS = {
     "default": lambda m: m.Akaze(),

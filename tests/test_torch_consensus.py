@@ -19,6 +19,7 @@ from cv_tpu.sfm.se3 import so3_exp
 from cv_tpu_torch.consensus import BatchConsensus
 from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.sfm import engine
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def _problem(seed, n=128, outliers=32):

@@ -28,6 +28,7 @@ from cv_tpu.akaze import load_gray as j_load_gray
 from cv_tpu.akaze import to_gray_f32 as j_to_gray
 from cv_tpu.utils.fixtures import fixture_path
 from cv_tpu_torch.akaze import Akaze, DeviceExtractor, FastAkazeExtractor, from_numpy_config
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 BUDGETS = dict(candidate_budget=512, max_features=2048, dedup_scan_cap=2048)
 

@@ -25,16 +25,7 @@ import torch
 from cv_tpu.ops import eigen as jeig
 from cv_tpu_torch.ops import eigen as teig
 from cv_tpu_torch.ops import trig
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """This module's tensor work on one thread: parallel test workers share
-    the machine's cores, and torch's threads would spin against theirs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def _same_bits(got, want):

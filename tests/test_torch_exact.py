@@ -42,6 +42,7 @@ from cv_tpu_torch.akaze import AkazeExtractor, from_numpy_config
 from cv_tpu_torch.akaze import descriptors as tdesc
 from cv_tpu_torch.akaze import extrema as textrema
 from cv_tpu_torch.akaze.extract import DESCRIPTOR_WORDS
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def _random_image():

@@ -58,6 +58,7 @@ from cv_tpu_torch.akaze import descriptors as tdesc
 from cv_tpu_torch.akaze import select as tselect
 from cv_tpu_torch.experiments import mldb_losers, probes, runs
 from cv_tpu_torch.utils import kitti_pair
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 G = 8
 K = 16

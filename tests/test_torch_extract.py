@@ -41,6 +41,7 @@ from cv_tpu_torch.akaze import Akaze, DeviceExtractor, FeatureSet, from_numpy_co
 from cv_tpu_torch.akaze import descriptors as tdesc
 from cv_tpu_torch.akaze import extrema as textrema
 from cv_tpu_torch.akaze import fast as tfast
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def _random_image():

@@ -41,6 +41,7 @@ from cv_tpu_torch.camera import essential
 from cv_tpu_torch.core import CameraToCamera, lie, projective
 from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.solvers import eight_point, nister_stewenius
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -52,16 +53,6 @@ def _cheap_consensus():
     the exact forms became the default."""
     with eigen.cheap_on_cpu():
         yield
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """This module's tensor work on one thread: parallel test workers share
-    the machine's cores, and torch's threads would spin against theirs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 N_SETS = 64

@@ -48,16 +48,7 @@ from cv_tpu_torch.core import camera_to_camera_residual, projective
 from cv_tpu_torch.ops import eigen, trig
 from cv_tpu_torch.optimize import optimizers
 from cv_tpu_torch.solvers import eight_point, nister_stewenius
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """This module's tensor work on one thread: parallel test workers share
-    the machine's cores, and torch's threads would spin against theirs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def _same_bits(got, want):
@@ -185,6 +176,23 @@ def test_residual_bitwise_on_the_kitti_consensus():
     assert int(tcount) == int(jcount) == 11
     np.testing.assert_array_equal(tmask.numpy(), np.asarray(jmask))
     _same_bits(tm.rotation.numpy(), np.asarray(jm.rotation))
+
+
+@pytest.mark.parametrize("scale", [1e-155, 3e-160])
+def test_residual_bitwise_on_poses_near_underflow(scale):
+    """Poses scaled to ~1e-155 put the design's products and the rotated
+    points' squares below the normal range, where the jitted scoring runs
+    under XLA's flush-to-zero and denormals-are-zero: the plain residual
+    flushes at the same steps (and its fused operations are exact there,
+    ``trig.fma_f64``), bitwise to cv_tpu's on 10 x 4 models against 40
+    rows.  Without the flushes 86 to 135 of 1,600 pairs differed on four
+    such scenes at 1e-155."""
+    a, b = _scene(4, n=40)
+    rot, tr = _models(a, b, 4, 12)
+    rot, tr = rot[2:] * scale, tr[2:] * scale
+    want = np.asarray(_JIT_RESIDUAL(rot, tr, a, b))
+    assert (want < 2.0).sum() > 1000
+    _same_bits(_port_residual(rot, tr, a, b), want)
 
 
 def test_residual_float32_bitwise_to_the_jitted_scoring():

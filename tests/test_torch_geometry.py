@@ -31,6 +31,7 @@ from cv_tpu_torch.core import camera_to_camera_residual as t_residual
 from cv_tpu_torch.core import lie as tlie
 from cv_tpu_torch.ops import eigen as teig
 from cv_tpu_torch.solvers import eight_point as t8
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 TOL = 1e-9
 

@@ -35,6 +35,7 @@ from cv_tpu_torch.akaze import extrema as textrema
 from cv_tpu_torch.akaze import fused as tfused
 from cv_tpu_torch.akaze import select as tselect
 from cv_tpu_torch.ops import trig
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 G = 8
 
@@ -248,11 +249,13 @@ def test_select_fused_plain_meta():
     assert torch.equal(meta[:, 3] > 0.5, ok)
 
 
-@pytest.mark.parametrize("mode", ["highest", "bf16x3", "bf16x3k", "pgather+inter", "highest+fused"])
+@pytest.mark.parametrize("mode", ["highest", "bf16x3", "bf16x3k", "pfused+inter", "pgroups+inter", "highest+fused"])
 def test_xla_only_modes_raise(mode):
     """cv_tpu's XLA-only describe modes: ``'highest'`` is ported (a float32
     one-hot product, held to cv_tpu's in test_torch_extract.py); its TPU
-    matrix-unit workarounds and ``'+inter'`` on a kernel mode raise."""
+    matrix-unit workarounds raise, and so does ``'+inter'`` on the kernel
+    modes where cv_tpu fails (``'pfused'``, ``'pgroups'``; ``'pgather+inter'``
+    and ``'pallas+inter'`` are ported, tests/test_torch_inter.py)."""
     if mode == "highest":
         assert DeviceExtractor(device="cpu", onehot_mode=mode).describe_mode(256, 256) == "highest"
         return
@@ -278,7 +281,8 @@ def test_retired_modes_raise_until_registered(monkeypatch, mode):
         ex.extract(img[None])
 
 
-@pytest.mark.parametrize("mode", ["pgather", "pgroups", "pgroups4", "pfused", "pallas", "pepatch", "ptiles"])
+@pytest.mark.parametrize("mode", ["pgather", "pgroups", "pgroups4", "pfused", "pallas", "pepatch", "ptiles",
+                                  "pgather+inter", "pallas+inter"])
 def test_kernel_modes_accepted(mode):
     assert DeviceExtractor(device="cpu", onehot_mode=mode).describe_mode(100, 100) == mode
 

@@ -9,6 +9,7 @@ import torch
 
 from cv_tpu.matching import hamming as jham
 from cv_tpu_torch.matching import hamming as tham
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def _words(rng, n):

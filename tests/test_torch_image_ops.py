@@ -27,6 +27,7 @@ from cv_tpu_torch.akaze.config import from_numpy_config
 from cv_tpu_torch.akaze.scale_space import build_scale_space as t_build
 from cv_tpu_torch.akaze.scale_space import compute_contrast_factor as t_contrast
 from cv_tpu_torch.ops import image as tops
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 REL = 1e-5
 SHAPES = [(2, 97, 131), (1, 192, 256)]

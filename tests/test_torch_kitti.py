@@ -15,6 +15,7 @@ from cv_tpu_torch.matching import PAD_DISTANCE, distance_matrix, knn2, lowes_rat
 from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.solvers import eight_point
 from cv_tpu_torch.utils import KITTI_INTRINSICS, kitti_pair
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -23,6 +23,7 @@ from torch.autograd import forward_ad
 from cv_tpu.core import lie as jlie
 from cv_tpu_torch.core import lie
 from cv_tpu_torch.ops import trig
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 ROWS = 20_000
 CHUNK = 200  # rows a call in the small-call case: at most trig.SMALL elements a trig call

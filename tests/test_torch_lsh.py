@@ -13,6 +13,7 @@ from cv_tpu.matching import lsh as jlsh
 from cv_tpu.sfm.data import VSlamData as RefData
 from cv_tpu_torch.matching import hamming, lsh
 from cv_tpu_torch.sfm.data import VSlamData
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def _words(rng, n):

@@ -36,6 +36,7 @@ from cv_tpu_torch.consensus import BatchConsensus
 from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.sfm import VSlam, VSlamSettings, se3
 from cv_tpu_torch.sfm import data as port_data
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 REF_SETTINGS = RefSettings(
     two_view_minimum_robust_matches=128,

@@ -34,6 +34,7 @@ from cv_tpu.optimize import pallas_loop
 from cv_tpu.sfm.se3 import so3_exp
 from cv_tpu_torch.core.pose import CameraToCamera, WorldToCamera
 from cv_tpu_torch.optimize import optimizers, resident
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 KINDS = ("single_view", "three_view", "adaptive")
 

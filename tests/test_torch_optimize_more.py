@@ -27,16 +27,7 @@ from cv_tpu.core import WorldToCamera as JW2C
 from cv_tpu_torch import optimize as opt
 from cv_tpu_torch.core import CameraToCamera, WorldToCamera, lie, projective, world_to_camera_residual
 from cv_tpu_torch.geom import epipolar
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """This module's tensor work on one thread: parallel test workers share
-    the machine's cores, and torch's threads would spin against theirs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def _j(pose, cls):

@@ -11,6 +11,7 @@ from cv_tpu.solvers import lambda_twist as ref_lt
 from cv_tpu.sfm.se3 import so3_exp
 from cv_tpu_torch.core import projective
 from cv_tpu_torch.solvers import lambda_twist
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def _euler(r, p, y):

@@ -28,6 +28,7 @@ from cv_tpu_torch.core import Isometry3, camera_to_camera_residual, lie, project
 from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.parallel import make_mesh, sharded_consensus, sharded_extract
 from cv_tpu_torch.solvers import eight_point
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -39,16 +40,6 @@ def _cheap_consensus():
     the exact forms became the default."""
     with eigen.cheap_on_cpu():
         yield
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """This module's tensor work on one thread: parallel test workers share
-    the machine's cores, and torch's threads would spin against theirs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 CPU = torch.device("cpu")

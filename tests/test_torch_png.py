@@ -13,6 +13,7 @@ from PIL import Image
 from cv_tpu.akaze import load_gray as j_load_gray
 from cv_tpu_torch.akaze import load_gray
 from cv_tpu_torch.utils import fixture_path, read_png
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 @pytest.mark.parametrize("name", ["0000000000.png", "0000000014.png"])

@@ -32,16 +32,7 @@ from cv_tpu_torch.akaze.scale_space import EvolutionPlanes
 from cv_tpu_torch.core import lie
 from cv_tpu_torch.ops import image, precision
 from cv_tpu_torch.sfm import device_refine
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """This module's tensor work on one thread: parallel test workers share
-    the machine's cores, and torch's threads would spin against theirs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def _graph_ba_index_add(rot, trans, edge_to, edge_from, edge_rot, edge_t, edge_valid, iterations, rate):

@@ -30,22 +30,13 @@ from cv_tpu_torch.consensus import batch as tbatch
 from cv_tpu_torch.core import Isometry3 as TIso
 from cv_tpu_torch.core import pose as tpose
 from cv_tpu_torch.sfm.engine import DEFAULT_ESSENTIAL_ESTIMATOR as TEST
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 # The totals' tolerance against torch's sums of the same residuals: the
 # two differ by summation order alone, a few ulps of the total.
 TOTAL_RTOL = 1e-13
 # A materializing twin of the engine's estimator: the path without `score`.
 MATERIALIZING = dataclasses.replace(TEST, score=None)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """This module's tensor work on one thread (parallel test workers share
-    the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture

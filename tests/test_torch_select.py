@@ -11,6 +11,7 @@ import torch
 
 from cv_tpu.akaze import pallas_mldb
 from cv_tpu_torch.akaze.select import select_samples, select_samples_plain
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 P = 128
 

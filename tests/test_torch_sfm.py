@@ -26,6 +26,7 @@ from cv_tpu.sfm.data import Feed as RefFeed
 from cv_tpu_torch.ops import eigen
 from cv_tpu_torch.sfm import VSlam, VSlamSettings, se3
 from cv_tpu_torch.sfm.data import Feed
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 N_CAMERAS = 5
 

@@ -20,6 +20,7 @@ from cv_tpu_torch.core.pose import Isometry3
 from cv_tpu_torch.geom import epipolar
 from cv_tpu_torch.sfm import device_refine
 from cv_tpu_torch.triangulate import linear_eigen
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def T(a):

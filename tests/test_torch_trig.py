@@ -21,6 +21,7 @@ import torch
 
 from cv_tpu.akaze import descriptors as jdesc
 from cv_tpu_torch.ops import trig
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 F32 = np.float32
 

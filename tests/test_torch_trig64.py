@@ -25,16 +25,8 @@ import pytest
 import torch
 
 from cv_tpu_torch.ops import trig
+from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """This module's tensor work on one thread: parallel test workers share
-    the machine's cores, and torch's threads would spin against theirs."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 F64 = np.float64
 
@@ -206,13 +198,40 @@ def test_f64_bits_independent_of_batch_position(fn):
 
 
 def _fma_exact(a, b, c):
-    """``a * b + c`` in exact rationals, rounded once to float64."""
-    return np.array([float(Fraction(p) * Fraction(q) + Fraction(r)) for p, q, r in zip(a, b, c)])
+    """``a * b + c`` in exact rationals, rounded once to float64 (an exact
+    zero takes IEEE's sign, which ``Fraction`` does not keep)."""
+    out = []
+    for p, q, r in zip(a, b, c):
+        v = Fraction(p) * Fraction(q) + Fraction(r)
+        out.append(float(v) if v != 0 else p * q + r)
+    return np.array(out)
 
 
-@pytest.mark.parametrize("case", ["random", "cancelling", "ties", "zeros", "rotations"])
+def _fma_exact_or_inf(a, b, c):
+    """:func:`_fma_exact`, infinite where the rounded result overflows."""
+    out = []
+    for p, q, r in zip(a, b, c):
+        v = Fraction(p) * Fraction(q) + Fraction(r)
+        try:
+            out.append(float(v))
+        except OverflowError:
+            out.append(np.inf)
+    return np.array(out)
+
+
+FMA_SEEDS = {"random": 13, "cancelling": 14, "ties": 15, "zeros": 16, "rotations": 17, "near_1e-300": 18,
+             "near_1e-160": 19, "subnormal_results": 20, "subnormal_ties": 21, "tiny_product_large_c": 22,
+             "whole_range": 23, "huge": 24}
+
+
+@pytest.mark.parametrize("case", list(FMA_SEEDS))
 def test_fma_f64_rounds_once(case):
-    rng = np.random.default_rng({"random": 13, "cancelling": 14, "ties": 15, "zeros": 16, "rotations": 17}[case])
+    """``fma_f64`` against exact rational arithmetic rounded once, over the
+    whole range where the result is finite: Dekker's error term underflows
+    below |a b| = 2^-969 and the split overflows above 2^996, where the
+    scaled form takes over (before it, 16 of 2,000 draws with operands near
+    1e-300 and a third of those near 1e-160 came out wrong)."""
+    rng = np.random.default_rng(FMA_SEEDS[case])
     n = 4000
     if case == "random":
         a, b, c = (rng.standard_normal(n) * np.exp(rng.uniform(-60, 60, n)) for _ in range(3))
@@ -227,14 +246,38 @@ def test_fma_f64_rounds_once(case):
         a = rng.choice([0.0, -0.0, 1.5, -2.0], n)
         b = rng.choice([0.0, -0.0, 3.0, -0.5], n)
         c = rng.choice([0.0, -0.0, 4.5, -3.0], n)
-    else:  # the Jacobi's: c = cos, s = sin, entries of one scale
+    elif case == "rotations":  # the Jacobi's: c = cos, s = sin, entries of one scale
         th = rng.uniform(-np.pi / 2, np.pi / 2, n)
         a, b = np.cos(th), rng.standard_normal(n)
         c = -(np.sin(th) * rng.standard_normal(n))
+    elif case == "near_1e-300":  # one operand near 1e-300: the product's error term underflows
+        a = rng.standard_normal(n) * 1e-300 * np.exp(rng.uniform(-3, 3, n))
+        b = rng.standard_normal(n) * np.exp(rng.uniform(-20, 20, n))
+        c = a * b * rng.choice([-1.0, 1.0], n) * rng.uniform(0.5, 2, n)
+    elif case == "near_1e-160":  # products near 1e-320 cancelling against c
+        a, b = rng.standard_normal(n) * 1e-160, rng.standard_normal(n) * 1e-160
+        c = -(a * b) * (1 + rng.uniform(-1e-3, 1e-3, n))
+    elif case == "subnormal_results":  # products near 1e-310 plus subnormal c
+        a, b = rng.standard_normal(n) * 1e-155, rng.standard_normal(n) * 1e-155
+        c = rng.standard_normal(n) * 1e-309
+    elif case == "subnormal_ties":  # short mantissas: results on the subnormal grid's midpoints
+        a = rng.integers(-2 ** 26, 2 ** 26, n) * 2.0 ** rng.integers(-560, -520, n)
+        b = rng.integers(-2 ** 27, 2 ** 27, n) * 2.0 ** rng.integers(-560, -520, n)
+        c = rng.integers(-2 ** 52, 2 ** 52, n) * 2.0 ** rng.integers(-1074, -1040, n)
+    elif case == "tiny_product_large_c":  # the product only decides the rounding of c, or nothing
+        a, b = rng.standard_normal(n) * 1e-200, rng.standard_normal(n) * 1e-200
+        c = rng.standard_normal(n) * np.exp(rng.uniform(-740, 700, n))
+    elif case == "whole_range":  # exponents over the whole range, zeros among them
+        a, b, c = (rng.standard_normal(n) * 2.0 ** rng.integers(-1074, 1023, n) for _ in range(3))
+        a[::50], b[7::50] = 0.0, -0.0
+        keep = np.isfinite(_fma_exact_or_inf(a, b, c))
+        a, b, c = a[keep], b[keep], c[keep]
+    else:  # huge: an operand past Veltkamp's split, or products near the top
+        a = rng.standard_normal(n) * 2.0 ** rng.integers(990, 1020, n)
+        b = rng.standard_normal(n) * 2.0 ** -rng.integers(10, 60, n)
+        c = rng.standard_normal(n) * 2.0 ** rng.integers(900, 1000, n)
     got = trig.fma_f64(torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(c)).numpy()
     want = _fma_exact(a, b, c)
-    if case == "zeros":
-        want = np.where(want == 0, a * b + c, want)  # Fraction drops the sign of zero; IEEE's rule
     np.testing.assert_array_equal(got.view(np.uint64), want.view(np.uint64))
 
 
