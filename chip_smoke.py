@@ -129,8 +129,9 @@ Phases, in order; any failed check raises and the script exits non-zero:
      12 frames, ATE / trajectory extent < 0.02 after Umeyama alignment,
      every consecutive relative rotation < 1 degree, an empty
      ``sanity_check``, kernels A, B and C launched, the select kernel on
-     every frame, the dedup kernel once per frame, the Jacobi kernel and
-     the so(3) maps' trig launches (atan2, cos/sin), the residual entry;
+     every frame, the dedup kernel once per frame, the Jacobi kernel, the
+     describe's trig launches, the residual entry and the graph BA kernel
+     (every graph-BA call of the warm pass recorded for phase 11);
      the warm pass's first init consensus held as in phase 4; every A, B
      and C call of
      the warm pass is recorded and, after the timed pass, replayed on its
@@ -160,11 +161,12 @@ Phases, in order; any failed check raises and the script exits non-zero:
      of run 1's live state, with its intrinsics on the card; the exact
      extractor's launches (the scan once a frame over every candidate, its
      steps printed; the trig kernel, no select kernel), A's, B's and C's,
+     the graph BA kernel (its calls recorded for phase 11),
      the phase times (extract, init, registration, BA+filter, normalize, export, save,
      load, PNG decode a frame), A's, B's and C's calls replayed and held
      to plain as the SfM path's are, and each run's first two-view
      consensus held as in phase 4 (the residual entry launched in run 1);
-     the scan calls are replayed with phase 7's;
+     the scan calls are replayed with phase 7's, graph BA's with phase 11's;
   7. drive the dense path, each run with the counters at zero: keypoint
      counts within bench.py's tolerance of [3425, 2908], the group select
      launched twice and the dedup kernel once; the ``'pfused'`` and
@@ -205,8 +207,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
      five triangulators within 1e-9 of the CPU; ``sharded_extract`` and
      ``sharded_consensus`` over the visible devices and over ``(cuda:0,
      cuda:0)`` bitwise to the unsharded runs; ``train_codebook`` bitwise to
-     its CPU run; the SfM warm pass's largest graph-BA call replayed twice
-     (equal bits) and on the CPU (difference printed); then the TF32 check
+     its CPU run; graph BA (``check_graph_ba``): every recorded call of the
+     SfM warm pass and the sandbox runs launched on the card bitwise to the
+     plain version's CPU run (run in worker processes after the timed
+     phases, with nothing else running) and, over its first 16 rounds, to
+     the plain version on the card, each path's summed kernel ms; at the
+     largest call two launches equal, the kernel's device and call ms and
+     us a round beside its chain floor (two views, two edges), the kernel
+     and the plain version on the card at 128 rounds (bitwise), the plain
+     version's first 16 rounds captured in a CUDA graph and replayed, and
+     the launches from the profiler; then the TF32 check
      (``tf32_invariance``): the KITTI describes and a pose pipeline give
      the same bits with ``allow_tf32`` and ``"high"`` matmul precision
      turned on, and the setting is restored.
@@ -333,6 +343,24 @@ FP64_FLOPS = 34e12
 # block of 4x4 float64 (consensus.batch.SCORE_BLOCK pairs).
 JACOBI_SHAPES = ((3, 8, 65536), (4, 6, 65536), (9, 8, 8192))
 JACOBI_TIMED = 1 << 22
+# Graph BA (csrc/graph_ba.cu): float64 operations (an add, multiply, fma,
+# division or square root one each) counted from the source on its common
+# path: an edge whose views stand (three 3x3 products, so3_log with atan2's
+# ~31) and a live view (so3_exp with cos and sin's ~24, the pose product),
+# and 6 a valid edge for its view's sum.  An estimate of the work, not of
+# the instructions issued.
+GRAPH_BA_EDGE_OPS = 194
+GRAPH_BA_VIEW_OPS = 121
+# Rounds at which phase 11 times the kernel beside the plain loop on the
+# card at the largest call, and the rounds of the plain loop that it
+# captures in one CUDA graph (where the fused products run their dense
+# repair): ~27 ms a round eagerly and ~10 ms captured on an H100 at 700 W
+# (PERF.md), so the 1,024 rounds of a sandbox call would take ~28 s.
+GRAPH_BA_PLAIN_ROUNDS = 128
+GRAPH_BA_CAPTURED_ROUNDS = 16
+# Every recorded call is also held against the plain version on the card
+# over its first rounds (the CPU run holds all of them).
+GRAPH_BA_HELD_ROUNDS = 16
 # The probe scripts' shapes: exp_select_kernels.py / exp_bisect.py (a
 # (16, 3, 544, 1408) stack, 136x128 windows, NS=1280, K=4096 / 512) and
 # exp_r3_gather_probe.py / exp_r3_mxu_probe.py (K=4096 patches of 3x128x128,
@@ -2843,14 +2871,15 @@ def sandbox_hooks(dev):
             setattr(owner, attr, raw)
 
 
-def sandbox_phase(dev, counters, plains, tally, scan_calls):
+def sandbox_phase(dev, counters, plains, tally, scan_calls, ba_calls):
     """Phase 6b: the vslam-sandbox app through ``main`` at its defaults,
     run 1 then run 2 resuming from run 1's checkpoint, each with the
     counters at zero; the gates of the module docstring.  The engine takes
     its default, the exact extractor: one dedup scan a frame over every
     candidate, the trig kernel for the angles, no select kernel.  Records
     the dedup scan's calls into ``scan_calls`` (replayed in phase 7) and
-    replays A's, B's and C's calls on their own.  Returns per run: seconds, launches, phase ms, the median
+    graph BA's into ``ba_calls`` (held in phase 11), and replays A's, B's
+    and C's calls on their own.  Returns per run: seconds, launches, phase ms, the median
     PNG decode ms."""
     import numpy as np
     import torch
@@ -2860,6 +2889,7 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
     from cv_tpu_torch.apps import vslam_sandbox as sandbox_app
     from cv_tpu_torch.consensus import BatchConsensus
     from cv_tpu_torch.core import pose as pose_mod
+    from cv_tpu_torch.sfm import device_refine
     from cv_tpu_torch.utils import loader
     from cv_tpu_torch.utils import png as png_mod
 
@@ -2893,6 +2923,7 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
         png_mod.unfilter.calls = 0
         with sandbox_hooks(dev) as hooks, main_path(counters, plains + [(png_mod, "unfilter_plain")]) as sb_run, \
                 recording(extrema, "dedup_scan_device") as scan_calls[f"sandbox {run}"], \
+                recording(device_refine, "graph_ba_core") as ba_calls[f"sandbox {run}"], \
                 record_pose_calls() as sb_pose, recording(pose_mod, "c2c_residual", first_calls(1)) as sb_res, \
                 recording(pose_mod, "c2c_score", first_calls(1)) as sb_score_calls, \
                 recording(BatchConsensus, "_score_stage", first_calls(1)) as sb_scores:
@@ -2911,13 +2942,14 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls):
               f"{launches['three_view_l2']}, three_view_adaptive {launches['three_view_adaptive']}, select_samples "
               f"{launches['select_samples']}, select_fused {launches['select_fused']}, angle_cv "
               f"{launches['angle_cv']}, cos_sin {launches['cos_sin']}, atan2 {launches['atan2']}, jacobi "
-              f"{launches['jacobi']}, c2c_residual {launches['c2c_residual']}, c2c_score {launches['c2c_score']}; "
-              f"compiled unfilter calls "
+              f"{launches['jacobi']}, c2c_residual {launches['c2c_residual']}, c2c_score {launches['c2c_score']}, "
+              f"graph_ba {launches['graph_ba']}; compiled unfilter calls "
               f"{png_mod.unfilter.calls}; plain-version calls {sb_run['plain']}")
         require(png_mod.unfilter.calls == len(frames), f"sandbox {run}: {png_mod.unfilter.calls} compiled decodes")
         scan_steps_run = [int(scan_steps(args).max()) for args, _ in scan_calls[f"sandbox {run}"]]
         print(f"sandbox {run}: the exact extractor's dedup scan, steps a frame (every candidate) {scan_steps_run}")
-        expect = dict(select_groups=0, select_samples=0, select_fused=0, dedup_scan=len(frames), **TRIG_LAUNCHED)
+        expect = dict(select_groups=0, select_samples=0, select_fused=0, dedup_scan=len(frames), graph_ba=(1,),
+                      **TRIG_LAUNCHED)
         if run == "run1":
             expect.update(single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,), jacobi=(1,),
                           c2c_residual=(1,), c2c_score=(1,))
@@ -3508,7 +3540,7 @@ FIVE_POINT_FLOORS = {"coplanar": (1e-3, 0.55, False), "near_coplanar": (1e-3, 0.
 CODEBOOK_WORDS = 2048
 
 
-def library_modules(dev, seed, exact_words, ba_calls):
+def library_modules(dev, seed, exact_words):
     """Phase 11: the modules without a kernel, on the card against the
     port's CPU path on the same inputs.  Five-point at bench.py's 64 noisy
     sets (float64, warm, timed), its recovery on 64 exact sets and the four
@@ -3517,8 +3549,7 @@ def library_modules(dev, seed, exact_words, ba_calls):
     triangulators; ``sharded_extract`` and ``sharded_consensus`` over the
     visible devices and over ``(dev, dev)``, bitwise to the unsharded run;
     ``train_codebook`` on the exact extractor's KITTI words, bitwise to its
-    CPU run; one recorded graph-BA call of the SfM pass replayed twice
-    (equal bits) and on the CPU.  Returns the times (ms)."""
+    CPU run.  Returns the times (ms)."""
     import numpy as np
     import torch
 
@@ -3711,22 +3742,231 @@ def library_modules(dev, seed, exact_words, ba_calls):
           f"{times[f'train_codebook ({CODEBOOK_WORDS} words) on {dev.type}']:.1f} ms, CPU "
           f"{times[f'train_codebook ({CODEBOOK_WORDS} words) on cpu']:.1f} ms")
 
-    # -- graph BA: one recorded call of the SfM pass, replayed ----------------
-    require(len(ba_calls) >= 1, "graph BA: no call recorded in the SfM pass")
-    args, kw = max(ba_calls, key=lambda c: int(c[0][2].shape[0]))
-    first = device_refine.graph_ba_core(*args, **kw)
-    second = device_refine.graph_ba_core(*args, **kw)
-    host = device_refine.graph_ba_core(*(_clone(x).cpu() if isinstance(x, torch.Tensor) else x for x in args), **kw)
-    t0 = time.perf_counter()
-    device_refine.graph_ba_core(*args, **kw)
-    torch.cuda.synchronize()
-    times["graph_ba_core replay"] = (time.perf_counter() - t0) * 1e3
-    require(_same_bits(first, second), "graph BA: two replays of one call give other bits")
-    print(f"graph BA: the SfM pass's largest call ({int(args[0].shape[0])} views, {int(args[2].shape[0])} edges, "
-          f"{kw.get('iterations', args[7] if len(args) > 7 else '?')} rounds) replayed twice on the card: equal bits; "
-          f"card - CPU {_max_diff(first[:2], host[:2]):.3e}, removed masks equal "
-          f"{bool(torch.equal(first[2].cpu(), host[2]))}; {times['graph_ba_core replay']:.1f} ms")
     return times
+
+
+def _bits_equal(a, b):
+    """Two tensors or arrays of one dtype and shape equal bit for bit."""
+    import torch
+
+    a, b = torch.as_tensor(a).cpu(), torch.as_tensor(b).cpu()
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        bits = torch.int64 if a.dtype == torch.float64 else torch.int32
+        return bool(torch.equal(a.view(bits), b.view(bits)))
+    return bool(torch.equal(a, b))
+
+
+def graph_ba_plain_cpu(call):
+    """``device_refine.graph_ba_core_plain`` of one recorded graph-BA call on
+    the CPU, in a worker process: NumPy arrays and the rounds and rate in,
+    ``(rot, trans, removed, seconds)`` out."""
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from cv_tpu_torch.sfm import device_refine
+
+    torch.set_num_threads(1)
+    args = [torch.as_tensor(a) if isinstance(a, np.ndarray) else a for a in call]
+    t0 = time.perf_counter()
+    out = device_refine.graph_ba_core_plain(*args)
+    return tuple(o.numpy() for o in out) + (time.perf_counter() - t0,)
+
+
+def graph_ba_work(args):
+    """``(float64 operations, bytes)`` of one graph-BA call: every valid
+    edge and every view with one counted in every round (the run's
+    removals not taken off), each input read once and each output written
+    once."""
+    import torch
+
+    rot, trans, to, frm, erot, et, valid = args[:7]
+    v = rot.shape[0]
+    ok = valid & (to >= 0) & (to < v) & (frm >= 0) & (frm < v)
+    edges = int(ok.sum())
+    views = int(torch.unique(to[ok]).numel())
+    flops = int(args[7]) * (edges * (GRAPH_BA_EDGE_OPS + 6) + views * GRAPH_BA_VIEW_OPS)
+    nbytes = sum(t.numel() * t.element_size() for t in args[:7]) + rot.numel() * rot.element_size() \
+        + trans.numel() * trans.element_size() + v
+    return flops, nbytes
+
+
+def graph_ba_plain_on_cpu(ba_calls):
+    """The plain graph BA of every recorded call (path -> [(args, kwargs)])
+    on the CPU, in one worker process per core this process may run on (at
+    most one a call), the largest first; nothing else runs meanwhile.
+    Returns path -> [(rot, trans, removed, seconds)]."""
+    import multiprocessing
+
+    import torch
+
+    jobs = []
+    for path, calls in ba_calls.items():
+        for i, (args, kw) in enumerate(calls):
+            require(not kw and len(args) == 9, f"graph BA {path}: a call of {len(args)} arguments and {list(kw)}")
+            host = [a.cpu().numpy() if isinstance(a, torch.Tensor) else a for a in args]
+            jobs.append((graph_ba_work(args)[0], path, i, host))
+    workers = max(1, min(len(os.sched_getaffinity(0)), len(jobs)))
+    t0 = time.perf_counter()
+    with multiprocessing.get_context("spawn").Pool(workers) as pool:
+        pending = {path: [None] * len(calls) for path, calls in ba_calls.items()}
+        for _, path, i, host in sorted(jobs, key=lambda j: -j[0]):
+            pending[path][i] = pool.apply_async(graph_ba_plain_cpu, (host,))
+        out = {path: [r.get() for r in results] for path, results in pending.items()}
+        pool.close()
+        pool.join()
+    cpu_s = sum(r[3] for results in out.values() for r in results)
+    print(f"graph BA plain version on the CPU: {len(jobs)} recorded calls in {workers} processes, "
+          f"{cpu_s:.1f} s of CPU, {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def check_graph_ba(dev, ba_calls, plain_cpu):
+    """Phase 11's graph BA (``csrc/graph_ba.cu``: ``device_refine.graph_ba_core``
+    on the card).  Every recorded call of the SfM warm pass and the
+    sandbox runs launched once more and held bitwise to the plain
+    version's CPU run (removed masks exact) and, over its first
+    ``GRAPH_BA_HELD_ROUNDS`` rounds, to the plain version on the card, with
+    each path's summed kernel device ms.  At the largest call (float64
+    operations): two launches equal; the whole call's kernel device and
+    call ms and the chain floor (the kernel on two views joined by two
+    edges: one edge's and one view's dependent chain a round) at its
+    rounds; at ``GRAPH_BA_PLAIN_ROUNDS`` rounds (the row's ``rounds``) the
+    kernel's device ms, the plain version's ms on the card (held bitwise
+    to the kernel) and the bound; the plain version's first
+    ``GRAPH_BA_CAPTURED_ROUNDS`` rounds captured in one CUDA graph and
+    replayed (``graph_rounds``); the profiler's launches of one kernel call
+    and of the plain version at 2 and 4 rounds.  Every number of the
+    returned record is measured at the rounds it names; the printed line
+    also gives the plain version's figures scaled to the whole call,
+    labelled so.  Returns the kernels line's record."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cv_tpu_torch.sfm import device_refine
+
+    run, plain = device_refine.graph_ba_core, device_refine.graph_ba_core_plain
+    held, worst, paths, largest = 0, 0.0, {}, None
+    for path, calls in ba_calls.items():
+        summed = 0.0
+        for i, ((args, kw), want) in enumerate(zip(calls, plain_cpu[path])):
+            got = run(*args, **kw)
+            diff = _max_diff(got[:2], tuple(torch.as_tensor(w) for w in want[:2]))
+            require(all(_bits_equal(g, w) for g, w in zip(got, want[:3])),
+                    f"graph BA, {path} call {i}: the kernel differs from the plain version on the CPU (max {diff:.3e})")
+            worst = max(worst, diff)
+            cut = (*args[:7], min(int(args[7]), GRAPH_BA_HELD_ROUNDS), args[8])
+            require(all(_bits_equal(g, w) for g, w in zip(run(*cut), plain(*cut))),
+                    f"graph BA, {path} call {i}: the kernel differs from the plain version on the card")
+            held += 1
+            summed += cuda_ms(lambda args=args: run(*args), iters=3, warmup=1)
+            work = graph_ba_work(args)
+            if largest is None or work[0] > largest[0]:
+                largest = (*work, args, path)
+        paths[path] = round(summed, 4)
+        shapes = sorted({(int(a[0].shape[0]), int(a[2].shape[0]), int(a[7])) for a, _ in calls})
+        print(f"graph BA, {path}: {len(calls)} calls (V, E, rounds: {shapes}), each bitwise to the plain version "
+              f"on the CPU and, over its first {GRAPH_BA_HELD_ROUNDS} rounds, on the card; kernel device ms summed "
+              f"over the calls {summed:.3f}")
+    require(held >= 1, "graph BA: no call recorded")
+    _, _, args, path = largest
+    v, e, rounds, rate = int(args[0].shape[0]), int(args[2].shape[0]), int(args[7]), float(args[8])
+    first, second = run(*args), run(*args)
+    require(all(_bits_equal(a, b) for a, b in zip(first, second)), "graph BA: two launches of one call differ")
+    call_dev_ms = device_ms(lambda: run(*args), iters=5)
+    call_ms = statistics.median(wall_ms(lambda: run(*args), reps=5))
+    # The kernel and the plain version on the card at the same rounds.
+    cut = min(rounds, GRAPH_BA_PLAIN_ROUNDS)
+    cut_args = (*args[:7], cut, rate)
+    dev_ms = device_ms(lambda: run(*cut_args), iters=5)
+    plain_ms = wall_ms(lambda: plain(*cut_args), reps=1)[0]
+    require(all(_bits_equal(a, b) for a, b in zip(run(*cut_args), plain(*cut_args))),
+            f"graph BA: the kernel differs from the plain version on the card ({cut} rounds)")
+    flops, nbytes = graph_ba_work(cut_args)
+    # The plain rounds in one CUDA graph (after the set-up's host read).
+    captured = min(rounds, GRAPH_BA_CAPTURED_ROUNDS)
+    plain_graph_ms = None
+    try:
+        static = [a.clone() for a in args[:7]]
+        to, frm = static[2].long(), static[3].long()
+        incoming, removed = device_refine.graph_ba_setup(to, static[6], v)
+
+        def rounds_of_plain():
+            return device_refine.graph_ba_rounds(static[0], static[1], to, frm, static[4], static[5], static[6],
+                                                 incoming, removed, captured, rate)
+
+        graph = torch.cuda.CUDAGraph()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            rounds_of_plain()
+        torch.cuda.current_stream().wait_stream(side)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(graph):
+            replayed = rounds_of_plain()
+        capture_s = time.perf_counter() - t0
+        graph.replay()
+        torch.cuda.synchronize()
+        require(all(_bits_equal(a, b) for a, b in zip(replayed, plain(*args[:7], captured, rate))),
+                "graph BA: the captured plain rounds differ from the plain version")
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            graph.replay()
+        stop.record()
+        torch.cuda.synchronize()
+        plain_graph_ms = start.elapsed_time(stop) / 3
+        del graph
+        graph_note = (f"the plain version's first {captured} rounds captured in one CUDA graph ({capture_s:.1f} s to "
+                      f"capture) and replayed: {plain_graph_ms:.1f} ms (scaled to {rounds} rounds: "
+                      f"{plain_graph_ms * rounds / captured:.1f} ms)")
+    except Exception as exc:  # noqa: BLE001  (the capture is a measurement; say why it failed)
+        graph_note = f"the plain rounds could not be captured in a CUDA graph: {exc!r}"
+
+    def device_launches(fn):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+        return sum(not n.startswith(("Memcpy", "Memset")) for n in names), len(names)
+
+    kernel_launches = device_launches(lambda: run(*args))
+    plain_launches = {str(k): device_launches(lambda k=k: plain(*args[:7], k, rate))[0] for k in (2, 4)}
+    if kernel_launches[1]:
+        per_round = (plain_launches["4"] - plain_launches["2"]) // 2
+        set_up = plain_launches["2"] - 2 * per_round
+        launches_note = (f"launches (profiler): one kernel call {kernel_launches[0]} ({kernel_launches[1]} device "
+                         f"events), the plain version {plain_launches['2']} at 2 rounds and {plain_launches['4']} at "
+                         f"4 (so {set_up} in its set-up and {per_round} a round; projected to {rounds} rounds: "
+                         f"{set_up + rounds * per_round})")
+    else:
+        launches_note, plain_launches = "launches: the profiler saw no device events", None
+    # The chain floor: two views, each the other's only edge.
+    dtype = args[0].dtype
+    c, s_ = 0.99995000041666526, 0.0099998333341666645  # cos and sin of 0.01
+    two_views = [torch.tensor(x, dtype=dtype, device=dev) for x in (
+        [[[1.0, 0, 0], [0, 1, 0], [0, 0, 1]]] * 2, [[0.0, 0, 0], [1.0, 0, 0]])]
+    edge_rot = torch.tensor([[[c, -s_, 0], [s_, c, 0], [0, 0, 1.0]], [[c, s_, 0], [-s_, c, 0], [0, 0, 1.0]]],
+                            dtype=dtype, device=dev)
+    edges = [torch.tensor([0, 1], device=dev), torch.tensor([1, 0], device=dev), edge_rot,
+             torch.tensor([[-0.99, 0.01, 0], [1.01, 0, 0.01]], dtype=dtype, device=dev),
+             torch.tensor([True, True], device=dev)]
+    floor_ms = device_ms(lambda: run(*two_views, *edges, rounds, rate), iters=3)
+    ms_ops, ms_bytes = flops / FP64_FLOPS * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms, bound_by = (ms_ops, "operations") if ms_ops >= ms_bytes else (ms_bytes, "bytes")
+    print(f"graph BA at the largest call ({path}: {v} views, {e} edges, {rounds} rounds, float64): kernel "
+          f"{call_dev_ms:.4f} ms device, {call_ms:.4f} ms a call, {call_dev_ms * 1e3 / rounds:.3f} us a round "
+          f"(chain floor, two views and two edges: {floor_ms:.4f} ms, {floor_ms * 1e3 / rounds:.3f} us a round); "
+          f"two launches equal; at {cut} rounds, bitwise: the kernel {dev_ms:.4f} ms device, the plain version on "
+          f"the card {plain_ms:.1f} ms (scaled to {rounds} rounds: {plain_ms * rounds / cut:.1f} ms); {graph_note}; "
+          f"{launches_note}; bound at {cut} rounds {bound_ms * 1e3:.3f} us ({bound_by}: {flops} float64 operations, "
+          f"{nbytes} bytes)")
+    return dict(max_abs_err=worst, ms=dev_ms, plain_ms=plain_ms, library_ms=None, bound_ms=bound_ms,
+                bound_by=bound_by, rounds=cut, call_rounds=rounds, call_device_ms=call_dev_ms, call_ms=call_ms,
+                call_chain_floor_ms=floor_ms, plain_graph_ms=plain_graph_ms, graph_rounds=captured,
+                plain_launches=plain_launches, calls_held=held, paths=paths)
 
 
 def apps_phase(dev, counters, plains, tally):
@@ -3783,6 +4023,7 @@ def kernel_counters():
     from cv_tpu_torch.ops import eigen as eigen_mod
     from cv_tpu_torch.ops import trig as trig_mod
     from cv_tpu_torch.optimize import optimizers, resident
+    from cv_tpu_torch.sfm import device_refine
 
     counters = {
         "select_samples": select_mod.select_samples,
@@ -3805,6 +4046,7 @@ def kernel_counters():
         "jacobi": eigen_mod.eigh_small,
         "c2c_residual": pose_mod.c2c_residual,
         "c2c_score": pose_mod.c2c_score,
+        "graph_ba": device_refine.graph_ba_core,
         **{f"bisect_{body}": fn for body, fn in probes.BISECT.items()},
         **{f"mxu_{body}": fn for body, fn in probes.MXU.items()},
     }
@@ -3817,7 +4059,7 @@ def kernel_counters():
         (probes, "take_along_plain"), (probes, "trig_probe_plain"), (probes, "bisect_plain"), (probes, "mxu_plain"),
         (trig_mod, "angle_cv_plain"), (trig_mod, "cos_sin_plain"), (trig_mod, "cos_sin_by_dtype"),
         (trig_mod, "atan2_plain"), (eigen_mod, "eigh_small_plain"), (pose_mod, "c2c_residual_plain"),
-        (pose_mod, "c2c_score_plain"),
+        (pose_mod, "c2c_score_plain"), (device_refine, "graph_ba_core_plain"),
     ]
     return counters, plains
 
@@ -4024,12 +4266,14 @@ def main():
     clock("4c")
 
     # -- 5. the SfM engine: a warm pass, then the timed main-path pass -------
-    # The warm pass records the select's, the dedup scan's and A's, B's and
-    # C's calls, so the timed pass runs as it would without them.
+    # The warm pass records the select's, the dedup scan's, A's, B's and
+    # C's and graph BA's calls, so the timed pass runs as it would without
+    # them.
+    ba_calls = {}
     with record_pose_calls() as pose_calls, \
             recording(desc_mod, "select_samples", keep_planes) as select_calls["sfm"], \
             recording(extrema, "dedup_scan_device") as scan_calls["sfm"], \
-            recording(device_refine, "graph_ba_core") as ba_calls, \
+            recording(device_refine, "graph_ba_core") as ba_calls["sfm"], \
             recording(pose_mod, "c2c_residual", first_calls(2)) as sfm_residuals, \
             recording(pose_mod, "c2c_score", first_calls(2)) as sfm_score_calls, \
             recording(BatchConsensus, "_score_stage", first_calls(1)) as sfm_scores:
@@ -4045,8 +4289,8 @@ def main():
           f"plain-version calls {sfm_run['plain']}")
     print("sfm phases (ms, synchronized): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_ms.items()))
     tally(sfm_run, single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,),
-          select_samples=(2 * SFM_FRAMES,), dedup_scan=(SFM_FRAMES,), jacobi=(1,), atan2=(1,), c2c_residual=(1,),
-          c2c_score=(1,), **TRIG_LAUNCHED)
+          select_samples=(2 * SFM_FRAMES,), dedup_scan=(SFM_FRAMES,), jacobi=(1,), c2c_residual=(1,),
+          c2c_score=(1,), graph_ba=(1,), **TRIG_LAUNCHED)
     hold_recorded_residuals(sfm_residuals, sfm_score_calls, sfm_scores, "the SfM warm pass's first init")
     del sfm_residuals, sfm_score_calls, sfm_scores
     del engine
@@ -4082,9 +4326,10 @@ def main():
           f"{len(merge_counts)} frames; launches three_view_l2 {merge_run['launches']['three_view_l2']}, "
           f"three_view_adaptive {merge_run['launches']['three_view_adaptive']}, single_view_l2 "
           f"{merge_run['launches']['single_view_l2']}, angle_cv {merge_run['launches']['angle_cv']}, cos_sin "
-          f"{merge_run['launches']['cos_sin']}; plain-version calls {merge_run['plain']}")
+          f"{merge_run['launches']['cos_sin']}, graph_ba {merge_run['launches']['graph_ba']}; plain-version calls "
+          f"{merge_run['plain']}")
     tally(merge_run, three_view_l2=(1,), three_view_adaptive=(1,), single_view_l2=(1,),
-          select_samples=(2 * len(merge_counts),), dedup_scan=(len(merge_counts),), jacobi=(1,), atan2=(1,),
+          select_samples=(2 * len(merge_counts),), dedup_scan=(len(merge_counts),), jacobi=(1,), graph_ba=(1,),
           **TRIG_LAUNCHED)
     del merge_engine
 
@@ -4094,7 +4339,7 @@ def main():
     # and engine-budget extractor below) and the fused describe's
     # ('pfused'), recorded where the describe binds them.
     describe_calls = {"select_groups": {}, "select_fused": {}}
-    sandbox_phase(dev, counters, plains, tally, scan_calls)
+    sandbox_phase(dev, counters, plains, tally, scan_calls, ba_calls)
 
     clock("6b")
     # -- 7. the dense path ---------------------------------------------------
@@ -4345,7 +4590,9 @@ def main():
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         measured = ("device_ms", "library_device_ms", "plain_device_ms", "steps", "us_per_step", "engine",
                     "aligned_ms", "aligned_plain_ms", "aligned_bound_ms", "parent_torch_ms", "library_calls",
-                    "so3_entries", "residual_and_torch_device_ms")
+                    "so3_entries", "residual_and_torch_device_ms", "call_ms", "rounds", "call_rounds",
+                    "call_device_ms", "call_chain_floor_ms", "plain_graph_ms", "graph_rounds", "plain_launches",
+                    "calls_held", "paths")
         return {"name": name, "route": "cuda", "source": f"cv_tpu_torch/csrc/{source}.cu", "replaces": replaces,
                 "launches": launches, **{k: rec[k] for k in keys}, **{k: rec[k] for k in measured if k in rec}}
 
@@ -4385,8 +4632,15 @@ def main():
         records.append(row(name, source, replaces, main_launches[name], exp_records[name]))
     clock("10")
     # -- 11. the library modules and the TF32 setting, on the card ------------
-    library_ms = library_modules(dev, args.seed, exact_words, ba_calls)
+    # The plain graph BA of every recorded call (the SfM warm pass's and
+    # the sandbox runs') on the CPU, after the timed phases and before
+    # phase 11's; held against the kernel below.
+    ba_plain = graph_ba_plain_on_cpu(ba_calls)
+    library_ms = library_modules(dev, args.seed, exact_words)
     print("library modules ms: " + json.dumps({k: round(v, 3) for k, v in library_ms.items()}))
+    graph_ba_record = check_graph_ba(dev, ba_calls, ba_plain)
+    records.append(row("graph_ba", "graph_ba", "cv_tpu/sfm/device_refine.py:37", main_launches["graph_ba"],
+                       graph_ba_record))
     tf32_invariance(dev, args.seed)
     clock("11")
     print(json.dumps({"kernels": records}))

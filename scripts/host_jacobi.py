@@ -2,13 +2,9 @@
 """Build ``csrc/jacobi.cu`` for the host CPU with g++ and hold its consensus
 entries bitwise to their plain versions, where there is no ``nvcc``.
 
-A header of host stand-ins takes the place of CUDA's (the ``__*_rn``
-intrinsics as IEEE operations, ``__ldg`` as a load, ``__shared__`` as a
-static, one ``std::thread`` a CUDA thread and a ``std::barrier`` for
-``__syncthreads``, the blocks in turn); each ``kernel<<<grid, block, 0,
-stream>>>(...)`` launch becomes a call of that emulation.  The library's C
-functions then run on host pointers (CPU tensors' ``data_ptr``).  Checks,
-float64 and float32:
+The host stand-ins of ``scripts/host_cuda.py`` take the place of CUDA's;
+the library's C functions then run on host pointers (CPU tensors'
+``data_ptr``).  Checks, float64 and float32:
 
 * ``cv_c2c_residual_*`` against ``core.pose.c2c_residual_plain`` and
   ``cv_c2c_score_*`` against ``c2c_score_plain`` on seeded consensus
@@ -33,79 +29,15 @@ from __future__ import annotations
 
 import ctypes
 import os
-import re
-import shutil
-import subprocess
 import sys
 import tempfile
+
+import host_cuda
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-STUB = r"""
-#pragma once
-#include <barrier>
-#include <cmath>
-#include <cstdint>
-#include <cstring>
-#include <functional>
-#include <thread>
-#include <vector>
-#define __device__
-#define __global__
-#define __host__
-#define __forceinline__ inline
-#define __noinline__ __attribute__((noinline))
-#define __constant__
-#define __launch_bounds__(...)
-#define __shared__ static
-typedef void* cudaStream_t;
-inline int cudaGetLastError() { return 0; }
-struct Dim { unsigned x = 0; };
-inline thread_local Dim threadIdx, blockIdx;
-inline std::barrier<>* g_barrier = nullptr;
-inline void __syncthreads() { g_barrier->arrive_and_wait(); }
-inline void emulate(unsigned grid, unsigned block, std::function<void()> body) {
-  for (unsigned b = 0; b < grid; ++b) {
-    std::barrier<> bar(block);
-    g_barrier = &bar;
-    std::vector<std::thread> ts;
-    for (unsigned t = 0; t < block; ++t) ts.emplace_back([&, t, b] { threadIdx.x = t; blockIdx.x = b; body(); });
-    for (auto& th : ts) th.join();
-  }
-}
-template <typename T, typename S> inline T bits_of(S v) { T r; std::memcpy(&r, &v, sizeof r); return r; }
-inline double __dadd_rn(double a, double b) { volatile double r = a + b; return r; }
-inline double __dsub_rn(double a, double b) { volatile double r = a - b; return r; }
-inline double __dmul_rn(double a, double b) { volatile double r = a * b; return r; }
-inline double __ddiv_rn(double a, double b) { volatile double r = a / b; return r; }
-inline double __dsqrt_rn(double a) { return std::sqrt(a); }
-inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
-inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
-inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
-inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
-inline float __fdiv_rn(float a, float b) { volatile float r = a / b; return r; }
-inline float __fsqrt_rn(float a) { return std::sqrt(a); }
-inline float __fmaf_rn(float a, float b, float c) { return std::fma(a, b, c); }
-inline long long __double_as_longlong(double v) { return bits_of<long long>(v); }
-inline double __longlong_as_double(long long v) { return bits_of<double>(v); }
-inline int __double2hiint(double v) { return static_cast<int>(__double_as_longlong(v) >> 32); }
-inline int __double2loint(double v) { return static_cast<int>(__double_as_longlong(v) & 0xffffffff); }
-inline unsigned __float_as_uint(float v) { return bits_of<unsigned>(v); }
-inline float __uint_as_float(unsigned v) { return bits_of<float>(v); }
-inline int __float_as_int(float v) { return bits_of<int>(v); }
-inline float __int_as_float(int v) { return bits_of<float>(v); }
-inline double __ll2double_rn(long long v) { return static_cast<double>(v); }
-inline int __double2int_rz(double v) { return static_cast<int>(v); }
-inline float __double2float_rn(double v) { return static_cast<float>(v); }
-template <typename T> inline T __ldg(const T* p) { return *p; }
-template <typename T> inline T __ldcg(const T* p) { return *p; }
-inline void __threadfence() {}
-inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }  // blocks run in turn
-inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
-inline int max(int a, int b) { return a > b ? a : b; }
-using std::copysign; using std::fabs; using std::isfinite; using std::isnan;
-"""
+
 
 # Entry points of the host build for the trigonometry checks.
 PROBES = r"""
@@ -122,25 +54,6 @@ extern "C" void host_cos_sin(const double* t, double* c1, double* s1, double* c2
   }
 }
 """
-
-
-def build(out: str) -> ctypes.CDLL:
-    """The host library of ``csrc/jacobi.cu`` (and its headers) in ``out``."""
-    csrc = os.path.join(ROOT, "cv_tpu_torch", "csrc")
-    for header in ("trig.cuh", "trig64_tables.cuh"):
-        shutil.copy(os.path.join(csrc, header), out)
-    with open(os.path.join(out, "cuda_runtime.h"), "w") as f:
-        f.write(STUB)
-    src = open(os.path.join(csrc, "jacobi.cu")).read()
-    src = re.sub(r"(\w+(?:<[^<>]*>)?)<<<([^,]+), ([^,]+), 0, .*?>>>\(([^;]*)\);",
-                 lambda m: f"emulate(static_cast<unsigned>({m.group(2)}), {m.group(3)}, [&] {{ "
-                           f"{m.group(1)}({m.group(4)}); }});", src, flags=re.S)
-    with open(os.path.join(out, "jacobi.cpp"), "w") as f:
-        f.write(src + PROBES)
-    lib = os.path.join(out, "libjacobi.so")
-    subprocess.run(["g++", "-std=c++20", "-O1", "-ffp-contract=off", "-shared", "-fPIC", "-pthread", "-I", out,
-                    "-include", "cuda_runtime.h", "-o", lib, os.path.join(out, "jacobi.cpp")], check=True)
-    return ctypes.CDLL(lib)
 
 
 def same(a, b) -> bool:
@@ -280,7 +193,7 @@ def main():
 
     torch.set_num_threads(4)
     with tempfile.TemporaryDirectory() as out:
-        lib = build(out)
+        lib = host_cuda.build("jacobi", out, PROBES)
         ok = check_entries(lib) & check_jacobi(lib) & check_trig(lib)
     print("host check:", "every hold bitwise" if ok else "FAILED")
     sys.exit(0 if ok else 1)

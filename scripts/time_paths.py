@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the user paths that describe keypoints, for one or more checkouts
-of the repo, on one CUDA card.
+"""Time the user paths (describe, pose, SfM, the vslam-sandbox app) for one
+or more checkouts of the repo, on one CUDA card.
 
 Per checkout (``--roots``, each the root of a tree such as the parent
 commit unpacked with ``git archive`` into the git-ignored ``_parent/``),
@@ -26,17 +26,29 @@ synchronize (medians):
 * ``sfm_init`` and ``sfm_init_two_view``: the SfM configuration's timed pass
   (``chip_smoke.run_sfm``, after a warm pass): the engine's init phase and,
   inside it, its ``init_two_view`` calls (summed ms); ``sfm_pass`` and
-  ``sfm_ba_filter``: that pass's wall ms and its BA+filter phase;
+  ``sfm_ba_filter``: that pass's wall ms and its BA+filter phase (the
+  engine's ``_dispatch_ba_filter`` and ``_finish_ba_filter``);
+  ``sfm_graph_ba``: the ``device_refine.graph_ba_core`` calls made inside
+  that phase (``ba_filter``'s), each timed between two synchronizes,
+  ``sfm_filter_tail``: the phase less them, ``sfm_graph_ba_calls``: their
+  count;
 * ``init_two_view_sandbox``: one ``init_two_view`` of that engine's first
   two frames at the vslam-sandbox app's two-view budget (8,192 hypotheses,
-  two refit rounds of 1,024; median of 3).
+  two refit rounds of 1,024; median of 3);
+* ``sandbox_run1_*`` and ``sandbox_run2_*``: the BA+filter phase split as
+  the SfM pass's, for the vslam-sandbox app at its defaults
+  (``chip_smoke.SANDBOX``: run 1 maps frames 0-7 and saves, run 2 resumes
+  on 8-11), with the phase times of ``chip_smoke.sandbox_hooks``.
 
+``--only`` names the groups to time (``describe``: the KITTI, dense and
+exact extracts; ``pose``; ``sfm``; ``sandbox``), all of them by default.
 The roots run in the order given (for a comparison: parent, this tree,
 this tree, parent), one process each.  Prints one line per run, then one
 JSON object: per root the mean of its runs and, where two roots are named,
 ``ratio``: the second root's mean over the first's, per metric.
 
 Usage: python3 scripts/time_paths.py --roots _parent . . _parent
+       python3 scripts/time_paths.py --only sfm sandbox --roots _parent . . _parent
 """
 
 from __future__ import annotations
@@ -44,18 +56,26 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
 import time
 
-METRICS = ("kitti_extract_match", "kitti_describe", "dense_extract", "dense_describe", "pfused_describe",
-           "exact_sparse", "exact_default", "pose_pipeline", "sfm_init", "sfm_init_two_view", "sfm_pass",
-           "sfm_ba_filter", "init_two_view_sandbox")
+BA_SPLIT = ("ba_filter", "graph_ba", "filter_tail", "graph_ba_calls")
+GROUPS = {
+    "describe": ("kitti_extract_match", "kitti_describe", "dense_extract", "dense_describe", "pfused_describe",
+                 "exact_sparse", "exact_default"),
+    "pose": ("pose_pipeline",),
+    "sfm": ("sfm_init", "sfm_init_two_view", "sfm_pass", "init_two_view_sandbox")
+    + tuple(f"sfm_{m}" for m in BA_SPLIT),
+    "sandbox": tuple(f"sandbox_{run}_{m}" for run in ("run1", "run2") for m in BA_SPLIT),
+}
 
 
-def child(root: str) -> dict:
-    """The times of the tree at ``root`` (run in a process of its own)."""
+def child(root: str, only) -> dict:
+    """The times of the tree at ``root`` (run in a process of its own) for
+    the groups ``only``."""
     sys.path.insert(0, os.path.abspath(root))
     import numpy as np
     import torch
@@ -63,10 +83,11 @@ def child(root: str) -> dict:
     import chip_smoke as cs
     from cv_tpu_torch import kernels
     from cv_tpu_torch.akaze import Akaze, AkazeExtractor, DeviceExtractor, load_gray, to_gray_f32
+    from cv_tpu_torch.apps import vslam_sandbox
     from cv_tpu_torch.camera import CameraIntrinsics
     from cv_tpu_torch.consensus import BatchConsensus
     from cv_tpu_torch.matching import PAD_DISTANCE, distance_matrix, knn2
-    from cv_tpu_torch.sfm import VSlam
+    from cv_tpu_torch.sfm import VSlam, device_refine
     from cv_tpu_torch.sfm.engine import DEFAULT_ESSENTIAL_ESTIMATOR as estimator
     from cv_tpu_torch.utils import KITTI_INTRINSICS, kitti_pair
 
@@ -89,91 +110,149 @@ def child(root: str) -> dict:
         return idx, (dd[..., 0].float() < dd[..., 1].float() * 0.5) & valid[:, 0]
 
     out = {}
-    for _ in range(2):
-        extract_and_match()
-        dense.extract(dense_images)
-    out["kitti_extract_match"] = statistics.median(cs.wall_ms(extract_and_match, reps=10))
-    out["kitti_describe"] = cs.staged(extractor, images, "pgather", reps=5)[1]["describe"]
-    out["dense_extract"] = statistics.median(cs.wall_ms(lambda: dense.extract(dense_images), reps=5))
-    out["dense_describe"] = cs.staged(dense, dense_images, "pgroups", reps=5)[1]["describe"]
-    out["pfused_describe"] = cs.staged(dense, dense_images, "pfused", reps=5)[1]["describe"]
-    frames = [load_gray(p) for p in kitti_pair()]
-    for label, cfg in (("exact_sparse", Akaze.sparse()), ("exact_default", Akaze())):
-        ex = AkazeExtractor(cfg, device=dev)
-        for img in frames:
-            ex.extract(img)
-        out[label] = statistics.mean(statistics.median(cs.wall_ms(lambda img=img: ex.extract(img), reps=3))
-                                     for img in frames)
+    if "describe" in only:
+        for _ in range(2):
+            extract_and_match()
+            dense.extract(dense_images)
+        out["kitti_extract_match"] = statistics.median(cs.wall_ms(extract_and_match, reps=10))
+        out["kitti_describe"] = cs.staged(extractor, images, "pgather", reps=5)[1]["describe"]
+        out["dense_extract"] = statistics.median(cs.wall_ms(lambda: dense.extract(dense_images), reps=5))
+        out["dense_describe"] = cs.staged(dense, dense_images, "pgroups", reps=5)[1]["describe"]
+        out["pfused_describe"] = cs.staged(dense, dense_images, "pfused", reps=5)[1]["describe"]
+        frames = [load_gray(p) for p in kitti_pair()]
+        for label, cfg in (("exact_sparse", Akaze.sparse()), ("exact_default", Akaze())):
+            ex = AkazeExtractor(cfg, device=dev)
+            for img in frames:
+                ex.extract(img)
+            out[label] = statistics.mean(statistics.median(cs.wall_ms(lambda img=img: ex.extract(img), reps=3))
+                                         for img in frames)
 
-    # The pose pipeline: chip_smoke.py's consensus on pair 0.
-    fs = extractor.extract(images)
-    idx, keep = extract_and_match()
-    intr = CameraIntrinsics.from_values(*KITTI_INTRINSICS, device=dev)
-    ia = torch.nonzero(keep[0])[:, 0]
-    data = (intr.calibrate(fs.point[0][ia].double()), intr.calibrate(fs.point[1][idx[0, :, 0][ia]].double()))
-    consensus = BatchConsensus(threshold=0.1, hypotheses=512, device=dev)
+    if "pose" in only:  # chip_smoke.py's consensus on pair 0
+        fs = extractor.extract(images)
+        idx, keep = extract_and_match()
+        intr = CameraIntrinsics.from_values(*KITTI_INTRINSICS, device=dev)
+        ia = torch.nonzero(keep[0])[:, 0]
+        data = (intr.calibrate(fs.point[0][ia].double()), intr.calibrate(fs.point[1][idx[0, :, 0][ia]].double()))
+        consensus = BatchConsensus(threshold=0.1, hypotheses=512, device=dev)
 
-    def pose():
-        return consensus.model_inliers(torch.Generator(device=dev).manual_seed(0), estimator, data)
+        def pose():
+            return consensus.model_inliers(torch.Generator(device=dev).manual_seed(0), estimator, data)
 
-    pose()
-    out["pose_pipeline"] = statistics.median(cs.wall_ms(pose, reps=5))
+        pose()
+        out["pose_pipeline"] = statistics.median(cs.wall_ms(pose, reps=5))
 
-    # The SfM configuration: its init phase and init_two_view calls in the
-    # timed pass, then one init_two_view at the sandbox's budget.
-    two_view = {"ms": 0.0}
-    real = VSlam.init_two_view
+    # The graph BA calls inside ba_filter, each between two synchronizes.
+    timed_ba = {"on": False, "ms": 0.0, "calls": 0}
+    real_core, real_filter = device_refine.graph_ba_core, device_refine.ba_filter
 
-    def timed(self, *a, **kw):
+    def core(*a, **kw):
+        if not timed_ba["on"]:
+            return real_core(*a, **kw)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        res = real(self, *a, **kw)
+        res = real_core(*a, **kw)
         torch.cuda.synchronize()
-        two_view["ms"] += (time.perf_counter() - t0) * 1e3
+        timed_ba["ms"] += (time.perf_counter() - t0) * 1e3
+        timed_ba["calls"] += 1
+        if hasattr(real_core, "launches"):  # a kernel wrapper counts on the name it is bound to
+            real_core.launches += core.launches
+            core.launches = 0
         return res
 
-    cs.run_sfm(dev)
-    VSlam.init_two_view = timed
-    try:
-        engine, pass_s, phase_ms, _ = cs.run_sfm(dev, timed_phases=True)
-    finally:
-        VSlam.init_two_view = real
-    out["sfm_init"], out["sfm_init_two_view"] = phase_ms["init"], two_view["ms"]
-    out["sfm_pass"], out["sfm_ba_filter"] = pass_s * 1e3, phase_ms["ba+filter"]
-    engine.two_view_consensus = BatchConsensus(threshold=engine.settings.two_view_consensus_threshold,
-                                               hypotheses=8192, refit_rounds=2, refit_hypotheses=1024, device=dev)
-    frames = sorted(engine.data.frames)[:2]
-    engine.init_two_view(*frames)
-    out["init_two_view_sandbox"] = statistics.median(cs.wall_ms(lambda: engine.init_two_view(*frames), reps=3))
+    def ba_filter(*a, **kw):
+        timed_ba["on"] = True
+        try:
+            return real_filter(*a, **kw)
+        finally:
+            timed_ba["on"] = False
+
+    def split(prefix, phase_ms):
+        out[f"{prefix}_ba_filter"] = phase_ms
+        out[f"{prefix}_graph_ba"] = timed_ba["ms"]
+        out[f"{prefix}_filter_tail"] = phase_ms - timed_ba["ms"]
+        out[f"{prefix}_graph_ba_calls"] = timed_ba["calls"]
+        timed_ba.update(ms=0.0, calls=0)
+
+    core.launches = 0
+    device_refine.graph_ba_core, device_refine.ba_filter = core, ba_filter
+
+    if "sfm" in only:
+        # The SfM configuration: its init phase and init_two_view calls in
+        # the timed pass, then one init_two_view at the sandbox's budget.
+        two_view = {"ms": 0.0}
+        real = VSlam.init_two_view
+
+        def timed(self, *a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = real(self, *a, **kw)
+            torch.cuda.synchronize()
+            two_view["ms"] += (time.perf_counter() - t0) * 1e3
+            return res
+
+        cs.run_sfm(dev)
+        timed_ba.update(ms=0.0, calls=0)
+        VSlam.init_two_view = timed
+        try:
+            engine, pass_s, phase_ms, _ = cs.run_sfm(dev, timed_phases=True)
+        finally:
+            VSlam.init_two_view = real
+        out["sfm_init"], out["sfm_init_two_view"] = phase_ms["init"], two_view["ms"]
+        out["sfm_pass"] = pass_s * 1e3
+        split("sfm", phase_ms["ba+filter"])
+        engine.two_view_consensus = BatchConsensus(threshold=engine.settings.two_view_consensus_threshold,
+                                                   hypotheses=8192, refit_rounds=2, refit_hypotheses=1024,
+                                                   device=dev)
+        frames = sorted(engine.data.frames)[:2]
+        engine.init_two_view(*frames)
+        out["init_two_view_sandbox"] = statistics.median(cs.wall_ms(lambda: engine.init_two_view(*frames), reps=3))
+
+    if "sandbox" in only:
+        work = os.path.join(os.path.abspath(root), "_sandbox_run")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        paths, intrinsics, _, _ = cs.sandbox_frames(work)
+        first = cs.SANDBOX["run1"]
+        timed_ba.update(ms=0.0, calls=0)
+        for run, frames in (("run1", paths[:first]), ("run2", paths[first:])):
+            _, argv = cs.sandbox_argv(work, run, intrinsics, frames)
+            with cs.sandbox_hooks(dev) as hooks:
+                vslam_sandbox.main(argv, device=dev)
+                torch.cuda.synchronize()
+            split(f"sandbox_{run}", sum(hooks["ms"]["ba+filter"]))
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--roots", nargs="+", default=["."], help="checkout roots, timed in this order")
+    parser.add_argument("--only", nargs="+", choices=list(GROUPS), default=list(GROUPS), help="groups to time")
     parser.add_argument("--child", default=None, help=argparse.SUPPRESS)
     args = parser.parse_args()
     if args.child is not None:
-        print(json.dumps(child(args.child)))
+        print(json.dumps(child(args.child, args.only)))
         return
+    metrics = tuple(m for g in args.only for m in GROUPS[g])
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "--id=0"],
                          capture_output=True, text=True, check=True).stdout.strip()
     print(smi)
     runs = {root: [] for root in args.roots}
     for root in args.roots:
-        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", os.path.abspath(root)],
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", os.path.abspath(root),
+                               "--only", *args.only],
                               capture_output=True, text=True, cwd=os.path.abspath(root))
         if proc.returncode != 0:
             raise SystemExit(f"time_paths: the run of {root} failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
         times = json.loads(proc.stdout.strip().splitlines()[-1])
         runs[root].append(times)
-        print(f"{root}: " + ", ".join(f"{k} {times[k]:.3f} ms" for k in METRICS))
-    means = {root: {k: statistics.mean(r[k] for r in rs) for k in METRICS} for root, rs in runs.items()}
+        print(f"{root}: " + ", ".join(f"{k} {times[k]:.3f}" for k in metrics))
+    means = {root: {k: statistics.mean(r[k] for r in rs) for k in metrics} for root, rs in runs.items()}
     result = {"card": smi, "runs": runs, "means": means}
     roots = list(means)
     if len(roots) == 2:
         first, second = roots
-        result["ratio"] = {k: means[second][k] / means[first][k] for k in METRICS}
+        result["ratio"] = {k: means[second][k] / means[first][k] for k in metrics if means[first][k]}
         print(f"{second} over {first}: " + ", ".join(f"{k} {v:.4f}" for k, v in result["ratio"].items()))
     print(json.dumps(result))
 

@@ -30,33 +30,36 @@ from cv_tpu_torch.akaze import descriptors as desc
 from cv_tpu_torch.akaze import fast
 from cv_tpu_torch.akaze.scale_space import EvolutionPlanes
 from cv_tpu_torch.core import lie
-from cv_tpu_torch.ops import image, precision
+from cv_tpu_torch.ops import image, precision, trig
 from cv_tpu_torch.sfm import device_refine
 from torch_threads import one_thread  # noqa: F401  (autouse: this module's torch on one thread)
 
 
 def _graph_ba_index_add(rot, trans, edge_to, edge_from, edge_rot, edge_t, edge_valid, iterations, rate):
-    """graph_ba_core as it summed before: ``Tensor.index_add_`` per round."""
+    """graph_ba_core as it summed before: ``Tensor.index_add_`` per round,
+    with the plain loop's product and so(3) helpers, so only the sum's
+    order differs."""
     v_count = rot.shape[0]
     edge_to, edge_from = edge_to.long(), edge_from.long()
     has_edge = torch.zeros(v_count, dtype=torch.int32).scatter_reduce(
         0, edge_to, edge_valid.to(torch.int32), reduce="amax") > 0
     removed = ~has_edge
     zero = torch.zeros((), dtype=rot.dtype)
-    mv = lambda m, v: (m * v[..., None, :]).sum(dim=-1)  # noqa: E731
+    mm, mv = device_refine._mm3, device_refine._mv3
     for _ in range(iterations):
-        r_rel = rot[edge_from] @ rot[edge_to].transpose(-1, -2)
+        r_rel = mm(rot[edge_from], rot[edge_to].transpose(-1, -2))
         t_rel = trans[edge_from] - mv(r_rel, trans[edge_to])
-        r_d = edge_rot @ r_rel
+        r_d = mm(edge_rot, r_rel)
         t_d = mv(edge_rot, t_rel) + edge_t
-        se3_log = torch.cat([t_d, lie.so3_log(r_d)], dim=-1)
+        se3_log = torch.cat([t_d, device_refine._so3_log_fused(r_d)], dim=-1)
         ok_edge = edge_valid & ~removed[edge_from] & ~removed[edge_to]
         se3_log = torch.where(ok_edge[:, None], se3_log, zero)
-        net = torch.zeros((v_count, 6), dtype=rot.dtype).index_add_(0, edge_to, se3_log) * rate
+        total = torch.zeros((v_count, 6), dtype=rot.dtype).index_add_(0, edge_to, se3_log)
+        net = total * rate
         finite = torch.isfinite(net).all(dim=-1) & has_edge & ~removed
-        dr = lie.so3_exp(net[:, 3:6])
-        rot = torch.where(finite[:, None, None], dr @ rot, rot)
-        trans = torch.where(finite[:, None], mv(dr, trans) + net[:, 0:3], trans)
+        dr = device_refine._so3_exp_fused(net[:, 3:6])
+        rot = torch.where(finite[:, None, None], mm(dr, rot), rot)
+        trans = torch.where(finite[:, None], trig.fma(total[:, 0:3], rate, mv(dr, trans)), trans)
         removed = removed | ~finite
     return rot, trans, removed
 
