@@ -85,7 +85,16 @@ Phases, in order; any failed check raises and the script exits non-zero:
      repeated-eigenvalue, ``apq = 0``, rank-one, graded matrices) bitwise to
      their plain versions, and the Jacobi timed at one consensus block
      (4,194,304 4x4 float64) beside its plain version, the parent's torch
-     sweep and ``torch.linalg.eigh``; the consensus residual's entry of the
+     sweep and ``torch.linalg.eigh``; the scale space's four kernels
+     (``csrc/scale_space.cu``: sep_filter, evolution_flow, fed_step,
+     detector) bitwise to their plain versions at every call of a
+     ``build_scale_space`` of the KITTI pair as B=8 and as B=2, one exact
+     KITTI frame, one SfM frame (512x640) and one sandbox frame
+     (1080x1920), each build bitwise to those steps, each entry timed over
+     the KITTI B=8 build's calls beside its plain version (sep_filter also
+     beside ``F.conv2d``), the whole build with the kernels and with the
+     plain chain in turns, and the profiler's launches of each (at most
+     ``SCALE_SPACE_MAX_LAUNCHES``); the consensus residual's entry of the
      same source (``cv_c2c_residual_f64``: the design, the Jacobi and the
      score a pair in registers) bitwise to ``pose.c2c_residual_plain`` and
      timed beside it at a block of 4,194,304 (model, match) pairs, and its
@@ -101,7 +110,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      out-of-range indices bitwise to its plain version;
   4. drive the KITTI path once with the launch counters at zero: gates
      [399, 343] keypoints, 11 matches, 11 inliers, the select kernel
-     launched twice and the dedup kernel once per extract, the Jacobi
+     launched twice and the dedup kernel once per extract, the scale
+     space's kernels once a step (3 / 12 / 93 / 13), the Jacobi
      kernel and the residual entry launched; the consensus's first two
      recorded residual blocks held bitwise to the plain residual (and the
      Jacobi kernel to the plain one on their designs), its first scoring
@@ -220,7 +230,8 @@ Phases, in order; any failed check raises and the script exits non-zero:
      (``tf32_invariance``): the KITTI describes and a pose pipeline give
      the same bits with ``allow_tf32`` and ``"high"`` matmul precision
      turned on, and the setting is restored.
-No main-path run may call a kernel's plain version.  The line before the
+Every main-path run launches the scale space's kernels.  No main-path run
+may call a kernel's plain version.  The line before the
 last is the per-kernel JSON record; the last line is ``{"ok": true,
 "device": {...}}``.
 
@@ -361,6 +372,26 @@ GRAPH_BA_CAPTURED_ROUNDS = 16
 # Every recorded call is also held against the plain version on the card
 # over its first rounds (the CPU run holds all of them).
 GRAPH_BA_HELD_ROUNDS = 16
+# The scale space's kernels (csrc/scale_space.cu): row -> (the dispatcher
+# in ops/image.py, its plain version, the cv_tpu line it replaces).  Bytes a
+# pixel: each plane read once and each output written once (a second
+# output of sep_filter adds 4).  Float32 operations a pixel, counted from
+# the plain chain: a 1-D pass of n nonzero taps 2n - 1; the flow's blur 2 x
+# 9, Scharr pair 2 x 8 and pm_g2 6; the FED step's two flows a pixel (4
+# each) and four adds; the detector's five Scharr passes (8 each) and 3.
+SCALE_SPACE_ROWS = {
+    "sep_filter": ("sep_filter", "sep_filter_plain", "cv_tpu/akaze/scale_space.py:132"),
+    "evolution_flow": ("evolution_flow", "evolution_flow_plain", "cv_tpu/akaze/scale_space.py:140"),
+    "fed_step": ("fed_update", "fed_step", "cv_tpu/akaze/scale_space.py:145"),
+    "detector": ("detector", "detector_plain", "cv_tpu/akaze/scale_space.py:158"),
+}
+SCALE_SPACE_BYTES = {"evolution_flow": 12, "fed_step": 12, "detector": 16}
+SCALE_SPACE_OPS = {"evolution_flow": 40, "fed_step": 12, "detector": 43}
+# Every extract builds a scale space: its kernels launch on every path.
+SCALE_SPACE_LAUNCHED = dict(sep_filter=(3,), evolution_flow=(1,), fed_step=(1,), detector=(1,))
+# The profiler's kernel launches of one build_scale_space at KITTI B=8 may
+# not exceed this (the plain chain launches about 3,700).
+SCALE_SPACE_MAX_LAUNCHES = 300
 # The probe scripts' shapes: exp_select_kernels.py / exp_bisect.py (a
 # (16, 3, 544, 1408) stack, 136x128 windows, NS=1280, K=4096 / 512) and
 # exp_r3_gather_probe.py / exp_r3_mxu_probe.py (K=4096 patches of 3x128x128,
@@ -2949,7 +2980,7 @@ def sandbox_phase(dev, counters, plains, tally, scan_calls, ba_calls):
         scan_steps_run = [int(scan_steps(args).max()) for args, _ in scan_calls[f"sandbox {run}"]]
         print(f"sandbox {run}: the exact extractor's dedup scan, steps a frame (every candidate) {scan_steps_run}")
         expect = dict(select_groups=0, select_samples=0, select_fused=0, dedup_scan=len(frames), graph_ba=(1,),
-                      **TRIG_LAUNCHED)
+                      **TRIG_LAUNCHED, **SCALE_SPACE_LAUNCHED)
         if run == "run1":
             expect.update(single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,), jacobi=(1,),
                           c2c_residual=(1,), c2c_score=(1,))
@@ -3214,6 +3245,243 @@ def staged(extractor, images, mode, reps):
     return fs, {n: statistics.median(v) for n, v in stage_ms.items()}, scan
 
 
+def scale_space_launches(specs):
+    """The kernel launches of one ``build_scale_space`` of ``specs``, at
+    any batch: sep_filter 3 (the contrast factor's blur and Scharr pair,
+    the base blur), a flow and its FED steps an evolution after the first,
+    a detector response an evolution."""
+    return dict(sep_filter=3, evolution_flow=len(specs) - 1, fed_step=sum(len(s.fed_tau_steps) for s in specs),
+                detector=len(specs))
+
+
+@contextlib.contextmanager
+def plain_scale_space():
+    """The scale space's dispatchers (``ops/image.py``) bound to their
+    plain versions while the body runs: the tensor chain that the kernels
+    replace."""
+    from cv_tpu_torch.ops import image as ops
+
+    real = {spec[0]: getattr(ops, spec[0]) for spec in SCALE_SPACE_ROWS.values()}
+    try:
+        for dispatch, plain, _ in SCALE_SPACE_ROWS.values():
+            setattr(ops, dispatch, getattr(ops, plain))
+        yield
+    finally:
+        for dispatch, fn in real.items():
+            setattr(ops, dispatch, fn)
+
+
+def profiled_launches(fn):
+    """``(kernel launches, device events)`` of ``fn()`` in the profiler's
+    trace (copies and memsets are events, not launches)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(not n.startswith(("Memcpy", "Memset")) for n in names), len(names)
+
+
+def hold_scale_space(label, cfg, specs, images, timed=False):
+    """``images`` (B, H, W) on the card through ``build_scale_space``'s
+    steps, each step's kernel (``ops/image.py``'s ``*_kernel``) and plain
+    version called on the same inputs and held bitwise, the kernel's planes
+    carried on; then the whole ``build_scale_space`` held to those planes.
+    With ``timed``, each call's kernel and plain device ms (CUDA events over
+    5 and 3 launches, summed over the calls) and, for sep_filter, one
+    ``F.conv2d`` computing the same filters on the input padded beforehand
+    (the library yardstick).  Returns, a row, the build's ``calls`` and
+    their ``ms``, ``plain_ms``, ``library_ms``, ``nbytes`` and ``flops``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from cv_tpu_torch.akaze import scale_space as ss
+    from cv_tpu_torch.ops import image as ops
+
+    stats = {row: dict(calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0) for row in SCALE_SPACE_ROWS}
+    kernel_of = {"sep_filter": ops.sep_filter_kernel, "evolution_flow": ops.evolution_flow_kernel,
+                 "fed_step": ops.fed_step_kernel, "detector": ops.detector_kernel}
+
+    def step(row, args, nbytes, flops, library=None):
+        kernel, plain = kernel_of[row], getattr(ops, SCALE_SPACE_ROWS[row][1])
+        got, want = kernel(*args), plain(*args)
+        got_t, want_t = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        require(all(same_bits(g, w) for g, w in zip(got_t, want_t)),
+                f"scale space, {label}: {row} call {stats[row]['calls']} differs from its plain version")
+        st = stats[row]
+        st["calls"] += 1
+        st["nbytes"] += nbytes
+        st["flops"] += flops
+        if timed:
+            st["ms"] += cuda_ms(lambda: kernel(*args), iters=5, warmup=1)
+            st["plain_ms"] += cuda_ms(lambda: plain(*args), iters=3, warmup=1)
+            if library is not None:
+                st["library_ms"] += cuda_ms(library(), iters=5, warmup=1)
+        return got
+
+    def nz(taps):
+        return int((np.asarray(taps) != 0).sum())
+
+    def sep(x, *taps):
+        """One sep_filter call of ``x`` with the tap pairs ``taps``."""
+        pairs = list(zip(taps[0::2], taps[1::2]))
+        n = x.numel()
+
+        def conv():
+            hy, hx = len(pairs[0][1]) // 2, len(pairs[0][0]) // 2
+            weight = torch.stack([torch.as_tensor(np.outer(v, h)) for h, v in pairs])[:, None].to(x.device)
+            padded = F.pad(x.reshape(-1, 1, *x.shape[-2:]), (hx, hx, hy, hy), mode="replicate")
+            return lambda: F.conv2d(padded, weight)
+
+        return step("sep_filter", (x, *taps), 4 * n * (1 + len(pairs)),
+                    n * sum(2 * nz(h) + 2 * nz(v) - 2 for h, v in pairs), conv)
+
+    blur = ops.gaussian_blur_kernel(1.0)
+    main, off = ops.scharr_main_kernel(1), ops.scharr_off_kernel(1)
+    sep(sep(images, blur, blur), main, off, off, main)
+    contrast = ss.compute_contrast_factor(images, cfg.contrast_percentile, 1.0, cfg.contrast_factor_num_bins)
+    base = ops.gaussian_blur_kernel(cfg.base_scale_offset)
+    lt = sep(images, base, base)
+    lts, lsmooths = [lt], [lt]
+    for i in range(1, len(specs)):
+        if specs[i].octave > specs[i - 1].octave:
+            lt = ops.half_size(lt)
+            contrast = contrast * 0.75
+        n = lt.numel()
+        lsmooth, flow = step("evolution_flow", (lt, contrast),
+                             SCALE_SPACE_BYTES["evolution_flow"] * n + 4 * lt.shape[0],
+                             SCALE_SPACE_OPS["evolution_flow"] * n)
+        for tau in specs[i].fed_tau_steps:
+            lt = step("fed_step", (lt, flow, tau), SCALE_SPACE_BYTES["fed_step"] * n, SCALE_SPACE_OPS["fed_step"] * n)
+        lts.append(lt)
+        lsmooths.append(lsmooth)
+    dets = []
+    for spec, lsm in zip(specs, lsmooths):
+        s = int(round(spec.esigma * cfg.derivative_factor / spec.ratio))
+        dets.append(step("detector", (lsm, s), SCALE_SPACE_BYTES["detector"] * lsm.numel(),
+                         SCALE_SPACE_OPS["detector"] * lsm.numel()))
+    planes = ss.build_scale_space(cfg, specs, images)
+    for e, (p, lt_e, lsm_e, (lx, ly, ldet)) in enumerate(zip(planes, lts, lsmooths, dets)):
+        require(all(same_bits(a, b) for a, b in ((p.lt, lt_e), (p.lsmooth, lsm_e), (p.lx, lx), (p.ly, ly),
+                                                  (p.ldet, ldet))),
+                f"scale space, {label}: build_scale_space's evolution {e} differs from the held steps")
+    calls = {row: st["calls"] for row, st in stats.items()}
+    print(f"scale space, {label}: {len(specs)} evolutions of {tuple(images.shape)}, calls {calls}, each bitwise to "
+          "its plain version on the card; build_scale_space bitwise to the held steps")
+    return stats
+
+
+def scale_space_builds(cfg, specs, images):
+    """Two functions of no arguments: ``build_scale_space(cfg, specs,
+    images)`` through the kernels, and through the plain chain."""
+    from cv_tpu_torch.akaze import scale_space as ss
+
+    def build():
+        ss.build_scale_space(cfg, specs, images)
+
+    def plain_build():
+        with plain_scale_space():
+            ss.build_scale_space(cfg, specs, images)
+
+    return build, plain_build
+
+
+def profile_scale_space():
+    """Run by :func:`check_scale_space` in a process of its own: the
+    profiler's ``(kernel launches, device events)`` of one
+    ``build_scale_space`` of the KITTI pair at B=8 with the kernels and with
+    the plain chain, printed as one JSON line."""
+    import numpy as np
+    import torch
+
+    from cv_tpu_torch import kernels
+    from cv_tpu_torch.akaze import Akaze, load_gray, to_gray_f32
+    from cv_tpu_torch.akaze.config import allocate_evolutions
+    from cv_tpu_torch.utils import kitti_pair
+
+    kernels.build_all(["scale_space"])
+    pair = np.stack([to_gray_f32(load_gray(p)) for p in kitti_pair()])
+    images = torch.as_tensor(np.concatenate([pair] * (BATCH // 2)), device="cuda")
+    cfg = Akaze.sparse()
+    build, plain_build = scale_space_builds(cfg, allocate_evolutions(cfg, images.shape[-1], images.shape[-2]), images)
+    build()
+    plain_build()
+    torch.cuda.synchronize()
+    print(json.dumps({"kernels": profiled_launches(build), "plain": profiled_launches(plain_build)}))
+
+
+def check_scale_space(dev, pair):
+    """Phase 3's scale space (``csrc/scale_space.cu``): each entry bitwise
+    to its plain version at every call of a ``build_scale_space``
+    (:func:`hold_scale_space`) of five configurations: the KITTI pair
+    ``pair`` as B=8 at ``Akaze.sparse()`` (timed), as B=2 at ``Akaze()``
+    (the dense path), frame 0 alone at ``Akaze()`` (the exact extractor),
+    an SfM frame (512x640) and a sandbox frame (1080x1920) of their rendered
+    sequences at ``Akaze()`` (their engines' extractors).  At KITTI B=8 the
+    whole build's host ms ending in a sync with the kernels and with the
+    plain chain (:func:`plain_scale_space`), in turns, and the profiler's
+    launches of each (:func:`profile_scale_space`, in a process of its
+    own).  Returns the four rows' records (KITTI B=8 figures:
+    the summed calls of one build)."""
+    import numpy as np
+    import torch
+
+    from cv_tpu_torch.akaze import Akaze, to_gray_f32
+    from cv_tpu_torch.akaze.config import allocate_evolutions
+    from cv_tpu_torch.apps.synth import render_sequence
+
+    sfm = render_sequence(n_frames=SFM_FRAMES, height=512, width=640, n_points=900, seed=0)[0][0]
+    sandbox = render_sequence(n_frames=SANDBOX["run1"] + SANDBOX["run2"], height=SANDBOX["height"],
+                              width=SANDBOX["width"], n_points=SANDBOX["n_points"], seed=SANDBOX["seed"],
+                              fx=SANDBOX["fx"], fy=SANDBOX["fy"])[0][0]
+    kitti = torch.as_tensor(np.concatenate([pair] * (BATCH // 2)), device=dev)
+    configs = (("KITTI B=8", Akaze.sparse(), kitti), ("dense B=2", Akaze(), torch.as_tensor(pair, device=dev)),
+               ("exact frame", Akaze(), torch.as_tensor(pair[:1], device=dev)),
+               ("SfM frame", Akaze(), torch.as_tensor(to_gray_f32(sfm)[None], device=dev)),
+               ("sandbox frame", Akaze(), torch.as_tensor(to_gray_f32(sandbox)[None], device=dev)))
+    held = {}
+    for label, cfg, images in configs:
+        specs = allocate_evolutions(cfg, images.shape[-1], images.shape[-2])
+        held[label] = hold_scale_space(label, cfg, specs, images, timed=label == "KITTI B=8")
+    cfg, images = configs[0][1], configs[0][2]
+    specs = allocate_evolutions(cfg, images.shape[-1], images.shape[-2])
+
+    build, plain_build = scale_space_builds(cfg, specs, images)
+    build()
+    plain_build()
+    stage_ms, stage_plain_ms = alternate(build, plain_build, lambda fn: statistics.median(wall_ms(fn, reps=5)))
+    # The profiler runs in a process of its own: after a trace here, phase
+    # 11's traces of graph BA came back empty on the card.
+    proc = subprocess.run([sys.executable, "-c", "import chip_smoke; chip_smoke.profile_scale_space()"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True, timeout=600)
+    require(proc.returncode == 0, f"scale space: the profiler's process failed:\n{proc.stderr[-3000:]}")
+    profiled = json.loads(proc.stdout.strip().splitlines()[-1])
+    launches, plain_launches = profiled["kernels"], profiled["plain"]
+    if launches[1]:
+        require(launches[0] <= SCALE_SPACE_MAX_LAUNCHES,
+                f"scale space, KITTI B=8: {launches[0]} launches (at most {SCALE_SPACE_MAX_LAUNCHES})")
+        note = (f"launches (profiler) {launches[0]} ({launches[1]} device events), the plain chain {plain_launches[0]} "
+                f"({plain_launches[1]})")
+    else:
+        note = "launches: the profiler saw no device events"
+    print(f"scale space, KITTI B=8 (one build_scale_space): {stage_ms:.3f} ms with the kernels, {stage_plain_ms:.3f} "
+          f"ms with the plain chain (host ms ending in a sync, medians of 5, in turns); {note}; the entries' device ms "
+          "summed over the build's calls: " + ", ".join(
+              f"{row} {st['calls']} calls {st['ms']:.4f} (plain {st['plain_ms']:.4f})" for row, st in
+              held["KITTI B=8"].items()))
+    records = {}
+    for row, st in held["KITTI B=8"].items():
+        records[row] = kernel_record(st["ms"], st["plain_ms"], 0.0, st["nbytes"], st["flops"],
+                                     library_ms=st["library_ms"] if row == "sep_filter" else None,
+                                     calls=st["calls"], stage_ms=stage_ms, stage_plain_ms=stage_plain_ms,
+                                     stage_launches=launches[0] if launches[1] else None,
+                                     stage_plain_launches=plain_launches[0] if plain_launches[1] else None)
+    return records
+
+
 def exact_path(dev, counters, plains, tally, scan_calls):
     """Phase 4b: ``AkazeExtractor`` on the KITTI pair at full size, at
     ``Akaze.sparse()`` (the Rust reference's goldens [399, 343] keypoints and
@@ -3252,7 +3520,8 @@ def exact_path(dev, counters, plains, tally, scan_calls):
         else:
             line += " (cv_tpu's pinned [31033516, 113943370])"
         print(line + f"; extract ms a frame {exact_ms[label]}; launches {run['launches']}")
-        tally(run, dedup_scan=len(frames), select_samples=0, select_groups=0, select_fused=0, **TRIG_LAUNCHED)
+        tally(run, dedup_scan=len(frames), select_samples=0, select_groups=0, select_fused=0, **TRIG_LAUNCHED,
+              **SCALE_SPACE_LAUNCHED)
         require(counts == want, f"exact {label}: keypoints {counts}, goldens {want}")
         if label == "sparse":
             require(len(ia) == KITTI_MATCHES, f"exact sparse: {len(ia)} matches")
@@ -3843,7 +4112,6 @@ def check_graph_ba(dev, ba_calls, plain_cpu):
     also gives the plain version's figures scaled to the whole call,
     labelled so.  Returns the kernels line's record."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from cv_tpu_torch.sfm import device_refine
 
@@ -3925,15 +4193,8 @@ def check_graph_ba(dev, ba_calls, plain_cpu):
     except Exception as exc:  # noqa: BLE001  (the capture is a measurement; say why it failed)
         graph_note = f"the plain rounds could not be captured in a CUDA graph: {exc!r}"
 
-    def device_launches(fn):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        names = [ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA]
-        return sum(not n.startswith(("Memcpy", "Memset")) for n in names), len(names)
-
-    kernel_launches = device_launches(lambda: run(*args))
-    plain_launches = {str(k): device_launches(lambda k=k: plain(*args[:7], k, rate))[0] for k in (2, 4)}
+    kernel_launches = profiled_launches(lambda: run(*args))
+    plain_launches = {str(k): profiled_launches(lambda k=k: plain(*args[:7], k, rate))[0] for k in (2, 4)}
     if kernel_launches[1]:
         per_round = (plain_launches["4"] - plain_launches["2"]) // 2
         set_up = plain_launches["2"] - 2 * per_round
@@ -3998,7 +4259,7 @@ def apps_phase(dev, counters, plains, tally):
           f"{len(matches4)} symmetric matches; chapter 5 {inliers5} inliers of {matches5} matches; {seconds:.3f} s; "
           f"launches {run['launches']}")
     tally(run, dedup_scan=6, select_samples=0, select_groups=0, select_fused=0, jacobi=(1,), c2c_score=(1,),
-          **TRIG_LAUNCHED)
+          **TRIG_LAUNCHED, **SCALE_SPACE_LAUNCHED)
     require(len(kp["response"]) == KITTI_KEYPOINTS[0], f"kpdraw: {len(kp['response'])} keypoints")
     drawn = read_png(os.path.join(work, "kpdraw.png"))
     require(np.array_equal(drawn, kpdraw.render_crosses(load_gray(frame0), kp["point"])),
@@ -4021,6 +4282,7 @@ def kernel_counters():
     from cv_tpu_torch.core import pose as pose_mod
     from cv_tpu_torch.experiments import mldb_losers, probes
     from cv_tpu_torch.ops import eigen as eigen_mod
+    from cv_tpu_torch.ops import image as image_mod
     from cv_tpu_torch.ops import trig as trig_mod
     from cv_tpu_torch.optimize import optimizers, resident
     from cv_tpu_torch.sfm import device_refine
@@ -4047,6 +4309,7 @@ def kernel_counters():
         "c2c_residual": pose_mod.c2c_residual,
         "c2c_score": pose_mod.c2c_score,
         "graph_ba": device_refine.graph_ba_core,
+        **{row: getattr(image_mod, spec[0]) for row, spec in SCALE_SPACE_ROWS.items()},
         **{f"bisect_{body}": fn for body, fn in probes.BISECT.items()},
         **{f"mxu_{body}": fn for body, fn in probes.MXU.items()},
     }
@@ -4060,6 +4323,7 @@ def kernel_counters():
         (trig_mod, "angle_cv_plain"), (trig_mod, "cos_sin_plain"), (trig_mod, "cos_sin_by_dtype"),
         (trig_mod, "atan2_plain"), (eigen_mod, "eigh_small_plain"), (pose_mod, "c2c_residual_plain"),
         (pose_mod, "c2c_score_plain"), (device_refine, "graph_ba_core_plain"),
+        *((image_mod, spec[1]) for spec in SCALE_SPACE_ROWS.values()),
     ]
     return counters, plains
 
@@ -4151,6 +4415,8 @@ def main():
     del recorded
     exp_records = check_experiment_kernels(dev, args.seed)
     jacobi_record, trig64_record, c2c_record, score_record = check_eigen_trig64(dev, args.seed)
+    clock("3 (before the scale space)")
+    scale_space_records = check_scale_space(dev, dense_pair)
 
     clock("3")
     # -- 4. the KITTI path, once, with the counters at zero ------------------
@@ -4209,7 +4475,7 @@ def main():
     require(int(count) == KITTI_INLIERS, f"inliers {int(count)}")
     # orientation + M-LDB; one scan; the residual's blocks
     tally(kitti_run, select_samples=2, dedup_scan=1, jacobi=(1,), c2c_residual=(1,), c2c_score=(1,),
-          **TRIG_LAUNCHED)
+          **TRIG_LAUNCHED, **scale_space_launches(extractor.specs(*images.shape[-2:])))
     hold_recorded_residuals(kitti_residuals, kitti_score_calls, kitti_scores, "the KITTI pose pipeline")
     del kitti_residuals, kitti_score_calls, kitti_scores
     require(tuple(fs.words.shape) == (BATCH, 512, 16) and fs.words.dtype == torch.int32, "words shape")
@@ -4248,7 +4514,8 @@ def main():
         require(matches_i == [KITTI_MATCHES] * (BATCH // 2), f"{mode}: matches {matches_i}")
         require(int(count_i) == KITTI_INLIERS, f"{mode}: inliers {int(count_i)}")
         tally(run, attribute="select_samples_patch" if mode == "pallas+inter" else None, dedup_scan=1,
-              jacobi=(1,), c2c_residual=(1,), c2c_score=(1,), **TRIG_LAUNCHED, **expect)
+              jacobi=(1,), c2c_residual=(1,), c2c_score=(1,), **TRIG_LAUNCHED, **expect,
+              **scale_space_launches(ex.specs(*images.shape[-2:])))
         for key in ("valid", "point", "words"):
             require(np.array_equal(host[key], kitti_ref[key]), f"{mode}: {key} differ from the 'pgather' run")
         require(np.array_equal(host["angle"].view(np.uint32), kitti_ref["angle"].view(np.uint32)),
@@ -4290,7 +4557,7 @@ def main():
     print("sfm phases (ms, synchronized): " + ", ".join(f"{k} {v:.1f}" for k, v in phase_ms.items()))
     tally(sfm_run, single_view_l2=(1,), three_view_l2=(1,), three_view_adaptive=(1,),
           select_samples=(2 * SFM_FRAMES,), dedup_scan=(SFM_FRAMES,), jacobi=(1,), c2c_residual=(1,),
-          c2c_score=(1,), graph_ba=(1,), **TRIG_LAUNCHED)
+          c2c_score=(1,), graph_ba=(1,), **TRIG_LAUNCHED, **SCALE_SPACE_LAUNCHED)
     hold_recorded_residuals(sfm_residuals, sfm_score_calls, sfm_scores, "the SfM warm pass's first init")
     del sfm_residuals, sfm_score_calls, sfm_scores
     del engine
@@ -4330,7 +4597,7 @@ def main():
           f"{merge_run['plain']}")
     tally(merge_run, three_view_l2=(1,), three_view_adaptive=(1,), single_view_l2=(1,),
           select_samples=(2 * len(merge_counts),), dedup_scan=(len(merge_counts),), jacobi=(1,), graph_ba=(1,),
-          **TRIG_LAUNCHED)
+          **TRIG_LAUNCHED, **SCALE_SPACE_LAUNCHED)
     del merge_engine
 
     clock("6")
@@ -4363,7 +4630,7 @@ def main():
         cnt = host["valid"].sum(axis=1).tolist()
         print(f"dense {label}: keypoints {cnt} (anchors {DENSE_KEYPOINTS}), launches {run['launches']}, "
               f"plain-version calls {run['plain']}")
-        tally(run, attribute="select_samples_patch" if mode == "pallas" else None, **expect)
+        tally(run, attribute="select_samples_patch" if mode == "pallas" else None, **expect, **SCALE_SPACE_LAUNCHED)
         v = host["valid"]
         require(np.isfinite(host["point"][v]).all() and np.isfinite(host["angle"][v]).all(), f"dense {label} finite")
         if mode is None:
@@ -4388,7 +4655,7 @@ def main():
     n0 = len(kp["response"])
     print(f"FastAkazeExtractor(maximum_features=8192) frame 0: {n0} keypoints (dense DeviceExtractor: "
           f"{int(runs[None]['valid'][0].sum())}), launches {run['launches']}")
-    tally(run, select_groups=2, dedup_scan=1, **TRIG_LAUNCHED)
+    tally(run, select_groups=2, dedup_scan=1, **TRIG_LAUNCHED, **SCALE_SPACE_LAUNCHED)
     require(n0 == int(runs[None]["valid"][0].sum()), "engine-budget count differs from the dense extract's")
     require(words0.shape == (n0, 16) and sketch.shape == (16,), "engine-budget words and sketch shapes")
 
@@ -4588,7 +4855,8 @@ def main():
 
     def row(name, source, replaces, launches, rec):
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-        measured = ("device_ms", "library_device_ms", "plain_device_ms", "steps", "us_per_step", "engine",
+        measured = ("device_ms", "library_device_ms", "plain_device_ms", "steps", "us_per_step", "engine", "calls",
+                    "stage_ms", "stage_plain_ms", "stage_launches", "stage_plain_launches",
                     "aligned_ms", "aligned_plain_ms", "aligned_bound_ms", "parent_torch_ms", "library_calls",
                     "so3_entries", "residual_and_torch_device_ms", "call_ms", "rounds", "call_rounds",
                     "call_device_ms", "call_chain_floor_ms", "plain_graph_ms", "graph_rounds", "plain_launches",
@@ -4622,6 +4890,8 @@ def main():
                        c2c_record))
     records.append(row("c2c_score", "jacobi", "cv_tpu/consensus/batch.py:135", main_launches["c2c_score"],
                        score_record))
+    for name, (_, _, replaces) in SCALE_SPACE_ROWS.items():
+        records.append(row(name, "scale_space", replaces, main_launches[name], scale_space_records[name]))
     # The trig kernel's row counts the describe paths' launches (angle_cv,
     # cos_sin), the so(3) maps' (cos_sin, atan2) and the probe run's.
     trig_launches = {k: main_launches[k] for k in ("angle_cv", "cos_sin", "atan2", "trig_probe")}

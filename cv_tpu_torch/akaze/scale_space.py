@@ -5,6 +5,13 @@ contrast_factor.rs, detector_response.rs).  Evolutions are built in order
 (the diffusion chain is sequential) and every op is batched over frames.
 The contrast factor's histogram math runs in float64, as the reference's
 CPU path does.
+
+Each filter step is one call of ``ops/image.py``'s dispatchers: on the card
+one launch of ``csrc/scale_space.cu`` (the blurs and Scharr pairs of
+:func:`compute_contrast_factor` and the base blur, each evolution's flow,
+each FED step, each detector response), on a CPU their plain tensor
+chains.  ``half_size``, the histogram and the contrast's ``* 0.75`` stay
+tensor ops; nothing reads the card from the host.
 """
 
 from __future__ import annotations
@@ -43,9 +50,10 @@ def compute_contrast_factor(
     reaches the threshold, plus one) / num_bins.  Counts are integers, so
     the histogram walk is exact.
     """
-    g = ops.gaussian_blur(image, gradient_histogram_scale)
-    lx = ops.scharr_horizontal(g, 1)
-    ly = ops.scharr_vertical(g, 1)
+    blur = ops.gaussian_blur_kernel(gradient_histogram_scale)
+    g = ops.sep_filter(image, blur, blur)
+    main, off = ops.scharr_main_kernel(1), ops.scharr_off_kernel(1)
+    lx, ly = ops.sep_filter(g, main, off, off, main)  # scharr_horizontal, scharr_vertical
     mag2 = (lx * lx + ly * ly)[..., 1:-1, 1:-1]
     batch = mag2.shape[:-2]
     m2 = mag2.reshape(-1, mag2.shape[-2] * mag2.shape[-1]).to(torch.float64)
@@ -85,19 +93,17 @@ def build_scale_space(
 
     lts = []
     lsmooths = []
-    lt = ops.gaussian_blur(image, config.base_scale_offset)
+    base = ops.gaussian_blur_kernel(config.base_scale_offset)
+    lt = ops.sep_filter(image, base, base)
     lts.append(lt)
     lsmooths.append(lt)  # evolution 0: Lsmooth = Lt (lib.rs:199-201)
     for i in range(1, len(specs)):
         if specs[i].octave > specs[i - 1].octave:
             lt = ops.half_size(lt)
             contrast = contrast * 0.75
-        lsmooth = ops.gaussian_blur(lt, 1.0)
-        lx = ops.scharr_horizontal(lsmooth, 1)
-        ly = ops.scharr_vertical(lsmooth, 1)
-        flow = ops.pm_g2(lx, ly, contrast)
+        lsmooth, flow = ops.evolution_flow(lt, contrast)
         for tau in specs[i].fed_tau_steps:
-            lt = ops.fed_step(lt, flow, tau)
+            lt = ops.fed_update(lt, flow, tau)
         lts.append(lt)
         lsmooths.append(lsmooth)
 
@@ -107,12 +113,7 @@ def build_scale_space(
     out = []
     for spec, lt_i, lsm_i in zip(specs, lts, lsmooths):
         sigma_size = int(round(spec.esigma * config.derivative_factor / spec.ratio))
-        lx = ops.scharr_horizontal(lsm_i, sigma_size)
-        ly = ops.scharr_vertical(lsm_i, sigma_size)
-        lxx = ops.scharr_horizontal(lx, sigma_size)
-        lyy = ops.scharr_vertical(ly, sigma_size)
-        lxy = ops.scharr_vertical(lx, sigma_size)
-        ldet = (lxx * lyy - lxy * lxy) * float(sigma_size) ** 4
+        lx, ly, ldet = ops.detector(lsm_i, sigma_size)
         out.append(
             EvolutionPlanes(spec=spec, lt=lt_i, lsmooth=lsm_i, lx=lx, ly=ly, ldet=ldet)
         )

@@ -15,8 +15,8 @@ sequential row filters): ``nvcc`` hands it to its host compiler, and it is
 built and loaded like the kernels.
 
 The pose-optimizer loops, the dedup scan, the fused describe, the select
-probes, the trig kernel, the Jacobi eigensolver and graph bundle
-adjustment are built with ``--fmad=false``: no
+probes, the trig kernel, the Jacobi eigensolver, graph bundle adjustment
+and the scale space are built with ``--fmad=false``: no
 multiply-add is contracted, so each float expression rounds as it is
 written, as the kernels' plain versions round.
 """
@@ -53,11 +53,12 @@ EXTRA_FLAGS = {
     "trig_probe": ["--fmad=false"],
     "jacobi": ["--fmad=false"],
     "graph_ba": ["--fmad=false"],
+    "scale_space": ["--fmad=false"],
 }
 KERNELS = (
     "select_samples", "select_groups", "select_fused", "dedup_scan",
     "single_view_l2", "three_view_l2", "three_view_adaptive",
-    "take_along", "trig_probe", "select_probes", "jacobi", "graph_ba", "png_unfilter",
+    "take_along", "trig_probe", "select_probes", "jacobi", "graph_ba", "scale_space", "png_unfilter",
 )
 
 # name -> (ctypes library, build record); filled at first use.

@@ -13,15 +13,27 @@ Semantics preserved exactly:
   (image.rs:154-199)
 * ``gaussian_kernel`` is computed in f32 and normalized (image.rs:360-381),
   radius = ceil(2 sigma) (image.rs:383-389)
+
+The scale space's steps also run as hand kernels (``csrc/scale_space.cu``),
+one launch a step: :func:`sep_filter`, :func:`evolution_flow`,
+:func:`fed_update` and :func:`detector` launch their kernel on CUDA
+tensors (each counting on its own ``.launches``) and run their plain
+versions on CPU tensors: :func:`sep_filter_plain`,
+:func:`evolution_flow_plain`, :func:`fed_step` and :func:`detector_plain`,
+compositions of the functions above.  The kernels round as those
+compositions do, bit for bit; a kernel that cannot build or launch raises.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .. import kernels
 
 
 def gaussian_kernel(sigma: float, kernel_size: int) -> np.ndarray:
@@ -179,3 +191,196 @@ def fed_step(lt: torch.Tensor, conductivity: torch.Tensor, step_size: float) -> 
         + F.pad(vf, (0, 0, 0, 1))
         - F.pad(vf, (0, 0, 1, 0))
     )
+
+
+# ---------------------------------------------------------------------------
+# The scale space's fused steps: plain versions and their kernels.
+# ---------------------------------------------------------------------------
+
+
+def sep_filter_plain(img: torch.Tensor, h_kernel, v_kernel, h2_kernel=None, v2_kernel=None):
+    """:func:`separable_filter` of ``img`` with the tap pair ``(h_kernel,
+    v_kernel)``, or a tuple of two such filters when ``(h2_kernel,
+    v2_kernel)`` is given."""
+    out = separable_filter(img, h_kernel, v_kernel)
+    if h2_kernel is None:
+        return out
+    return out, separable_filter(img, h2_kernel, v2_kernel)
+
+
+def evolution_flow_plain(lt: torch.Tensor, k: torch.Tensor):
+    """An evolution's smoothed image and conductivity (lib.rs:193-258,
+    nonlinear_diffusion.rs:70-83):
+    ``lsmooth = gaussian_blur(lt, 1)``, its Scharr pair at scale 1 and
+    ``pm_g2`` with the per-frame contrast ``k``.  Returns ``(lsmooth,
+    flow)``."""
+    lsmooth = gaussian_blur(lt, 1.0)
+    lx = scharr_horizontal(lsmooth, 1)
+    ly = scharr_vertical(lsmooth, 1)
+    return lsmooth, pm_g2(lx, ly, k)
+
+
+def detector_plain(lsmooth: torch.Tensor, sigma_size: int):
+    """The detector response of one evolution (detector_response.rs:8-57):
+    the multiscale Scharr pair of ``lsmooth``, its second derivatives and
+    the Hessian determinant scaled by ``sigma_size ** 4``.  Returns ``(lx,
+    ly, ldet)``."""
+    lx = scharr_horizontal(lsmooth, sigma_size)
+    ly = scharr_vertical(lsmooth, sigma_size)
+    lxx = scharr_horizontal(lx, sigma_size)
+    lyy = scharr_vertical(ly, sigma_size)
+    lxy = scharr_vertical(lx, sigma_size)
+    ldet = (lxx * lyy - lxy * lxy) * float(sigma_size) ** 4
+    return lx, ly, ldet
+
+
+def sep_filter(img: torch.Tensor, h_kernel, v_kernel, h2_kernel=None, v2_kernel=None):
+    """:func:`sep_filter_plain`'s function: on a CUDA tensor one launch of
+    ``cv_sep_filter`` (:func:`sep_filter_kernel`, counted on
+    ``sep_filter.launches``), on a CPU tensor the plain version."""
+    if img.device.type == "cpu":
+        return sep_filter_plain(img, h_kernel, v_kernel, h2_kernel, v2_kernel)
+    return sep_filter_kernel(img, h_kernel, v_kernel, h2_kernel, v2_kernel)
+
+
+def evolution_flow(lt: torch.Tensor, k: torch.Tensor):
+    """:func:`evolution_flow_plain`'s function: on CUDA tensors one launch
+    of ``cv_evolution_flow`` (:func:`evolution_flow_kernel`, counted on
+    ``evolution_flow.launches``), on CPU tensors the plain version."""
+    if lt.device.type == "cpu":
+        return evolution_flow_plain(lt, k)
+    return evolution_flow_kernel(lt, k)
+
+
+def fed_update(lt: torch.Tensor, conductivity: torch.Tensor, step_size: float) -> torch.Tensor:
+    """:func:`fed_step`'s function: on CUDA tensors one launch of
+    ``cv_fed_step`` (:func:`fed_step_kernel`, counted on
+    ``fed_update.launches``), on CPU tensors :func:`fed_step`."""
+    if lt.device.type == "cpu":
+        return fed_step(lt, conductivity, step_size)
+    return fed_step_kernel(lt, conductivity, step_size)
+
+
+def detector(lsmooth: torch.Tensor, sigma_size: int):
+    """:func:`detector_plain`'s function: on a CUDA tensor one launch of
+    ``cv_detector`` (:func:`detector_kernel`, counted on
+    ``detector.launches``), on a CPU tensor the plain version."""
+    if lsmooth.device.type == "cpu":
+        return detector_plain(lsmooth, sigma_size)
+    return detector_kernel(lsmooth, sigma_size)
+
+
+# Kernel launches so far (CPU calls do not count).
+sep_filter.launches = 0
+evolution_flow.launches = 0
+fed_update.launches = 0
+detector.launches = 0
+
+_VOID, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_TAPS = ctypes.POINTER(ctypes.c_float)
+
+
+def _taps(kernel):
+    """``(float array, count)`` of a 1-D kernel's float32 taps for a C call."""
+    taps = np.asarray(kernel, np.float32).ravel()
+    return (ctypes.c_float * taps.shape[0])(*taps.tolist()), taps.shape[0]
+
+
+def _planes(name: str, *planes: torch.Tensor):
+    """Check ``planes`` (CUDA float32, one shape ``(..., H, W)``) for the
+    kernel ``name``; returns them contiguous and ``(frames, H, W)``."""
+    first = planes[0]
+    if first.device.type != "cuda":
+        raise ValueError(f"{name}: CUDA tensors, got {first.device}")
+    if first.ndim < 2:
+        raise ValueError(f"{name}: planes of shape (..., H, W), got {tuple(first.shape)}")
+    for p in planes:
+        if p.device != first.device or p.dtype != torch.float32 or p.shape != first.shape:
+            raise ValueError(f"{name}: float32 planes of one shape on one device, got {p.dtype} "
+                             f"{tuple(p.shape)} on {p.device}")
+    h, w = first.shape[-2], first.shape[-1]
+    frames = first.numel() // (h * w) if h * w else 0
+    if max(frames, h, w) >= 2**31:
+        raise ValueError(f"{name}: {frames} frames of {h}x{w}")
+    return [p.contiguous() for p in planes], (frames, h, w)
+
+
+def _launched(err: int, symbol: str, counter, frames: int, h: int, w: int) -> None:
+    """Raise on a refused or failed launch; else count it on ``counter``."""
+    if err == -1:
+        raise ValueError(f"{symbol}: arguments the kernel does not take ({frames} frames of {h}x{w})")
+    if err != 0:
+        raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
+    if frames * h * w:
+        counter.launches += 1
+
+
+def sep_filter_kernel(img: torch.Tensor, h_kernel, v_kernel, h2_kernel=None, v2_kernel=None):
+    """``cv_sep_filter`` of ``csrc/scale_space.cu`` on a CUDA float32
+    ``(..., H, W)`` tensor: :func:`sep_filter_plain`'s function, bit for
+    bit, in one launch (both tap pairs of two outputs in the same one).
+    Odd tap counts up to 33."""
+    (x,), (frames, h, w) = _planes("sep_filter_kernel", img)
+    two = h2_kernel is not None
+    out1 = torch.empty_like(x)
+    out2 = torch.empty_like(x) if two else None
+    h1, v1 = _taps(h_kernel), _taps(v_kernel)
+    h2, v2 = (_taps(h2_kernel), _taps(v2_kernel)) if two else ((None, 0), (None, 0))
+    fn = kernels.function("scale_space", "cv_sep_filter",
+                          [_VOID, _VOID, _VOID, _INT, _INT, _INT] + [_TAPS, _INT] * 4 + [_VOID])
+    err = fn(x.data_ptr(), out1.data_ptr(), out2.data_ptr() if two else None, frames, h, w, *h1, *v1, *h2, *v2,
+             kernels.current_stream(x.device))
+    _launched(err, "cv_sep_filter", sep_filter, frames, h, w)
+    return (out1, out2) if two else out1
+
+
+def evolution_flow_kernel(lt: torch.Tensor, k: torch.Tensor):
+    """``cv_evolution_flow`` of ``csrc/scale_space.cu`` on CUDA tensors:
+    :func:`evolution_flow_plain`'s function, bit for bit, in one launch.
+    ``lt`` float32 ``(..., H, W)``; ``k`` float32, one value a frame (shape
+    ``lt.shape[:-2]``) or one for all.  Returns ``(lsmooth, flow)``."""
+    (x,), (frames, h, w) = _planes("evolution_flow_kernel", lt)
+    if k.device != x.device or k.dtype != torch.float32 or (k.numel() != 1 and k.shape != x.shape[:-2]):
+        raise ValueError(f"evolution_flow_kernel: a float32 contrast of shape {tuple(x.shape[:-2])} or one value "
+                         f"on {x.device}, got {k.dtype} {tuple(k.shape)} on {k.device}")
+    k = k.contiguous()
+    lsmooth, flow = torch.empty_like(x), torch.empty_like(x)
+    gauss = _taps(gaussian_blur_kernel(1.0))
+    main, off = _taps(scharr_main_kernel(1)), _taps(scharr_off_kernel(1))
+    fn = kernels.function("scale_space", "cv_evolution_flow",
+                          [_VOID, _VOID, _INT, _VOID, _VOID, _INT, _INT, _INT, _TAPS, _INT, _TAPS, _TAPS, _INT,
+                           _VOID])
+    err = fn(x.data_ptr(), k.data_ptr(), 0 if k.numel() == 1 else 1, lsmooth.data_ptr(), flow.data_ptr(), frames, h,
+             w, *gauss, main[0], off[0], main[1], kernels.current_stream(x.device))
+    _launched(err, "cv_evolution_flow", evolution_flow, frames, h, w)
+    return lsmooth, flow
+
+
+def fed_step_kernel(lt: torch.Tensor, conductivity: torch.Tensor, step_size: float) -> torch.Tensor:
+    """``cv_fed_step`` of ``csrc/scale_space.cu`` on CUDA float32 planes of
+    one shape: :func:`fed_step`'s function, bit for bit, in one launch."""
+    (l, c), (frames, h, w) = _planes("fed_step_kernel", lt, conductivity)
+    out = torch.empty_like(l)
+    half_step = float(np.float32(0.5) * np.float32(step_size))
+    fn = kernels.function("scale_space", "cv_fed_step", [_VOID, _VOID, _VOID, _INT, _INT, _INT, _FLOAT, _VOID])
+    err = fn(l.data_ptr(), c.data_ptr(), out.data_ptr(), frames, h, w, half_step, kernels.current_stream(l.device))
+    _launched(err, "cv_fed_step", fed_update, frames, h, w)
+    return out
+
+
+def detector_kernel(lsmooth: torch.Tensor, sigma_size: int):
+    """``cv_detector`` of ``csrc/scale_space.cu`` on a CUDA float32
+    ``(..., H, W)`` tensor: :func:`detector_plain`'s function, bit for bit,
+    in one launch.  ``sigma_size`` from 1 to 16.  Returns ``(lx, ly,
+    ldet)``."""
+    (x,), (frames, h, w) = _planes("detector_kernel", lsmooth)
+    if not 1 <= sigma_size <= 16:
+        raise ValueError(f"detector_kernel: sigma_size from 1 to 16, got {sigma_size}")
+    lx, ly, ldet = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    main, off = _taps(scharr_main_kernel(sigma_size)), _taps(scharr_off_kernel(sigma_size))
+    fn = kernels.function("scale_space", "cv_detector",
+                          [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _TAPS, _TAPS, _INT, _FLOAT, _VOID])
+    err = fn(x.data_ptr(), lx.data_ptr(), ly.data_ptr(), ldet.data_ptr(), frames, h, w, main[0], off[0], main[1],
+             float(sigma_size) ** 4, kernels.current_stream(x.device))
+    _launched(err, "cv_detector", detector, frames, h, w)
+    return lx, ly, ldet

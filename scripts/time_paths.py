@@ -19,6 +19,11 @@ synchronize (medians):
 * ``exact_sparse`` and ``exact_default``: ``AkazeExtractor`` a KITTI frame
   at ``Akaze.sparse()`` and ``Akaze()``, the mean over the two frames of
   each frame's median of 3;
+* ``kitti_scale_space`` and ``dense_scale_space``: those extracts' scale
+  space stage (``build_scale_space``, 5 reps of ``chip_smoke.staged``);
+  ``exact_scale_space``: ``build_scale_space`` of one KITTI frame as
+  ``AkazeExtractor(Akaze())`` builds it, the mean over the two frames of
+  each frame's median of 5;
 * ``pose_pipeline``: chip_smoke.py's consensus on the KITTI pair 0 with
   the engine's eight-point estimator (``DEFAULT_ESSENTIAL_ESTIMATOR``, with
   its ``score`` where the tree has one), 512 hypotheses, float64; median of
@@ -28,15 +33,18 @@ synchronize (medians):
   inside it, its ``init_two_view`` calls (summed ms); ``sfm_pass`` and
   ``sfm_ba_filter``: that pass's wall ms and its BA+filter phase (the
   engine's ``_dispatch_ba_filter`` and ``_finish_ba_filter``);
-  ``sfm_graph_ba``: the ``device_refine.graph_ba_core`` calls made inside
+  ``sfm_extract``: its extract phase (the engine's ``prefetch_extract``
+  and ``kps_descriptors``); ``sfm_graph_ba``: the
+  ``device_refine.graph_ba_core`` calls made inside
   that phase (``ba_filter``'s), each timed between two synchronizes,
   ``sfm_filter_tail``: the phase less them, ``sfm_graph_ba_calls``: their
   count;
 * ``init_two_view_sandbox``: one ``init_two_view`` of that engine's first
   two frames at the vslam-sandbox app's two-view budget (8,192 hypotheses,
   two refit rounds of 1,024; median of 3);
-* ``sandbox_run1_*`` and ``sandbox_run2_*``: the BA+filter phase split as
-  the SfM pass's, for the vslam-sandbox app at its defaults
+* ``sandbox_run1_*`` and ``sandbox_run2_*``: the extract phase and the
+  BA+filter phase split as the SfM pass's, for the vslam-sandbox app at its
+  defaults
   (``chip_smoke.SANDBOX``: run 1 maps frames 0-7 and saves, run 2 resumes
   on 8-11), with the phase times of ``chip_smoke.sandbox_hooks``.
 
@@ -65,11 +73,11 @@ import time
 BA_SPLIT = ("ba_filter", "graph_ba", "filter_tail", "graph_ba_calls")
 GROUPS = {
     "describe": ("kitti_extract_match", "kitti_describe", "dense_extract", "dense_describe", "pfused_describe",
-                 "exact_sparse", "exact_default"),
+                 "exact_sparse", "exact_default", "kitti_scale_space", "dense_scale_space", "exact_scale_space"),
     "pose": ("pose_pipeline",),
-    "sfm": ("sfm_init", "sfm_init_two_view", "sfm_pass", "init_two_view_sandbox")
+    "sfm": ("sfm_init", "sfm_init_two_view", "sfm_pass", "sfm_extract", "init_two_view_sandbox")
     + tuple(f"sfm_{m}" for m in BA_SPLIT),
-    "sandbox": tuple(f"sandbox_{run}_{m}" for run in ("run1", "run2") for m in BA_SPLIT),
+    "sandbox": tuple(f"sandbox_{run}_{m}" for run in ("run1", "run2") for m in ("extract",) + BA_SPLIT),
 }
 
 
@@ -83,6 +91,7 @@ def child(root: str, only) -> dict:
     import chip_smoke as cs
     from cv_tpu_torch import kernels
     from cv_tpu_torch.akaze import Akaze, AkazeExtractor, DeviceExtractor, load_gray, to_gray_f32
+    from cv_tpu_torch.akaze.scale_space import build_scale_space
     from cv_tpu_torch.apps import vslam_sandbox
     from cv_tpu_torch.camera import CameraIntrinsics
     from cv_tpu_torch.consensus import BatchConsensus
@@ -115,9 +124,11 @@ def child(root: str, only) -> dict:
             extract_and_match()
             dense.extract(dense_images)
         out["kitti_extract_match"] = statistics.median(cs.wall_ms(extract_and_match, reps=10))
-        out["kitti_describe"] = cs.staged(extractor, images, "pgather", reps=5)[1]["describe"]
+        stages = cs.staged(extractor, images, "pgather", reps=5)[1]
+        out["kitti_describe"], out["kitti_scale_space"] = stages["describe"], stages["scale_space"]
         out["dense_extract"] = statistics.median(cs.wall_ms(lambda: dense.extract(dense_images), reps=5))
-        out["dense_describe"] = cs.staged(dense, dense_images, "pgroups", reps=5)[1]["describe"]
+        stages = cs.staged(dense, dense_images, "pgroups", reps=5)[1]
+        out["dense_describe"], out["dense_scale_space"] = stages["describe"], stages["scale_space"]
         out["pfused_describe"] = cs.staged(dense, dense_images, "pfused", reps=5)[1]["describe"]
         frames = [load_gray(p) for p in kitti_pair()]
         for label, cfg in (("exact_sparse", Akaze.sparse()), ("exact_default", Akaze())):
@@ -126,6 +137,10 @@ def child(root: str, only) -> dict:
                 ex.extract(img)
             out[label] = statistics.mean(statistics.median(cs.wall_ms(lambda img=img: ex.extract(img), reps=3))
                                          for img in frames)
+        ex = AkazeExtractor(Akaze(), device=dev)
+        grays = [torch.as_tensor(to_gray_f32(img), device=dev)[None] for img in frames]
+        out["exact_scale_space"] = statistics.mean(statistics.median(cs.wall_ms(
+            lambda g=g: build_scale_space(ex.config, ex.specs(*g.shape[-2:]), g), reps=5)) for g in grays)
 
     if "pose" in only:  # chip_smoke.py's consensus on pair 0
         fs = extractor.extract(images)
@@ -198,7 +213,7 @@ def child(root: str, only) -> dict:
         finally:
             VSlam.init_two_view = real
         out["sfm_init"], out["sfm_init_two_view"] = phase_ms["init"], two_view["ms"]
-        out["sfm_pass"] = pass_s * 1e3
+        out["sfm_pass"], out["sfm_extract"] = pass_s * 1e3, phase_ms["extract"]
         split("sfm", phase_ms["ba+filter"])
         engine.two_view_consensus = BatchConsensus(threshold=engine.settings.two_view_consensus_threshold,
                                                    hypotheses=8192, refit_rounds=2, refit_hypotheses=1024,
@@ -219,6 +234,7 @@ def child(root: str, only) -> dict:
             with cs.sandbox_hooks(dev) as hooks:
                 vslam_sandbox.main(argv, device=dev)
                 torch.cuda.synchronize()
+            out[f"sandbox_{run}_extract"] = sum(hooks["ms"]["extract"])
             split(f"sandbox_{run}", sum(hooks["ms"]["ba+filter"]))
         shutil.rmtree(work, ignore_errors=True)
     return out
