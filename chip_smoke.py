@@ -86,12 +86,13 @@ Phases, in order; any failed check raises and the script exits non-zero:
      their plain versions, and the Jacobi timed at one consensus block
      (4,194,304 4x4 float64) beside its plain version, the parent's torch
      sweep and ``torch.linalg.eigh``; the scale space's four kernels
-     (``csrc/scale_space.cu``: sep_filter, evolution_flow, fed_step,
+     (``csrc/scale_space.cu``: sep_filter, evolution_flow, fed_cycle,
      detector) bitwise to their plain versions at every call of a
      ``build_scale_space`` of the KITTI pair as B=8 and as B=2, one exact
      KITTI frame, one SfM frame (512x640) and one sandbox frame
      (1080x1920), each build bitwise to those steps, each entry timed over
-     the KITTI B=8 build's calls beside its plain version (sep_filter also
+     the KITTI B=8 build's calls (events around the calls, and the device
+     alone in a CUDA graph) beside its plain version (sep_filter also
      beside ``F.conv2d``), the whole build with the kernels and with the
      plain chain in turns, and the profiler's launches of each (at most
      ``SCALE_SPACE_MAX_LAUNCHES``); the consensus residual's entry of the
@@ -375,23 +376,26 @@ GRAPH_BA_HELD_ROUNDS = 16
 # The scale space's kernels (csrc/scale_space.cu): row -> (the dispatcher
 # in ops/image.py, its plain version, the cv_tpu line it replaces).  Bytes a
 # pixel: each plane read once and each output written once (a second
-# output of sep_filter adds 4).  Float32 operations a pixel, counted from
+# output of sep_filter adds 4; a FED cycle reads lt and the flow and writes
+# lt once, whatever its steps).  Float32 operations a pixel, counted from
 # the plain chain: a 1-D pass of n nonzero taps 2n - 1; the flow's blur 2 x
-# 9, Scharr pair 2 x 8 and pm_g2 6; the FED step's two flows a pixel (4
-# each) and four adds; the detector's five Scharr passes (8 each) and 3.
+# 9, Scharr pair 2 x 8 and pm_g2 6; a FED step's two flows a pixel (4
+# each) and four adds, a cycle's steps each; the detector's five Scharr
+# passes (8 each) and 3.
 SCALE_SPACE_ROWS = {
     "sep_filter": ("sep_filter", "sep_filter_plain", "cv_tpu/akaze/scale_space.py:132"),
     "evolution_flow": ("evolution_flow", "evolution_flow_plain", "cv_tpu/akaze/scale_space.py:140"),
-    "fed_step": ("fed_update", "fed_step", "cv_tpu/akaze/scale_space.py:145"),
+    "fed_cycle": ("fed_cycle", "fed_cycle_plain", "cv_tpu/akaze/scale_space.py:144"),
     "detector": ("detector", "detector_plain", "cv_tpu/akaze/scale_space.py:158"),
 }
-SCALE_SPACE_BYTES = {"evolution_flow": 12, "fed_step": 12, "detector": 16}
-SCALE_SPACE_OPS = {"evolution_flow": 40, "fed_step": 12, "detector": 43}
+SCALE_SPACE_BYTES = {"evolution_flow": 12, "fed_cycle": 12, "detector": 16}
+SCALE_SPACE_OPS = {"evolution_flow": 40, "fed_cycle": 12, "detector": 43}  # fed_cycle: a step
 # Every extract builds a scale space: its kernels launch on every path.
-SCALE_SPACE_LAUNCHED = dict(sep_filter=(3,), evolution_flow=(1,), fed_step=(1,), detector=(1,))
+SCALE_SPACE_LAUNCHED = dict(sep_filter=(3,), evolution_flow=(1,), fed_cycle=(1,), detector=(1,))
 # The profiler's kernel launches of one build_scale_space at KITTI B=8 may
-# not exceed this (the plain chain launches about 3,700).
-SCALE_SPACE_MAX_LAUNCHES = 300
+# not exceed this (the plain chain launches about 3,700; 178 with a FED
+# step a launch).
+SCALE_SPACE_MAX_LAUNCHES = 110
 # The probe scripts' shapes: exp_select_kernels.py / exp_bisect.py (a
 # (16, 3, 544, 1408) stack, 136x128 windows, NS=1280, K=4096 / 512) and
 # exp_r3_gather_probe.py / exp_r3_mxu_probe.py (K=4096 patches of 3x128x128,
@@ -3245,13 +3249,19 @@ def staged(extractor, images, mode, reps):
     return fs, {n: statistics.median(v) for n, v in stage_ms.items()}, scan
 
 
-def scale_space_launches(specs):
-    """The kernel launches of one ``build_scale_space`` of ``specs``, at
-    any batch: sep_filter 3 (the contrast factor's blur and Scharr pair,
-    the base blur), a flow and its FED steps an evolution after the first,
-    a detector response an evolution."""
-    return dict(sep_filter=3, evolution_flow=len(specs) - 1, fed_step=sum(len(s.fed_tau_steps) for s in specs),
-                detector=len(specs))
+def scale_space_launches(specs, h, w):
+    """The kernel launches of one ``build_scale_space`` of ``specs`` on
+    ``h x w`` frames, at any batch: sep_filter 3 (the contrast factor's
+    blur and Scharr pair, the base blur), a flow and its FED cycle's
+    launches (``ops.fed_block_steps`` steps each) an evolution after the
+    first, a detector response an evolution."""
+    from cv_tpu_torch.ops import image as ops
+
+    fed = 0
+    for spec in specs[1:]:
+        n, ho, wo = len(spec.fed_tau_steps), h >> spec.octave, w >> spec.octave
+        fed += -(-n // ops.fed_block_steps(n, ho, wo)) if n else 0
+    return dict(sep_filter=3, evolution_flow=len(specs) - 1, fed_cycle=fed, detector=len(specs))
 
 
 @contextlib.contextmanager
@@ -3289,11 +3299,13 @@ def hold_scale_space(label, cfg, specs, images, timed=False):
     steps, each step's kernel (``ops/image.py``'s ``*_kernel``) and plain
     version called on the same inputs and held bitwise, the kernel's planes
     carried on; then the whole ``build_scale_space`` held to those planes.
-    With ``timed``, each call's kernel and plain device ms (CUDA events over
-    5 and 3 launches, summed over the calls) and, for sep_filter, one
-    ``F.conv2d`` computing the same filters on the input padded beforehand
-    (the library yardstick).  Returns, a row, the build's ``calls`` and
-    their ``ms``, ``plain_ms``, ``library_ms``, ``nbytes`` and ``flops``."""
+    With ``timed``, each call's kernel and plain ms (CUDA events around 5
+    and 3 Python calls, summed over the calls), the kernel's device ms (5
+    calls captured in a CUDA graph: :func:`device_ms`) and, for sep_filter,
+    one ``F.conv2d`` computing the same filters on the input padded
+    beforehand (the library yardstick).  Returns, a row, the build's
+    ``calls`` and their ``ms``, ``device_ms``, ``plain_ms``,
+    ``library_ms``, ``nbytes`` and ``flops``."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -3301,9 +3313,10 @@ def hold_scale_space(label, cfg, specs, images, timed=False):
     from cv_tpu_torch.akaze import scale_space as ss
     from cv_tpu_torch.ops import image as ops
 
-    stats = {row: dict(calls=0, ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0) for row in SCALE_SPACE_ROWS}
+    stats = {row: dict(calls=0, ms=0.0, device_ms=0.0, plain_ms=0.0, library_ms=0.0, nbytes=0, flops=0)
+             for row in SCALE_SPACE_ROWS}
     kernel_of = {"sep_filter": ops.sep_filter_kernel, "evolution_flow": ops.evolution_flow_kernel,
-                 "fed_step": ops.fed_step_kernel, "detector": ops.detector_kernel}
+                 "fed_cycle": ops.fed_cycle_kernel, "detector": ops.detector_kernel}
 
     def step(row, args, nbytes, flops, library=None):
         kernel, plain = kernel_of[row], getattr(ops, SCALE_SPACE_ROWS[row][1])
@@ -3317,6 +3330,7 @@ def hold_scale_space(label, cfg, specs, images, timed=False):
         st["flops"] += flops
         if timed:
             st["ms"] += cuda_ms(lambda: kernel(*args), iters=5, warmup=1)
+            st["device_ms"] += device_ms(lambda: kernel(*args), iters=5)
             st["plain_ms"] += cuda_ms(lambda: plain(*args), iters=3, warmup=1)
             if library is not None:
                 st["library_ms"] += cuda_ms(library(), iters=5, warmup=1)
@@ -3354,8 +3368,9 @@ def hold_scale_space(label, cfg, specs, images, timed=False):
         lsmooth, flow = step("evolution_flow", (lt, contrast),
                              SCALE_SPACE_BYTES["evolution_flow"] * n + 4 * lt.shape[0],
                              SCALE_SPACE_OPS["evolution_flow"] * n)
-        for tau in specs[i].fed_tau_steps:
-            lt = step("fed_step", (lt, flow, tau), SCALE_SPACE_BYTES["fed_step"] * n, SCALE_SPACE_OPS["fed_step"] * n)
+        taus = specs[i].fed_tau_steps
+        lt = step("fed_cycle", (lt, flow, taus), SCALE_SPACE_BYTES["fed_cycle"] * n,
+                  SCALE_SPACE_OPS["fed_cycle"] * n * len(taus))
         lts.append(lt)
         lsmooths.append(lsmooth)
     dets = []
@@ -3370,7 +3385,7 @@ def hold_scale_space(label, cfg, specs, images, timed=False):
                 f"scale space, {label}: build_scale_space's evolution {e} differs from the held steps")
     calls = {row: st["calls"] for row, st in stats.items()}
     print(f"scale space, {label}: {len(specs)} evolutions of {tuple(images.shape)}, calls {calls}, each bitwise to "
-          "its plain version on the card; build_scale_space bitwise to the held steps")
+          "its plain version on the card (fed_cycle at every evolution); build_scale_space bitwise to the held steps")
     return stats
 
 
@@ -3470,13 +3485,13 @@ def check_scale_space(dev, pair):
     print(f"scale space, KITTI B=8 (one build_scale_space): {stage_ms:.3f} ms with the kernels, {stage_plain_ms:.3f} "
           f"ms with the plain chain (host ms ending in a sync, medians of 5, in turns); {note}; the entries' device ms "
           "summed over the build's calls: " + ", ".join(
-              f"{row} {st['calls']} calls {st['ms']:.4f} (plain {st['plain_ms']:.4f})" for row, st in
-              held["KITTI B=8"].items()))
+              f"{row} {st['calls']} calls {st['ms']:.4f} (device {st['device_ms']:.4f}, plain {st['plain_ms']:.4f})"
+              for row, st in held["KITTI B=8"].items()))
     records = {}
     for row, st in held["KITTI B=8"].items():
         records[row] = kernel_record(st["ms"], st["plain_ms"], 0.0, st["nbytes"], st["flops"],
                                      library_ms=st["library_ms"] if row == "sep_filter" else None,
-                                     calls=st["calls"], stage_ms=stage_ms, stage_plain_ms=stage_plain_ms,
+                                     calls=st["calls"], device_ms=st["device_ms"], stage_ms=stage_ms, stage_plain_ms=stage_plain_ms,
                                      stage_launches=launches[0] if launches[1] else None,
                                      stage_plain_launches=plain_launches[0] if plain_launches[1] else None)
     return records
@@ -4475,7 +4490,7 @@ def main():
     require(int(count) == KITTI_INLIERS, f"inliers {int(count)}")
     # orientation + M-LDB; one scan; the residual's blocks
     tally(kitti_run, select_samples=2, dedup_scan=1, jacobi=(1,), c2c_residual=(1,), c2c_score=(1,),
-          **TRIG_LAUNCHED, **scale_space_launches(extractor.specs(*images.shape[-2:])))
+          **TRIG_LAUNCHED, **scale_space_launches(extractor.specs(*images.shape[-2:]), *images.shape[-2:]))
     hold_recorded_residuals(kitti_residuals, kitti_score_calls, kitti_scores, "the KITTI pose pipeline")
     del kitti_residuals, kitti_score_calls, kitti_scores
     require(tuple(fs.words.shape) == (BATCH, 512, 16) and fs.words.dtype == torch.int32, "words shape")
@@ -4515,7 +4530,7 @@ def main():
         require(int(count_i) == KITTI_INLIERS, f"{mode}: inliers {int(count_i)}")
         tally(run, attribute="select_samples_patch" if mode == "pallas+inter" else None, dedup_scan=1,
               jacobi=(1,), c2c_residual=(1,), c2c_score=(1,), **TRIG_LAUNCHED, **expect,
-              **scale_space_launches(ex.specs(*images.shape[-2:])))
+              **scale_space_launches(ex.specs(*images.shape[-2:]), *images.shape[-2:]))
         for key in ("valid", "point", "words"):
             require(np.array_equal(host[key], kitti_ref[key]), f"{mode}: {key} differ from the 'pgather' run")
         require(np.array_equal(host["angle"].view(np.uint32), kitti_ref["angle"].view(np.uint32)),

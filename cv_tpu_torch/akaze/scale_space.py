@@ -7,9 +7,10 @@ The contrast factor's histogram math runs in float64, as the reference's
 CPU path does.
 
 Each filter step is one call of ``ops/image.py``'s dispatchers: on the card
-one launch of ``csrc/scale_space.cu`` (the blurs and Scharr pairs of
-:func:`compute_contrast_factor` and the base blur, each evolution's flow,
-each FED step, each detector response), on a CPU their plain tensor
+``csrc/scale_space.cu`` (one launch for each blur and Scharr pair of
+:func:`compute_contrast_factor` and the base blur, each evolution's flow
+and each detector response; an evolution's FED cycle in
+``ops.fed_block_steps`` steps a launch), on a CPU their plain tensor
 chains.  ``half_size``, the histogram and the contrast's ``* 0.75`` stay
 tensor ops; nothing reads the card from the host.
 """
@@ -102,8 +103,7 @@ def build_scale_space(
             lt = ops.half_size(lt)
             contrast = contrast * 0.75
         lsmooth, flow = ops.evolution_flow(lt, contrast)
-        for tau in specs[i].fed_tau_steps:
-            lt = ops.fed_update(lt, flow, tau)
+        lt = ops.fed_cycle(lt, flow, specs[i].fed_tau_steps)
         lts.append(lt)
         lsmooths.append(lsmooth)
 

@@ -14,19 +14,22 @@ Semantics preserved exactly:
 * ``gaussian_kernel`` is computed in f32 and normalized (image.rs:360-381),
   radius = ceil(2 sigma) (image.rs:383-389)
 
-The scale space's steps also run as hand kernels (``csrc/scale_space.cu``),
-one launch a step: :func:`sep_filter`, :func:`evolution_flow`,
-:func:`fed_update` and :func:`detector` launch their kernel on CUDA
-tensors (each counting on its own ``.launches``) and run their plain
-versions on CPU tensors: :func:`sep_filter_plain`,
-:func:`evolution_flow_plain`, :func:`fed_step` and :func:`detector_plain`,
-compositions of the functions above.  The kernels round as those
-compositions do, bit for bit; a kernel that cannot build or launch raises.
+The scale space's steps also run as hand kernels (``csrc/scale_space.cu``):
+:func:`sep_filter`, :func:`evolution_flow`, :func:`fed_cycle` (an
+evolution's FED steps, several a launch; :func:`fed_update` is a cycle of
+one step) and :func:`detector` launch their kernel on CUDA tensors (each
+counting on its own ``.launches``) and run their plain versions on CPU
+tensors: :func:`sep_filter_plain`, :func:`evolution_flow_plain`,
+:func:`fed_cycle_plain` (:func:`fed_step` a tau) and
+:func:`detector_plain`, compositions of the functions above.  The kernels
+round as those compositions do, bit for bit; a kernel that cannot build or
+launch raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import numpy as np
@@ -220,6 +223,14 @@ def evolution_flow_plain(lt: torch.Tensor, k: torch.Tensor):
     return lsmooth, pm_g2(lx, ly, k)
 
 
+def fed_cycle_plain(lt: torch.Tensor, conductivity: torch.Tensor, taus) -> torch.Tensor:
+    """An evolution's FED cycle (lib.rs:193-258): :func:`fed_step` of
+    ``lt`` under ``conductivity`` for each tau of ``taus`` in turn."""
+    for tau in taus:
+        lt = fed_step(lt, conductivity, tau)
+    return lt
+
+
 def detector_plain(lsmooth: torch.Tensor, sigma_size: int):
     """The detector response of one evolution (detector_response.rs:8-57):
     the multiscale Scharr pair of ``lsmooth``, its second derivatives and
@@ -252,13 +263,23 @@ def evolution_flow(lt: torch.Tensor, k: torch.Tensor):
     return evolution_flow_kernel(lt, k)
 
 
+def fed_cycle(lt: torch.Tensor, conductivity: torch.Tensor, taus) -> torch.Tensor:
+    """:func:`fed_cycle_plain`'s function: on CUDA tensors ``cv_fed_cycle``
+    (:func:`fed_cycle_kernel`, :func:`fed_block_steps` steps a launch, each
+    launch counted on ``fed_cycle.launches``), on CPU tensors the plain
+    version."""
+    if lt.device.type == "cpu":
+        return fed_cycle_plain(lt, conductivity, taus)
+    return fed_cycle_kernel(lt, conductivity, taus)
+
+
 def fed_update(lt: torch.Tensor, conductivity: torch.Tensor, step_size: float) -> torch.Tensor:
-    """:func:`fed_step`'s function: on CUDA tensors one launch of
-    ``cv_fed_step`` (:func:`fed_step_kernel`, counted on
-    ``fed_update.launches``), on CPU tensors :func:`fed_step`."""
+    """:func:`fed_step`'s function: on CUDA tensors a :func:`fed_cycle` of
+    the one step (one launch of ``cv_fed_cycle``, counted on
+    ``fed_cycle.launches``), on CPU tensors :func:`fed_step`."""
     if lt.device.type == "cpu":
         return fed_step(lt, conductivity, step_size)
-    return fed_step_kernel(lt, conductivity, step_size)
+    return fed_cycle_kernel(lt, conductivity, (step_size,))
 
 
 def detector(lsmooth: torch.Tensor, sigma_size: int):
@@ -273,7 +294,7 @@ def detector(lsmooth: torch.Tensor, sigma_size: int):
 # Kernel launches so far (CPU calls do not count).
 sep_filter.launches = 0
 evolution_flow.launches = 0
-fed_update.launches = 0
+fed_cycle.launches = 0
 detector.launches = 0
 
 _VOID, _INT, _FLOAT = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -282,8 +303,49 @@ _TAPS = ctypes.POINTER(ctypes.c_float)
 
 def _taps(kernel):
     """``(float array, count)`` of a 1-D kernel's float32 taps for a C call."""
-    taps = np.asarray(kernel, np.float32).ravel()
+    return _taps_of(np.asarray(kernel, np.float32).ravel().tobytes())
+
+
+@functools.lru_cache(maxsize=256)
+def _taps_of(raw: bytes):
+    taps = np.frombuffer(raw, np.float32)
     return (ctypes.c_float * taps.shape[0])(*taps.tolist()), taps.shape[0]
+
+
+@functools.lru_cache(maxsize=None)
+def _flow_taps():
+    """The flow's blur and scale-1 Scharr taps for ``cv_evolution_flow``."""
+    return _taps(gaussian_blur_kernel(1.0)), _taps(scharr_main_kernel(1)), _taps(scharr_off_kernel(1))
+
+
+@functools.lru_cache(maxsize=None)
+def _scharr_taps(sigma_size: int):
+    """``(main_lo, main_hi, off_side, off_mid)``: the nonzero taps of
+    :func:`scharr_main_kernel` and :func:`scharr_off_kernel` at
+    ``sigma_size``, at offsets -s, +s, +-s and 0."""
+    main, off = scharr_main_kernel(sigma_size), scharr_off_kernel(sigma_size)
+    s = sigma_size
+    assert main.shape[0] == off.shape[0] == 2 * s + 1 and off[0] == off[-1]
+    assert not main[1:-1].any() and not np.delete(off, [0, s, 2 * s]).any()
+    return float(main[0]), float(main[-1]), float(off[0]), float(off[s])
+
+
+@functools.lru_cache(maxsize=256)
+def _half_steps(taus: tuple):
+    """``0.5 tau`` rounded to float32 for each tau, as :func:`fed_step`
+    rounds it, in a float array for a C call."""
+    half = [float(np.float32(0.5) * np.float32(t)) for t in taus]
+    return (ctypes.c_float * max(len(half), 1))(*half)
+
+
+# The most FED steps one launch of cv_fed_cycle runs (its kMaxFused).
+FED_MAX_STEPS = 32
+
+
+def fed_block_steps(n: int, h: int, w: int) -> int:
+    """The FED steps a launch of ``cv_fed_cycle`` runs in a cycle of ``n``
+    steps on ``h x w`` planes: all of them up to :data:`FED_MAX_STEPS`."""
+    return max(1, min(n, FED_MAX_STEPS))
 
 
 def _planes(name: str, *planes: torch.Tensor):
@@ -305,14 +367,15 @@ def _planes(name: str, *planes: torch.Tensor):
     return [p.contiguous() for p in planes], (frames, h, w)
 
 
-def _launched(err: int, symbol: str, counter, frames: int, h: int, w: int) -> None:
-    """Raise on a refused or failed launch; else count it on ``counter``."""
+def _launched(err: int, symbol: str, counter, frames: int, h: int, w: int, launches: int = 1) -> None:
+    """Raise on a refused or failed launch; else count its ``launches`` on
+    ``counter``."""
     if err == -1:
         raise ValueError(f"{symbol}: arguments the kernel does not take ({frames} frames of {h}x{w})")
     if err != 0:
         raise RuntimeError(f"{symbol} kernel launch failed: cudaError {err}")
     if frames * h * w:
-        counter.launches += 1
+        counter.launches += launches
 
 
 def sep_filter_kernel(img: torch.Tensor, h_kernel, v_kernel, h2_kernel=None, v2_kernel=None):
@@ -345,8 +408,7 @@ def evolution_flow_kernel(lt: torch.Tensor, k: torch.Tensor):
                          f"on {x.device}, got {k.dtype} {tuple(k.shape)} on {k.device}")
     k = k.contiguous()
     lsmooth, flow = torch.empty_like(x), torch.empty_like(x)
-    gauss = _taps(gaussian_blur_kernel(1.0))
-    main, off = _taps(scharr_main_kernel(1)), _taps(scharr_off_kernel(1))
+    gauss, main, off = _flow_taps()
     fn = kernels.function("scale_space", "cv_evolution_flow",
                           [_VOID, _VOID, _INT, _VOID, _VOID, _INT, _INT, _INT, _TAPS, _INT, _TAPS, _TAPS, _INT,
                            _VOID])
@@ -356,15 +418,28 @@ def evolution_flow_kernel(lt: torch.Tensor, k: torch.Tensor):
     return lsmooth, flow
 
 
-def fed_step_kernel(lt: torch.Tensor, conductivity: torch.Tensor, step_size: float) -> torch.Tensor:
-    """``cv_fed_step`` of ``csrc/scale_space.cu`` on CUDA float32 planes of
-    one shape: :func:`fed_step`'s function, bit for bit, in one launch."""
-    (l, c), (frames, h, w) = _planes("fed_step_kernel", lt, conductivity)
+def fed_cycle_kernel(lt: torch.Tensor, conductivity: torch.Tensor, taus, block_steps: int | None = None):
+    """``cv_fed_cycle`` of ``csrc/scale_space.cu`` on CUDA float32 planes of
+    one shape: :func:`fed_cycle_plain`'s function, bit for bit, in
+    ``ceil(len(taus) / block_steps)`` launches (``block_steps`` from 1 to
+    :data:`FED_MAX_STEPS`, :func:`fed_block_steps` by default).  ``lt``
+    itself when ``taus`` is empty."""
+    (l, c), (frames, h, w) = _planes("fed_cycle_kernel", lt, conductivity)
+    taus = tuple(float(t) for t in taus)
+    n = len(taus)
+    k = fed_block_steps(n, h, w) if block_steps is None else int(block_steps)
+    if not 1 <= k <= FED_MAX_STEPS:
+        raise ValueError(f"fed_cycle_kernel: block_steps from 1 to {FED_MAX_STEPS}, got {block_steps}")
+    if n == 0:
+        return l
+    launches = -(-n // k)
     out = torch.empty_like(l)
-    half_step = float(np.float32(0.5) * np.float32(step_size))
-    fn = kernels.function("scale_space", "cv_fed_step", [_VOID, _VOID, _VOID, _INT, _INT, _INT, _FLOAT, _VOID])
-    err = fn(l.data_ptr(), c.data_ptr(), out.data_ptr(), frames, h, w, half_step, kernels.current_stream(l.device))
-    _launched(err, "cv_fed_step", fed_update, frames, h, w)
+    scratch = torch.empty_like(l) if launches > 1 else None
+    fn = kernels.function("scale_space", "cv_fed_cycle",
+                          [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _TAPS, _INT, _INT, _VOID])
+    err = fn(l.data_ptr(), c.data_ptr(), out.data_ptr(), scratch.data_ptr() if scratch is not None else None, frames,
+             h, w, _half_steps(taus), n, k, kernels.current_stream(l.device))
+    _launched(err, "cv_fed_cycle", fed_cycle, frames, h, w, launches)
     return out
 
 
@@ -377,10 +452,10 @@ def detector_kernel(lsmooth: torch.Tensor, sigma_size: int):
     if not 1 <= sigma_size <= 16:
         raise ValueError(f"detector_kernel: sigma_size from 1 to 16, got {sigma_size}")
     lx, ly, ldet = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-    main, off = _taps(scharr_main_kernel(sigma_size)), _taps(scharr_off_kernel(sigma_size))
     fn = kernels.function("scale_space", "cv_detector",
-                          [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _TAPS, _TAPS, _INT, _FLOAT, _VOID])
-    err = fn(x.data_ptr(), lx.data_ptr(), ly.data_ptr(), ldet.data_ptr(), frames, h, w, main[0], off[0], main[1],
-             float(sigma_size) ** 4, kernels.current_stream(x.device))
+                          [_VOID, _VOID, _VOID, _VOID, _INT, _INT, _INT, _INT, _FLOAT, _FLOAT, _FLOAT, _FLOAT, _FLOAT,
+                           _VOID])
+    err = fn(x.data_ptr(), lx.data_ptr(), ly.data_ptr(), ldet.data_ptr(), frames, h, w, sigma_size,
+             *_scharr_taps(sigma_size), float(sigma_size) ** 4, kernels.current_stream(x.device))
     _launched(err, "cv_detector", detector, frames, h, w)
     return lx, ly, ldet

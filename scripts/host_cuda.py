@@ -5,9 +5,10 @@ there is no ``nvcc``: the host stand-ins of ``scripts/host_jacobi.py`` and
 
 A header of stand-ins takes the place of CUDA's (the ``__*_rn``
 intrinsics as IEEE operations, ``__ldg`` as a load, ``__shared__`` as a
-static, a block's dynamic shared memory as one buffer, one
-``std::thread`` a CUDA thread and a ``std::barrier`` for
-``__syncthreads``, the blocks in turn); each ``kernel<<<grid, block,
+static, a block's dynamic shared memory as one buffer, ``cp.async``
+(``cuda_pipeline.h``'s ``__pipeline_memcpy_async``) as a plain copy, one
+``std::thread`` a CUDA thread of a 1-, 2- or 3-D block and a
+``std::barrier`` for ``__syncthreads``, the blocks in turn); each ``kernel<<<grid, block,
 shared, stream>>>(...)`` launch becomes a call of that emulation.  The
 library's C functions then run on host pointers (CPU tensors'
 ``data_ptr``).  What nvcc decides (registers, spills, the SASS) shows only
@@ -46,24 +47,46 @@ typedef void* cudaStream_t;
 inline int cudaGetLastError() { return 0; }
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 template <typename F> inline int cudaFuncSetAttribute(F, cudaFuncAttribute, int) { return 0; }
-struct Dim { unsigned x = 0; };
-inline thread_local Dim threadIdx, blockIdx, blockDim;
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
+inline thread_local dim3 threadIdx, blockIdx, blockDim, gridDim;
 inline std::barrier<>* g_barrier = nullptr;
 inline unsigned char* g_dynamic_shared = nullptr;
 inline unsigned char* dynamic_shared() { return g_dynamic_shared; }
 inline void __syncthreads() { g_barrier->arrive_and_wait(); }
-inline void emulate(unsigned grid, unsigned block, size_t shared, std::function<void()> body) {
+inline dim3 to_dim3(const dim3& d) { return d; }
+inline dim3 to_dim3(long long n) { return dim3(static_cast<unsigned>(n)); }
+inline void emulate(dim3 grid, dim3 block, size_t shared, std::function<void()> body) {
   std::vector<unsigned char> smem(shared + 16);
-  for (unsigned b = 0; b < grid; ++b) {
-    std::barrier<> bar(block);
-    g_barrier = &bar;
-    g_dynamic_shared = smem.data();
-    std::vector<std::thread> ts;
-    for (unsigned t = 0; t < block; ++t)
-      ts.emplace_back([&, t, b] { threadIdx.x = t; blockIdx.x = b; blockDim.x = block; body(); });
-    for (auto& th : ts) th.join();
-  }
+  const unsigned threads = block.x * block.y * block.z;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::barrier<> bar(threads);
+        g_barrier = &bar;
+        g_dynamic_shared = smem.data();
+        std::vector<std::thread> ts;
+        for (unsigned t = 0; t < threads; ++t)
+          ts.emplace_back([&, t, bx, by, bz] {
+            threadIdx = dim3(t % block.x, t / block.x % block.y, t / (block.x * block.y));
+            blockIdx = dim3(bx, by, bz);
+            blockDim = block;
+            gridDim = grid;
+            body();
+          });
+        for (auto& th : ts) th.join();
+      }
 }
+// cp.async (cuda_pipeline.h) as a plain copy, done by the time it is
+// issued: the commit and the wait before the barrier have nothing to do.
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t size, size_t zfill = 0) {
+  std::memcpy(dst, src, size - zfill);
+  std::memset(static_cast<unsigned char*>(dst) + size - zfill, 0, zfill);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 template <typename T, typename S> inline T bits_of(S v) { T r; std::memcpy(&r, &v, sizeof r); return r; }
 inline double __dadd_rn(double a, double b) { volatile double r = a + b; return r; }
 inline double __dsub_rn(double a, double b) { volatile double r = a - b; return r; }
@@ -93,6 +116,7 @@ template <typename T> inline T __ldcg(const T* p) { return *p; }
 inline void __threadfence() {}
 inline int atomicAdd(int* p, int v) { const int old = *p; *p += v; return old; }  // blocks run in turn
 inline unsigned min(unsigned a, unsigned b) { return a < b ? a : b; }
+inline int min(int a, int b) { return a < b ? a : b; }
 inline int max(int a, int b) { return a > b ? a : b; }
 using std::copysign; using std::fabs; using std::isfinite; using std::isnan;
 """
@@ -105,9 +129,11 @@ def build(name: str, out: str, extra: str = "") -> ctypes.CDLL:
         shutil.copy(os.path.join(CSRC, header), out)
     with open(os.path.join(out, "cuda_runtime.h"), "w") as f:
         f.write(STUB)
+    with open(os.path.join(out, "cuda_pipeline.h"), "w") as f:
+        f.write("#pragma once\n")  # its stand-ins are in the stub above
     src = open(os.path.join(CSRC, f"{name}.cu")).read()
     src = re.sub(r"(\w+(?:<[^<>]*>)?)<<<([^,]+), ([^,]+), ([^,]+), .*?>>>\(([^;]*)\);",
-                 lambda m: f"emulate(static_cast<unsigned>({m.group(2)}), {m.group(3)}, {m.group(4)}, [&] {{ "
+                 lambda m: f"emulate(to_dim3({m.group(2)}), to_dim3({m.group(3)}), {m.group(4)}, [&] {{ "
                            f"{m.group(1)}({m.group(5)}); }});", src, flags=re.S)
     with open(os.path.join(out, f"{name}.cpp"), "w") as f:
         f.write(src + extra)

@@ -9,14 +9,17 @@ The kernel is built through the host stand-ins of ``scripts/host_cuda.py``
 tensors.  Each entry runs at odd and small shapes (a plane narrower and
 shorter than a tile, a single row or column, a KITTI octave's 64x174) on
 seeded planes with exact zeros of both signs (a block of -0 at each
-corner; the FED step also under a conductivity of either sign, whose
-zero flows are -0), and ``cv_evolution_flow`` at a contrast near 0;
-then ``build_scale_space`` with every step through the host entries is
-held plane for plane to its plain run.  What nvcc decides
+corner; the FED cycle also under a conductivity of either sign, whose
+zero flows are -0), ``cv_evolution_flow`` at a contrast near 0,
+``cv_fed_cycle`` at every count of steps a launch from 1 to 32 (a
+33-step cycle, and a 3-step one under larger counts: halos wider than
+the plane) at the odd shapes and ``cv_detector`` at every scale from 1
+to 16; then ``build_scale_space`` with every step through the host
+entries is held plane for plane to its plain run.  What nvcc decides
 (registers, spills, the SASS) shows only on the card.
 
-Run from the repository root: ``python3 scripts/host_scale_space.py`` (~1
-min).
+Run from the repository root: ``python3 scripts/host_scale_space.py`` (a
+few minutes).
 """
 
 from __future__ import annotations
@@ -33,6 +36,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
 SHAPES = [(3, 33, 32), (2, 97, 131), (1, 64, 174), (1, 1, 7), (2, 5, 1), (1, 16, 32), (1, 17, 33)]
+# The shapes at which cv_fed_cycle runs every count of steps a launch.
+ODD = [(1, 1, 7), (2, 5, 1), (1, 17, 33), (1, 64, 174)]
+# A 33-step cycle's taus (an octave-3 evolution runs 17-29).
+TAUS = tuple(0.25 + 0.37 * i for i in range(33))
 
 
 def plane(shape, seed):
@@ -57,7 +64,8 @@ def bits(t):
 def host_entries(out):
     """The four entries of ``csrc/scale_space.cu`` built for the host in the
     directory ``out``, as functions of CPU tensors with the dispatchers'
-    arguments: ``{"sep_filter", "evolution_flow", "fed_update", "detector"}``."""
+    arguments (``fed_cycle`` also with the steps a launch):
+    ``{"sep_filter", "evolution_flow", "fed_cycle", "detector"}``."""
     import numpy as np
     import torch
 
@@ -68,8 +76,8 @@ def host_entries(out):
     taps_t = ctypes.POINTER(ctypes.c_float)
     lib.cv_sep_filter.argtypes = [vp, vp, vp, i, i, i] + [taps_t, i] * 4 + [vp]
     lib.cv_evolution_flow.argtypes = [vp, vp, i, vp, vp, i, i, i, taps_t, i, taps_t, taps_t, i, vp]
-    lib.cv_fed_step.argtypes = [vp, vp, vp, i, i, i, f, vp]
-    lib.cv_detector.argtypes = [vp, vp, vp, vp, i, i, i, taps_t, taps_t, i, f, vp]
+    lib.cv_fed_cycle.argtypes = [vp, vp, vp, vp, i, i, i, taps_t, i, i, vp]
+    lib.cv_detector.argtypes = [vp, vp, vp, vp, i, i, i, i, f, f, f, f, f, vp]
 
     def dims(x):
         h, w = x.shape[-2:]
@@ -97,20 +105,23 @@ def host_entries(out):
              fl.data_ptr(), *dims(x), *g, m[0], o[0], m[1])
         return ls, fl
 
-    def fed(x, c, tau):
-        o = torch.empty_like(x)
-        call(lib.cv_fed_step, x.data_ptr(), c.data_ptr(), o.data_ptr(), *dims(x),
-             float(np.float32(0.5) * np.float32(tau)))
+    def fed(x, c, taus, k=None):
+        taus = tuple(taus)
+        if not taus:
+            return x
+        o, scratch = torch.empty_like(x), torch.empty_like(x)
+        k = ops.fed_block_steps(len(taus), *x.shape[-2:]) if k is None else k
+        call(lib.cv_fed_cycle, x.data_ptr(), c.data_ptr(), o.data_ptr(), scratch.data_ptr(), *dims(x),
+             ops._half_steps(taus), len(taus), k)
         return o
 
     def det(x, s):
         lx, ly, ld = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-        m, o = ops._taps(ops.scharr_main_kernel(s)), ops._taps(ops.scharr_off_kernel(s))
-        call(lib.cv_detector, x.data_ptr(), lx.data_ptr(), ly.data_ptr(), ld.data_ptr(), *dims(x), m[0], o[0], m[1],
-             float(s) ** 4)
+        call(lib.cv_detector, x.data_ptr(), lx.data_ptr(), ly.data_ptr(), ld.data_ptr(), *dims(x), s,
+             *ops._scharr_taps(s), float(s) ** 4)
         return lx, ly, ld
 
-    return {"sep_filter": sep, "evolution_flow": flow, "fed_update": fed, "detector": det}
+    return {"sep_filter": sep, "evolution_flow": flow, "fed_cycle": fed, "detector": det}
 
 
 def main():
@@ -125,7 +136,7 @@ def main():
     torch.set_num_threads(1)
     t0 = time.perf_counter()
     entries = host_entries(tempfile.mkdtemp(prefix="host_scale_space-"))
-    sep, flow, fed, det = (entries[k] for k in ("sep_filter", "evolution_flow", "fed_update", "detector"))
+    sep, flow, fed, det = (entries[k] for k in ("sep_filter", "evolution_flow", "fed_cycle", "detector"))
     print(f"built csrc/scale_space.cu for the host in {time.perf_counter() - t0:.1f} s")
 
     def same(label, got, want):
@@ -151,8 +162,14 @@ def main():
             same(f"evolution_flow {shape} k {k.flatten()[0].item():.3g}", flow(x, k), ops.evolution_flow_plain(x, k))
         for cond in (c, torch.as_tensor(plane(shape, 200 + n))):  # a conductivity, and one of either sign
             for tau in (0.25, 1.7, 3.3):
-                same(f"fed_step {shape} tau {tau}", fed(x, cond, tau), ops.fed_step(x, cond, tau))
-        for s in (1, 2, 3, 4):
+                same(f"fed_cycle {shape} of one step, tau {tau}", fed(x, cond, (tau,)), ops.fed_step(x, cond, tau))
+            want = ops.fed_cycle_plain(x, cond, TAUS)
+            for k in range(1, ops.FED_MAX_STEPS + 1) if shape in ODD else (1, 4, 13, 32):
+                same(f"fed_cycle {shape}, 33 steps, {k} a launch", fed(x, cond, TAUS, k), want)
+            for k in (3, 7, 32):
+                same(f"fed_cycle {shape}, 3 steps, {k} a launch", fed(x, cond, TAUS[:3], k),
+                     ops.fed_cycle_plain(x, cond, TAUS[:3]))
+        for s in range(1, 17):
             same(f"detector {shape} s {s}", det(x, s), ops.detector_plain(x, s))
         held += 1
         print(f"{shape}: every entry bitwise to its plain version")
@@ -162,8 +179,8 @@ def main():
     img = torch.as_tensor(np.random.default_rng(7).uniform(0, 1, (2, 97, 131)).astype(np.float32))
     specs = allocate_evolutions(cfg, 131, 97)
     want = ss.build_scale_space(cfg, specs, img)
-    real = {name: getattr(ops, name) for name in ("sep_filter", "evolution_flow", "fed_update", "detector")}
-    ops.sep_filter, ops.evolution_flow, ops.fed_update, ops.detector = sep, flow, fed, det
+    real = {name: getattr(ops, name) for name in ("sep_filter", "evolution_flow", "fed_cycle", "detector")}
+    ops.sep_filter, ops.evolution_flow, ops.fed_cycle, ops.detector = sep, flow, fed, det
     try:
         got = ss.build_scale_space(cfg, specs, img)
     finally:

@@ -1,6 +1,6 @@
 """The scale space's fused steps (``ops/image.py``: ``sep_filter``,
-``evolution_flow``, ``fed_update``, ``detector`` and their plain versions)
-and ``build_scale_space`` through them.
+``evolution_flow``, ``fed_cycle`` and ``fed_update``, ``detector`` and their
+plain versions) and ``build_scale_space`` through them.
 
 On the CPU:
 
@@ -15,14 +15,20 @@ On the CPU:
   composition they had before the dispatchers, rebuilt here from
   ``ops.gaussian_blur``, ``scharr_*``, ``pm_g2`` and ``fed_step``, at every
   plane of every evolution;
-* ``fed_update`` on planes with -0 at the borders and ``evolution_flow`` at
-  a contrast near 0, bitwise to those ops;
+* ``fed_cycle_plain`` bitwise to cv_tpu's own chain of ``ops.fed_step``
+  (eager JAX on the CPU, an op at a time, in source order) over every
+  evolution's taus of the KITTI allocation;
+* ``fed_update`` and ``fed_cycle`` on planes with -0 at the borders and
+  ``evolution_flow`` at a contrast near 0, bitwise to those ops;
 * the dispatchers run their plain versions on CPU tensors without counting
-  a launch, and the kernel wrappers refuse CPU tensors.
+  a launch, and the kernel wrappers refuse CPU tensors; the taps and half
+  steps the wrappers hand the kernels are the plain chain's.
 
 The ``cuda`` tests hold each entry of ``csrc/scale_space.cu`` bitwise to its
-plain version on the card, at odd sizes and planes narrower than a tile,
-and a whole ``build_scale_space`` on the card bitwise to its CPU run.  This
+plain version on the card, at odd sizes and planes narrower than a tile
+(the FED cycle at every count of steps a launch, the detector at every
+scale from 1 to 16), and a whole ``build_scale_space`` on the card bitwise
+to its CPU run.  This
 module imports cv_tpu (and so JAX) only inside the CPU tests that compare
 with it, so the card runs the ``cuda`` tests with ``python3 -m pytest
 --noconftest -k cuda tests/test_torch_scale_space.py``.
@@ -44,7 +50,11 @@ SHAPES = [(2, 97, 131), (1, 192, 256), (3, 33, 32)]
 # Frames at least 40 pixels on a side (allocate_evolutions' first octave).
 BUILD_SHAPES = [(2, 97, 131), (1, 81, 95), (1, 161, 203), (3, 80, 174)]
 CARD_SHAPES = [(3, 33, 32), (2, 97, 131), (1, 64, 174), (1, 1, 7), (2, 5, 1), (1, 17, 33)]
-ENTRIES = ["sep_filter", "evolution_flow", "fed_update", "detector"]
+ENTRIES = ["sep_filter", "evolution_flow", "fed_update", "fed_cycle", "detector"]
+# The wrappers' launch counters (fed_update launches a cycle of one step).
+COUNTERS = ["sep_filter", "evolution_flow", "fed_cycle", "detector"]
+# An evolution's taus: KITTI's allocation runs cycles of 3 to 17 steps.
+KITTI_SPECS = allocate_evolutions(Akaze.sparse(), 1392, 512)
 
 
 def _image(shape, seed=0):
@@ -223,6 +233,55 @@ def test_fed_update_signed_zero_borders(shape, signed):
         _assert_bitwise(ops.fed_update(lt, c, tau), ops.fed_step(lt, c, tau), f"tau {tau}")
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("signed", [False, True], ids=["conductivity", "either-sign"])
+def test_fed_cycle_signed_zero_borders(shape, signed):
+    lt = torch.as_tensor(_signed_zeros(shape, 26))
+    c = _signed_zeros(shape, 27)
+    c = torch.as_tensor(c if signed else np.abs(c))
+    for spec in KITTI_SPECS[1::4]:
+        want = lt
+        for tau in spec.fed_tau_steps:
+            want = ops.fed_step(want, c, tau)
+        _assert_bitwise(ops.fed_cycle(lt, c, spec.fed_tau_steps), want, f"{len(spec.fed_tau_steps)} steps")
+    assert ops.fed_cycle(lt, c, ()) is lt
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 47), (1, 64, 174)])
+def test_fed_cycle_plain_bitwise_to_cv_tpu_chain(shape):
+    import jax.numpy as jnp
+
+    from cv_tpu.ops import image as jops
+
+    lt = _image(shape, seed=28)
+    c = np.random.default_rng(29).uniform(0.0, 1.0, shape).astype(np.float32)
+    for e, spec in enumerate(KITTI_SPECS[1:], start=1):
+        want = jnp.asarray(lt)
+        for tau in spec.fed_tau_steps:
+            want = jops.fed_step(want, jnp.asarray(c), jnp.asarray(tau, jnp.float32))
+        got = ops.fed_cycle_plain(torch.as_tensor(lt), torch.as_tensor(c), spec.fed_tau_steps)
+        _assert_bitwise(got, torch.from_numpy(np.array(want)), f"evolution {e}, {len(spec.fed_tau_steps)} steps")
+
+
+def test_kernel_arguments_are_the_plain_chain():
+    """The taps and half steps the wrappers hand ``csrc/scale_space.cu``:
+    the Scharr kernels' nonzero taps at -s, 0, +s for every scale the
+    detector takes, 0.5 tau rounded as ``fed_step`` rounds it, and the FED
+    cycle's steps a launch."""
+    for s in range(1, 17):
+        main, off = ops.scharr_main_kernel(s), ops.scharr_off_kernel(s)
+        want = (main[0], main[2 * s], off[0], off[s])
+        got = ops._scharr_taps(s)
+        assert [np.float32(v) for v in got] == list(want), s
+        assert np.count_nonzero(main) == 2 and np.count_nonzero(off) == 3 and off[2 * s] == off[0], s
+    taus = KITTI_SPECS[-1].fed_tau_steps
+    half = ops._half_steps(tuple(taus))
+    assert [np.float32(half[i]) for i in range(len(taus))] == [np.float32(0.5) * np.float32(t) for t in taus]
+    for n in (1, 3, 17, 29, 32, 33, 100):
+        k = ops.fed_block_steps(n, 64, 174)
+        assert 1 <= k <= ops.FED_MAX_STEPS and k <= n
+
+
 @pytest.mark.parametrize("k", [1e-19, 3e-20, 1e-30], ids=["1e-19", "3e-20", "1e-30"])
 def test_evolution_flow_contrast_near_zero(k):
     lt = torch.as_tensor(_signed_zeros((2, 33, 47), 18))
@@ -244,26 +303,38 @@ def _entry_args(name, device="cpu", shape=(2, 33, 47)):
         return (x, torch.full(shape[:1], 0.05, dtype=torch.float32, device=device))
     if name == "fed_update":
         return (x, torch.as_tensor(_image(shape, seed=20), device=device), 1.25)
+    if name == "fed_cycle":
+        return (x, torch.as_tensor(_image(shape, seed=20), device=device), KITTI_SPECS[5].fed_tau_steps)
     return (x, 3)
 
 
 def _plain(name):
     return {"sep_filter": ops.sep_filter_plain, "evolution_flow": ops.evolution_flow_plain,
-            "fed_update": ops.fed_step, "detector": ops.detector_plain}[name]
+            "fed_update": ops.fed_step, "fed_cycle": ops.fed_cycle_plain, "detector": ops.detector_plain}[name]
+
+
+def _fed_update_kernel(lt, conductivity, step_size):
+    return ops.fed_cycle_kernel(lt, conductivity, (step_size,))
 
 
 def _kernel(name):
     return {"sep_filter": ops.sep_filter_kernel, "evolution_flow": ops.evolution_flow_kernel,
-            "fed_update": ops.fed_step_kernel, "detector": ops.detector_kernel}[name]
+            "fed_update": _fed_update_kernel, "fed_cycle": ops.fed_cycle_kernel,
+            "detector": ops.detector_kernel}[name]
+
+
+def _counter(name):
+    """The wrapper that counts ``name``'s launches."""
+    return ops.fed_cycle if name == "fed_update" else getattr(ops, name)
 
 
 @pytest.mark.parametrize("name", ENTRIES)
 def test_dispatch_runs_plain_on_cpu_and_kernels_refuse_it(name):
     dispatch = getattr(ops, name)
     args = _entry_args(name)
-    before = dispatch.launches
+    before = _counter(name).launches
     _assert_bitwise(dispatch(*args), _plain(name)(*args), name)
-    assert dispatch.launches == before
+    assert _counter(name).launches == before
     with pytest.raises(ValueError, match="CUDA"):
         _kernel(name)(*args)
 
@@ -281,6 +352,8 @@ def _card_args(name, shape, seed):
         return (x, torch.as_tensor(np.random.default_rng(seed).uniform(0.01, 0.1, shape[:1]).astype(np.float32)))
     if name == "fed_update":
         return (x, torch.as_tensor(np.abs(_signed_zeros(shape, seed + 1))), 1.7321)
+    if name == "fed_cycle":
+        return (x, torch.as_tensor(_signed_zeros(shape, seed + 1)), KITTI_SPECS[4 + seed].fed_tau_steps)
     return (x, 1 + seed % 4)
 
 
@@ -297,9 +370,10 @@ def test_cuda_entry_bitwise_to_plain(name, shape):
     for seed in range(4):
         args = _cuda(_card_args(name, shape, seed))
         dispatch = getattr(ops, name)
-        before = dispatch.launches
+        before = _counter(name).launches
         got = dispatch(*args)
-        assert dispatch.launches == before + 1
+        n = len(args[2]) if name == "fed_cycle" else 1
+        assert _counter(name).launches == before + -(-n // ops.fed_block_steps(n, *shape[-2:]))
         _assert_bitwise(got, _plain(name)(*args), f"{name} {shape} seed {seed}")
     if name == "sep_filter":  # one pair, the base blur's 9 taps
         x, blur = args[0], ops.gaussian_blur_kernel(1.6)
@@ -314,14 +388,48 @@ def test_cuda_build_scale_space_bitwise_to_the_cpu(shape):
     config = Akaze()
     img = torch.as_tensor(_image(shape, seed=21))
     specs = allocate_evolutions(config, shape[2], shape[1])
-    counts = {name: getattr(ops, name).launches for name in ENTRIES}
+    counts = {name: getattr(ops, name).launches for name in COUNTERS}
     got = ss.build_scale_space(config, specs, img.cuda())
     torch.cuda.synchronize()
-    launched = {name: getattr(ops, name).launches - counts[name] for name in ENTRIES}
-    assert launched == {"sep_filter": 3, "evolution_flow": len(specs) - 1,
-                        "fed_update": sum(len(s.fed_tau_steps) for s in specs), "detector": len(specs)}
+    launched = {name: getattr(ops, name).launches - counts[name] for name in COUNTERS}
+    fed = 0
+    for spec in specs[1:]:  # the plane halves with each octave
+        n, h, w = len(spec.fed_tau_steps), shape[1] >> spec.octave, shape[2] >> spec.octave
+        fed += -(-n // ops.fed_block_steps(n, h, w))
+    assert launched == {"sep_filter": 3, "evolution_flow": len(specs) - 1, "fed_cycle": fed, "detector": len(specs)}
     want = ss.build_scale_space(config, specs, img)
     assert len(got) == len(want) > 1
     for e, (g, w) in enumerate(zip(got, want)):
         _assert_bitwise((g.lt, g.lsmooth, g.lx, g.ly, g.ldet), (w.lt, w.lsmooth, w.lx, w.ly, w.ldet),
                         f"evolution {e}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 7), (2, 5, 1), (1, 17, 33), (1, 64, 174)])
+def test_cuda_fed_cycle_every_block_steps(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: csrc/scale_space.cu runs only there")
+    lt = torch.as_tensor(_signed_zeros(shape, 30)).cuda()
+    taus = tuple(0.25 + 0.37 * i for i in range(33))
+    for signed in (False, True):
+        c = _signed_zeros(shape, 31)
+        c = torch.as_tensor(c if signed else np.abs(c)).cuda()
+        want = ops.fed_cycle_plain(lt, c, taus)
+        for k in range(1, ops.FED_MAX_STEPS + 1):
+            before = ops.fed_cycle.launches
+            got = ops.fed_cycle_kernel(lt, c, taus, block_steps=k)
+            assert ops.fed_cycle.launches == before + -(-len(taus) // k)
+            _assert_bitwise(got, want, f"{shape}, {k} steps a launch, signed {signed}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1, 7), (2, 5, 1), (1, 17, 33), (2, 97, 131)])
+def test_cuda_detector_every_scale(shape):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: csrc/scale_space.cu runs only there")
+    x = torch.as_tensor(_signed_zeros(shape, 32)).cuda()
+    for s in range(1, 17):
+        _assert_bitwise(ops.detector_kernel(x, s), ops.detector_plain(x, s), f"{shape} s {s}")
+    for s in (0, 17):
+        with pytest.raises(ValueError, match="sigma_size"):
+            ops.detector_kernel(x, s)
